@@ -16,6 +16,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: slow / interpret-mode Pallas tests (deselect with -m 'not slow')"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch.cuda.is_available() is False"
+    )
 
 
 # ---------------------------------------------------------------------------
