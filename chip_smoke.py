@@ -22,7 +22,31 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     bit-equal to the first 20 rounds of (b) (their stepsize does not depend
     on T);
 (d) each kernel's median time (CUDA events, L2 flushed between launches),
-    its plain version's and the library call's, beside its lower bound.
+    its plain version's and the library call's, beside its lower bound;
+(e) the wire kernels (pack_bits/unpack_bits, sparse_streams, dense_bits)
+    against their plain versions on the card, all exact: pack/unpack at
+    widths {1, 4, 7, 8, 10, 13, 16, 32} and N in {1, 31, 32, 33, 1000, 4097}
+    (also against wire.bitstream.pack_u32, and unpack(pack) = identity), the
+    stream kernels on random, random-bit-pattern and IEEE-corner inputs in
+    fp32/fp16/bf16, and the device buffers of sparse_encode / dense_encode /
+    encode_rows equal to the host codec's byte for byte, NaN payloads
+    included;
+(f) the wire path: ``marina_p.run(measure_wire=True)`` same/ind/perm with
+    Polyak, T=400, and ``ef21p.run(measure_wire=True)`` with TopK and
+    BlockTopK(16, 128), with the counters zeroed just before and read just
+    after: pack_bits, sparse_streams and dense_bits must have launched
+    (unpack_bits is on no run's path: nothing decodes there). Each run's
+    hist["wire_bits"] must equal the same run with the host codec; then the
+    first 20 rounds of each MARINA-P mode, stepped by hand, with device and
+    host buffers compared byte for byte;
+(g) the CPU port against the card at T=20: MARINA-P's wire_bits per round
+    and wire-matched ledger equal (EF21-P's reported);
+(h) ``repro_torch.wire_bench`` on the card (d=1024 n=4 and d=1000 n=10,
+    T=200): every MARINA-P measured-vs-analytic gap below 5% (DESIGN §3.5);
+(i) the wire kernels' times at the path's shapes and at d = 2**20, with
+    bounds, launches per round, plain and library times, the host codec's
+    time per message, and µs per round of MARINA-P ind with measure_wire,
+    device encode against host encode.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero,
@@ -45,6 +69,8 @@ FP32_FLOPS_PER_S = 67e12
 
 L1_RTOL, L1_ATOL = 1e-5, 1e-4
 TRAJ_RTOL = 1e-4
+WIDTHS = (1, 4, 7, 8, 10, 13, 16, 32)
+MAGS = ("fp32", "fp16", "bf16")
 
 
 def fail(msg: str) -> None:
@@ -87,6 +113,15 @@ def edge_vector(np, torch, d: int = 128):
     return torch.from_numpy(x)
 
 
+def wire_edge(np):
+    """tests/test_encode_diff.py's WEIRD plus quiet and signalling NaNs of
+    both signs (0x7FC00000, 0xFFC00000, 0x7F812345, 0xFF800001)."""
+    weird = np.array([np.nan, np.inf, -np.inf, -0.0, 1e-42, -1e-42, 0.0, 6.1e-39,
+                      1.0000001, -3.5, 65504.0, 2.0], dtype=np.float32)
+    nans = np.array([0x7FC00000, 0xFFC00000, 0x7F812345, 0xFF800001], dtype=np.uint32)
+    return np.concatenate([weird, nans.view(np.float32)])
+
+
 def bits_equal(torch, a, b) -> bool:
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
@@ -116,6 +151,143 @@ def median_ms(torch, fn, reps: int = 30, flush=None) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+# ---------------------------------------------------------------------------
+# the wire path (phases e-i)
+# ---------------------------------------------------------------------------
+
+
+def int_err(ref, got, want) -> int:
+    """max |got - want| over uint32 bit patterns (0 when bit-equal)."""
+    if got.shape != want.shape:
+        return 2**32
+    return int((ref.u32(got) - ref.u32(want)).abs().max()) if got.numel() else 0
+
+
+def wire_kernels_vs_plain(np, torch, dev):
+    """(e): every wire kernel against its plain version on the card, and the
+    device buffers against the host codec. Returns {kernel: max int error}."""
+    from repro_torch import wire
+    from repro_torch.kernels import encode as kenc
+    from repro_torch.kernels import ops, ref
+
+    err = dict.fromkeys(("pack_bits", "unpack_bits", "sparse_streams", "dense_bits"), 0)
+    rng = np.random.default_rng(2)
+    for width in WIDTHS:
+        for n in (1, 31, 32, 33, 1000, 4097):
+            v = rng.integers(0, 2**width, n, dtype=np.uint64).astype(np.uint32)
+            v[0] = 2**width - 1  # every bit of w set once
+            vals = torch.from_numpy(v.view(np.int32)).to(dev)
+            words = ops.pack_bits(vals, width)
+            back = ops.unpack_bits(words, width, n)
+            want_w = ref.pack_bits_ref(vals, width)
+            want_b = ref.unpack_bits_ref(want_w, width, n)
+            torch.cuda.synchronize()
+            err["pack_bits"] = max(err["pack_bits"], int_err(ref, words, want_w))
+            err["unpack_bits"] = max(err["unpack_bits"], int_err(ref, back, want_b))
+            if not (torch.equal(words, want_w) and torch.equal(back, want_b) and torch.equal(back, vals)):
+                fail(f"(e) pack/unpack width={width} n={n}: kernel != plain or unpack(pack) != identity")
+            if words.cpu().numpy().tobytes() != wire.to_bytes(wire.pack_u32(v, width)):
+                fail(f"(e) pack_bits width={width} n={n}: kernel != wire.bitstream.pack_u32")
+        # rows with row strides, as encode_rows packs the streams into one buffer
+        rows = torch.from_numpy(rng.integers(0, 2**width, (10, 1001), dtype=np.uint64)
+                                .astype(np.uint32).view(np.int32)).to(dev)[:, :1000]
+        out = torch.zeros((10, 3 + wire.n_words(1000, width)), dtype=torch.int32, device=dev)
+        ops.pack_bits(rows, width, out=out[:, 1:-2])
+        if not (torch.equal(out[:, 1:-2], ref.pack_bits_ref(rows, width))
+                and not out[:, 0].any() and not out[:, -2:].any()):
+            fail(f"(e) pack_bits width={width}: batched rows with strides != plain")
+
+    edge = wire_edge(np)
+    X = np.where(rng.random((10, 1000)) < 0.1, rng.standard_normal((10, 1000)), 0.0).astype(np.float32)
+    X[0, :edge.size] = edge
+    X[1] = rng.integers(0, 2**32, 1000, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    X[2, 100:900] = 0.0
+    X[2, :edge.size] = -edge
+    Xd = torch.from_numpy(X).to(dev)
+    for mag in MAGS:
+        m = int(wire.mag_dtype(mag))
+        got = kenc.sparse_streams(Xd, mag)
+        want = ref.sparse_streams_ref(Xd, m)
+        dbits = [kenc.dense_bits(Xd[r], mag) for r in range(3)]
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            err["sparse_streams"] = max(err["sparse_streams"], int_err(ref, g, w))
+            if not torch.equal(g, w):
+                fail(f"(e) sparse_streams {mag}: kernel != plain")
+        for r in range(3):
+            w = ref.dense_bits_ref(Xd[r], m)
+            err["dense_bits"] = max(err["dense_bits"], int_err(ref, dbits[r], w))
+            if not torch.equal(dbits[r], w):
+                fail(f"(e) dense_bits {mag} row {r}: kernel != plain")
+        bufs = kenc.encode_rows(Xd, mag=mag)
+        if bufs != [wire.encode_sparse(X[r], mag=mag) for r in range(10)]:
+            fail(f"(e) encode_rows {mag}: device buffers != host codec")
+        for r in range(3):
+            for dev_buf, host_buf in ((kenc.sparse_encode(Xd[r], mag=mag), wire.encode_sparse(X[r], mag=mag)),
+                                      (kenc.dense_encode(Xd[r], mag=mag), wire.encode_dense(X[r], mag=mag))):
+                if dev_buf != host_buf:
+                    fail(f"(e) {mag} row {r}: device buffer != host codec")
+    return err
+
+
+def marina_wire_rounds(np, torch, dev, prob, mode, k, p, omega, rounds):
+    """(f): the first ``rounds`` rounds of a MARINA-P run stepped by hand as
+    ``run`` steps them (same seed, same draws): the server's device buffers
+    equal the host codec's byte for byte. Returns the number of buffers
+    checked."""
+    from repro_torch import wire
+    from repro_torch.core import marina_p, stepsizes
+    from repro_torch.kernels import encode as kenc
+
+    step = marina_p.make_step(prob, mode, k, p, stepsizes.MarinaPPolyak(omega=omega, p=p, f_star=0.0),
+                              return_q=True)
+    bcast = marina_p.make_broadcast(mode, prob.n, k)
+    state, gen = marina_p.init(prob.x0, prob.n), torch.Generator().manual_seed(0)
+    checked = 0
+    for t in range(rounds):
+        draws = marina_p.draw_round(bcast, p, prob.d, gen, dev)
+        state, m = step(state, draws)
+        if draws.coin:
+            dev_bufs, host_bufs = [kenc.dense_encode(m["x_new"])], [wire.encode_dense(m["x_new"])]
+        elif mode == "same":
+            dev_bufs, host_bufs = [kenc.sparse_encode(m["Q"][0])], [wire.encode_sparse(m["Q"][0])]
+        else:
+            Qh = m["Q"].cpu().numpy()
+            dev_bufs, host_bufs = kenc.encode_rows(m["Q"]), [wire.encode_sparse(q) for q in Qh]
+        if dev_bufs != host_bufs:
+            fail(f"(f) marina_p {mode} round {t}: device buffers != host codec")
+        checked += len(dev_bufs)
+    return checked
+
+
+def wire_runs(torch, prob, k, p, T, device_encode, runtime=None):
+    """The five measure_wire runs of (f); with ``runtime``, also the
+    launches each run made (a diff of the counters around it)."""
+    from repro_torch.core import compressors as C
+    from repro_torch.core import ef21p, marina_p, stepsizes
+
+    D, N = prob.d, prob.n
+    out, launches = {}, {}
+
+    def record(name, fn):
+        before = dict(runtime.LAUNCHES) if runtime else {}
+        out[name] = fn()
+        if runtime:
+            torch.cuda.synchronize()
+            launches[name] = {kk: v - before.get(kk, 0) for kk, v in runtime.LAUNCHES.items()}
+
+    for mode, omega in (("same", D / k - 1.0), ("ind", D / k - 1.0), ("perm", float(N - 1))):
+        record(f"marina_{mode}_polyak", lambda mode=mode, omega=omega: marina_p.run(
+            prob, mode=mode, k=k, p=p, stepsize=stepsizes.MarinaPPolyak(omega=omega, p=p, f_star=0.0),
+            T=T, seed=0, measure_wire=True, device_encode=device_encode))
+    for name, comp in (("ef21p_topk_polyak", C.TopK(k=k)),
+                       ("ef21p_block_topk_polyak", C.BlockTopK(k_per_block=16, block=128))):
+        record(name, lambda comp=comp: ef21p.run(
+            prob, comp, stepsizes.EF21PPolyak(alpha=comp.alpha(D), f_star=0.0), T=T, seed=0,
+            measure_wire=True, device_encode=device_encode))
+    return out, launches
 
 
 def main() -> int:
@@ -332,6 +504,157 @@ def main() -> int:
     log(f"(d) block_topk d=block={D} k={k}: {tk_ms:.4f} ms (plain {tk_plain_ms:.4f}, "
         f"torch.topk+scatter {tk_lib_ms:.4f}, bound {tk_bound:.6f})")
 
+    # --- (e) the wire kernels against their plain versions on the card ------------------
+    from repro_torch import wire, wire_bench
+    from repro_torch.core import marina_p
+    from repro_torch.kernels import encode as kenc
+
+    wire_err = wire_kernels_vs_plain(np, torch, dev)
+    log(f"(e) pack_bits/unpack_bits ({len(WIDTHS)} widths x 6 sizes, batched rows), sparse_streams and "
+        "dense_bits (3 dtypes, random / random-bit / IEEE-corner rows) bit-equal to their "
+        "plain versions; device buffers == host codec")
+
+    # --- (f) the wire path on the card ---------------------------------------------------
+    p = k / D
+    omegas = {"same": D / k - 1.0, "ind": D / k - 1.0, "perm": float(N - 1)}
+    runtime.reset_launches()
+    dev_runs, run_launches = wire_runs(torch, prob, k, p, T, None, runtime)
+    torch.cuda.synchronize()
+    wire_launches = {kname: runtime.LAUNCHES.get(kname, 0)
+                     for kname in ("pack_bits", "unpack_bits", "sparse_streams", "dense_bits")}
+    log(f"(f) launches on the wire path (5 runs x {T} rounds): {wire_launches}; unpack_bits decodes, "
+        "which no run of the path does")
+    for kname in ("pack_bits", "sparse_streams", "dense_bits"):
+        if wire_launches[kname] <= 0:
+            fail(f"(f) the wire path never launched {kname}")
+    n_checked = sum(marina_wire_rounds(np, torch, dev, prob, mode, k, p, omega, 20)
+                    for mode, omega in omegas.items())
+    host_runs, _ = wire_runs(torch, prob, k, p, T, False)
+    for name, h in dev_runs.items():
+        if not np.isfinite(h["f_x"][-1]) or h["ledger"].rounds != T:
+            fail(f"(f) {name}: rounds={h['ledger'].rounds} final f={h['f_x'][-1]}")
+        if h["wire_bits"] != host_runs[name]["wire_bits"]:
+            fail(f"(f) {name}: wire_bits with device encode != with the host codec")
+        a = h["wire_model_ledger"].s2w_bits
+        log(f"(f) {name:24s} final f(x)={h['f_x'][-1]:.6g} wire bits/round={h['wire_bits_total'] / T:.1f} "
+            f"analytic (32-bit values) {a / T:.1f} gap {100 * (h['wire_bits_total'] - a) / a:+.3f}%; "
+            f"launches/round {{{', '.join(f'{kk}: {v / T:g}' for kk, v in sorted(run_launches[name].items()) if v)}}}")
+    log(f"(f) 5 runs x {T} rounds: wire_bits per round equal with device and host encode; first 20 rounds "
+        f"of each MARINA-P mode: {n_checked} device buffers == host buffers")
+
+    # --- (g) CPU port against the card, T=20 ---------------------------------------------
+    T_G = 20
+    gpu20, _ = wire_runs(torch, prob, k, p, T_G, None)
+    cpu20, _ = wire_runs(torch, prob_cpu, k, p, T_G, None)
+    for name in gpu20:
+        hg, hc = gpu20[name], cpu20[name]
+        same = (hc["wire_bits"] == hg["wire_bits"] and hc["s2w_bits"] == hg["s2w_bits"]
+                and hc["wire_model_ledger"].s2w_bits == hg["wire_model_ledger"].s2w_bits)
+        log(f"(g) {name:24s} CPU vs card over {T_G} rounds: wire_bits and wire ledger "
+            f"{'equal' if same else 'DIFFER'} (wire bits {hc['wire_bits_total']:.0f} / {hg['wire_bits_total']:.0f})")
+        if name.startswith("marina") and not same:
+            fail(f"(g) {name}: CPU and card wire bits differ")
+
+    # --- (h) DESIGN §3.5 on the card: measured vs analytic ------------------------------------
+    for d_b, n_b in wire_bench.SETTINGS:
+        rows = wire_bench.parity_rows(d=d_b, n=n_b, T=200, device=dev)
+        for name, analytic, measured, pct in rows:
+            log(f"(h) d={d_b} n={n_b} T=200 {name:18s} analytic={analytic:.1f} wire={measured:.1f} gap={pct:+.3f}%")
+        if wire_bench.failures(rows):
+            fail(f"(h) d={d_b} n={n_b}: MARINA-P gap >= {wire_bench.GAP_LIMIT_PCT}%: {wire_bench.failures(rows)}")
+
+    # --- (i) timing of the wire kernels -------------------------------------------------------
+    step = marina_p.make_step(prob, "ind", k, p, stepsizes.MarinaPPolyak(omega=omegas["ind"], p=p),
+                              return_q=True)
+    bcast = marina_p.make_broadcast("ind", N, k)
+    _, mq = step(marina_p.init(prob.x0, N),
+                 marina_p.draw_round(bcast, p, D, torch.Generator().manual_seed(0), dev))
+    Q, x_new = mq["Q"].contiguous(), mq["x_new"].contiguous()  # a round's messages: [10, 1000], [1000]
+    iw = wire.index_width(D)
+    (idx_stream, _, _), _ = kenc._compact_streams(*kenc.sparse_streams(Q, "fp32"))
+    idx_words = ops.pack_bits(idx_stream, iw)
+    big = 2**20
+    gbig = torch.Generator(dev).manual_seed(3)
+    xbig = torch.randn(big, device=dev, generator=gbig)
+    Xbig = torch.where(torch.rand(big, device=dev, generator=gbig) < 1 / 16, xbig, 0.0).unsqueeze(0)
+    vbig = torch.randint(0, 2**20, (big,), dtype=torch.int32, device=dev, generator=gbig)
+    wbig = ops.pack_bits(vbig, 20)
+
+    def hbm_ms(nbytes):
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    wt = {}  # name -> (ms, plain_ms, bound_ms, library_ms) at the path's shape; and at 2**20
+    wt["sparse_streams"] = (median_ms(torch, lambda: kenc.sparse_streams(Q, "fp32"), flush=flush),
+                            median_ms(torch, lambda: ref.sparse_streams_ref(Q, 0), flush=flush),
+                            hbm_ms(Q.numel() * 16), None)
+    wt["dense_bits"] = (median_ms(torch, lambda: kenc.dense_bits(x_new, "fp32"), flush=flush),
+                        median_ms(torch, lambda: ref.dense_bits_ref(x_new, 0), flush=flush),
+                        hbm_ms(D * 8),
+                        median_ms(torch, lambda: x_new.to(torch.float16).view(torch.int16), flush=flush))
+    wt["pack_bits"] = (median_ms(torch, lambda: ops.pack_bits(idx_stream, iw), flush=flush),
+                       median_ms(torch, lambda: ref.pack_bits_ref(idx_stream, iw), flush=flush),
+                       hbm_ms(idx_stream.numel() * 4 + idx_words.numel() * 4), None)
+    wt["unpack_bits"] = (median_ms(torch, lambda: ops.unpack_bits(idx_words, iw, D), flush=flush),
+                         median_ms(torch, lambda: ref.unpack_bits_ref(idx_words, iw, D), flush=flush),
+                         hbm_ms(idx_words.numel() * 4 + idx_stream.numel() * 4), None)
+    wt_big = {
+        "sparse_streams": (median_ms(torch, lambda: kenc.sparse_streams(Xbig, "fp32"), flush=flush),
+                           hbm_ms(big * 16)),
+        "dense_bits": (median_ms(torch, lambda: kenc.dense_bits(xbig, "fp32"), flush=flush), hbm_ms(big * 8)),
+        "pack_bits": (median_ms(torch, lambda: ops.pack_bits(vbig, 20), flush=flush),
+                      hbm_ms(big * 4 + wbig.numel() * 4)),
+        "unpack_bits": (median_ms(torch, lambda: ops.unpack_bits(wbig, 20, big), flush=flush),
+                        hbm_ms(big * 4 + wbig.numel() * 4)),
+    }
+    fp16_ms = median_ms(torch, lambda: kenc.dense_bits(x_new, "fp16"), flush=flush)
+    rounds_ind = T
+    for name, (ms_, plain_, bound_, lib_) in wt.items():
+        per_round = run_launches["marina_ind_polyak"].get(name, 0) / rounds_ind
+        log(f"(i) {name:14s} path shape: {ms_:.5f} ms (plain {plain_:.5f}, bound {bound_:.2e}"
+            f"{'' if lib_ is None else f', x.to(float16).view(int16) {lib_:.5f}'}); "
+            f"2**20: {wt_big[name][0]:.5f} ms (bound {wt_big[name][1]:.5f}); "
+            f"launches/round in MARINA-P ind {per_round:g}")
+    log(f"(i) dense_bits fp16 at the path shape: {fp16_ms:.5f} ms")
+
+    def host_ms(fn, reps=30):
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        times.sort()
+        return times[len(times) // 2]
+
+    Qh, xh, Xbig_h = Q.cpu().numpy(), x_new.cpu().numpy(), Xbig[0].cpu().numpy()
+    codec = {
+        "sparse 1 row": (host_ms(lambda: kenc.sparse_encode(Q[0])), host_ms(lambda: wire.encode_sparse(Qh[0]))),
+        "sparse 10 rows": (host_ms(lambda: kenc.encode_rows(Q)),
+                           host_ms(lambda: [wire.encode_sparse(q) for q in Qh])),
+        "dense 1000": (host_ms(lambda: kenc.dense_encode(x_new)), host_ms(lambda: wire.encode_dense(xh))),
+        "sparse 2**20": (host_ms(lambda: kenc.sparse_encode(Xbig[0]), reps=10),
+                         host_ms(lambda: wire.encode_sparse(Xbig_h), reps=10)),
+    }
+    for name, (dev_ms, host_ms_) in codec.items():
+        log(f"(i) encode {name:14s}: device path {dev_ms:.4f} ms (host clock, incl. the copy to the host), "
+            f"host codec {host_ms_:.4f} ms")
+
+    us_round = {"device": [], "host": []}
+    for enc in ("device", "host", "host", "device", "device", "host"):
+        t0 = time.perf_counter()
+        h = marina_p.run(prob, mode="ind", k=k, p=p, stepsize=stepsizes.MarinaPPolyak(omega=omegas["ind"], p=p),
+                         T=200, seed=0, measure_wire=True, device_encode=enc == "device")
+        torch.cuda.synchronize()
+        us_round[enc].append((time.perf_counter() - t0) / h["ledger"].rounds * 1e6)
+    t0 = time.perf_counter()
+    marina_p.run(prob, mode="ind", k=k, p=p, stepsize=stepsizes.MarinaPPolyak(omega=omegas["ind"], p=p),
+                 T=200, seed=0)
+    torch.cuda.synchronize()
+    us_plain = (time.perf_counter() - t0) / 200 * 1e6
+    log(f"(i) MARINA-P ind Polyak d={D} n={N}, T=200, us/round with measure_wire (3 runs each, in turns): "
+        f"device encode {us_round['device']}, host encode {us_round['host']}; "
+        f"without measure_wire {us_plain:.1f}")
+
     summary = {"kernels": [
         {"name": "l1_subgrad", "route": "cuda", "source": "src/repro_torch/csrc/l1_subgrad.cu",
          "replaces": "src/repro/kernels/l1_subgrad.py:46", "launches": launches["l1_subgrad"],
@@ -344,6 +667,16 @@ def main() -> int:
          "bound_by": "bytes" if tk_bytes / HBM_BYTES_PER_S >= tk_ops / FP32_FLOPS_PER_S else "operations",
          "library_ms": tk_lib_ms},
     ]}
+    for name, src, replaces in (
+        ("pack_bits", "pack.cu", "pack.py:88"), ("unpack_bits", "pack.cu", "pack.py:107"),
+        ("sparse_streams", "encode.cu", "encode.py:265"), ("dense_bits", "encode.cu", "encode.py:328"),
+    ):
+        ms_, plain_, bound_, lib_ = wt[name]
+        summary["kernels"].append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/{replaces}", "launches": wire_launches[name],
+            "max_abs_err": wire_err[name], "ms": ms_, "plain_ms": plain_, "bound_ms": bound_,
+            "bound_by": "bytes", "library_ms": lib_})
     print(json.dumps(summary), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

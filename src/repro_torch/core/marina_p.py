@@ -1,7 +1,7 @@
 """MARINA-P for non-smooth objectives (Algorithm 2), on tensors.
 
-Port of ``repro/core/marina_p.py`` (main path: no wire measurement,
-transport, participation or tracing yet). Per round t:
+Port of ``repro/core/marina_p.py`` (main path and the measured wire bits;
+no transport, participation or tracing yet). Per round t:
     workers:  g_i = df_i(w_i^t)                  -> server   (uplink, exact)
     server:   gamma_t from schedule (constant / decreasing / Polyak (23))
               x^{t+1} = x^t - gamma_t * mean_i g_i
@@ -26,8 +26,9 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import wire
 from .comm_model import CommLedger, CommModel
-from .compressors import PermK, RandK
+from .compressors import Identity, PermK, RandK
 from .problems import L1Problem
 from .stepsizes import Stepsize, descent_step, marina_p_lambda_star
 
@@ -109,8 +110,13 @@ def draw_round(bcast: Broadcast, p: float, d: int, generator: torch.Generator,
     return MarinaPDraws(coin=coin, idx=bcast.draw(d, generator, device))
 
 
-def make_step(problem: L1Problem, mode: str, k: int, p: float, stepsize: Stepsize):
-    """Round function ``step(state, draws) -> (state, metrics)``."""
+def make_step(problem: L1Problem, mode: str, k: int, p: float, stepsize: Stepsize,
+              *, return_q: bool = False):
+    """Round function ``step(state, draws) -> (state, metrics)``.
+
+    ``return_q=True`` also returns the per-worker messages Q [n, d] and the
+    new iterate x_new in the metrics, so the host can serialize them (the
+    wire measurement path)."""
     n = problem.n
     bcast = make_broadcast(mode, n, k)
 
@@ -144,6 +150,9 @@ def make_step(problem: L1Problem, mode: str, k: int, p: float, stepsize: Stepsiz
             "q_nnz_mean": float(np.float32(int(torch.count_nonzero(Q))) / np.float32(n)),
             "drift": torch.mean(torch.sum((W_new - x_new) ** 2, dim=-1)),
         }
+        if return_q:
+            metrics["Q"] = Q
+            metrics["x_new"] = x_new
         return MarinaPState(x=x_new, W=W_new, t=state.t + 1), metrics
 
     return step
@@ -160,9 +169,26 @@ def run(
     bit_budget: Optional[float] = None,
     seed: int = 0,
     record_every: int = 1,
+    measure_wire: bool = False,
+    wire_mag: str = "fp32",
+    device_encode: Optional[bool] = None,
 ):
     """Host loop on the problem's device; stops on T rounds or the
     per-worker downlink bit budget.
+
+    ``measure_wire=True`` also serializes every round's messages with the
+    wire codecs (DENSE x_new in a sync round; SPARSE Q rows otherwise: one
+    encode of Q[0] in ``same`` mode, the mean over the n rows in ``ind`` /
+    ``perm``) and tracks the *measured* bits per worker
+    (hist["wire_bits"], hist["wire_bits_total"]) next to a second analytic
+    ledger whose value_bits match ``wire_mag`` (hist["wire_model_ledger"],
+    DESIGN.md §3.5). The primary ledger keeps the paper's 64-bit model, so
+    ``bit_budget`` means the same with and without measurement.
+
+    ``device_encode`` picks the encoder: True the device path
+    (``kernels/encode.py``: the stream and pack kernels on the card), False
+    the host numpy codec, None the device path when the problem lies on the
+    card. The bytes are the same either way.
 
     Each round's draws come from a CPU ``torch.Generator`` seeded with
     ``seed`` and are moved to the device (a few KB per round), so a CPU run
@@ -172,12 +198,17 @@ def run(
     if T is None and bit_budget is None:
         raise ValueError("run needs T or bit_budget")
     ledger = CommLedger(model=CommModel(d=problem.d))
-    step = make_step(problem, mode, k, p, stepsize)
+    step = make_step(problem, mode, k, p, stepsize, return_q=measure_wire)
     bcast = make_broadcast(mode, problem.n, k)
     state = init(problem.x0, problem.n)
     gen = torch.Generator().manual_seed(seed)
     hist = {"t": [], "f_x": [], "f_w": [], "gamma": [], "s2w_bits": [],
             "w2s_bits": [], "drift": []}
+    if measure_wire:
+        wire_model_ledger = CommLedger(
+            model=CommModel(d=problem.d, value_bits=wire.MAG_BITS[wire.mag_dtype(wire_mag)]))
+        hist["wire_bits"] = []
+    wire_total = 0.0
     t = 0
     while True:
         if T is not None and t >= T:
@@ -192,6 +223,18 @@ def run(
             ledger.log_s2w_sparse(float(m["q_nnz_mean"]))
         ledger.log_w2s_dense()  # uplink: exact subgradient every round
         ledger.tick()
+        if measure_wire:
+            if draws.coin:
+                wire_model_ledger.log_s2w_dense()
+                wire_total += wire.measured_bits(wire.encode(
+                    m["x_new"], Identity(), mag=wire_mag, device_encode=device_encode))
+            else:
+                wire_model_ledger.log_s2w_sparse(float(m["q_nnz_mean"]))
+                # all rows are identical in ``same`` mode: one encode suffices
+                rows = m["Q"][:1] if mode == "same" else m["Q"]
+                bufs = wire.encode_rows(rows, mag=wire_mag, device_encode=device_encode)
+                wire_total += sum(wire.measured_bits(b) for b in bufs) / len(bufs)
+            wire_model_ledger.tick()
         if t % record_every == 0:
             hist["t"].append(t)
             hist["f_x"].append(float(m["f_x"]))
@@ -200,7 +243,12 @@ def run(
             hist["drift"].append(float(m["drift"]))
             hist["s2w_bits"].append(ledger.s2w_bits)
             hist["w2s_bits"].append(ledger.w2s_bits)
+            if measure_wire:
+                hist["wire_bits"].append(wire_total)
         t += 1
     hist["final_state"] = state
     hist["ledger"] = ledger
+    if measure_wire:
+        hist["wire_bits_total"] = wire_total
+        hist["wire_model_ledger"] = wire_model_ledger
     return hist

@@ -9,14 +9,21 @@ reference's padding rules:
   selects among its real values and the zeros) and trims the output to d;
 * :func:`l1_subgrad` needs no padding: the reference pads A and x to
   (128, 128) tiles with zeros, which adds exactly zero to g, and the CUDA
-  kernel handles ragged m and d itself.
+  kernel handles ragged m and d itself;
+* :func:`pack_bits` / :func:`unpack_bits` need no padding either: the
+  reference pads the values (words) to word-aligned blocks with zeros and
+  trims, the CUDA kernels guard the ragged tail themselves; the outputs are
+  the reference's, ``ceil(n*width/32)`` words and ``count`` values.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from . import l1_subgrad as _l1
+from . import pack as _pack
 from . import ref, runtime
 from . import topk as _topk
 
@@ -79,3 +86,54 @@ def l1_subgrad(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     if n == 0 or m == 0 or d == 0:
         return torch.zeros((n, d), dtype=torch.float32, device=A.device)
     return _l1.l1_subgrad(A, X)
+
+
+def _bit_rows(t: torch.Tensor, what: str) -> torch.Tensor:
+    """A 1-D or 2-D int32 tensor of bit patterns as [rows, n] (a view)."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{what}: int32 tensors of uint32 bit patterns only, got {t.dtype}")
+    if t.dim() not in (1, 2):
+        raise ValueError(f"{what}: 1-D or 2-D tensors only, got shape {tuple(t.shape)}")
+    t2 = t.unsqueeze(0) if t.dim() == 1 else t
+    if t2.shape[1] > 1 and t2.stride(1) != 1:
+        raise ValueError(f"{what}: tensors must have unit inner stride")
+    return t2
+
+
+def pack_bits(values: torch.Tensor, width: int, *, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pack the low ``width`` bits of each value, LSB-first, into 32-bit words
+    (``wire/bitstream.py``'s layout), along the last axis. values: [n] or
+    [rows, n] int32 holding uint32 patterns; returns [..., ceil(n*width/32)]
+    int32, written into ``out`` where given (a view with unit inner stride)."""
+    if not 1 <= width <= 32:
+        raise ValueError(f"pack_bits: width {width} outside 1..32")
+    v = _bit_rows(values, "pack_bits")
+    nw = -(-v.shape[1] * width // 32)
+    shape = values.shape[:-1] + (nw,)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=values.device)
+    elif tuple(out.shape) != tuple(shape):
+        raise ValueError(f"pack_bits: out has shape {tuple(out.shape)}, needs {tuple(shape)}")
+    o = _bit_rows(out, "pack_bits out")
+    if not runtime.on_cuda(v, o):
+        o.copy_(ref.pack_bits_ref(v, width))
+    elif nw and v.shape[0]:
+        _pack.pack_bits_device(v, width, o)
+    return out
+
+
+def unpack_bits(words: torch.Tensor, width: int, count: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`: ``count`` values of ``width`` bits from
+    words [nw] or [rows, nw] (words past the end read as 0); int32."""
+    if not 1 <= width <= 32:
+        raise ValueError(f"unpack_bits: width {width} outside 1..32")
+    if count < 0:
+        raise ValueError(f"unpack_bits: count {count} < 0")
+    w = _bit_rows(words, "unpack_bits")
+    if not runtime.on_cuda(w):
+        out = ref.unpack_bits_ref(w, width, count)
+    else:
+        out = torch.empty((w.shape[0], count), dtype=torch.int32, device=w.device)
+        if count and w.shape[0]:
+            _pack.unpack_bits_device(w, width, out)
+    return out[0] if words.dim() == 1 else out

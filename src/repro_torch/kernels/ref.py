@@ -72,3 +72,103 @@ def block_topk_ref(x: torch.Tensor, *, k_per_block: int, block: int) -> torch.Te
         remaining = remaining * (1.0 - sel_f) - sel_f
         keep |= sel
     return torch.where(keep, xb, torch.zeros((), dtype=x.dtype, device=x.device)).reshape(d)
+
+
+# ---------------------------------------------------------------------------
+# wire: bit packing and stream extraction
+#
+# Bit patterns are held in int32 tensors (the uint32 pattern, reinterpreted)
+# and computed in int64 masked to 32 bits: torch on the CPU has no uint32
+# right shift. The float -> fp16/bf16 conversions are bitwise, never a cast:
+# torch's CPU bf16 cast turns every NaN into 0xffff and casts quiet a
+# signalling NaN, while the wire follows numpy's and ml_dtypes' host rules
+# (see repro_torch/wire/sparse.py).
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def as_i32(v: torch.Tensor) -> torch.Tensor:
+    """int32 tensor holding the uint32 patterns of ``v`` (int64 in [0, 2**32))."""
+    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+
+
+def u32(t: torch.Tensor) -> torch.Tensor:
+    """int64 tensor of the uint32 patterns held in an int32/int64 tensor."""
+    return t.to(torch.int64) & _M32
+
+
+def f32_to_f16_bits_ref(b: torch.Tensor) -> torch.Tensor:
+    """numpy's ``npy_floatbits_to_halfbits`` on int64 fp32 patterns."""
+    sgn = (b >> 16) & 0x8000
+    fexp = b & 0x7F800000
+    fsig = b & 0x007FFFFF
+    nan = 0x7C00 + (fsig >> 13)
+    nan = torch.where(nan == 0x7C00, 0x7C01, nan)
+    big = torch.where((fexp == 0x7F800000) & (fsig != 0), nan, 0x7C00)
+    ssig = (0x00800000 + fsig) >> (113 - torch.clamp(fexp >> 23, 102, 113))
+    ssig = ssig + torch.where(((ssig & 0x3FFF) != 0x1000) | ((b & 0x7FF) != 0), 0x1000, 0)
+    small = torch.where(fexp < 0x33000000, 0, ssig >> 13)
+    nsig = fsig + torch.where((fsig & 0x3FFF) != 0x1000, 0x1000, 0)
+    normal = ((fexp - 0x38000000) >> 13) + (nsig >> 13)
+    h = torch.where(fexp >= 0x47800000, big, torch.where(fexp <= 0x38000000, small, normal))
+    return sgn + h
+
+
+def f32_to_bf16_bits_ref(b: torch.Tensor) -> torch.Tensor:
+    """ml_dtypes' fp32 -> bf16 on int64 fp32 patterns: round to nearest even,
+    a NaN to ``sign | 0x7FC0``."""
+    rne = (b + 0x7FFF + ((b >> 16) & 1)) >> 16
+    return torch.where((b & 0x7FFFFFFF) > 0x7F800000, ((b >> 16) & 0x8000) | 0x7FC0, rne)
+
+
+def wire_bits_ref(b: torch.Tensor, mag: int) -> torch.Tensor:
+    """Wire-dtype pattern (int64) of int64 fp32 patterns; ``mag`` is a
+    ``wire.MagDType`` (0 fp32, 1 fp16, 2 bf16)."""
+    if mag == 0:
+        return b
+    return f32_to_f16_bits_ref(b) if mag == 1 else f32_to_bf16_bits_ref(b)
+
+
+def sparse_streams_ref(x: torch.Tensor, mag: int):
+    """(sign, magnitude, valid) streams of fp32 ``x`` [..., d] as the
+    reference's ``_emit_stream_bits`` computes them, on bit patterns: sign =
+    bit 31, magnitude = the wire-dtype pattern of |x| (bits & 0x7FFFFFFF),
+    valid = magnitude bits != 0. int32 tensors of x's shape."""
+    b = u32(x.contiguous().view(torch.int32))
+    mb = b & 0x7FFFFFFF
+    return as_i32(b >> 31), as_i32(wire_bits_ref(mb, mag)), (mb != 0).to(torch.int32)
+
+
+def dense_bits_ref(x: torch.Tensor, mag: int) -> torch.Tensor:
+    """The wire-dtype bit pattern of each fp32 value, sign kept (int32)."""
+    return as_i32(wire_bits_ref(u32(x.contiguous().view(torch.int32)), mag))
+
+
+def pack_bits_ref(values: torch.Tensor, width: int) -> torch.Tensor:
+    """Pack the low ``width`` bits of each value of ``values`` [..., n]
+    LSB-first into little-endian 32-bit words [..., ceil(n*width/32)]
+    (``wire/bitstream.py``'s layout); int32 words."""
+    v = u32(values) & ((1 << width) - 1)
+    n = v.shape[-1]
+    nw = -(-n * width // 32)
+    pos = torch.arange(n, device=v.device) * width
+    s = v << (pos & 31)  # < 2**63: width + 31 <= 63 bits
+    out = torch.zeros(v.shape[:-1] + (nw + 1,), dtype=torch.int64, device=v.device)
+    out.index_add_(-1, pos >> 5, s & _M32)  # disjoint bit ranges: add == or
+    out.index_add_(-1, (pos >> 5) + 1, s >> 32)
+    return as_i32(out[..., :nw])
+
+
+def unpack_bits_ref(words: torch.Tensor, width: int, count: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits_ref`: ``count`` values of ``width`` bits
+    from ``words`` [..., nw] (words past the end read as 0); int32."""
+    w = u32(words)
+    need = -(-count * width // 32) + 1
+    if w.shape[-1] < need:
+        w = torch.cat([w, w.new_zeros(w.shape[:-1] + (need - w.shape[-1],))], dim=-1)
+    pos = torch.arange(count, device=w.device) * width
+    off = pos & 31
+    lo = w[..., pos >> 5] >> off
+    hi = (w[..., (pos >> 5) + 1] & ((1 << off) - 1)) << (32 - off)  # the low `off` bits: no overflow
+    return as_i32((lo | hi) & ((1 << width) - 1))

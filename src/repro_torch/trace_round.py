@@ -2,12 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.trace_round [--d 1000] [--n 10] [--rounds 50]
 
-For MARINA-P/PermK and EF21-P/TopK (Polyak stepsizes, the paper's setup)
-it runs a few warm-up rounds, times ``rounds`` rounds, traces ``rounds``
-more, and prints the wall time per round, the device time per round summed
-over kernels and copies (one stream, so they do not overlap), the device's
-busy share of the wall time, and the kernels that took the most device
-time. Runs on the card.
+For MARINA-P/PermK and EF21-P/TopK (Polyak stepsizes, the paper's setup),
+and MARINA-P/ind without and with ``measure_wire=True`` (device encode: the
+wire path's cost), it runs a few warm-up rounds, times ``rounds`` rounds,
+traces ``rounds`` more, and prints the wall time per round, the device time
+per round summed over kernels and copies (one stream, so they do not
+overlap), the device's busy share of the wall time, and the kernels that
+took the most device time. Runs on the card.
 """
 from __future__ import annotations
 
@@ -45,11 +46,16 @@ def trace(run, rounds: int, device: torch.device, top: int = 8) -> dict:
               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
     events.sort(key=_device_us, reverse=True)
     device_us = sum(_device_us(e) for e in events)
+    # host side: the torch ops with the most self CPU time (inflated by the
+    # profiler's own cost per op, so read them as shares, not as times)
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    host.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
     return {
         "wall_us_per_round": wall_us / rounds,
         "device_us_per_round": device_us / rounds,
         "device_busy_share": device_us / wall_us,
         "top": [(e.key, _device_us(e) / rounds, e.count // rounds) for e in events[:top]],
+        "top_host": [(e.key, e.self_cpu_time_total / rounds, e.count / rounds) for e in host[:top]],
     }
 
 
@@ -65,6 +71,10 @@ def main(d=1000, n=10, rounds=50, seed=0, device="cuda"):
         "ef21p_topk_polyak": lambda T: ef21p.run(
             prob, C.TopK(k=k), stepsizes.EF21PPolyak(alpha=k / d), T=T, seed=seed),
     }
+    for name, wire in (("marina_ind_polyak", False), ("marina_ind_polyak_measure_wire", True)):
+        runs[name] = lambda T, wire=wire: marina_p.run(
+            prob, mode="ind", k=k, p=p, stepsize=stepsizes.MarinaPPolyak(omega=d / k - 1.0, p=p),
+            T=T, seed=seed, measure_wire=wire)
     out = {}
     for name, run in runs.items():
         r = out[name] = trace(run, rounds, dev)
@@ -72,6 +82,9 @@ def main(d=1000, n=10, rounds=50, seed=0, device="cuda"):
               f"{r['device_us_per_round']:.1f} us/round, busy share {r['device_busy_share']:.3f}")
         for key, us, count in r["top"]:
             print(f"  {us:9.2f} us/round  x{count:<3d} {key}")
+        print("  host self time under the profiler:")
+        for key, us, count in r["top_host"]:
+            print(f"  {us:9.2f} us/round  x{count:<5.2f} {key}")
     return out
 
 

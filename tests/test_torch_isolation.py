@@ -1,5 +1,6 @@
-"""The port stands alone: it runs with JAX unimportable, imports nothing of
-the JAX package ``repro``, and its entry points never default to the CPU."""
+"""The port stands alone: it runs with JAX and ml_dtypes unimportable,
+imports nothing of the JAX package ``repro``, and its entry points never
+default to the CPU."""
 import os
 import pathlib
 import re
@@ -12,18 +13,24 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
-# `import jax`, `from jax...`, `import repro`/`repro.x`, `from repro(.x) import`;
-# `repro_torch` does not match.
-FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro\b(?!_))")
+# `import jax`, `from jax...`, `import ml_dtypes` (it comes with JAX),
+# `import repro`/`repro.x`, `from repro(.x) import`; `repro_torch` does not match.
+FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+ml_dtypes\b|from\s+ml_dtypes\b"
+                       r"|import\s+repro\b(?!_)|from\s+repro\b(?!_))")
 
 JAX_FREE_RUN = """
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["ml_dtypes"] = None
 import repro_torch
 from repro_torch.core import marina_p, problems, stepsizes
 prob = problems.generate_problem(n=4, d=32, noise_scale=1.0, seed=0, device="cpu")
 h = marina_p.run(prob, mode="perm", k=8, p=0.25, stepsize=stepsizes.Constant(0.01), T=3)
 assert h["ledger"].rounds == 3, h["ledger"].rounds
+# the wire path, bf16 magnitudes, on the CPU problem: no ml_dtypes needed
+h = marina_p.run(prob, mode="ind", k=8, p=0.25, stepsize=stepsizes.Constant(0.01), T=3,
+                 measure_wire=True, wire_mag="bf16")
+assert len(h["wire_bits"]) == 3 and h["wire_bits_total"] > 0, h["wire_bits"]
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print("ok")
@@ -50,6 +57,7 @@ def test_no_file_of_the_port_imports_jax_or_repro():
 def test_forbidden_pattern_itself():
     assert FORBIDDEN.match("import jax") and FORBIDDEN.match("  from jax.numpy import x")
     assert FORBIDDEN.match("from repro.core import problems") and FORBIDDEN.match("import repro")
+    assert FORBIDDEN.match("import ml_dtypes") and FORBIDDEN.match("from ml_dtypes import bfloat16")
     assert not FORBIDDEN.match("from repro_torch.core import problems")
     assert not FORBIDDEN.match("import repro_torch") and not FORBIDDEN.match("import jaxlib_x")
 

@@ -1,16 +1,21 @@
 """Kernel wrappers of the port (repro_torch.kernels.ops) against the Pallas
 kernels of the JAX reference, run in interpret mode on the CPU as
-tests/test_kernels.py runs them, plus a kernel-vs-plain case on the card.
+tests/test_kernels.py runs them, plus the kernel-vs-plain cases on the card
+(all of the port's ``cuda``-marked tests live here: this file needs no JAX
+for them, so they run on a card whose machine has none).
 
 On the CPU the port's wrappers run their plain PyTorch versions, which mirror
 the Pallas kernels' arithmetic; the CUDA kernels themselves are held against
-the same plain versions by the ``cuda``-marked test and by chip_smoke.py.
+the same plain versions by the ``cuda``-marked tests and by chip_smoke.py.
+The wire kernels' CPU parity is in tests/test_torch_encode.py.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import wire as W
 from repro_torch.core import compressors as TC
+from repro_torch.kernels import encode as K
 from repro_torch.kernels import ops, ref, runtime
 
 
@@ -239,3 +244,46 @@ def test_cuda_kernels_vs_plain():
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     torch.cuda.synchronize()
     assert runtime.LAUNCHES["l1_subgrad"] == 1 and runtime.LAUNCHES["block_topk"] == 2
+
+
+WIDTHS = [1, 4, 7, 8, 10, 13, 16, 32]
+# tests/test_encode_diff.py's WEIRD, and quiet and signalling NaNs of both signs
+WEIRD = np.array([np.nan, np.inf, -np.inf, -0.0, 1e-42, -1e-42, 0.0, 6.1e-39,
+                  1.0000001, -3.5, 65504.0, 2.0], dtype=np.float32)
+NANS = np.array([0x7FC00000, 0xFFC00000, 0x7F812345, 0xFF800001], dtype=np.uint32).view(np.float32)
+
+
+def _i32(u: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(u, np.uint32).view(np.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_wire_kernels_vs_plain():
+    """pack/unpack, sparse_streams and dense_bits on the card == their plain
+    versions, and the device buffers == the host codec's, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    runtime.reset_launches()
+    for width in WIDTHS:
+        for n in (1, 33, 4097):
+            vals = _i32(rng.integers(0, 1 << width, n, dtype=np.uint64).astype(np.uint32))
+            words = ops.pack_bits(vals.to(dev), width)
+            assert torch.equal(words.cpu(), ref.pack_bits_ref(vals, width))
+            assert torch.equal(ops.unpack_bits(words, width, n).cpu(), vals)
+    X = np.stack([np.where(rng.random(1000) < 0.1, rng.standard_normal(1000), 0.0)
+                  for _ in range(10)]).astype(np.float32)
+    X[0, :len(WEIRD)] = WEIRD
+    X[1, :len(NANS)] = NANS
+    Xd = torch.from_numpy(X).to(dev)
+    for mag in ("fp32", "fp16", "bf16"):
+        m = int(W.mag_dtype(mag))
+        for got, want in zip(K.sparse_streams(Xd, mag), ref.sparse_streams_ref(Xd, m)):
+            assert torch.equal(got, want)
+        assert torch.equal(K.dense_bits(Xd[1], mag), ref.dense_bits_ref(Xd[1], m))
+        assert K.encode_rows(Xd, mag=mag) == [W.encode_sparse(X[i], mag=mag) for i in range(10)]
+        assert K.dense_encode(Xd[1], mag=mag) == W.encode_dense(X[1], mag=mag)
+    torch.cuda.synchronize()
+    for name in ("pack_bits", "unpack_bits", "sparse_streams", "dense_bits"):
+        assert runtime.LAUNCHES[name] > 0, name
