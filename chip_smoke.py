@@ -46,7 +46,32 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
 (i) the wire kernels' times at the path's shapes and at d = 2**20, with
     bounds, launches per round, plain and library times, the host codec's
     time per message, and µs per round of MARINA-P ind with measure_wire,
-    device encode against host encode.
+    device encode against host encode;
+(j) the four kernels of the encode and kernel benchmarks (bernk, rotk_apply,
+    mask_streams, topk_streams) against their plain versions on the card, bit
+    for bit: bernk in f32 and bf16 over keep probabilities {0.03, 0.1, 0.25,
+    1/3, 0.9}, a seed and a worker above 2**31 and d in {1, 777, 1000, 2**16,
+    2**20}; rotk_apply over n in {3, 4, 10, 16} and r in {-3, 0, n+1}, w full
+    of -0.0; mask_streams over 10 worker rows; topk_streams over block in
+    {128, 1000, 1024} and k in {1, 64, >= block}; IEEE corners (denormals,
+    +-0, +-inf, quiet and signalling NaNs) in every input; then each kernel at
+    the settings and on the very inputs of (k)'s path (d = 2**16 and 2**14:
+    topk_streams k=64 block=1024, one-row mask_streams and bernk at keep 1/16
+    seed 7; kernel_bench's bernk and rotk_apply at 2**16), and on copies of
+    them with IEEE corners;
+(k) their path: ``repro_torch.wire_bench``'s codec, encode-roofline and
+    encode-suite sections and ``repro_torch.kernel_bench.bench`` on the card,
+    with the counters zeroed just before and read just after: all four must
+    have launched, ``encode/byte_identical`` must read 1.0; then
+    topk_encode, mask_encode and encode_per_worker (ind and same) buffers
+    equal to the host codec over ops.block_topk / ops.bernk byte for byte,
+    and a NaturalCompression output on the card exact powers of two (the
+    NATURAL codec round-trips it);
+(l) each of the four kernels' median time (CUDA events, L2 flushed) at the
+    path's shapes (bernk and rotk_apply from kernel_bench's rows in (k)) and
+    at 2**20, beside its bound and its plain version, and
+    the host-clock time per message of the fused encoders against the host
+    codec over the op.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero,
@@ -127,30 +152,6 @@ def bits_equal(torch, a, b) -> bool:
         return False
     view = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float16: torch.int16}[a.dtype]
     return torch.equal(a.view(view), b.view(view))
-
-
-# ---------------------------------------------------------------------------
-# timing
-# ---------------------------------------------------------------------------
-
-
-def median_ms(torch, fn, reps: int = 30, flush=None) -> float:
-    """Median of ``reps`` single-call times with CUDA events, after 3 warm-up
-    calls; ``flush()`` (outside the timed region) evicts L2 first."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +291,191 @@ def wire_runs(torch, prob, k, p, T, device_encode, runtime=None):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# the encode- and kernel-benchmark path (phases j-l)
+# ---------------------------------------------------------------------------
+
+BENCH_KERNELS = ("bernk", "rotk_apply", "mask_streams", "topk_streams")
+BIG_SEED, BIG_WORKER = 2**31 + 12345, 2**31 + 7
+
+
+def with_corners(np, rng, d: int, at: int = 0):
+    """A standard normal fp32 vector of d values with :func:`wire_edge`'s
+    IEEE corners (NaNs quiet and signalling, +-inf, +-0, denormals) at ``at``."""
+    x = rng.standard_normal(d).astype(np.float32)
+    c = wire_edge(np)[:max(0, d - at)]
+    x[at:at + c.size] = c
+    return x
+
+
+def float_err(torch, got, want) -> float:
+    """max |got - want| over the entries finite in both (0 when bit-equal)."""
+    g, w = got.float(), want.float()
+    finite = torch.isfinite(g) & torch.isfinite(w)
+    return float((g - w).abs()[finite].max()) if bool(finite.any()) else 0.0
+
+
+def bench_kernels_vs_plain(np, torch, dev):
+    """(j): each kernel against its plain version on the card, bit for bit.
+    Returns ({kernel: max abs error}, number of cases)."""
+    from repro_torch import wire
+    from repro_torch.kernels import encode as kenc
+    from repro_torch.kernels import ops, ref
+
+    err = dict.fromkeys(BENCH_KERNELS, 0.0)
+    cases = 0
+    rng = np.random.default_rng(13)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (1, 777, 1000, 2**16, 2**20):
+            x = torch.from_numpy(with_corners(np, rng, d)).to(dev).to(dtype)
+            for kp in (0.03, 0.1, 0.25, 1 / 3, 0.9):
+                got = ops.bernk(x, keep_prob=kp, seed=BIG_SEED, worker=BIG_WORKER)
+                want = ref.bernk_ref(x, keep_prob=kp, seed=BIG_SEED, worker=BIG_WORKER)
+                torch.cuda.synchronize()
+                err["bernk"] = max(err["bernk"], float_err(torch, got, want))
+                if not bits_equal(torch, got, want):
+                    fail(f"(j) bernk {dtype} d={d} keep_prob={kp}: kernel != plain")
+                cases += 1
+    for d in (1000, 2**16):
+        delta = torch.from_numpy(with_corners(np, rng, d)).to(dev)
+        for w in (torch.full((d,), -0.0, device=dev), torch.from_numpy(with_corners(np, rng, d, at=7)).to(dev)):
+            for n in (3, 4, 10, 16):
+                for r in (-3, 0, n + 1):
+                    rot = torch.tensor([r], dtype=torch.int32, device=dev)
+                    got = ops.rotk_apply(w, delta, rot, n=n, worker=2)
+                    want = ref.rotk_apply_ref(w, delta, rot, n=n, worker=2)
+                    torch.cuda.synchronize()
+                    err["rotk_apply"] = max(err["rotk_apply"], float_err(torch, got, want))
+                    if not bits_equal(torch, got, want):
+                        fail(f"(j) rotk_apply d={d} n={n} r={r}: kernel != plain")
+                    cases += 1
+    workers = torch.tensor(list(range(8)) + [2**31 - 1, -5], dtype=torch.int32, device=dev)
+    for d in (1000, 2**16):
+        x = torch.from_numpy(with_corners(np, rng, d)).to(dev)
+        for kp in (0.1, 1 / 16, 0.9):
+            for mag in MAGS:
+                m = int(wire.mag_dtype(mag))
+                got = kenc.mask_streams(x, workers, kp, BIG_SEED, mag)
+                want = ref.mask_streams_ref(x, workers, kp, BIG_SEED, m)
+                torch.cuda.synchronize()
+                for g, w_ in zip(got, want):
+                    err["mask_streams"] = max(err["mask_streams"], int_err(ref, g, w_))
+                    if not torch.equal(g, w_):
+                        fail(f"(j) mask_streams d={d} keep_prob={kp} {mag}: kernel != plain")
+                cases += 1
+    inputs = [with_corners(np, rng, 4096, at=130)]
+    ties = np.round(rng.standard_normal(4096) * 2).astype(np.float32) / 2  # many exact ties
+    inputs.append(ties)
+    nan_free = rng.standard_normal(3000).astype(np.float32)  # 3000: a ragged last block
+    nan_free[:8] = [np.inf, -np.inf, 1e-42, -0.0, 0.0, 6.1e-39, -1e-42, 2.0]  # inf stops selection
+    inputs.append(nan_free)
+    for xi in inputs:
+        for block in (128, 1000, 1024):
+            xp = torch.nn.functional.pad(torch.from_numpy(xi).to(dev), (0, (-xi.size) % block))
+            for k in (1, 64, block, block + 3):
+                for mag in MAGS:
+                    m = int(wire.mag_dtype(mag))
+                    got = kenc.topk_streams(xp, k, block, mag)
+                    want = ref.topk_streams_ref(xp, k, block, m)
+                    torch.cuda.synchronize()
+                    for g, w_ in zip(got, want):
+                        err["topk_streams"] = max(err["topk_streams"], int_err(ref, g, w_))
+                        if not torch.equal(g, w_):
+                            fail(f"(j) topk_streams block={block} k={k} {mag}: kernel != plain")
+                    cases += 1
+    return err, cases + path_inputs_vs_plain(np, torch, dev, err)
+
+
+def path_inputs_vs_plain(np, torch, dev, err) -> int:
+    """(j), continued: each kernel against its plain version at the settings
+    and on the very inputs the path of (k) gives it (``wire_bench``'s at
+    d = 2**16 and 2**14, ``kernel_bench``'s at 2**16), and on copies of those
+    inputs with IEEE corners in the first and the last block. Raises the
+    entries of ``err``; returns the number of cases."""
+    from repro_torch import kernel_bench, wire, wire_bench
+    from repro_torch.kernels import encode as kenc
+    from repro_torch.kernels import ops, ref
+
+    corners = wire_edge(np)
+
+    def variants(x):
+        xc = x.clone()
+        xc[:corners.size] = torch.from_numpy(corners).to(dev)
+        xc[-corners.size:] = torch.from_numpy(-corners).to(dev)
+        return (("path input", x), ("with IEEE corners", xc))
+
+    def check(kname, what, got, want):
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        for g, w in pairs:
+            e = int_err(ref, g, w) if g.dtype == torch.int32 else float_err(torch, g, w)
+            err[kname] = max(err[kname], e)
+            if not (torch.equal(g, w) if g.dtype == torch.int32 else bits_equal(torch, g, w)):
+                fail(f"(j) {kname} at the path's shape, {what}: kernel != plain")
+
+    cases = 0
+    k, block = wire_bench.TOPK_K, wire_bench.TOPK_BLOCK
+    kp, seed = wire_bench.MASK_KEEP, wire_bench.MASK_SEED
+    worker0 = torch.zeros(1, dtype=torch.int32, device=dev)  # mask_encode's one row, worker 0
+    for d in (1 << 16, 1 << 14):  # encode_roofline_rows, bench_encode
+        _, _, dense_t, _ = wire_bench._inputs(d, dev)
+        for what, x in variants(dense_t):
+            what = f"d={d} {what}"
+            for mag in MAGS:
+                m = int(wire.mag_dtype(mag))
+                check("topk_streams", f"{what} k={k} block={block} {mag}",
+                      kenc.topk_streams(x, k, block, mag), ref.topk_streams_ref(x, k, block, m))
+                check("mask_streams", f"{what} 1 row keep_prob={kp} seed={seed} {mag}",
+                      kenc.mask_streams(x, worker0, kp, seed, mag), ref.mask_streams_ref(x, worker0, kp, seed, m))
+                cases += 2
+            check("bernk", f"{what} keep_prob={kp} seed={seed}",
+                  ops.bernk(x, keep_prob=kp, seed=seed), ref.bernk_ref(x, keep_prob=kp, seed=seed))
+            cases += 1
+    v = kernel_bench.inputs(dev)
+    kb_kp, kb_seed = kernel_bench.BERNK_KEEP, kernel_bench.BERNK_SEED
+    rn, rw = kernel_bench.ROTK_N, kernel_bench.ROTK_WORKER
+    for (what, x), (_, w) in zip(variants(v["x"]), variants(v["w"])):
+        what = f"d={x.numel()} {what}"
+        check("bernk", f"{what} keep_prob={kb_kp} seed={kb_seed}",
+              ops.bernk(x, keep_prob=kb_kp, seed=kb_seed), ref.bernk_ref(x, keep_prob=kb_kp, seed=kb_seed))
+        check("rotk_apply", f"{what} n={rn} worker={rw} r={kernel_bench.ROTK_R}",
+              ops.rotk_apply(w, x, v["rotation"], n=rn, worker=rw),
+              ref.rotk_apply_ref(w, x, v["rotation"], n=rn, worker=rw))
+        cases += 2
+    return cases
+
+
+def fused_encode_buffers(np, torch, dev) -> int:
+    """(k): the fused encoders' buffers equal the host codec's over the
+    matching op on the card, byte for byte. Returns the buffers checked."""
+    from repro_torch import wire
+    from repro_torch.kernels import encode as kenc
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(17)
+    checked = 0
+    for d in (1, 1000, 2**14, 2**16):
+        x = torch.from_numpy(with_corners(np, rng, d)).to(dev)
+        for mag in MAGS:
+            for k, block in ((64, 1024), (8, 128), (1, 1000), (1030, 1024)):
+                if kenc.topk_encode(x, k_per_block=k, block=block, mag=mag) != wire.encode_sparse(
+                        ops.block_topk(x, k_per_block=k, block=block), mag=mag):
+                    fail(f"(k) topk_encode d={d} k={k} block={block} {mag}: != host codec over ops.block_topk")
+                checked += 1
+            for kp, worker in ((1 / 16, 0), (0.1, 3), (0.9, BIG_WORKER)):
+                if kenc.mask_encode(x, keep_prob=kp, seed=BIG_SEED, worker=worker, mag=mag) != \
+                        wire.encode_sparse(ops.bernk(x, keep_prob=kp, seed=BIG_SEED, worker=worker), mag=mag):
+                    fail(f"(k) mask_encode d={d} keep_prob={kp} {mag}: != host codec over ops.bernk")
+                checked += 1
+            want = [wire.encode_sparse(ops.bernk(x, keep_prob=0.1, seed=7, worker=i), mag=mag) for i in range(10)]
+            if kenc.encode_per_worker(x, n_workers=10, keep_prob=0.1, seed=7, mode="ind", mag=mag) != want:
+                fail(f"(k) encode_per_worker ind d={d} {mag}: != host codec over ops.bernk")
+            if kenc.encode_per_worker(x, n_workers=4, keep_prob=0.1, seed=7, mode="same", mag=mag) != [want[0]] * 4:
+                fail(f"(k) encode_per_worker same d={d} {mag}: != host codec over ops.bernk")
+            checked += 14
+    return checked
+
+
 def main() -> int:
     import torch
 
@@ -303,7 +489,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
-    from repro_torch import fig1, quickstart
+    from repro_torch import fig1, kernel_bench, quickstart
     from repro_torch.core import compressors as C
     from repro_torch.core import ef21p, problems, stepsizes
     from repro_torch.kernels import l1_subgrad as k_l1
@@ -467,33 +653,34 @@ def main() -> int:
         f"max rel f_x err {worst:.3e}")
 
     # --- (d) timing at the main path's shapes -------------------------------------------
-    flush_buf = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
+    flush_buf = torch.empty(kernel_bench.FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
 
-    def flush():
-        flush_buf.zero_()
+    def timed(fn, reps=30):
+        """Median ms of one call (CUDA events, L2 flushed before each call)."""
+        return kernel_bench.median_ms(fn, reps, flush_buf)
 
     W = prob.x0.expand(N, D).contiguous() + 0.01 * torch.randn(N, D, device=dev,
                                                                  generator=torch.Generator(dev).manual_seed(0))
-    l1_ms = median_ms(torch, lambda: ops.l1_subgrad(prob.A, W), flush=flush)
-    l1_plain_ms = median_ms(torch, lambda: ref.l1_subgrad_ref(prob.A, W), flush=flush)
+    l1_ms = timed(lambda: ops.l1_subgrad(prob.A, W))
+    l1_plain_ms = timed(lambda: ref.l1_subgrad_ref(prob.A, W))
     l1_bytes = prob.A.numel() * 4 + 2 * W.numel() * 4
     l1_flops = 4 * prob.A.numel()
     l1_bound = max(l1_bytes / HBM_BYTES_PER_S, l1_flops / FP32_FLOPS_PER_S) * 1e3
     A100 = torch.randn(100, D, D, device=dev, generator=torch.Generator(dev).manual_seed(1))
     W100 = torch.randn(100, D, device=dev, generator=torch.Generator(dev).manual_seed(2))
-    l1_ms_100 = median_ms(torch, lambda: ops.l1_subgrad(A100, W100), flush=flush)
+    l1_ms_100 = timed(lambda: ops.l1_subgrad(A100, W100))
     l1_bound_100 = (A100.numel() * 4 + 2 * W100.numel() * 4) / HBM_BYTES_PER_S * 1e3
     del A100
 
     xt = (W[0] - prob.x0).contiguous()
-    tk_ms = median_ms(torch, lambda: ops.block_topk(xt, k_per_block=k, block=D), flush=flush)
-    tk_plain_ms = median_ms(torch, lambda: ref.block_topk_ref(xt, k_per_block=k, block=D), flush=flush)
+    tk_ms = timed(lambda: ops.block_topk(xt, k_per_block=k, block=D))
+    tk_plain_ms = timed(lambda: ref.block_topk_ref(xt, k_per_block=k, block=D))
 
     def topk_library():
         idx = torch.topk(xt.abs(), k).indices
         return torch.zeros_like(xt).scatter_(0, idx, xt.gather(0, idx))
 
-    tk_lib_ms = median_ms(torch, topk_library, flush=flush)
+    tk_lib_ms = timed(topk_library)
     if not torch.equal(topk_library(), ops.block_topk(xt, k_per_block=k, block=D)):
         log("(d) note: torch.topk yardstick selects other indices than the kernel on this input")
     tk_bytes = 2 * D * 4
@@ -571,7 +758,7 @@ def main() -> int:
                  marina_p.draw_round(bcast, p, D, torch.Generator().manual_seed(0), dev))
     Q, x_new = mq["Q"].contiguous(), mq["x_new"].contiguous()  # a round's messages: [10, 1000], [1000]
     iw = wire.index_width(D)
-    (idx_stream, _, _), _ = kenc._compact_streams(*kenc.sparse_streams(Q, "fp32"))
+    (idx_stream, _, _), _ = kenc._compact_streams(kenc._arange_rows(N, D, dev), *kenc.sparse_streams(Q, "fp32"))
     idx_words = ops.pack_bits(idx_stream, iw)
     big = 2**20
     gbig = torch.Generator(dev).manual_seed(3)
@@ -584,29 +771,29 @@ def main() -> int:
         return nbytes / HBM_BYTES_PER_S * 1e3
 
     wt = {}  # name -> (ms, plain_ms, bound_ms, library_ms) at the path's shape; and at 2**20
-    wt["sparse_streams"] = (median_ms(torch, lambda: kenc.sparse_streams(Q, "fp32"), flush=flush),
-                            median_ms(torch, lambda: ref.sparse_streams_ref(Q, 0), flush=flush),
+    wt["sparse_streams"] = (timed(lambda: kenc.sparse_streams(Q, "fp32")),
+                            timed(lambda: ref.sparse_streams_ref(Q, 0)),
                             hbm_ms(Q.numel() * 16), None)
-    wt["dense_bits"] = (median_ms(torch, lambda: kenc.dense_bits(x_new, "fp32"), flush=flush),
-                        median_ms(torch, lambda: ref.dense_bits_ref(x_new, 0), flush=flush),
+    wt["dense_bits"] = (timed(lambda: kenc.dense_bits(x_new, "fp32")),
+                        timed(lambda: ref.dense_bits_ref(x_new, 0)),
                         hbm_ms(D * 8),
-                        median_ms(torch, lambda: x_new.to(torch.float16).view(torch.int16), flush=flush))
-    wt["pack_bits"] = (median_ms(torch, lambda: ops.pack_bits(idx_stream, iw), flush=flush),
-                       median_ms(torch, lambda: ref.pack_bits_ref(idx_stream, iw), flush=flush),
+                        timed(lambda: x_new.to(torch.float16).view(torch.int16)))
+    wt["pack_bits"] = (timed(lambda: ops.pack_bits(idx_stream, iw)),
+                       timed(lambda: ref.pack_bits_ref(idx_stream, iw)),
                        hbm_ms(idx_stream.numel() * 4 + idx_words.numel() * 4), None)
-    wt["unpack_bits"] = (median_ms(torch, lambda: ops.unpack_bits(idx_words, iw, D), flush=flush),
-                         median_ms(torch, lambda: ref.unpack_bits_ref(idx_words, iw, D), flush=flush),
+    wt["unpack_bits"] = (timed(lambda: ops.unpack_bits(idx_words, iw, D)),
+                         timed(lambda: ref.unpack_bits_ref(idx_words, iw, D)),
                          hbm_ms(idx_words.numel() * 4 + idx_stream.numel() * 4), None)
     wt_big = {
-        "sparse_streams": (median_ms(torch, lambda: kenc.sparse_streams(Xbig, "fp32"), flush=flush),
+        "sparse_streams": (timed(lambda: kenc.sparse_streams(Xbig, "fp32")),
                            hbm_ms(big * 16)),
-        "dense_bits": (median_ms(torch, lambda: kenc.dense_bits(xbig, "fp32"), flush=flush), hbm_ms(big * 8)),
-        "pack_bits": (median_ms(torch, lambda: ops.pack_bits(vbig, 20), flush=flush),
+        "dense_bits": (timed(lambda: kenc.dense_bits(xbig, "fp32")), hbm_ms(big * 8)),
+        "pack_bits": (timed(lambda: ops.pack_bits(vbig, 20)),
                       hbm_ms(big * 4 + wbig.numel() * 4)),
-        "unpack_bits": (median_ms(torch, lambda: ops.unpack_bits(wbig, 20, big), flush=flush),
+        "unpack_bits": (timed(lambda: ops.unpack_bits(wbig, 20, big)),
                         hbm_ms(big * 4 + wbig.numel() * 4)),
     }
-    fp16_ms = median_ms(torch, lambda: kenc.dense_bits(x_new, "fp16"), flush=flush)
+    fp16_ms = timed(lambda: kenc.dense_bits(x_new, "fp16"))
     rounds_ind = T
     for name, (ms_, plain_, bound_, lib_) in wt.items():
         per_round = run_launches["marina_ind_polyak"].get(name, 0) / rounds_ind
@@ -617,14 +804,8 @@ def main() -> int:
     log(f"(i) dense_bits fp16 at the path shape: {fp16_ms:.5f} ms")
 
     def host_ms(fn, reps=30):
-        fn()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-        times.sort()
-        return times[len(times) // 2]
+        """Median ms of one call on the host clock, ended by a sync of the card."""
+        return kernel_bench.median_ms(fn, reps, device=dev)
 
     Qh, xh, Xbig_h = Q.cpu().numpy(), x_new.cpu().numpy(), Xbig[0].cpu().numpy()
     codec = {
@@ -655,6 +836,110 @@ def main() -> int:
         f"device encode {us_round['device']}, host encode {us_round['host']}; "
         f"without measure_wire {us_plain:.1f}")
 
+    # --- (j) the encode- and kernel-benchmark kernels against their plain versions ------------
+    t_j = time.perf_counter()
+    bench_err, n_cases = bench_kernels_vs_plain(np, torch, dev)
+    log(f"(j) bernk, rotk_apply, mask_streams, topk_streams: {n_cases} cases bit-equal to their plain "
+        f"versions, IEEE corners included ({time.perf_counter() - t_j:.1f} s)")
+
+    # --- (k) their path: wire_bench's codec and encode sections, kernel_bench --------------------
+    t_k = time.perf_counter()
+    runtime.reset_launches()
+    thr_rows = wire_bench.throughput_rows(device=dev)
+    roof_rows = wire_bench.encode_roofline_rows(device=dev)
+    enc_rows = wire_bench.bench_encode(device=dev)
+    kb_rows = kernel_bench.bench(dev)
+    torch.cuda.synchronize()
+    bench_launches = {kname: runtime.LAUNCHES.get(kname, 0) for kname in BENCH_KERNELS}
+    log(f"(k) launches on the encode/kernel benchmark path: {bench_launches} "
+        f"(all: {dict(runtime.LAUNCHES)}; {time.perf_counter() - t_k:.1f} s)")
+    for kname in BENCH_KERNELS:
+        if bench_launches[kname] <= 0:
+            fail(f"(k) the encode/kernel benchmark path never launched {kname}")
+    for name, gbs, nbytes in thr_rows + roof_rows:
+        log(f"(k) {name:32s} {gbs:9.3f} GB/s ({nbytes} wire bytes)")
+    for name, us, derived in enc_rows:
+        log(f"(k) {name:32s} {us:10.1f} us {derived:.4f}")
+    for name, ms_, size in kb_rows:
+        log(f"(k) {name:32s} {ms_:10.5f} ms (size {size}; CUDA events, L2 flushed)")
+    if enc_rows[-1][0] != "encode/byte_identical" or enc_rows[-1][2] != 1.0:
+        fail(f"(k) encode/byte_identical = {enc_rows[-1][2]}: a fused buffer differs from the host codec's")
+    n_bufs = fused_encode_buffers(np, torch, dev)
+    # magnitudes 1e-30..1e30: outputs span most exponents and stay normal (the NATURAL codec
+    # carries sign and exponent only, so a subnormal output would decode to 0 in any port)
+    rng_n = np.random.default_rng(19)
+    nat_np = (rng_n.standard_normal(2**16) * 10.0 ** rng_n.integers(-30, 30, 2**16)).astype(np.float32)
+    nat_np[:5] = [0.0, -0.0, np.inf, -np.inf, np.nan]
+    nat_x = torch.from_numpy(nat_np).to(dev)
+    nat = C.NaturalCompression()(nat_x, C.NaturalCompression().draw(2**16, torch.Generator().manual_seed(0), dev))
+    nat_h = nat.cpu().numpy()
+    if not np.array_equal(wire.decode(wire.encode_natural(nat_h)).view(np.uint32), nat_h.view(np.uint32)):
+        fail("(k) NaturalCompression on the card: an output is not an exact power of two")
+    log(f"(k) byte_identical 1.0; {n_bufs} topk_encode / mask_encode / encode_per_worker buffers == host codec "
+        "over ops.block_topk / ops.bernk; NaturalCompression on the card round-trips NATURAL exactly")
+
+    # --- (l) timing of the four kernels -------------------------------------------------------
+    def bench_kernel_timings(d, names=BENCH_KERNELS):
+        """{kernel: (ms, plain_ms, bound_ms, bound_by)} of ``names`` at the path's settings and size d."""
+        g = torch.Generator().manual_seed(d)
+        x = torch.randn(d, generator=g).to(dev)
+        w = torch.randn(d, generator=g).to(dev)
+        rot = torch.tensor([kernel_bench.ROTK_R], dtype=torch.int32, device=dev)
+        w1 = torch.zeros(1, dtype=torch.int32, device=dev)
+        kb, bk = kernel_bench.TOPK_K, kernel_bench.TOPK_BLOCK
+        xp = torch.nn.functional.pad(x, (0, (-d) % bk))
+        kp, seed = kernel_bench.BERNK_KEEP, kernel_bench.BERNK_SEED
+        rn, rw = kernel_bench.ROTK_N, kernel_bench.ROTK_WORKER
+        mkp, mseed = wire_bench.MASK_KEEP, wire_bench.MASK_SEED
+        calls = {
+            "bernk": (lambda: ops.bernk(x, keep_prob=kp, seed=seed),
+                      lambda: ref.bernk_ref(x, keep_prob=kp, seed=seed)),
+            "rotk_apply": (lambda: ops.rotk_apply(w, x, rot, n=rn, worker=rw),
+                           lambda: ref.rotk_apply_ref(w, x, rot, n=rn, worker=rw)),
+            "mask_streams": (lambda: kenc.mask_streams(x, w1, mkp, mseed, "fp32"),
+                             lambda: ref.mask_streams_ref(x, w1, mkp, mseed, 0)),
+            "topk_streams": (lambda: kenc.topk_streams(xp, kb, bk, "fp32"),
+                             lambda: ref.topk_streams_ref(xp, kb, bk, 0)),
+        }
+        return {name: (timed(calls[name][0]), timed(calls[name][1])) + bench_bound(name, d) for name in names}
+
+    def bench_bound(name, d):
+        """(bound_ms, bound_by) of one call at size d: bytes read and written once over HBM,
+        or topk_streams's k compare rounds over each block at the fp32 peak."""
+        if name != "topk_streams":
+            return hbm_ms({"bernk": 8 * d, "rotk_apply": 12 * d + 4, "mask_streams": 16 * d + 4}[name]), "bytes"
+        dp = d + (-d) % kernel_bench.TOPK_BLOCK
+        nb, ks = dp // kernel_bench.TOPK_BLOCK, min(kernel_bench.TOPK_K, kernel_bench.TOPK_BLOCK)
+        by_bytes, by_ops = hbm_ms(dp * 4 + 16 * nb * ks), kernel_bench.TOPK_K * dp / FP32_FLOPS_PER_S * 1e3
+        return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+    # the path's shapes, d = 2**16: bernk and rotk_apply as kernel_bench timed them in (k)
+    kb_ms = {name: ms_ for name, ms_, _ in kb_rows}
+    st = {name: (kb_ms[f"kernels/{name}/ops"], kb_ms[f"kernels/{name}/plain"]) + bench_bound(name, kernel_bench.D)
+          for name in ("bernk", "rotk_apply")}
+    st.update(bench_kernel_timings(kernel_bench.D, ("mask_streams", "topk_streams")))
+    st_big = bench_kernel_timings(2**20)
+    for name in BENCH_KERNELS:
+        ms_, plain_, bound_, by_ = st[name]
+        log(f"(l) {name:13s} d=2**16: {ms_:.5f} ms (plain {plain_:.5f}, bound {bound_:.2e} by {by_}); "
+            f"d=2**20: {st_big[name][0]:.5f} ms (plain {st_big[name][1]:.5f}, bound {st_big[name][2]:.5f})")
+    xm = torch.randn(2**16, generator=torch.Generator().manual_seed(5)).to(dev)
+    per_msg = {
+        "topk d=2**16 (k=64/1024)": (
+            host_ms(lambda: kenc.topk_encode(xm, k_per_block=64, block=1024)),
+            host_ms(lambda: wire.encode_sparse(ops.block_topk(xm, k_per_block=64, block=1024)))),
+        "mask d=2**16 (1/16)": (
+            host_ms(lambda: kenc.mask_encode(xm, keep_prob=1 / 16, seed=7)),
+            host_ms(lambda: wire.encode_sparse(ops.bernk(xm, keep_prob=1 / 16, seed=7)))),
+        "per-worker ind 10 x 2**16 (0.1)": (
+            host_ms(lambda: kenc.encode_per_worker(xm, n_workers=10, keep_prob=0.1, seed=7), reps=10),
+            host_ms(lambda: [wire.encode_sparse(ops.bernk(xm, keep_prob=0.1, seed=7, worker=i))
+                             for i in range(10)], reps=10)),
+    }
+    for name, (dev_ms, host_ms_) in per_msg.items():
+        log(f"(l) encode {name:32s}: fused device path {dev_ms:.4f} ms, host codec over the op "
+            f"{host_ms_:.4f} ms (host clock, each incl. its copy to the host)")
+
     summary = {"kernels": [
         {"name": "l1_subgrad", "route": "cuda", "source": "src/repro_torch/csrc/l1_subgrad.cu",
          "replaces": "src/repro/kernels/l1_subgrad.py:46", "launches": launches["l1_subgrad"],
@@ -677,6 +962,16 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{replaces}", "launches": wire_launches[name],
             "max_abs_err": wire_err[name], "ms": ms_, "plain_ms": plain_, "bound_ms": bound_,
             "bound_by": "bytes", "library_ms": lib_})
+    for name, src, replaces in (
+        ("bernk", "randk.cu", "randk.py:54"), ("rotk_apply", "permk.cu", "permk.py:39"),
+        ("mask_streams", "encode.cu", "encode.py:287"), ("topk_streams", "encode.cu", "encode.py:311"),
+    ):
+        ms_, plain_, bound_, by_ = st[name]
+        summary["kernels"].append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/{replaces}", "launches": bench_launches[name],
+            "max_abs_err": bench_err[name], "ms": ms_, "plain_ms": plain_, "bound_ms": bound_,
+            "bound_by": by_, "library_ms": None})
     print(json.dumps(summary), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,65 +1,56 @@
-// Stream extraction of the SPARSE and DENSE wire codecs on Hopper.
+// The fused stream kernels of the wire codecs on Hopper: per value, the sign
+// bit, the magnitude's bit pattern in the wire dtype and a validity flag (the
+// SPARSE codec's three streams), or the value's wire pattern (DENSE).
 //
 // sparse_streams replaces the Pallas TPU kernel
 // repro/kernels/encode.py::_sparse_streams_kernel (pallas_call at
-// encode.py:265): per value of a batch of message rows, the sign bit, the
-// magnitude's bit pattern in the wire dtype and a validity flag.
+// encode.py:265): the streams of a batch of already sparsified message rows.
+// mask_streams replaces ::_mask_streams_kernel (pallas_call at encode.py:287):
+// the BernK message of one shared fp32 vector for each row's worker id (a
+// device int32 tensor), made from the counter hash (counter_hash.cuh) on the
+// global index and scaled as bernk does in f32 (x * float32(1 / keep_prob),
+// see randk.cu), then streamed.
+// topk_streams replaces ::_topk_streams_kernel (pallas_call at encode.py:311):
+// block top-k selection (topk_select.cuh, block_topk's rounds), then each kept
+// value written to the slot given by its rank inside its block, with its
+// global index; slots past the block's count are zero.
 // dense_bits replaces ::_dense_bits_kernel (pallas_call at encode.py:328): the
 // value's bit pattern in the wire dtype, sign kept.
 //
-// Everything is computed on bit patterns, never with float arithmetic, casts
-// or compares, as the host codec does (repro_torch/wire/sparse.py):
+// The streams are computed on bit patterns, never with float casts or
+// compares, as the host codec does (repro_torch/wire/sparse.py):
 //   sign  = bits >> 31,  magbits = bits & 0x7fffffff,  valid = magbits != 0
-// (fp32 denormals are kept and -0.0 is elided, flush-to-zero or not), and
-//   fp16  = numpy's npy_floatbits_to_halfbits: round to nearest even, NaN ->
-//           0x7c00 + (mantissa >> 13) (0x7c01 if that is 0x7c00), sign kept;
-//   bf16  = ml_dtypes: (bits + 0x7fff + ((bits >> 16) & 1)) >> 16, NaN ->
-//           sign | 0x7fc0.
-// __float2half_rn / __float2bfloat16_rn / cvt would canonicalise NaNs and are
-// not used.
+// (fp32 denormals are kept and -0.0 is elided, flush-to-zero or not), with
+// fp16/bf16 by float_bits.cuh's host rules.
 //
 // Bound: bytes (4 bytes in, 12 or 4 bytes out per value, a few integer
 // operations); at the main path's 10 x 1000 values a launch's latency
-// dominates. Design: one thread per value, grid (ceil(d / 256), rows);
-// outputs are uint32 so that the compaction and the packing that follow read
+// dominates. topk_streams is bound by its k dependent block reductions, as
+// block_topk is. Design: one thread per value, grid (ceil(d / 256), rows);
+// topk_streams one thread block per vector block, |x| and keep flags in shared
+// memory, ranks by a block-wide scan over contiguous per-thread chunks.
+// Outputs are uint32 so that the compaction and the packing that follow read
 // them without conversion.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "counter_hash.cuh"
+#include "float_bits.cuh"
+#include "topk_select.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ uint32_t f32_to_f16_bits(uint32_t f) {
-  const uint32_t sgn = (f >> 16) & 0x8000u;
-  const uint32_t fexp = f & 0x7f800000u, fsig = f & 0x007fffffu;
-  if (fexp >= 0x47800000u) {  // overflow to inf, inf, NaN
-    if (fexp == 0x7f800000u && fsig != 0) {
-      uint32_t r = 0x7c00u + (fsig >> 13);
-      if (r == 0x7c00u) r = 0x7c01u;  // keep it a NaN
-      return sgn + r;
-    }
-    return sgn + 0x7c00u;
-  }
-  if (fexp <= 0x38000000u) {  // a subnormal half or a signed zero
-    if (fexp < 0x33000000u) return sgn;
-    uint32_t s = (0x00800000u + fsig) >> (113u - (fexp >> 23));
-    if ((s & 0x3fffu) != 0x1000u || (f & 0x7ffu) != 0) s += 0x1000u;
-    return sgn + (s >> 13);
-  }
-  uint32_t s = fsig;  // normal; a carry out of the mantissa bumps the exponent
-  if ((s & 0x3fffu) != 0x1000u) s += 0x1000u;
-  return sgn + ((fexp - 0x38000000u) >> 13) + (s >> 13);
-}
-
-__device__ __forceinline__ uint32_t f32_to_bf16_bits(uint32_t f) {
-  if ((f & 0x7fffffffu) > 0x7f800000u) return ((f >> 16) & 0x8000u) | 0x7fc0u;
-  return (f + 0x7fffu + ((f >> 16) & 1u)) >> 16;
-}
-
-// mag: 0 = fp32, 1 = fp16, 2 = bf16 (wire MagDType)
-__device__ __forceinline__ uint32_t wire_bits(uint32_t f, int mag) {
-  return mag == 0 ? f : (mag == 1 ? f32_to_f16_bits(f) : f32_to_bf16_bits(f));
+// The three SPARSE streams of one fp32 bit pattern at flat position i.
+__device__ __forceinline__ void emit_streams(uint32_t b, long long i, int mag,
+                                             uint32_t* __restrict__ sign,
+                                             uint32_t* __restrict__ magbits,
+                                             uint32_t* __restrict__ valid) {
+  const uint32_t mb = b & 0x7fffffffu;
+  sign[i] = b >> 31;
+  magbits[i] = wire_bits(mb, mag);
+  valid[i] = mb != 0u;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -69,17 +60,83 @@ sparse_streams_kernel(const uint32_t* __restrict__ x, int d, int mag,
   const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (j >= d) return;
   const long long i = (long long)blockIdx.y * d + j;
-  const uint32_t b = x[i];
-  const uint32_t mb = b & 0x7fffffffu;
-  sign[i] = b >> 31;
-  magbits[i] = wire_bits(mb, mag);
-  valid[i] = mb != 0u;
+  emit_streams(x[i], i, mag, sign, magbits, valid);
 }
 
 __global__ void __launch_bounds__(kThreads)
 dense_bits_kernel(const uint32_t* __restrict__ x, int d, int mag, uint32_t* __restrict__ out) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i < d) out[i] = wire_bits(x[i], mag);
+}
+
+__global__ void __launch_bounds__(kThreads)
+mask_streams_kernel(const float* __restrict__ x, const uint32_t* __restrict__ workers, int d,
+                    uint32_t seed32, float kp, float recip, int mag,
+                    uint32_t* __restrict__ sign, uint32_t* __restrict__ magbits,
+                    uint32_t* __restrict__ valid) {
+  const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (j >= d) return;
+  const float u = hash_uniform((uint32_t)j, hash_salt(seed32, workers[blockIdx.y]));
+  const float v = u < kp ? __fmul_rn(x[j], recip) : 0.0f;
+  emit_streams(__float_as_uint(v), (long long)blockIdx.y * d + j, mag, sign, magbits, valid);
+}
+
+// Exclusive prefix sum of v over the block's threads; *total gets the sum.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
+  __shared__ int warp_sums[topk_select::kWarps];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int incl = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += up;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  int base = 0, sum = 0;
+#pragma unroll
+  for (int w = 0; w < topk_select::kWarps; ++w) {
+    if (w < warp) base += warp_sums[w];
+    sum += warp_sums[w];
+  }
+  *total = sum;
+  return base + incl - v;
+}
+
+__global__ void __launch_bounds__(topk_select::kThreads)
+topk_streams_kernel(const float* __restrict__ x, int b, int ks, int mag,
+                    uint32_t* __restrict__ idx, uint32_t* __restrict__ sign,
+                    uint32_t* __restrict__ magbits, uint32_t* __restrict__ valid) {
+  constexpr int kT = topk_select::kThreads;
+  extern __shared__ float remaining[];  // [b] fp32, then [b] keep flags
+  unsigned char* keep = reinterpret_cast<unsigned char*>(remaining + b);
+  const float* xb = x + (size_t)blockIdx.x * b;
+  for (int i = threadIdx.x; i < b; i += kT) {
+    remaining[i] = fabsf(xb[i]);
+    keep[i] = 0;
+  }
+  __syncthreads();
+  topk_select::select(remaining, keep, b, ks);  // rounds past b would select nothing new
+
+  // Each thread owns a contiguous chunk, so a scan of the per-chunk counts
+  // gives every kept value its rank: ascending index order inside the block.
+  const int chunk = (b + kT - 1) / kT;
+  const int lo = min(b, (int)threadIdx.x * chunk), hi = min(b, lo + chunk);
+  int count = 0;
+  for (int i = lo; i < hi; ++i) count += keep[i];
+  int total;
+  int slot = block_exclusive_scan(count, &total);
+  const long long base = (long long)blockIdx.x * ks;
+  for (int i = lo; i < hi; ++i) {
+    if (!keep[i]) continue;
+    const long long o = base + slot++;
+    idx[o] = (uint32_t)((long long)blockIdx.x * b + i);
+    emit_streams(__float_as_uint(xb[i]), o, mag, sign, magbits, valid);
+  }
+  for (int s = total + threadIdx.x; s < ks; s += kT) {
+    const long long o = base + s;
+    idx[o] = sign[o] = magbits[o] = valid[o] = 0u;
+  }
 }
 
 }  // namespace
@@ -104,5 +161,41 @@ extern "C" int dense_bits(const void* x, int d, int mag, void* out, void* stream
   const unsigned grid = (unsigned)(((long long)d + kThreads - 1) / kThreads);
   dense_bits_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), d, mag, static_cast<uint32_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+// x: d fp32; workers: rows int32 worker ids; sign, magbits, valid: rows x d
+// uint32, all contiguous. seed32 = seed mod 2**32; kp = float32(keep_prob);
+// recip = float32(1) / kp.
+extern "C" int mask_streams(const void* x, const void* workers, int rows, int d,
+                            unsigned int seed32, float kp, float recip, int mag, void* sign,
+                            void* magbits, void* valid, void* stream) {
+  if (rows < 0 || rows > 65535 || d < 0 || mag < 0 || mag > 2) return (int)cudaErrorInvalidValue;
+  if (rows == 0 || d == 0) return (int)cudaSuccess;
+  const dim3 grid((unsigned)(((long long)d + kThreads - 1) / kThreads), (unsigned)rows);
+  mask_streams_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const uint32_t*>(workers), d, seed32, kp, recip,
+      mag, static_cast<uint32_t*>(sign), static_cast<uint32_t*>(magbits),
+      static_cast<uint32_t*>(valid));
+  return (int)cudaGetLastError();
+}
+
+// x: nblocks * b fp32 contiguous; idx, sign, magbits, valid: nblocks x ks
+// uint32 contiguous, ks = min(k, b) slots per block.
+extern "C" int topk_streams(const void* x, int nblocks, int b, int k, int mag, void* idx,
+                            void* sign, void* magbits, void* valid, void* stream) {
+  if (nblocks < 0 || b <= 0 || k < 1 || mag < 0 || mag > 2) return (int)cudaErrorInvalidValue;
+  if (nblocks == 0) return (int)cudaSuccess;
+  const int ks = k < b ? k : b;
+  const size_t smem = (size_t)b * (sizeof(float) + 1);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        topk_streams_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  topk_streams_kernel<<<nblocks, topk_select::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), b, ks, mag, static_cast<uint32_t*>(idx),
+      static_cast<uint32_t*>(sign), static_cast<uint32_t*>(magbits),
+      static_cast<uint32_t*>(valid));
   return (int)cudaGetLastError();
 }

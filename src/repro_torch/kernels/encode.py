@@ -1,18 +1,23 @@
 """Device encode of the SPARSE and DENSE wire codecs (port of
-``repro/kernels/encode.py``: ``_sparse_device``/``sparse_encode``,
-``_rows_device``/``encode_rows``, ``_dense_device``/``dense_encode``).
+``repro/kernels/encode.py``: ``sparse_encode``, ``encode_rows``,
+``dense_encode``, and the fused compress-and-encode paths ``mask_encode``,
+``encode_per_worker`` and ``topk_encode``).
 
 Every buffer is byte-identical to the port's host codec
-(``repro_torch.wire.encode_sparse`` / ``encode_dense``), which is
-byte-identical to the reference's host codec. Per call:
+(``repro_torch.wire.encode_sparse`` / ``encode_dense``) over the matching
+compressor output, which is byte-identical to the reference's host codec.
+Per call:
 
-1. the stream kernel ``csrc/encode.cu`` (:func:`sparse_streams`, or
-   :func:`dense_bits`) turns each fp32 value into its wire bit patterns;
+1. a stream kernel of ``csrc/encode.cu`` turns each fp32 value into its wire
+   bit patterns: :func:`sparse_streams` for given message rows,
+   :func:`mask_streams` for the BernK messages of one vector (one row per
+   worker id), :func:`topk_streams` for block top-k (per-block slots with
+   the kept values' global indices), or :func:`dense_bits`;
 2. SPARSE only, :func:`_compact_streams` (torch ops, as the reference leaves
    it to XLA outside its Pallas bodies): the valid entries of each row move
-   to the front in ascending index order (an inclusive ``cumsum`` of the
-   valid flags gives each one its slot, one ``scatter_``) and everything
-   behind the count is zero, the host codec's padding;
+   to the front in stream order (an inclusive ``cumsum`` of the valid flags
+   gives each one its slot, one ``scatter_``) and everything behind the
+   count is zero, the host codec's padding;
 3. the pack kernel ``csrc/pack.cu`` packs each full-length stream of every
    row into one int32 buffer, with the counts in its first column;
 4. one host read of that buffer; the host adds the 16 fixed header bytes
@@ -32,7 +37,8 @@ import torch
 
 from ..wire import bitstream as bs
 from ..wire.spec import MAG_BITS, CodecID, MagDType, index_width, mag_dtype, pack_header
-from . import ops, ref, runtime
+from . import ops, randk, ref, runtime
+from . import topk as _topk
 
 # Payload layouts of wire/sparse.py (DESIGN.md §3.1/§3.4)
 _SPARSE_PAYLOAD = struct.Struct("<BxxxI")  # [u8 mag][pad x3][u32 count]
@@ -98,31 +104,98 @@ def dense_bits(x: torch.Tensor, mag) -> torch.Tensor:
     return out
 
 
+def _i32_pattern(v: int) -> int:
+    """The int32 holding the uint32 pattern of ``v mod 2**32``."""
+    v %= 1 << 32
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def mask_streams(x: torch.Tensor, workers: torch.Tensor, keep_prob: float, seed: int, mag):
+    """(sign, magnitude, valid) int32 streams [rows, d] of the BernK message
+    of fp32 x [d] for each worker id of ``workers`` [rows] int32 (on x's
+    device; see ``ref.mask_streams_ref``)."""
+    m = mag_dtype(mag)
+    if x.dtype != torch.float32 or x.dim() != 1:
+        raise TypeError(f"mask_streams: x must be [d] float32, got {x.dtype} {tuple(x.shape)}")
+    if workers.dtype != torch.int32 or workers.dim() != 1:
+        raise TypeError(f"mask_streams: workers must be [rows] int32, got {workers.dtype} "
+                        f"{tuple(workers.shape)}")
+    kp, recip, _ = randk.keep_prob_constants(keep_prob)
+    if not runtime.on_cuda(x, workers):
+        return ref.mask_streams_ref(x, workers, keep_prob, seed, int(m))
+    if not (x.is_contiguous() and workers.is_contiguous()):
+        raise ValueError("mask_streams: x and workers must be contiguous")
+    rows, d = workers.shape[0], x.shape[0]
+    sign, magbits, valid = (torch.empty((rows, d), dtype=torch.int32, device=x.device)
+                            for _ in range(3))
+    fn = runtime.function("encode", "mask_streams", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p])
+    err = fn(x.data_ptr(), workers.data_ptr(), rows, d, seed % (1 << 32), kp, recip, int(m),
+             sign.data_ptr(), magbits.data_ptr(), valid.data_ptr(), runtime.stream_ptr(x))
+    runtime.check(err, "mask_streams")
+    runtime.count_launch("mask_streams")
+    return sign, magbits, valid
+
+
+def topk_streams(x: torch.Tensor, k: int, block: int, mag):
+    """(index, sign, magnitude, valid) int32 streams [nblocks, min(k, block)]
+    of block top-k over fp32 x [nblocks * block] (see
+    ``ref.topk_streams_ref``)."""
+    m = mag_dtype(mag)
+    if x.dtype != torch.float32 or x.dim() != 1:
+        raise TypeError(f"topk_streams: x must be [d] float32, got {x.dtype} {tuple(x.shape)}")
+    if not 0 < block <= _topk.MAX_BLOCK:
+        raise ValueError(
+            f"topk_streams: block={block} outside 1..{_topk.MAX_BLOCK}: a block's |x| and keep "
+            f"flags must fit the {runtime.MAX_SMEM_BYTES}-byte (227 KB) shared-memory limit")
+    if k < 1:
+        raise ValueError(f"topk_streams: k={k} < 1")
+    if x.shape[0] % block:
+        raise ValueError(f"topk_streams: d={x.shape[0]} is not a multiple of block={block}")
+    if not runtime.on_cuda(x):
+        return ref.topk_streams_ref(x, k, block, int(m))
+    if not x.is_contiguous():
+        raise ValueError("topk_streams: x must be contiguous")
+    nblocks, ks = x.shape[0] // block, min(k, block)
+    streams = [torch.empty((nblocks, ks), dtype=torch.int32, device=x.device) for _ in range(4)]
+    fn = runtime.function("encode", "topk_streams", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    err = fn(x.data_ptr(), nblocks, block, k, int(m), *(t.data_ptr() for t in streams),
+             runtime.stream_ptr(x))
+    runtime.check(err, "topk_streams")
+    runtime.count_launch("topk_streams")
+    return tuple(streams)
+
+
 # ---------------------------------------------------------------------------
 # SPARSE: compaction, packing, host assembly
 # ---------------------------------------------------------------------------
 
 
-def _compact_streams(sign, magbits, valid):
-    """Move each row's valid entries to the front in ascending index order
-    (``np.nonzero`` order) and zero everything behind the count. Returns
-    ([3, rows, d] int32 view: index, sign, magnitude; counts [rows] int64)."""
-    rows, d = valid.shape
+def _compact_streams(idx, sign, magbits, valid):
+    """Move each row's valid entries to the front in stream order (for the
+    streams here, ascending index: ``np.nonzero`` order) and zero everything
+    behind the count. All four are [rows, L]; returns ([3, rows, L] int32
+    view: index, sign, magnitude; counts [rows] int64)."""
+    rows, L = valid.shape
     slot = torch.cumsum(valid, dim=1)  # int64, inclusive
-    dest = torch.where(valid != 0, slot - 1, d)  # invalid entries go to a spare column
-    idx = torch.arange(d, dtype=torch.int32, device=valid.device).expand(rows, d)
-    out = torch.zeros((3, rows, d + 1), dtype=torch.int32, device=valid.device)
-    out.scatter_(2, dest.expand(3, rows, d), torch.stack([idx, sign, magbits]))
-    return out[..., :d], slot[:, -1]
+    dest = torch.where(valid != 0, slot - 1, L)  # invalid entries go to a spare column
+    out = torch.zeros((3, rows, L + 1), dtype=torch.int32, device=valid.device)
+    out.scatter_(2, dest.expand(3, rows, L), torch.stack([idx, sign, magbits]))
+    return out[..., :L], slot[:, -1]
 
 
 def _pack_sparse(streams, counts, d: int, m: MagDType):
-    """Pack the three full-length streams of every row into one int32 buffer
-    [rows, 1 + words]: column 0 the count, then the index, sign and magnitude
-    words. Returns (buffer, words per stream)."""
+    """Pack the three full-length streams [3, rows, L] of every row of a
+    d-value message into one int32 buffer [rows, 1 + words]: column 0 the
+    count, then the index, sign and magnitude words. Returns (buffer, words
+    per stream)."""
     rows = counts.shape[0]
     widths = (index_width(d), 1, MAG_BITS[m])
-    nws = [bs.n_words(d, w) for w in widths]
+    nws = [bs.n_words(streams.shape[-1], w) for w in widths]
     buf = torch.empty((rows, 1 + sum(nws)), dtype=torch.int32, device=counts.device)
     buf[:, 0] = counts
     o = 1
@@ -144,6 +217,23 @@ def _assemble_sparse(d: int, m: MagDType, row: np.ndarray, nws) -> bytes:
     return b"".join(parts)
 
 
+def _empty_sparse(m: MagDType) -> bytes:
+    return pack_header(CodecID.SPARSE, 0) + _SPARSE_PAYLOAD.pack(int(m), 0)
+
+
+def _encode_streams(d: int, m: MagDType, idx, sign, magbits, valid) -> list[bytes]:
+    """Compaction, packing, the one host read and the assembly of the
+    SPARSE buffers of a d-value message per row of the streams [rows, L]."""
+    streams, counts = _compact_streams(idx, sign, magbits, valid)
+    buf, nws = _pack_sparse(streams, counts, d, m)
+    host = buf.cpu().numpy().view("<u4")  # the one host read of the call
+    return [_assemble_sparse(d, m, row, nws) for row in host]
+
+
+def _arange_rows(rows: int, d: int, device) -> torch.Tensor:
+    return torch.arange(d, dtype=torch.int32, device=device).expand(rows, d)
+
+
 def encode_rows(X: torch.Tensor, *, mag="fp32") -> list[bytes]:
     """SPARSE encode of every message row of X [n, d] fp32: one stream
     launch, three pack launches and one host read for all n buffers. Each
@@ -153,11 +243,8 @@ def encode_rows(X: torch.Tensor, *, mag="fp32") -> list[bytes]:
         raise ValueError(f"encode_rows: X must be [n, d], got {tuple(X.shape)}")
     n, d = X.shape
     if d == 0:
-        return [pack_header(CodecID.SPARSE, 0) + _SPARSE_PAYLOAD.pack(int(m), 0)] * n
-    streams, counts = _compact_streams(*sparse_streams(X.contiguous(), m))
-    buf, nws = _pack_sparse(streams, counts, d, m)
-    host = buf.cpu().numpy().view("<u4")  # the one host read of the call
-    return [_assemble_sparse(d, m, host[i], nws) for i in range(n)]
+        return [_empty_sparse(m)] * n
+    return _encode_streams(d, m, _arange_rows(n, d, X.device), *sparse_streams(X.contiguous(), m))
 
 
 def sparse_encode(x: torch.Tensor, *, mag="fp32") -> bytes:
@@ -178,3 +265,68 @@ def dense_encode(x: torch.Tensor, *, mag="fp32") -> bytes:
     return (pack_header(CodecID.DENSE, x.shape[0]) + _DENSE_PAYLOAD.pack(int(m))
             + words.cpu().numpy().view("<u4").tobytes())
 
+
+
+# ---------------------------------------------------------------------------
+# fused compress + SPARSE encode
+# ---------------------------------------------------------------------------
+
+
+def _as_f32_vector(x: torch.Tensor, what: str) -> torch.Tensor:
+    if x.dim() != 1:
+        raise ValueError(f"{what}: x must be [d], got {tuple(x.shape)}")
+    return x.to(torch.float32).contiguous()  # the reference encodes x.astype(float32)
+
+
+def mask_encode(x: torch.Tensor, *, keep_prob: float, seed: int, worker: int = 0,
+                mag="fp32") -> bytes:
+    """Fused BernK compress + SPARSE encode of x [d]: one ``mask_streams``
+    launch. Equals ``wire.encode_sparse(ops.bernk(x, keep_prob=..., seed=...,
+    worker=...))`` for fp32 x; with ``seed = msg.seed + msg.round`` its mask
+    is the SEED codec's BERN mask (its values are not: that decode divides,
+    see ``ref.bernk_ref``)."""
+    m = mag_dtype(mag)
+    x = _as_f32_vector(x, "mask_encode")
+    if x.shape[0] == 0:
+        return _empty_sparse(m)
+    workers = torch.full((1,), _i32_pattern(worker), dtype=torch.int32, device=x.device)
+    d = x.shape[0]
+    return _encode_streams(d, m, _arange_rows(1, d, x.device),
+                           *mask_streams(x, workers, keep_prob, seed, m))[0]
+
+
+def encode_per_worker(x: torch.Tensor, *, n_workers: int, keep_prob: float, seed: int,
+                      mode: str = "ind", mag="fp32") -> list[bytes]:
+    """The n per-worker BernK messages of one shared x [d], SPARSE-encoded.
+
+    ``mode="ind"`` hashes each worker id independently: one ``mask_streams``
+    launch over n worker rows and one host read; ``mode="same"`` encodes
+    worker 0 once and repeats the buffer. Each buffer equals the matching
+    :func:`mask_encode` call."""
+    if mode == "same":
+        return [mask_encode(x, keep_prob=keep_prob, seed=seed, worker=0, mag=mag)] * n_workers
+    if mode != "ind":
+        raise ValueError(f"encode_per_worker mode must be ind|same, got {mode!r}")
+    m = mag_dtype(mag)
+    x = _as_f32_vector(x, "encode_per_worker")
+    d = x.shape[0]
+    if d == 0:
+        return [_empty_sparse(m)] * n_workers
+    workers = torch.arange(n_workers, dtype=torch.int32, device=x.device)
+    return _encode_streams(d, m, _arange_rows(n_workers, d, x.device),
+                           *mask_streams(x, workers, keep_prob, seed, m))
+
+
+def topk_encode(x: torch.Tensor, *, k_per_block: int, block: int = 1024, mag="fp32") -> bytes:
+    """Fused block-TopK compress + SPARSE encode of x [d] (zero-padded to a
+    multiple of ``block``): one ``topk_streams`` launch, then the compaction
+    over the per-block slots. Equals ``wire.encode_sparse(ops.block_topk(x,
+    k_per_block=..., block=...))`` for fp32 x."""
+    m = mag_dtype(mag)
+    x = _as_f32_vector(x, "topk_encode")
+    d = x.shape[0]
+    if d == 0:
+        return _empty_sparse(m)
+    xp = torch.nn.functional.pad(x, (0, (-d) % block))
+    streams = topk_streams(xp, k_per_block, block, m)
+    return _encode_streams(d, m, *(t.reshape(1, -1) for t in streams))[0]

@@ -13,7 +13,10 @@ reference's padding rules:
 * :func:`pack_bits` / :func:`unpack_bits` need no padding either: the
   reference pads the values (words) to word-aligned blocks with zeros and
   trims, the CUDA kernels guard the ragged tail themselves; the outputs are
-  the reference's, ``ceil(n*width/32)`` words and ``count`` values.
+  the reference's, ``ceil(n*width/32)`` words and ``count`` values;
+* :func:`bernk` and :func:`rotk_apply` take no ``block``: both kernels index
+  globally, so the reference's output does not depend on its tile, and its
+  zero padding is trimmed away.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ import torch.nn.functional as F
 
 from . import l1_subgrad as _l1
 from . import pack as _pack
+from . import permk as _permk
+from . import randk as _randk
 from . import ref, runtime
 from . import topk as _topk
 
@@ -56,6 +61,49 @@ def block_topk(x: torch.Tensor, *, k_per_block: int, block: int = 1024) -> torch
     else:
         out = ref.block_topk_ref(xp, k_per_block=k_per_block, block=block)
     return out[:d]
+
+
+def bernk(x: torch.Tensor, *, keep_prob: float, seed: int, worker: int = 0) -> torch.Tensor:
+    """Keep x[j] where the counter hash of (seed, worker, j) is below
+    ``keep_prob``, scaled by 1/keep_prob as the reference kernel computes it
+    (see :func:`.ref.bernk_ref`); the rest +0.0. x: [d] f32/bf16."""
+    if x.dim() != 1:
+        raise ValueError(f"bernk: x must be 1-D, got shape {tuple(x.shape)}")
+    if x.dtype not in _randk.DTYPES:
+        raise TypeError(f"bernk: dtype {x.dtype} not in {list(_randk.DTYPES)}")
+    if x.shape[0] > 1 and x.stride(0) != 1:
+        raise ValueError("bernk: x must be contiguous")
+    _randk.keep_prob_constants(keep_prob)  # raises outside (0, 1]
+    if x.shape[0] == 0:
+        return x.clone()
+    if not runtime.on_cuda(x):
+        return ref.bernk_ref(x, keep_prob=keep_prob, seed=seed, worker=worker)
+    return _randk.bernk_compress(x, keep_prob=keep_prob, seed=seed, worker=worker)
+
+
+def rotk_apply(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *, n: int,
+               worker: int) -> torch.Tensor:
+    """w + Q_worker(delta) of RotK: n * delta on the coordinates j with
+    j mod n == (worker + r) mod n, w elsewhere (see :func:`.ref.rotk_apply_ref`).
+    w, delta: [d] f32; rotation: a one-element int32 tensor r on the same
+    device (the card reads it there, with no host sync)."""
+    if w.dim() != 1 or delta.shape != w.shape:
+        raise ValueError(f"rotk_apply: w and delta must be [d], got {tuple(w.shape)} and "
+                         f"{tuple(delta.shape)}")
+    if w.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise TypeError(f"rotk_apply: float32 only, got {w.dtype} and {delta.dtype}")
+    if rotation.dtype != torch.int32 or rotation.numel() != 1:
+        raise TypeError(f"rotk_apply: rotation must be one int32, got {rotation.dtype} "
+                        f"{tuple(rotation.shape)}")
+    if n < 1:
+        raise ValueError(f"rotk_apply: n={n} < 1")
+    if w.shape[0] > 1 and (w.stride(0) != 1 or delta.stride(0) != 1):
+        raise ValueError("rotk_apply: w and delta must be contiguous")
+    if w.shape[0] == 0:
+        return w.clone()
+    if not runtime.on_cuda(w, delta, rotation):
+        return ref.rotk_apply_ref(w, delta, rotation, n=n, worker=worker)
+    return _permk.rotk_apply(w, delta, rotation, n=n, worker=worker)
 
 
 def l1_subgrad(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from . import randk as _randk
+
 
 # Rows of A one block of the CUDA kernel stages in shared memory: as many as
 # fit 48 KB (no opt-in needed), at most 32; one row needs 4*d bytes.
@@ -45,6 +47,23 @@ def l1_subgrad_ref(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return G
 
 
+def _topk_keep_ref(xb: torch.Tensor, k: int) -> torch.Tensor:
+    """The keep mask [nblocks, block] of the Pallas kernels' block top-k
+    selection over the rows of ``xb`` (see :func:`block_topk_ref`)."""
+    block = xb.shape[-1]
+    remaining = xb.abs().to(torch.float32)
+    idx = torch.arange(block, device=xb.device)
+    keep = torch.zeros(xb.shape, dtype=torch.bool, device=xb.device)
+    for _ in range(min(k, block)):  # rounds past b repeat the last: no-ops
+        m = remaining.amax(dim=-1, keepdim=True)
+        first = torch.where(remaining == m, idx, block).amin(dim=-1, keepdim=True)
+        sel = idx == first
+        sel_f = sel.to(torch.float32)
+        remaining = remaining * (1.0 - sel_f) - sel_f
+        keep |= sel
+    return keep
+
+
 def block_topk_ref(x: torch.Tensor, *, k_per_block: int, block: int) -> torch.Tensor:
     """Per-block magnitude top-k with the Pallas kernel's arithmetic.
 
@@ -61,16 +80,7 @@ def block_topk_ref(x: torch.Tensor, *, k_per_block: int, block: int) -> torch.Te
     if d % block:
         raise ValueError(f"d={d} is not a multiple of block={block}")
     xb = x.reshape(-1, block)
-    remaining = xb.abs().to(torch.float32)
-    idx = torch.arange(block, device=x.device)
-    keep = torch.zeros(xb.shape, dtype=torch.bool, device=x.device)
-    for _ in range(min(k_per_block, block)):  # rounds past b repeat the last: no-ops
-        m = remaining.amax(dim=-1, keepdim=True)
-        first = torch.where(remaining == m, idx, block).amin(dim=-1, keepdim=True)
-        sel = idx == first
-        sel_f = sel.to(torch.float32)
-        remaining = remaining * (1.0 - sel_f) - sel_f
-        keep |= sel
+    keep = _topk_keep_ref(xb, k_per_block)
     return torch.where(keep, xb, torch.zeros((), dtype=x.dtype, device=x.device)).reshape(d)
 
 
@@ -172,3 +182,100 @@ def unpack_bits_ref(words: torch.Tensor, width: int, count: int) -> torch.Tensor
     lo = w[..., pos >> 5] >> off
     hi = (w[..., (pos >> 5) + 1] & ((1 << off) - 1)) << (32 - off)  # the low `off` bits: no overflow
     return as_i32((lo | hi) & ((1 << width) - 1))
+
+
+# ---------------------------------------------------------------------------
+# the counter hash, BernK, RotK and the fused encode streams
+# ---------------------------------------------------------------------------
+
+
+def _mul32(h: torch.Tensor, m: int) -> torch.Tensor:
+    """(h * m) mod 2**32 for int64 h in [0, 2**32) and a constant m < 2**32,
+    with no product above 2**48 (an int64 product of two 32-bit values would
+    overflow)."""
+    return (h * (m & 0xFFFF) + (((h * (m >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def hash_uniform_ref(idx: torch.Tensor, salt) -> torch.Tensor:
+    """The counter hash of ``randk.hash_uniform`` on tensors: int64 ``idx``
+    (the global index) and ``salt`` = ``randk.hash_salt(seed, worker)`` (an
+    int, or an int64 tensor broadcasting against idx); float32 in [0, 1),
+    bit-equal to the numpy version. int64 arithmetic masked to 32 bits: torch
+    on the CPU has no uint32 right shift."""
+    h = _mul32(idx & _M32, _randk._M1) ^ salt
+    h = h ^ (h >> 15)
+    h = _mul32(h, _randk._M2)
+    h = h ^ (h >> 13)
+    h = _mul32(h, _randk._M1)
+    h = h ^ (h >> 16)
+    return h.to(torch.float32) * (1.0 / 4294967296.0)  # exact: h < 2**32, RNE to f32
+
+
+def _bernk_uniform(d: int, salt, device) -> torch.Tensor:
+    return hash_uniform_ref(torch.arange(d, dtype=torch.int64, device=device), salt)
+
+
+def bernk_ref(x: torch.Tensor, *, keep_prob: float, seed: int, worker: int = 0) -> torch.Tensor:
+    """BernK with the arithmetic of the reference's kernel
+    (``repro.kernels.ops.bernk``), not of its oracle
+    (``repro.kernels.ref.bernk_ref``, which divides): keep x[j] where
+    ``u_j < float32(keep_prob)``, u from the counter hash of (seed, worker,
+    j); in f32 the kept value is
+    ``x * (float32(1) / float32(keep_prob))`` (XLA folds the Pallas body's
+    division by the constant into this product), in bf16 it is
+    ``bf16(float32(x) / float32(bf16(keep_prob)))`` (an f32 division, bf16 by
+    round to nearest even, NaN -> sign | 0x7FC0); the rest +0.0. x: [d]."""
+    kp, recip, kpb = _randk.keep_prob_constants(keep_prob)
+    keep = _bernk_uniform(x.shape[-1], _randk.hash_salt(seed, worker), x.device) < kp
+    if x.dtype == torch.float32:
+        return torch.where(keep, x * recip, 0.0)
+    # a divisor tensor on x's device: with a Python scalar, torch on CUDA
+    # multiplies by its reciprocal instead of dividing
+    q = x.to(torch.float32) / x.new_full((), kpb, dtype=torch.float32)
+    hb = f32_to_bf16_bits_ref(u32(q.view(torch.int32)))
+    hb = torch.where(keep, hb, 0)
+    return torch.where(hb >= 2**15, hb - 2**16, hb).to(torch.int16).view(torch.bfloat16)
+
+
+def rotk_apply_ref(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *, n: int,
+                   worker: int) -> torch.Tensor:
+    """w + where(j mod n == (worker + r) mod n, delta * n, +0.0), as the
+    reference kernel computes it: a floor mod (r may be negative), the
+    product rounded before the sum (no FMA), and -0.0 in w turned into +0.0
+    where nothing is added. ``rotation``: a one-element int32 tensor r."""
+    r = rotation.reshape(()).to(torch.int32)
+    keep = torch.arange(w.shape[-1], device=w.device) % n == torch.remainder(r + worker, n)
+    return w + torch.where(keep, delta * float(n), 0.0)
+
+
+def mask_streams_ref(x: torch.Tensor, workers: torch.Tensor, keep_prob: float, seed: int, mag: int):
+    """(sign, magnitude, valid) int32 streams [rows, d] of the BernK message
+    of fp32 ``x`` [d] for each worker id in ``workers`` [rows] (int32/int64),
+    as the reference's fused ``_mask_streams_kernel`` makes them: the mask
+    and f32 scaling of :func:`bernk_ref`, then :func:`sparse_streams_ref`."""
+    kp, recip, _ = _randk.keep_prob_constants(keep_prob)
+    salt = (_mul32(u32(workers.reshape(-1, 1)), _randk._M2) + seed % 2**32) & _M32
+    keep = _bernk_uniform(x.shape[-1], salt, x.device) < kp
+    return sparse_streams_ref(torch.where(keep, x * recip, 0.0), mag)
+
+
+def topk_streams_ref(x: torch.Tensor, k: int, block: int, mag: int):
+    """(index, sign, magnitude, valid) int32 streams [nblocks, ks] of the
+    reference's fused ``_topk_streams_kernel``, ks = min(k, block) slots per
+    block: :func:`block_topk_ref`'s selection over fp32 ``x`` [nblocks *
+    block], then each kept value in the slot of its rank inside its block
+    (ascending index), with its global index; unused slots are zero."""
+    d = x.shape[-1]
+    if d % block:
+        raise ValueError(f"d={d} is not a multiple of block={block}")
+    xb = x.reshape(-1, block)
+    keep = _topk_keep_ref(xb, k)
+    ks = min(k, block)
+    dest = torch.where(keep, torch.cumsum(keep, dim=1) - 1, ks)  # dropped -> a spare column
+    gidx = torch.arange(d, device=x.device).reshape(xb.shape)
+    bits = u32(xb.contiguous().view(torch.int32))
+    out = torch.zeros((2,) + xb.shape[:1] + (ks + 1,), dtype=torch.int64, device=x.device)
+    out.scatter_(2, dest.expand(2, *dest.shape), torch.stack([gidx, bits]))
+    idx, vbits = out[..., :ks]
+    sign, magbits, valid = sparse_streams_ref(as_i32(vbits).view(torch.float32), mag)
+    return as_i32(idx), sign, magbits, valid

@@ -7,7 +7,8 @@ vector standalone; the SEED codec needs the receiver-local ``delta``
 (DESIGN.md §2) and raises without it.
 
 ``codec_for`` maps the port's compressor families to their natural wire
-codec: Identity -> DENSE, TopK / BlockTopK / RandK -> SPARSE, PermK -> SEED.
+codec: Identity -> DENSE, TopK / BlockTopK / RandK / ScaledUnbiased ->
+SPARSE, PermK / RotK / BernK -> SEED, NaturalCompression -> NATURAL.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from ..core import compressors as C
-from .natural import decode_natural
+from .natural import decode_natural, encode_natural
 from .seedonly import apply_seed, decode_seed
 from .sparse import decode_dense, decode_sparse, encode_dense, encode_sparse
 from .spec import HEADER_BYTES, CodecID, unpack_header
@@ -53,8 +54,10 @@ def peek(buf: bytes) -> tuple[CodecID, int]:
 
 def codec_for(comp: C.Compressor) -> CodecID:
     """The natural wire codec for a compressor family."""
-    if isinstance(comp, C.PermK):
+    if isinstance(comp, (C.BernK, C.RotK, C.PermK)):
         return CodecID.SEED
+    if isinstance(comp, C.NaturalCompression):
+        return CodecID.NATURAL
     if isinstance(comp, C.Identity):
         return CodecID.DENSE
     return CodecID.SPARSE
@@ -77,10 +80,13 @@ def encode(x, comp: Optional[C.Compressor] = None, *, mag="fp32",
     a true O(1) SEED message needs the RNG coordinates, not just the
     output — use :func:`repro_torch.wire.encode_seed` for that.
 
-    ``device_encode`` picks the encoder of SPARSE/DENSE payloads (see
-    :func:`_device_path`).
+    NATURAL payloads are encoded on the host, before any device path is
+    considered (the reference's order); ``device_encode`` picks the encoder
+    of SPARSE/DENSE payloads (see :func:`_device_path`).
     """
     codec = codec_for(comp) if comp is not None else CodecID.SPARSE
+    if codec == CodecID.NATURAL:
+        return encode_natural(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
     if _device_path(x, device_encode):
         from ..kernels import encode as kenc
 

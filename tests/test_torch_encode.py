@@ -231,6 +231,9 @@ def test_cpu_path_counts_no_launch():
     runtime.reset_launches()
     K.encode_rows(torch.ones(2, 40))
     K.dense_encode(torch.ones(40))
+    K.topk_encode(torch.ones(40), k_per_block=4, block=16)
+    K.mask_encode(torch.ones(40), keep_prob=0.5, seed=1)
+    K.encode_per_worker(torch.ones(40), n_workers=3, keep_prob=0.5, seed=1)
     W.encode_rows(torch.ones(2, 40), device_encode=True)
     W.encode(torch.ones(40), C.Identity(), device_encode=True)
     assert sum(runtime.LAUNCHES.values()) == 0
@@ -271,6 +274,146 @@ def test_wire_encode_dispatch_gives_host_codec_bytes():
         assert W.encode(Xt[1], C.Identity(), mag="bf16", device_encode=dev) == JW.encode_dense(X[1], mag="bf16")
         assert W.encode(Xt[2], C.TopK(k=4), device_encode=dev) == JW.encode_sparse(X[2])
     assert W.encode_rows(X, mag="fp16") == want_rows
+
+
+# ---------------------------------------------------------------------------
+# fused compress + encode: topk_encode, mask_encode, encode_per_worker
+# (the cases of tests/test_encode_diff.py at small d)
+# ---------------------------------------------------------------------------
+
+BIG_SEED = 2**31 + 12345
+
+
+@pytest.mark.parametrize("mag", MAGS)
+@pytest.mark.parametrize("d,k", [(128, 1), (250, 8), (384, 128), (250, 200)])
+def test_topk_encode_vs_reference(d, k, mag):
+    """Port topk_encode (plain topk_streams on the CPU) == reference fused
+    topk_encode (interpret mode) == the host codecs over block_topk, k >=
+    block included (everything selected, zeros elided)."""
+    x = np.random.default_rng(d + k).standard_normal(d).astype(np.float32)
+    want = JW.encode_sparse(np.asarray(JO.block_topk(jnp.asarray(x), k_per_block=k, block=128)), mag=mag)
+    xt = torch.from_numpy(x)
+    assert K.topk_encode(xt, k_per_block=k, block=128, mag=mag) == want
+    assert W.encode_sparse(ops.block_topk(xt, k_per_block=k, block=128), mag=mag) == want
+    assert JK.topk_encode(jnp.asarray(x), k_per_block=k, block=128, mag=mag, interpret=True) == want
+
+
+@pytest.mark.parametrize("mag", MAGS)
+@pytest.mark.parametrize("kp,seed,worker", [(0.03, 5, 0), (0.1, BIG_SEED, 3), (0.25, 42, 7), (0.9, 11, 2**31 - 1)])
+def test_mask_encode_vs_reference(kp, seed, worker, mag):
+    """Port mask_encode == reference fused mask_encode (interpret mode) ==
+    the host codecs over bernk, at keep probabilities that are not powers of
+    two (the f32 reciprocal), a seed above 2**31 and the largest worker id the
+    reference's int32 operand takes."""
+    x = np.random.default_rng(seed % 1000).standard_normal(384).astype(np.float32)
+    xt = torch.from_numpy(x)
+    want = JW.encode_sparse(np.asarray(JO.bernk(jnp.asarray(x), keep_prob=kp, seed=seed, worker=worker)),
+                            mag=mag)
+    assert K.mask_encode(xt, keep_prob=kp, seed=seed, worker=worker, mag=mag) == want
+    assert W.encode_sparse(ops.bernk(xt, keep_prob=kp, seed=seed, worker=worker), mag=mag) == want
+    assert JK.mask_encode(jnp.asarray(x), keep_prob=kp, seed=seed, worker=worker, block=128, mag=mag,
+                          interpret=True) == want
+
+
+@pytest.mark.parametrize("mag", MAGS)
+def test_fused_encode_weird_values_vs_reference(mag):
+    """IEEE corners (tests/test_encode_diff.py's WEIRD and NaN payloads):
+    topk_encode keeps nothing after a NaN and stops after a selected inf;
+    mask_encode over NaN/inf/-0.0 payloads. All equal to the reference's
+    fused encoders and host codec (denormal-free where XLA's flush would
+    differ: see the test below)."""
+    cases = [WEIRD, WEIRD[1:], np.concatenate([NANS, WEIRD[8:]])]
+    for x in cases:
+        xt, xj = torch.from_numpy(x), jnp.asarray(x)
+        for k in (1, 4, 20):
+            want = JW.encode_sparse(np.asarray(JO.block_topk(xj, k_per_block=k, block=128)), mag=mag)
+            assert K.topk_encode(xt, k_per_block=k, block=128, mag=mag) == want
+            assert JK.topk_encode(xj, k_per_block=k, block=128, mag=mag, interpret=True) == want
+    no_denormals = np.concatenate([NANS, WEIRD[[0, 1, 2, 3, 6, 8, 9, 10, 11]]])
+    want = JK.mask_encode(jnp.asarray(no_denormals), keep_prob=0.9, seed=3, block=128, mag=mag, interpret=True)
+    assert K.mask_encode(torch.from_numpy(no_denormals), keep_prob=0.9, seed=3, mag=mag) == want
+
+
+def test_mask_encode_denormals_follow_ieee_not_xla_cpu_ftz():
+    """Denormal payloads: the port's mask_encode (and bernk) scale them as
+    IEEE numbers and send them; the reference's, run on XLA CPU, flush them to
+    zero and elide them. Asserted where it occurs."""
+    x = np.array([1e-40, -3e-39, 1e-42, 5.0, -2.0], np.float32)
+    kp = 0.999999
+    port = K.mask_encode(torch.from_numpy(x), keep_prob=kp, seed=1)
+    assert port == W.encode_sparse(ops.bernk(torch.from_numpy(x), keep_prob=kp, seed=1))
+    np.testing.assert_array_equal(_bits(W.decode(port)), _bits(x * (np.float32(1) / np.float32(kp))))
+    theirs = JK.mask_encode(jnp.asarray(x), keep_prob=kp, seed=1, interpret=True)
+    assert theirs != port
+    np.testing.assert_array_equal(np.flatnonzero(JW.decode(theirs)), [3, 4])
+
+
+def test_topk_encode_k_ge_d_and_block_slots():
+    """k >= d: every value of the one block is selected and the zeros are
+    elided. The per-block slots of topk_streams hold each block's selected
+    entries in ascending index order with their global index (a selected
+    zero is in its slot, not valid); a NaN stops selection and leaves the
+    block's slots zero."""
+    x = np.random.default_rng(1).standard_normal(96).astype(np.float32)
+    want = JW.encode_sparse(np.asarray(JO.block_topk(jnp.asarray(x), k_per_block=128, block=128)))
+    assert K.topk_encode(torch.from_numpy(x), k_per_block=128, block=128) == want
+    xs = np.zeros(384, np.float32)
+    xs[[3, 100, 130, 200, 300]] = [1.0, -4.0, 2.0, np.nan, 0.5]
+    idx, sign, magbits, valid = K.topk_streams(torch.from_numpy(xs), 3, 128, "fp32")
+    assert idx.tolist() == [[0, 3, 100], [0, 0, 0], [256, 257, 300]]
+    assert valid.tolist() == [[0, 1, 1], [0, 0, 0], [0, 0, 1]] and sign.tolist() == [[0, 0, 1], [0] * 3, [0] * 3]
+    assert _u32(magbits).tolist() == [[0, 0x3F800000, 0x40800000], [0] * 3, [0, 0, 0x3F000000]]
+    want = JW.encode_sparse(np.asarray(JO.block_topk(jnp.asarray(xs), k_per_block=3, block=128)))
+    assert K.topk_encode(torch.from_numpy(xs), k_per_block=3, block=128) == want
+
+
+def test_mask_encode_deterministic_across_paths():
+    """Same (seed, worker) => the same bytes from mask_encode and row 3 of
+    the per-worker batch; distinct workers give distinct masks; "same" mode
+    repeats worker 0's buffer; with seed = msg.seed + msg.round the mask is
+    the SEED codec's BERN mask."""
+    x = np.random.default_rng(3).standard_normal(512).astype(np.float32)
+    xt = torch.from_numpy(x)
+    kw = dict(keep_prob=0.25, seed=42)
+    b1 = K.mask_encode(xt, worker=3, **kw)
+    batch = K.encode_per_worker(xt, n_workers=5, mode="ind", **kw)
+    assert batch[3] == b1 and len(set(batch)) == 5
+    assert K.encode_per_worker(xt, n_workers=4, mode="same", **kw) == [K.mask_encode(xt, worker=0, **kw)] * 4
+    msg = W.SeedMessage(family=W.SeedFamily.BERN, seed=37, round=5, scale=1.0, n=5, worker=3, param=0.25)
+    np.testing.assert_array_equal(W.decode(b1) != 0, W.apply_seed(msg, x) != 0)
+
+
+@pytest.mark.parametrize("mode", ["ind", "same"])
+def test_encode_per_worker_vs_reference(mode):
+    x = np.random.default_rng(8).standard_normal(300).astype(np.float32)
+    want = JK.encode_per_worker(jnp.asarray(x), n_workers=5, keep_prob=0.1, seed=BIG_SEED, mode=mode,
+                                block=128, interpret=True)
+    got = K.encode_per_worker(torch.from_numpy(x), n_workers=5, keep_prob=0.1, seed=BIG_SEED, mode=mode)
+    assert got == want
+    assert got == [W.encode_sparse(ops.bernk(torch.from_numpy(x), keep_prob=0.1, seed=BIG_SEED,
+                                             worker=0 if mode == "same" else i)) for i in range(5)]
+
+
+def test_fused_encode_edges_and_checks():
+    """Empty and size-one messages; a bad mode, a block above the
+    shared-memory limit and k < 1 raise."""
+    for port, theirs in (
+            (lambda x: K.topk_encode(x, k_per_block=4, block=128),
+             lambda x: JK.topk_encode(x, k_per_block=4, block=128, interpret=True)),
+            (lambda x: K.mask_encode(x, keep_prob=0.5, seed=1, worker=1),
+             lambda x: JK.mask_encode(x, keep_prob=0.5, seed=1, worker=1, interpret=True))):
+        assert port(torch.zeros(0)) == JW.encode_sparse(np.zeros(0, np.float32))
+        for v in (2.5, 0.0, -0.0):
+            x = np.array([v], np.float32)
+            assert port(torch.from_numpy(x)) == theirs(jnp.asarray(x))
+    assert K.encode_per_worker(torch.zeros(0), n_workers=2, keep_prob=0.5, seed=1) == \
+        [JW.encode_sparse(np.zeros(0, np.float32))] * 2
+    with pytest.raises(ValueError, match="ind|same"):
+        K.encode_per_worker(torch.ones(8), n_workers=2, keep_prob=0.5, seed=1, mode="perm")
+    with pytest.raises(ValueError, match="227 KB"):
+        K.topk_encode(torch.ones(8), k_per_block=1, block=1 << 20)
+    with pytest.raises(ValueError):
+        K.topk_encode(torch.ones(8), k_per_block=0, block=8)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,22 @@ assert h["ledger"].rounds == 3, h["ledger"].rounds
 h = marina_p.run(prob, mode="ind", k=8, p=0.25, stepsize=stepsizes.Constant(0.01), T=3,
                  measure_wire=True, wire_mag="bf16")
 assert len(h["wire_bits"]) == 3 and h["wire_bits_total"] > 0, h["wire_bits"]
+# the encode and kernel benchmarks' modules: bernk, rotk_apply, the fused
+# encoders, the new compressors and the NATURAL codec
+import torch
+from repro_torch import kernel_bench, wire, wire_bench
+from repro_torch.core import compressors as C
+from repro_torch.kernels import encode as K, ops
+x = torch.linspace(-1.0, 1.0, 300)
+assert K.mask_encode(x, keep_prob=0.1, seed=3) == wire.encode_sparse(ops.bernk(x, keep_prob=0.1, seed=3))
+assert K.topk_encode(x, k_per_block=8, block=128) == wire.encode_sparse(ops.block_topk(x, k_per_block=8, block=128))
+assert len(K.encode_per_worker(x, n_workers=3, keep_prob=0.5, seed=1)) == 3
+ops.rotk_apply(x, x, torch.tensor(1, dtype=torch.int32), n=3, worker=0)
+gen = torch.Generator().manual_seed(0)
+for comp in (C.RotK(n=3), C.BernK(k=30), C.NaturalCompression(), C.ScaledUnbiased(inner=C.RandK(k=30))):
+    q = comp(x, comp.draw(300, gen, "cpu"))
+    wire.encode(q, comp)
+assert wire_bench.bench_encode(d=256, device="cpu")[-1][2] == 1.0
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print("ok")

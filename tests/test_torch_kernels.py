@@ -2,7 +2,10 @@
 kernels of the JAX reference, run in interpret mode on the CPU as
 tests/test_kernels.py runs them, plus the kernel-vs-plain cases on the card
 (all of the port's ``cuda``-marked tests live here: this file needs no JAX
-for them, so they run on a card whose machine has none).
+for them, so they run on a card whose machine has none). bernk and
+rotk_apply are held bit for bit, with the reference's arithmetic traps
+(XLA's reciprocal for a division by a constant, floor mod, no FMA, -0.0)
+and its one divergence (XLA on the CPU flushes denormals) named.
 
 On the CPU the port's wrappers run their plain PyTorch versions, which mirror
 the Pallas kernels' arithmetic; the CUDA kernels themselves are held against
@@ -16,7 +19,7 @@ import torch
 from repro_torch import wire as W
 from repro_torch.core import compressors as TC
 from repro_torch.kernels import encode as K
-from repro_torch.kernels import ops, ref, runtime
+from repro_torch.kernels import ops, randk, ref, runtime
 
 
 @pytest.fixture(scope="module")
@@ -212,10 +215,159 @@ def test_block_topk_limits():
         ops.block_topk(torch.zeros(10, dtype=torch.float64), k_per_block=1, block=8)
 
 
+# ---------------------------------------------------------------------------
+# the counter hash, bernk, rotk_apply
+# ---------------------------------------------------------------------------
+
+BIG_SEED, BIG_WORKER = 2**31 + 12345, 2**31 + 7
+
+
+@pytest.mark.parametrize("seed,worker", [(0, 0), (7, 3), (2**33 + 5, 9), (BIG_SEED, BIG_WORKER)])
+def test_hash_uniform_ref_bit_equal_to_numpy_and_reference(jx, seed, worker):
+    """The int64 torch hash (masked to 32 bits, products split below 2**48)
+    == the port's numpy hash == the reference's jnp hash, seed mod 2**32 and
+    the wrap of worker * M2 included."""
+    jnp = jx[0]
+    from repro.kernels import randk as jrandk
+
+    idx = np.arange(1 << 16, dtype=np.uint32)
+    got = ref.hash_uniform_ref(torch.from_numpy(idx.astype(np.int64)), randk.hash_salt(seed, worker)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(randk.hash_uniform(idx, seed, worker)))
+    np.testing.assert_array_equal(_bits(got), _bits(np.asarray(jrandk.hash_uniform(jnp.asarray(idx), seed, worker))))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,kp,seed,worker", [(512, 0.1, 11, 2), (777, 0.03, 11, 2), (1000, 1 / 3, 5, 0),
+                                              (1024, 0.9, BIG_SEED, BIG_WORKER), (300, 0.25, 3, 1)])
+def test_bernk_vs_pallas(jx, d, kp, seed, worker, dtype):
+    """Bit-exact against the Pallas kernel (interpret mode), at keep
+    probabilities that are not powers of two: f32 multiplies by the float32
+    reciprocal as XLA's folded division does, bf16 divides in f32 by
+    float32(bf16(kp)). d not a multiple of the reference's tile is padded and
+    trimmed by the reference, and indexed globally by the port."""
+    jnp, jops, _, _ = jx
+    x32 = np.random.default_rng(d).standard_normal(d).astype(np.float32)
+    xj = jnp.asarray(x32).astype(getattr(jnp, dtype))
+    xt = torch.from_numpy(x32).to(getattr(torch, dtype))
+    want = np.asarray(jops.bernk(xj, keep_prob=kp, seed=seed, worker=worker, block=256))
+    got = ops.bernk(xt, keep_prob=kp, seed=seed, worker=worker)
+    assert got.dtype == xt.dtype
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(), want.view(np.int16))
+    else:
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    assert 0 < int((got != 0).sum()) < d
+
+
+def test_bernk_reciprocal_vs_division_split(jx):
+    """Both sides of the reference's split at keep_prob 0.1. Its kernel
+    (ops.bernk) computes x * float32(1/0.1): the port's bernk equals it. Its
+    oracle (ref.bernk_ref) and its SEED BERN decode divide by float32(0.1):
+    the port's SEED decode equals that. The two differ in the last bit on
+    some kept values, with the same mask."""
+    jnp, jops, jref, _ = jx
+    from repro import wire as JW
+
+    x = np.random.default_rng(0).standard_normal(1 << 14).astype(np.float32)
+    kernel = np.asarray(jops.bernk(jnp.asarray(x), keep_prob=0.1, seed=12, worker=2))
+    oracle = np.asarray(jref.bernk_ref(jnp.asarray(x), keep_prob=0.1, seed=12, worker=2))
+    port = ops.bernk(torch.from_numpy(x), keep_prob=0.1, seed=12, worker=2).numpy()
+    np.testing.assert_array_equal(_bits(port), _bits(kernel))
+    msg = W.SeedMessage(family=W.SeedFamily.BERN, seed=7, round=5, scale=1.0, n=4, worker=2, param=0.1)
+    seed_decode = W.apply_seed(msg, x)
+    np.testing.assert_array_equal(_bits(seed_decode), _bits(oracle))
+    jmsg = JW.SeedMessage(family=JW.SeedFamily.BERN, seed=7, round=5, scale=1.0, n=4, worker=2, param=0.1)
+    np.testing.assert_array_equal(_bits(seed_decode), _bits(JW.apply_seed(jmsg, x)))
+    np.testing.assert_array_equal(port != 0, seed_decode != 0)
+    differ = int((_bits(port) != _bits(seed_decode)).sum())
+    assert 0 < differ < int((port != 0).sum()), differ
+    np.testing.assert_array_equal(port, np.where(port != 0, x * (np.float32(1) / np.float32(0.1)), 0))
+
+
+def test_bernk_denormals_follow_ieee_not_xla_cpu_ftz(jx):
+    """Denormal inputs: the port (and the card, built without fast-math)
+    scales them as IEEE numbers; the interpret-mode Pallas kernel runs on XLA
+    CPU, which flushes them to (signed) zero. Asserted where it occurs,
+    rather than hidden by a tolerance."""
+    jnp, jops, _, _ = jx
+    x = np.ones(64, np.float32)
+    x[:4] = [1e-40, -3e-39, 1e-42, 5.0]
+    kp = 0.999999
+    port = ops.bernk(torch.from_numpy(x), keep_prob=kp, seed=1, worker=0).numpy()
+    pallas = np.asarray(jops.bernk(jnp.asarray(x), keep_prob=kp, seed=1, worker=0))
+    assert (port != 0).all()  # every value kept at this keep probability
+    np.testing.assert_array_equal(_bits(port), _bits(x * (np.float32(1) / np.float32(kp))))
+    assert pallas[:3].view(np.uint32).tolist() == [0, 0x80000000, 0]  # flushed
+    np.testing.assert_array_equal(_bits(port[3:]), _bits(pallas[3:]))
+
+
+@pytest.mark.parametrize("n", [3, 4, 10, 16])
+@pytest.mark.parametrize("r", [-3, 0, "n+1"])
+def test_rotk_apply_vs_pallas(jx, n, r):
+    """Bit-exact against the Pallas kernel: floor mod of a negative r, the
+    product delta*n rounded before the sum (an FMA would differ for n not a
+    power of two), and -0.0 in w turned into +0.0 where nothing is added."""
+    jnp, jops, _, _ = jx
+    r = n + 1 if r == "n+1" else r
+    d = 1000
+    rng = np.random.default_rng(n)
+    w = rng.standard_normal(d).astype(np.float32)
+    w[1::7] = -0.0
+    delta = rng.standard_normal(d).astype(np.float32)
+    want = np.asarray(jops.rotk_apply(jnp.asarray(w), jnp.asarray(delta), jnp.int32(r), n=n, worker=2,
+                                      block=256))
+    got = ops.rotk_apply(torch.from_numpy(w), torch.from_numpy(delta), torch.tensor(r, dtype=torch.int32),
+                         n=n, worker=2).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    keep = np.arange(d) % n == (2 + r) % n  # Python's % is a floor mod
+    assert keep.sum() >= d // n
+    np.testing.assert_array_equal(_bits(got[~keep]), _bits(w[~keep] + np.float32(0)))
+    separate = w[keep] + (delta[keep] * np.float32(n))
+    np.testing.assert_array_equal(_bits(got[keep]), _bits(separate))
+    fused = (w[keep].astype(np.float64) + delta[keep].astype(np.float64) * n).astype(np.float32)
+    if n in (3, 10):
+        assert (_bits(fused) != _bits(separate)).any()  # so the check above can tell an FMA apart
+
+
+def test_rotk_apply_negative_rotation_and_negative_zero(jx):
+    """r = -3, worker 2, n = 10: (2 - 3) mod 10 = 9, so indices 9, 19, ...
+    are kept (C's truncated % would give -1 and keep none); w = -0.0
+    elsewhere comes back +0.0, as in the Pallas kernel."""
+    jnp, jops, _, _ = jx
+    w = np.full(100, -0.0, np.float32)
+    delta = np.arange(100, dtype=np.float32)
+    got = ops.rotk_apply(torch.from_numpy(w), torch.from_numpy(delta), torch.tensor([-3], dtype=torch.int32),
+                         n=10, worker=2).numpy()
+    want = np.asarray(jops.rotk_apply(jnp.asarray(w), jnp.asarray(delta), jnp.int32(-3), n=10, worker=2,
+                                      block=128))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert np.flatnonzero(got).tolist() == list(range(9, 100, 10))
+    assert set(_bits(got[np.arange(100) % 10 != 9]).tolist()) == {0}
+
+
+def test_bernk_rotk_checks():
+    x = torch.ones(8)
+    rot = torch.tensor(1, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        ops.rotk_apply(x.bfloat16(), x.bfloat16(), rot, n=2, worker=0)  # bf16: a recorded gap
+    with pytest.raises(TypeError):
+        ops.rotk_apply(x, x, rot.long(), n=2, worker=0)
+    with pytest.raises(ValueError):
+        ops.rotk_apply(x, x, rot, n=0, worker=0)
+    with pytest.raises(TypeError):
+        ops.bernk(x.double(), keep_prob=0.5, seed=0)
+    for kp in (0.0, 1.5):
+        with pytest.raises(ValueError):
+            ops.bernk(x, keep_prob=kp, seed=0)
+    assert ops.bernk(torch.zeros(0), keep_prob=0.5, seed=0).shape == (0,)
+
+
 def test_cpu_path_counts_no_launch():
     runtime.reset_launches()
     ops.block_topk(torch.ones(16), k_per_block=2, block=8)
     ops.l1_subgrad(torch.ones(4, 4), torch.ones(4))
+    ops.bernk(torch.ones(16), keep_prob=0.5, seed=1)
+    ops.rotk_apply(torch.ones(16), torch.ones(16), torch.tensor(1, dtype=torch.int32), n=4, worker=0)
     assert sum(runtime.LAUNCHES.values()) == 0
 
 
@@ -286,4 +438,53 @@ def test_cuda_wire_kernels_vs_plain():
         assert K.dense_encode(Xd[1], mag=mag) == W.encode_dense(X[1], mag=mag)
     torch.cuda.synchronize()
     for name in ("pack_bits", "unpack_bits", "sparse_streams", "dense_bits"):
+        assert runtime.LAUNCHES[name] > 0, name
+
+
+def _corners() -> np.ndarray:
+    return np.concatenate([WEIRD, NANS, np.array([-3e-39, 1e-40, 1.1754944e-38], np.float32)])
+
+
+@pytest.mark.cuda
+def test_cuda_seed_kernels_vs_plain():
+    """bernk (f32, bf16), rotk_apply, mask_streams and topk_streams on the
+    card == their plain versions, bit for bit, IEEE corners included; the
+    fused encoders' buffers == the host codec over ops.block_topk / ops.bernk."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(4096).astype(np.float32)
+    x[:len(_corners())] = _corners()
+    xd = torch.from_numpy(x).to(dev)
+    runtime.reset_launches()
+    for dtype, view in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
+        for kp in (0.03, 0.1, 1 / 3):
+            xt = xd.to(dtype)
+            got = ops.bernk(xt, keep_prob=kp, seed=BIG_SEED, worker=BIG_WORKER)
+            want = ref.bernk_ref(xt, keep_prob=kp, seed=BIG_SEED, worker=BIG_WORKER)
+            assert torch.equal(got.view(view), want.view(view)), (dtype, kp)
+    w = torch.full((4096,), -0.0, device=dev)
+    for n, r in ((3, -3), (10, 11), (16, 0)):
+        rot = torch.tensor([r], dtype=torch.int32, device=dev)
+        assert torch.equal(ops.rotk_apply(w, xd, rot, n=n, worker=2).view(torch.int32),
+                           ref.rotk_apply_ref(w, xd, rot, n=n, worker=2).view(torch.int32))
+    workers = torch.arange(10, dtype=torch.int32, device=dev)
+    for mag in ("fp32", "fp16", "bf16"):
+        m = int(W.mag_dtype(mag))
+        for got, want in zip(K.mask_streams(xd, workers, 0.1, BIG_SEED, mag),
+                             ref.mask_streams_ref(xd, workers, 0.1, BIG_SEED, m)):
+            assert torch.equal(got, want)
+        for block, k in ((128, 1), (1000, 64), (1024, 1030)):
+            xp = torch.nn.functional.pad(xd, (0, (-4096) % block))
+            for got, want in zip(K.topk_streams(xp, k, block, mag), ref.topk_streams_ref(xp, k, block, m)):
+                assert torch.equal(got, want)
+        assert K.topk_encode(xd, k_per_block=64, block=1024, mag=mag) == \
+            W.encode_sparse(ops.block_topk(xd, k_per_block=64, block=1024), mag=mag)
+        assert K.mask_encode(xd, keep_prob=0.1, seed=7, worker=3, mag=mag) == \
+            W.encode_sparse(ops.bernk(xd, keep_prob=0.1, seed=7, worker=3), mag=mag)
+        assert K.encode_per_worker(xd, n_workers=4, keep_prob=0.1, seed=7, mag=mag) == \
+            [W.encode_sparse(ops.bernk(xd, keep_prob=0.1, seed=7, worker=i), mag=mag) for i in range(4)]
+    torch.cuda.synchronize()
+    for name in ("bernk", "rotk_apply", "mask_streams", "topk_streams"):
         assert runtime.LAUNCHES[name] > 0, name

@@ -252,13 +252,27 @@ def test_corrupt_messages_raise_as_reference():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["identity", "topk", "block_topk", "randk", "permk"])
+PAIRS = {
+    "identity": (lambda: C.Identity(), lambda: JC.Identity()),
+    "topk": (lambda: C.TopK(k=32), lambda: JC.TopK(k=32)),
+    "block_topk": (lambda: C.BlockTopK(8, 128), lambda: JC.BlockTopK(8, 128)),
+    "randk": (lambda: C.RandK(k=50), lambda: JC.RandK(k=50)),
+    "permk": (lambda: C.PermK(n=4), lambda: JC.PermK(n=4)),
+    "rotk": (lambda: C.RotK(n=4), lambda: JC.RotK(n=4)),
+    "bernk": (lambda: C.BernK(k=50), lambda: JC.BernK(k=50)),
+    "natural": (lambda: C.NaturalCompression(), lambda: JC.NaturalCompression()),
+    "scaled_unbiased": (lambda: C.ScaledUnbiased(inner=C.RandK(k=50)),
+                        lambda: JC.ScaledUnbiased(inner=JC.RandK(k=50))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
 def test_registry_matches_reference(name):
+    """codec_for and wire.encode of every ported family: the reference's
+    codec and bytes, for numpy input and CPU tensors, device path or not
+    (NATURAL is encoded on the host before any device path is considered)."""
     d = 600
-    port = {"identity": C.Identity(), "topk": C.TopK(k=32), "block_topk": C.BlockTopK(8, 128),
-            "randk": C.RandK(k=50), "permk": C.PermK(n=4)}[name]
-    jref = {"identity": JC.Identity(), "topk": JC.TopK(k=32), "block_topk": JC.BlockTopK(8, 128),
-            "randk": JC.RandK(k=50), "permk": JC.PermK(n=4)}[name]
+    port, jref = PAIRS[name][0](), PAIRS[name][1]()
     assert int(W.codec_for(port)) == int(JW.codec_for(jref))
     x = _sparse_vec(d, 40, seed=11)
     for mag in MAGS:
@@ -268,3 +282,18 @@ def test_registry_matches_reference(name):
         assert W.encode(torch.from_numpy(x), port, mag=mag, device_encode=True) == buf
         assert tuple(W.peek(buf)) == tuple(JW.peek(buf))
         assert W.measured_bits(buf) == JW.measured_bits(buf) == 8 * len(buf)
+
+
+def test_encode_of_a_natural_output():
+    """wire.encode of a NaturalCompression output takes the NATURAL codec
+    (9 bits a value) even where the device path is forced: the reference's
+    order. The port's output round-trips exactly."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(777).astype(np.float32))
+    comp = C.NaturalCompression()
+    q = comp(x, comp.draw(777, torch.Generator().manual_seed(6), "cpu"))
+    for dev in (True, False, None):
+        buf = W.encode(q, comp, device_encode=dev)
+        assert W.peek(buf)[0] == W.CodecID.NATURAL
+        assert buf == JW.encode(q.numpy(), JC.NaturalCompression())
+        np.testing.assert_array_equal(_bits(W.decode(buf)), _bits(q.numpy()))
+    assert 8 * len(buf) - 9 * 777 <= 8 * W.HEADER_BYTES + 32  # header + word padding
