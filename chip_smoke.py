@@ -6,10 +6,16 @@
 Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
 
 (a) each kernel against its plain PyTorch version on the card, at the main
-    path's shapes and at edge cases (l1_subgrad within rtol 1e-5 / atol 1e-4
-    on inputs whose A x stays 1e-4 * ||A x||_inf away from 0, so that no sign
-    may legitimately flip; block_topk bit-exact, incl. bf16 and inf/NaN/-0.0/
-    denormal payloads), and two identical l1_subgrad launches bit-equal;
+    path's shapes and at edge cases (l1_subgrad at n x m=d in {10 x 1000,
+    100 x 1000, 3 x 257, 1 x 1024} within rtol 1e-5 / atol 1e-4 on inputs
+    whose A x stays 1e-4 * ||A x||_inf away from 0, so that no sign may
+    legitimately flip, logged where bit-equal (the plain version sums in the
+    kernel's chunk order); block_topk bit-exact, incl. bf16, inf/NaN/-0.0/
+    denormal payloads and the radix select's edge blocks: ties at the
+    threshold, every |x| equal, fewer non-zeros than k, k = 1, k = b,
+    b = 12288 (48 KB of keys), b = MAX_BLOCK, NaN with inf, two infs,
+    denormals straddling the threshold, keys equal in their top 8/16/24
+    bits), and two identical l1_subgrad launches bit-equal;
 (b) the main path: ``repro_torch.fig1.run_suite(d=1000, n=10, T=400)`` (EF21-P/
     TopK and MARINA-P same/ind/perm, constant and Polyak stepsizes) and the
     port's quickstart at a 2e6-bit budget, with the launch counters zeroed
@@ -21,8 +27,11 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     note in the code, and is only reported); and the card's T=20 Polyak runs
     bit-equal to the first 20 rounds of (b) (their stepsize does not depend
     on T);
-(d) each kernel's median time (CUDA events, L2 flushed between launches),
-    its plain version's and the library call's, beside its lower bound;
+(d) each kernel's median time (CUDA events, L2 flushed between launches by a
+    read), its plain version's and the library call's, beside its lower
+    bound; the launch floor: one empty kernel (``torch.cuda._sleep(0)``) timed
+    alike; and, for scale, l1_subgrad and A.sum() (a library read of the same
+    A) with the L2 flushed by a write, as the earlier timer did;
 (e) the wire kernels (pack_bits/unpack_bits, sparse_streams, dense_bits)
     against their plain versions on the card, all exact: pack/unpack at
     widths {1, 4, 7, 8, 10, 13, 16, 32} and N in {1, 31, 32, 33, 1000, 4097}
@@ -53,8 +62,9 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     1/3, 0.9}, a seed and a worker above 2**31 and d in {1, 777, 1000, 2**16,
     2**20}; rotk_apply over n in {3, 4, 10, 16} and r in {-3, 0, n+1}, w full
     of -0.0; mask_streams over 10 worker rows; topk_streams over block in
-    {128, 1000, 1024} and k in {1, 64, >= block}; IEEE corners (denormals,
-    +-0, +-inf, quiet and signalling NaNs) in every input; then each kernel at
+    {128, 1000, 1024} and k in {1, 64, >= block}, on random, tie-heavy,
+    every-|x|-equal and top-24-bits-equal inputs; IEEE corners (denormals,
+    +-0, +-inf, quiet and signalling NaNs) in the first input; then each kernel at
     the settings and on the very inputs of (k)'s path (d = 2**16 and 2**14:
     topk_streams k=64 block=1024, one-row mask_streams and bernk at keep 1/16
     seed 7; kernel_bench's bernk and rotk_apply at 2**16), and on copies of
@@ -136,6 +146,54 @@ def edge_vector(np, torch, d: int = 128):
     x[:6] = [1.0, np.inf, 3.0, -2.0, 0.5, 7.0]
     x[10:16] = [-0.0, 1e-42, -1e-42, 6.1e-39, 2e-45, -3.0]
     return torch.from_numpy(x)
+
+
+def radix_cases(np, torch, max_block: int):
+    """(name, x, block, k) blocks that stress block_topk's radix select
+    (csrc/topk_select.cuh), each in f32 and bf16: ties at the threshold, every
+    |x| equal, fewer non-zeros than k, k = 1, k = b, b = 12288 and
+    b = MAX_BLOCK (the 48 KB default and the 227 KB opt-in limit), NaN with
+    inf, two infs, denormals straddling the threshold, and keys equal in their
+    top 8, 16 and 24 bits (one per digit boundary: the threshold is fixed in
+    pass 2, 3 and 4)."""
+    rng = np.random.default_rng(23)
+    cases = []
+    ties = np.round(rng.standard_normal(2048) * 2) / 2
+    cases.append(("ties at the threshold", ties, 1024, 150))
+    cases.append(("every |x| equal", np.where(rng.random(1000) < 0.5, -0.75, 0.75), 1000, 100))
+    few = np.zeros(1000)
+    few[[3, 500, 999]] = [2.0, -1.0, 0.5]
+    few[[0, 7, 998]] = -0.0
+    cases.append(("fewer non-zeros than k", few, 1000, 100))
+    cases.append(("k = 1", rng.standard_normal(3000), 1000, 1))
+    cases.append(("k = b", rng.standard_normal(3000), 1000, 1000))
+    cases.append(("b = 12288 (48 KB of keys)", rng.standard_normal(2 * 12288), 12288, 1000))
+    big = rng.standard_normal(2 * max_block)
+    big[max_block:] = np.round(big[max_block:] * 4) / 4
+    cases.append(("b = MAX_BLOCK", big, max_block, 300))
+    both = rng.standard_normal(256)
+    both[[9, 200]] = [np.inf, np.nan]
+    both[128 + 5], both[128 + 70] = -np.inf, np.nan
+    cases.append(("NaN with inf", both, 128, 5))
+    two = rng.standard_normal(256)
+    two[[30, 60, 128 + 1, 128 + 127]] = [np.inf, -np.inf, -np.inf, np.inf]
+    cases.append(("two infs", two, 128, 4))
+    den = np.zeros(256)
+    den[:12] = [1e-42, -1e-42, 6.1e-39, -6.1e-39, 2e-45, 1e-40, -1e-40, 1e-41, 3e-39, 0.0, -0.0, 1e-42]
+    den[[20, 21]] = [1.0, -2.0]
+    den[128:] = den[:128] * np.float32(0.5)
+    cases.append(("denormals straddling the threshold", den, 128, 7))
+    for bits in (8, 16, 24):
+        low = rng.integers(0, 1 << (32 - bits - 1), 2000, dtype=np.int64)
+        keys = ((0x3FC00000 >> (31 - bits)) << (31 - bits)) | low
+        sign = rng.integers(0, 2, 2000, dtype=np.uint32) << 31
+        cases.append((f"keys equal in their top {bits} bits",
+                      (keys.astype(np.uint32) | sign).view(np.float32), 1000, 97))
+    out = []
+    for name, x, block, k in cases:
+        xt = torch.from_numpy(np.asarray(x, np.float32))
+        out += [(f"{name} f32", xt, block, k), (f"{name} bf16", xt.bfloat16(), block, k)]
+    return out
 
 
 def wire_edge(np):
@@ -366,6 +424,10 @@ def bench_kernels_vs_plain(np, torch, dev):
     inputs = [with_corners(np, rng, 4096, at=130)]
     ties = np.round(rng.standard_normal(4096) * 2).astype(np.float32) / 2  # many exact ties
     inputs.append(ties)
+    inputs.append(np.where(rng.random(4096) < 0.5, -1.25, 1.25).astype(np.float32))  # every |x| tied
+    low = rng.integers(0, 128, 4096, dtype=np.uint32)  # keys equal in their top 24 bits
+    inputs.append((np.uint32(0x3FC00000) | low | (rng.integers(0, 2, 4096, dtype=np.uint32) << 31))
+                  .view(np.float32))
     nan_free = rng.standard_normal(3000).astype(np.float32)  # 3000: a ragged last block
     nan_free[:8] = [np.inf, -np.inf, 1e-42, -0.0, 0.0, 6.1e-39, -1e-42, 2.0]  # inf stops selection
     inputs.append(nan_free)
@@ -516,7 +578,7 @@ def main() -> int:
 
     # --- (a) kernels against their plain versions on the card -------------------
     l1_err = 0.0
-    for n, d in ((10, 1000), (100, 1000), (3, 257)):
+    for n, d in ((10, 1000), (100, 1000), (3, 257), (1, 1024)):  # d = 1024: 48 KB of tiles
         A_np, X_np = l1_inputs(np, n, d, seed=n * 7919 + d)
         A, X = torch.from_numpy(A_np).to(dev), torch.from_numpy(X_np).to(dev)
         got = k_l1.l1_subgrad(A, X)
@@ -562,6 +624,7 @@ def main() -> int:
     after_inf = edge.clone()
     after_inf[1] = 0.25  # no inf: selection runs past the denormals
     topk_cases.append(("edge -0.0/denormal k=12", after_inf, 128, 12))
+    topk_cases += radix_cases(np, torch, k_topk.MAX_BLOCK)
     topk_err = 0.0
     for name, x, block, k in topk_cases:
         x = x.to(dev)
@@ -578,8 +641,9 @@ def main() -> int:
     kept = torch.nonzero(k_topk.block_topk_compress(edge.to(dev), k_per_block=3, block=128)).flatten()
     if kept.tolist() != [1]:
         fail(f"block_topk: the Pallas inf quirk should keep only index 1, kept {kept.tolist()}")
-    log(f"(a) block_topk: {len(topk_cases)} cases bit-equal to the plain version "
-        "(inf case keeps only index 1, as the Pallas kernel)")
+    log(f"(a) block_topk: {len(topk_cases)} cases bit-equal to the plain version, the radix select's "
+        "ties / all-equal / few non-zeros / k=1 / k=b / MAX_BLOCK / NaN+inf / two infs / denormals / "
+        "digit-boundary blocks in f32 and bf16 included (inf case keeps only index 1, as the Pallas kernel)")
 
     # --- (b) the main path on the card --------------------------------------------
     D, N, T = 1000, 10, 400
@@ -672,6 +736,27 @@ def main() -> int:
     l1_bound_100 = (A100.numel() * 4 + 2 * W100.numel() * 4) / HBM_BYTES_PER_S * 1e3
     del A100
 
+    def timed_write_flush(fn, reps=30):
+        """As ``timed``, with the L2 evicted by a write (the earlier timer): the
+        call then also pays the write-back of the dirty L2."""
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(kernel_bench.HOLD_CYCLES)
+            flush_buf.zero_()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[reps // 2]
+
+    l1_ms_write_flush = timed_write_flush(lambda: ops.l1_subgrad(prob.A, W))
+    a_sum_ms = timed(lambda: prob.A.sum())  # a library read of the same 40 MB, for scale
+    a_sum_ms_write_flush = timed_write_flush(lambda: prob.A.sum())
+
     xt = (W[0] - prob.x0).contiguous()
     tk_ms = timed(lambda: ops.block_topk(xt, k_per_block=k, block=D))
     tk_plain_ms = timed(lambda: ref.block_topk_ref(xt, k_per_block=k, block=D))
@@ -684,12 +769,17 @@ def main() -> int:
     if not torch.equal(topk_library(), ops.block_topk(xt, k_per_block=k, block=D)):
         log("(d) note: torch.topk yardstick selects other indices than the kernel on this input")
     tk_bytes = 2 * D * 4
-    tk_ops = k * D  # k rounds of a compare over the block
+    tk_ops = D  # a selection looks at each value at least once (the radix select: 1 to 4 passes)
     tk_bound = max(tk_bytes / HBM_BYTES_PER_S, tk_ops / FP32_FLOPS_PER_S) * 1e3
     log(f"(d) l1_subgrad n={N} m=d={D}: {l1_ms:.4f} ms (plain {l1_plain_ms:.4f}, bound {l1_bound:.4f}); "
         f"n=100: {l1_ms_100:.4f} ms (bound {l1_bound_100:.4f})")
+    log(f"(d) for scale, n={N}: A.sum() (a library read of the same A) {a_sum_ms:.4f} ms; with the L2 "
+        f"flushed by a write (the earlier timer): l1_subgrad {l1_ms_write_flush:.4f} ms, A.sum() "
+        f"{a_sum_ms_write_flush:.4f} ms")
     log(f"(d) block_topk d=block={D} k={k}: {tk_ms:.4f} ms (plain {tk_plain_ms:.4f}, "
         f"torch.topk+scatter {tk_lib_ms:.4f}, bound {tk_bound:.6f})")
+    floor_ms = timed(lambda: torch.cuda._sleep(0))  # one launch of a kernel that does nothing
+    log(f"(d) launch floor, one empty kernel (torch.cuda._sleep(0)) timed as the kernels are: {floor_ms:.5f} ms")
 
     # --- (e) the wire kernels against their plain versions on the card ------------------
     from repro_torch import wire, wire_bench
@@ -905,12 +995,12 @@ def main() -> int:
 
     def bench_bound(name, d):
         """(bound_ms, bound_by) of one call at size d: bytes read and written once over HBM,
-        or topk_streams's k compare rounds over each block at the fp32 peak."""
+        or topk_streams's one look at each value at the fp32 peak."""
         if name != "topk_streams":
             return hbm_ms({"bernk": 8 * d, "rotk_apply": 12 * d + 4, "mask_streams": 16 * d + 4}[name]), "bytes"
         dp = d + (-d) % kernel_bench.TOPK_BLOCK
         nb, ks = dp // kernel_bench.TOPK_BLOCK, min(kernel_bench.TOPK_K, kernel_bench.TOPK_BLOCK)
-        by_bytes, by_ops = hbm_ms(dp * 4 + 16 * nb * ks), kernel_bench.TOPK_K * dp / FP32_FLOPS_PER_S * 1e3
+        by_bytes, by_ops = hbm_ms(dp * 4 + 16 * nb * ks), dp / FP32_FLOPS_PER_S * 1e3
         return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
     # the path's shapes, d = 2**16: bernk and rotk_apply as kernel_bench timed them in (k)

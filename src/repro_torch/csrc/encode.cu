@@ -11,9 +11,10 @@
 // global index and scaled as bernk does in f32 (x * float32(1 / keep_prob),
 // see randk.cu), then streamed.
 // topk_streams replaces ::_topk_streams_kernel (pallas_call at encode.py:311):
-// block top-k selection (topk_select.cuh, block_topk's rounds), then each kept
-// value written to the slot given by its rank inside its block, with its
-// global index; slots past the block's count are zero.
+// block top-k selection (topk_select.cuh's radix select, shared with
+// block_topk), then each kept value written to the slot given by its rank
+// inside its block, with its global index; slots past the block's count are
+// zero.
 // dense_bits replaces ::_dense_bits_kernel (pallas_call at encode.py:328): the
 // value's bit pattern in the wire dtype, sign kept.
 //
@@ -25,10 +26,12 @@
 //
 // Bound: bytes (4 bytes in, 12 or 4 bytes out per value, a few integer
 // operations); at the main path's 10 x 1000 values a launch's latency
-// dominates. topk_streams is bound by its k dependent block reductions, as
-// block_topk is. Design: one thread per value, grid (ceil(d / 256), rows);
-// topk_streams one thread block per vector block, |x| and keep flags in shared
-// memory, ranks by a block-wide scan over contiguous per-thread chunks.
+// dominates. topk_streams is bound by its selection's dependent block-wide
+// steps: the radix select takes at most 4 digit passes whatever k is (k
+// arg-max rounds would take 2k barriers). Design: one thread per value,
+// grid (ceil(d / 256), rows); topk_streams one thread block per vector block,
+// the keys bits(|x|) in shared memory (4 bytes a value), the kept set and its
+// ranks from one block scan over contiguous per-thread chunks.
 // Outputs are uint32 so that the compaction and the packing that follow read
 // them without conversion.
 #include <cuda_runtime.h>
@@ -81,58 +84,29 @@ mask_streams_kernel(const float* __restrict__ x, const uint32_t* __restrict__ wo
   emit_streams(__float_as_uint(v), (long long)blockIdx.y * d + j, mag, sign, magbits, valid);
 }
 
-// Exclusive prefix sum of v over the block's threads; *total gets the sum.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sums[topk_select::kWarps];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  int incl = v;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int up = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += up;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  int base = 0, sum = 0;
-#pragma unroll
-  for (int w = 0; w < topk_select::kWarps; ++w) {
-    if (w < warp) base += warp_sums[w];
-    sum += warp_sums[w];
-  }
-  *total = sum;
-  return base + incl - v;
-}
-
 __global__ void __launch_bounds__(topk_select::kThreads)
 topk_streams_kernel(const float* __restrict__ x, int b, int ks, int mag,
                     uint32_t* __restrict__ idx, uint32_t* __restrict__ sign,
                     uint32_t* __restrict__ magbits, uint32_t* __restrict__ valid) {
   constexpr int kT = topk_select::kThreads;
-  extern __shared__ float remaining[];  // [b] fp32, then [b] keep flags
-  unsigned char* keep = reinterpret_cast<unsigned char*>(remaining + b);
+  extern __shared__ uint32_t keys[];  // [b] bits(|x|)
   const float* xb = x + (size_t)blockIdx.x * b;
+  int flags = 0;
   for (int i = threadIdx.x; i < b; i += kT) {
-    remaining[i] = fabsf(xb[i]);
-    keep[i] = 0;
+    keys[i] = __float_as_uint(xb[i]) & 0x7fffffffu;
+    flags |= topk_select::key_flags(keys[i]);
   }
-  __syncthreads();
-  topk_select::select(remaining, keep, b, ks);  // rounds past b would select nothing new
+  flags = topk_select::block_flags(flags);
+  const topk_select::Threshold th = topk_select::find_threshold(keys, b, ks, flags);
 
-  // Each thread owns a contiguous chunk, so a scan of the per-chunk counts
-  // gives every kept value its rank: ascending index order inside the block.
-  const int chunk = (b + kT - 1) / kT;
-  const int lo = min(b, (int)threadIdx.x * chunk), hi = min(b, lo + chunk);
-  int count = 0;
-  for (int i = lo; i < hi; ++i) count += keep[i];
-  int total;
-  int slot = block_exclusive_scan(count, &total);
+  // Each kept value goes to the slot of its rank (ascending index) in the block.
   const long long base = (long long)blockIdx.x * ks;
-  for (int i = lo; i < hi; ++i) {
-    if (!keep[i]) continue;
-    const long long o = base + slot++;
+  const int total = topk_select::walk_kept(keys, b, th, [&](int i, bool kept, int slot) {
+    if (!kept) return;
+    const long long o = base + slot;
     idx[o] = (uint32_t)((long long)blockIdx.x * b + i);
     emit_streams(__float_as_uint(xb[i]), o, mag, sign, magbits, valid);
-  }
+  });
   for (int s = total + threadIdx.x; s < ks; s += kT) {
     const long long o = base + s;
     idx[o] = sign[o] = magbits[o] = valid[o] = 0u;
@@ -181,18 +155,17 @@ extern "C" int mask_streams(const void* x, const void* workers, int rows, int d,
 }
 
 // x: nblocks * b fp32 contiguous; idx, sign, magbits, valid: nblocks x ks
-// uint32 contiguous, ks = min(k, b) slots per block.
+// uint32 contiguous, ks = min(k, b) slots per block; b < 65536.
 extern "C" int topk_streams(const void* x, int nblocks, int b, int k, int mag, void* idx,
                             void* sign, void* magbits, void* valid, void* stream) {
-  if (nblocks < 0 || b <= 0 || k < 1 || mag < 0 || mag > 2) return (int)cudaErrorInvalidValue;
+  if (nblocks < 0 || b <= 0 || b >= 65536 || k < 1 || mag < 0 || mag > 2)
+    return (int)cudaErrorInvalidValue;
   if (nblocks == 0) return (int)cudaSuccess;
   const int ks = k < b ? k : b;
-  const size_t smem = (size_t)b * (sizeof(float) + 1);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        topk_streams_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const size_t smem = (size_t)b * sizeof(uint32_t);  // set at every launch, as in topk.cu
+  const cudaError_t e = cudaFuncSetAttribute(
+      topk_streams_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   topk_streams_kernel<<<nblocks, topk_select::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), b, ks, mag, static_cast<uint32_t*>(idx),
       static_cast<uint32_t*>(sign), static_cast<uint32_t*>(magbits),

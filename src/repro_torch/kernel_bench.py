@@ -14,10 +14,12 @@ Each kernel is timed through its public wrapper (``ops.*``: the CUDA kernel
 on a card, its plain version on the CPU) and as its plain version
 (``ref.*``), median milliseconds per call over ``REPS`` calls after warm-up.
 On a card: CUDA events around each call, queued behind a spin of
-``HOLD_CYCLES`` clock cycles and a write of 256 MiB that evicts the 50 MB L2 (so the inputs
-come from device memory, and the time is the card's: the call is queued
-before the card reaches it, even where the host is slow to launch it); on
-the CPU: the host clock.
+``HOLD_CYCLES`` clock cycles and a read of 256 MiB that evicts the 50 MB L2
+and leaves it clean (so the inputs come from device memory, and the time is
+the card's: the call is queued before the card reaches it, even where the
+host is slow to launch it); on the CPU: the host clock. (A flush that
+writes the 256 MiB leaves the L2 dirty: the timed call then also pays the
+write-back; chip_smoke.py phase (d) times a 40 MB read both ways.)
 """
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ def median_ms(fn, reps: int = REPS, flush=None, device=None) -> float:
     """Median milliseconds of one call of ``fn`` over ``reps`` calls, after
     three warm-up calls. With ``flush`` (a tensor on the card): CUDA events
     around each call, queued behind a spin of ``HOLD_CYCLES`` and
-    ``flush.zero_()``, so that no wait for the host falls between them;
+    ``flush.sum()`` (a read: the L2 holds no dirty lines that the call would
+    have to write back), so that no wait for the host falls between them;
     without: the host clock around each call, ended by a sync of ``device``
     where it is a card."""
     for _ in range(3):
@@ -54,7 +57,7 @@ def median_ms(fn, reps: int = REPS, flush=None, device=None) -> float:
         if flush is not None:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(HOLD_CYCLES)
-            flush.zero_()
+            flush.sum()
             start.record()
             fn()
             end.record()

@@ -148,8 +148,8 @@ def topk_streams(x: torch.Tensor, k: int, block: int, mag):
         raise TypeError(f"topk_streams: x must be [d] float32, got {x.dtype} {tuple(x.shape)}")
     if not 0 < block <= _topk.MAX_BLOCK:
         raise ValueError(
-            f"topk_streams: block={block} outside 1..{_topk.MAX_BLOCK}: a block's |x| and keep "
-            f"flags must fit the {runtime.MAX_SMEM_BYTES}-byte (227 KB) shared-memory limit")
+            f"topk_streams: block={block} outside 1..{_topk.MAX_BLOCK}: a block's keys "
+            f"must fit the {runtime.MAX_SMEM_BYTES}-byte (227 KB) shared-memory limit")
     if k < 1:
         raise ValueError(f"topk_streams: k={k} < 1")
     if x.shape[0] % block:

@@ -49,8 +49,8 @@ def block_topk(x: torch.Tensor, *, k_per_block: int, block: int = 1024) -> torch
         raise TypeError(f"block_topk: dtype {x.dtype} not in {list(_topk.DTYPES)}")
     if not 0 < block <= _topk.MAX_BLOCK:
         raise ValueError(
-            f"block_topk: block={block} outside 1..{_topk.MAX_BLOCK}: a block's |x| and keep "
-            f"flags must fit the {runtime.MAX_SMEM_BYTES}-byte (227 KB) shared-memory limit")
+            f"block_topk: block={block} outside 1..{_topk.MAX_BLOCK}: a block's keys "
+            f"must fit the {runtime.MAX_SMEM_BYTES}-byte (227 KB) shared-memory limit")
     if x.shape[0] > 1 and x.stride(0) != 1:
         raise ValueError("block_topk: x must be contiguous")
     xp, d = _pad_to(x, block)
@@ -121,10 +121,6 @@ def l1_subgrad(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     if A.dtype != torch.float32 or X.dtype != torch.float32:
         raise TypeError(f"l1_subgrad: float32 only, got {A.dtype} and {X.dtype}")
     n, m, d = A.shape
-    if ref.rows_per_block(d) * (d + 1) * 4 > runtime.MAX_SMEM_BYTES:
-        raise ValueError(
-            f"l1_subgrad: one row of d={d} does not fit the {runtime.MAX_SMEM_BYTES}-byte "
-            "(227 KB) shared-memory limit")
     if not runtime.on_cuda(A, X):
         return ref.l1_subgrad_ref(A, X)
     if not A.is_contiguous():

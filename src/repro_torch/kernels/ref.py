@@ -10,14 +10,22 @@ import torch
 from . import randk as _randk
 
 
-# Rows of A one block of the CUDA kernel stages in shared memory: as many as
-# fit 48 KB (no opt-in needed), at most 32; one row needs 4*d bytes.
-TILE_BYTES = 48 * 1024
-MAX_ROWS = 32
+# How the CUDA kernel cuts A [n, m, d] into chunks of consecutive rows of one
+# worker, one thread block each: at most L1_TARGET_BLOCKS blocks in all where
+# n allows (on an H100, about 2 of the kernel's 4 blocks an SM: at n = 10 that
+# streamed faster than 4, and the sum pass has half the chunks to add), at
+# most L1_MAX_CHUNKS a worker (the sum pass adds a worker's chunks one after
+# another). The summation order of g follows from the chunks, so they are a
+# function of the shapes alone, never of the card.
+L1_TARGET_BLOCKS = 256
+L1_MAX_CHUNKS = 128
 
 
-def rows_per_block(d: int) -> int:
-    return max(1, min(MAX_ROWS, TILE_BYTES // (4 * d)))
+def chunk_rows(n: int, m: int) -> int:
+    """Rows of A per chunk of the l1_subgrad kernel for n workers of m rows;
+    the last chunk of a worker holds the rest (ceil(m / C) chunks)."""
+    per_worker = max(1, min(L1_MAX_CHUNKS, L1_TARGET_BLOCKS // max(n, 1)))
+    return max(1, -(-m // per_worker))
 
 
 def l1_subgrad_ref(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -25,25 +33,29 @@ def l1_subgrad_ref(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
 
     A: [m, d] with x: [d], or batched A: [n, m, d] with X: [n, d].
 
-    The sum over rows is taken in the CUDA kernel's order: within each block
-    of R = rows_per_block(d) rows in row order, then over the blocks in
-    order. Where the signs agree, the result is then bit-equal to the
-    kernel's on any device, so a CPU run and a card run see the same g. (On
-    the paper's problem g has many coordinates that are tiny rounding
+    The sum over rows is taken in the CUDA kernel's order: from 0, row by row
+    inside each chunk of C = chunk_rows(n, m) rows, then the chunks' sums in
+    chunk order, from 0. Where the signs agree, the result is then bit-equal
+    to the kernel's on any device, so a CPU run and a card run see the same
+    g. (On the paper's problem g has many coordinates that are tiny rounding
     residues, and whether a message coordinate is exactly zero, which the
-    bit ledger counts, depends on their last bits.)
+    bit ledger counts, depends on their last bits.) The ragged last chunk is
+    padded with zero rows: adding +0.0 to a sum that started at +0.0 leaves
+    it as it is.
     """
     if A.dim() == 2:
         return l1_subgrad_ref(A.unsqueeze(0), X.unsqueeze(0))[0]
     n, m, d = A.shape
     s = torch.where(torch.matmul(A, X.unsqueeze(-1)) >= 0, 1.0, -1.0).to(A.dtype)  # [n, m, 1]
-    R = rows_per_block(d)
+    C = chunk_rows(n, m)
+    nc = -(-m // C)
+    terms = torch.nn.functional.pad(s * A, (0, 0, 0, nc * C - m)).reshape(n, nc, C, d)  # exact
+    part = torch.zeros((n, nc, d), dtype=A.dtype, device=A.device)
+    for r in range(C):
+        part = part + terms[:, :, r]
     G = torch.zeros((n, d), dtype=A.dtype, device=A.device)
-    for r0 in range(0, m, R):
-        part = s[:, r0] * A[:, r0]
-        for r in range(r0 + 1, min(r0 + R, m)):
-            part = part + s[:, r] * A[:, r]
-        G = G + part
+    for c in range(nc):
+        G = G + part[:, c]
     return G
 
 

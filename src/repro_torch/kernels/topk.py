@@ -14,10 +14,11 @@ from . import runtime
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# A block keeps |x| in fp32 and one keep flag per element in dynamic shared
-# memory; 1 KB of the 227 KB stays for the kernel's static reduction scratch.
-SMEM_BYTES_PER_ELEM = 5
-MAX_BLOCK = (runtime.MAX_SMEM_BYTES - 1024) // SMEM_BYTES_PER_ELEM  # 46284 elements
+# The largest block: one block's keys (4 bytes a value) sit in dynamic shared
+# memory, beside 2 KB of static scratch, within the 227 KB a block may opt
+# into. The kernels (csrc/topk_select.cuh) would take up to 58000 values; the
+# limit stays where the first selection (5 bytes a value) put it.
+MAX_BLOCK = 46284
 
 
 def block_topk_compress(x: torch.Tensor, *, k_per_block: int, block: int) -> torch.Tensor:

@@ -86,24 +86,51 @@ def test_l1_subgrad_batched_and_broadcast_vs_pallas(jx):
     np.testing.assert_allclose(got_b, np.broadcast_to(want_b, (n, d)), rtol=1e-5, atol=1e-4)
 
 
-def test_l1_subgrad_plain_sums_in_the_kernels_order():
-    """The plain version adds s_r A_r row by row inside blocks of
-    rows_per_block(d) rows, then the blocks in order, as csrc/l1_subgrad.cu
-    does: bit-equal to the same order written out in numpy float32 (ragged
-    last block included)."""
-    n, m, d = 2, 100, 257
+@pytest.mark.parametrize("n,m,d,C,chunks", [
+    (3, 257, 130, 4, 65),    # ragged last chunk (1 row)
+    (1, 1024, 64, 8, 128),   # n = 1: L1_MAX_CHUNKS chunks, as kernel_bench's A 1024 x 1024
+    (10, 990, 40, 40, 25),   # n = 10, the main path's C; ragged last chunk (30 rows)
+])
+def test_l1_subgrad_plain_sums_in_the_kernels_order(n, m, d, C, chunks):
+    """The plain version adds s_r A_r from 0, row by row inside chunks of
+    chunk_rows(n, m) rows, then the chunks' sums in order from 0, as
+    csrc/l1_subgrad.cu does: bit-equal to the same order written out in
+    numpy float32."""
     A, X = _l1_inputs(n, m, d, seed=3)
-    R = ref.rows_per_block(d)
-    assert m % R and R == 32
+    assert ref.chunk_rows(n, m) == C and -(-m // C) == chunks
     S = np.where(np.einsum("nij,nj->ni", A, X) >= 0, 1.0, -1.0).astype(np.float32)
     want = np.zeros((n, d), np.float32)
-    for r0 in range(0, m, R):
-        part = S[:, r0, None] * A[:, r0]
-        for r in range(r0 + 1, min(r0 + R, m)):
+    for r0 in range(0, m, C):
+        part = np.zeros((n, d), np.float32)
+        for r in range(r0, min(r0 + C, m)):
             part = part + S[:, r, None] * A[:, r]
         want = want + part
     got = ops.l1_subgrad(torch.from_numpy(A), torch.from_numpy(X)).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("n", [1, 3, 10, 100, 1000])
+@pytest.mark.parametrize("m", [1, 7, 257, 1000, 1024, 100_000])
+def test_chunk_rows_covers_every_row_once(n, m, monkeypatch):
+    """chunk_rows cuts each worker's m rows into ceil(m / C) chunks that hold
+    every row exactly once (the last one the rest, never empty), as short as
+    they can be with at most L1_MAX_CHUNKS a worker and about
+    L1_TARGET_BLOCKS blocks a launch. It is
+    a function of (n, m) alone: it asks nothing of a card (the summation
+    order must be the same on every device)."""
+    for name in ("is_available", "device_count", "get_device_properties", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: pytest.fail("chunk_rows asked the card"))
+    C = ref.chunk_rows(n, m)
+    chunks = -(-m // C)
+    owner = np.repeat(np.arange(chunks), C)[:m]  # row r -> chunk r // C
+    assert np.array_equal(np.bincount(owner, minlength=chunks)[:-1], np.full(chunks - 1, C))
+    assert 1 <= m - (chunks - 1) * C <= C
+    per_worker = max(1, min(ref.L1_MAX_CHUNKS, ref.L1_TARGET_BLOCKS // n))
+    assert chunks <= per_worker  # n * chunks <= max(n, L1_TARGET_BLOCKS) blocks
+    assert C == 1 or -(-m // (C - 1)) > per_worker  # the shortest chunks that stay within it
+    assert ref.chunk_rows(n, m) == C  # deterministic
+    # the cuts of the main path (n = 10, 100) and of kernel_bench (n = 1)
+    assert (ref.chunk_rows(10, 1000), ref.chunk_rows(100, 1000), ref.chunk_rows(1, 1024)) == (40, 500, 8)
 
 
 def test_l1_subgrad_sign_of_zero_and_checks():
@@ -205,6 +232,125 @@ def test_topk_vs_reference_topk(jx, d, k):
     want = np.asarray(JC.TopK(k=k)(None, jnp.asarray(x)))
     got = TC.TopK(k=k)(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the radix select of csrc/topk_select.cuh, modelled in numpy
+# ---------------------------------------------------------------------------
+
+_INF_KEY = 0x7F800000
+
+
+def _radix_keep(xb: np.ndarray, k: int) -> np.ndarray:
+    """The keep mask [nblocks, b] that csrc/topk_select.cuh computes, step by
+    step: key = fp32 bits of |x|; a NaN keeps nothing, else an inf keeps the
+    first inf, else k >= b keeps all, else up to 4 digit passes (bits 30..24,
+    23..16, 15..8, 7..0) of a histogram scanned from the top fix a threshold
+    T and the count `need` still wanted at T (stopping once the chosen bin
+    holds exactly `need`); kept: key > T and the first `need` keys == T."""
+    keys = (np.ascontiguousarray(xb, np.float32).view(np.uint32) & 0x7FFFFFFF).astype(np.int64)
+    keep = np.zeros(keys.shape, bool)
+    for row, key in enumerate(keys):
+        b = key.size
+        if k <= 0 or (key > _INF_KEY).any():
+            t, need = 0xFFFFFFFF, 0
+        elif (key == _INF_KEY).any():
+            t, need = _INF_KEY, 1
+        elif k >= b:
+            t, need = 0, b
+        else:
+            prefix, need = 0, k
+            for p in range(4):
+                shift = 24 - 8 * p
+                hi_mask = 0 if p == 0 else (0xFFFFFFFF << (shift + 8)) & 0xFFFFFFFF
+                hist = np.bincount((key[(key & hi_mask) == prefix] >> shift) & 0xFF, minlength=256)
+                above, digit = 0, 255
+                while above + hist[digit] < need:
+                    above += hist[digit]
+                    digit -= 1
+                prefix |= digit << shift
+                need -= above
+                if hist[digit] == need:
+                    t, need = prefix - 1, 0
+                    break
+            else:
+                t = prefix
+        eq = key == t
+        keep[row] = (key > t) | (eq & (np.cumsum(eq) <= need))
+    return keep
+
+
+def _topk_edge_cases():
+    """(name, x fp32, block, k, dtype, oracle): blocks that stress the radix
+    select. ``oracle`` names the reference side: the Pallas kernel in
+    interpret mode, or lax.top_k (jref.block_topk_ref) where XLA CPU would
+    flush the denormals the case is about (finite input only)."""
+    rng = np.random.default_rng(41)
+    cases = []
+
+    def add(name, x, block, k, dtype="float32", oracle="pallas"):
+        cases.append((name, np.asarray(x, np.float32), block, k, dtype, oracle))
+
+    ties = np.round(rng.standard_normal(256) * 2) / 2
+    add("ties at the threshold", ties, 128, 20)
+    add("ties bf16", ties, 128, 37, "bfloat16")
+    add("all |x| equal", np.where(rng.random(128) < 0.5, -0.75, 0.75), 128, 5)
+    few = np.zeros(128)
+    few[[3, 50, 99]] = [2.0, -1.0, 0.5]
+    few[[0, 7]] = -0.0
+    add("fewer non-zeros than k, -0.0 ties +0.0", few, 128, 10)
+    add("k = 1", rng.standard_normal(256), 128, 1)
+    add("k = b", rng.standard_normal(256), 128, 128)
+    add("k = b bf16", rng.standard_normal(256), 128, 128, "bfloat16")
+    add("main path d = block = 1000, k = 100", rng.standard_normal(1000), 1000, 100)
+    add("main path bf16", rng.standard_normal(1000), 1000, 100, "bfloat16")
+    nan = rng.standard_normal(128)
+    nan[40] = np.nan
+    add("NaN", nan, 128, 5)
+    inf = rng.standard_normal(128)
+    inf[17] = -np.inf
+    add("inf", inf, 128, 5)
+    both = inf.copy()
+    both[90] = np.nan
+    add("inf and NaN", both, 128, 5)
+    two = rng.standard_normal(128)
+    two[[30, 60]] = [np.inf, -np.inf]
+    add("two infs", two, 128, 3)
+    den = np.zeros(128)
+    den[:12] = [1e-42, -1e-42, 6.1e-39, -6.1e-39, 2e-45, 1e-40, -1e-40, 1e-41, 3e-39, 0.0, -0.0, 1e-42]
+    den[[20, 21]] = [1.0, -2.0]
+    add("denormals straddling the threshold", den, 128, 7, oracle="lax")
+    for bits in (8, 16, 24):  # keys equal in their top `bits` bits: T is fixed in a later pass
+        low = rng.integers(0, 1 << (32 - bits - 1), 128, dtype=np.int64)
+        keys = ((0x3FC00000 >> (31 - bits)) << (31 - bits)) | low
+        x = (keys.astype(np.uint32) | (rng.integers(0, 2, 128, dtype=np.uint32) << 31)).view(np.float32)
+        add(f"keys equal in their top {bits} bits", x, 128, 9)
+    return cases
+
+
+_TOPK_EDGE = _topk_edge_cases()
+
+
+@pytest.mark.parametrize("case", _TOPK_EDGE, ids=[c[0] for c in _TOPK_EDGE])
+def test_radix_select_model_vs_plain_and_pallas(jx, case):
+    """The numpy model of the radix select == the port's plain version
+    (ref._topk_keep_ref's k rounds) == the reference, bit for bit, on blocks
+    that stress it: ties at T, all equal, fewer non-zeros than k, k = 1,
+    k = b, NaN, inf, inf + NaN, two infs, -0.0, denormals, keys that differ
+    only below a digit boundary, bf16."""
+    jnp, jops, jref, _ = jx
+    name, x32, block, k, dtype, oracle = case
+    xt = torch.from_numpy(x32).to(getattr(torch, dtype))
+    xw = xt.float().numpy().reshape(-1, block)  # bf16 widens exactly
+    model = np.where(_radix_keep(xw, k), xw, np.float32(0)).reshape(-1)
+    got = ops.block_topk(xt, k_per_block=k, block=block)
+    view = torch.int16 if dtype == "bfloat16" else torch.int32
+    want = torch.from_numpy(model).to(xt.dtype).view(view)
+    assert torch.equal(got.view(view), want), name
+    xj = jnp.asarray(x32).astype(getattr(jnp, dtype))
+    theirs = (jops.block_topk(xj, k_per_block=k, block=block) if oracle == "pallas"
+              else jref.block_topk_ref(xj, k_per_block=k, block=block))
+    np.testing.assert_array_equal(np.asarray(theirs).view(want.numpy().dtype), want.numpy())
 
 
 def test_block_topk_limits():
@@ -379,7 +525,8 @@ def test_cpu_path_counts_no_launch():
 @pytest.mark.cuda
 def test_cuda_kernels_vs_plain():
     """Each CUDA kernel against its plain version on the card: l1_subgrad at
-    rtol 1e-5 / atol 1e-4 (summation order), block_topk bit-exact."""
+    rtol 1e-5 / atol 1e-4 (a sign may flip where A x is near 0), block_topk
+    bit-exact, the radix select's edge blocks included."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     dev = torch.device("cuda")
@@ -388,6 +535,11 @@ def test_cuda_kernels_vs_plain():
     runtime.reset_launches()
     got = ops.l1_subgrad(A, X)
     torch.testing.assert_close(got, ref.l1_subgrad_ref(A, X), rtol=1e-5, atol=1e-4)
+    for n, m, d in ((3, 100, 257), (2, 40, 5000)):  # the cp.async path (d % 4 != 0); d > 4096
+        A2, X2 = (torch.from_numpy(a).to(dev) for a in _l1_inputs(n, m, d, seed=d))
+        got2 = ops.l1_subgrad(A2, X2)
+        torch.testing.assert_close(got2, ref.l1_subgrad_ref(A2, X2), rtol=1e-5, atol=1e-4)
+        assert torch.equal(got2, ops.l1_subgrad(A2, X2))  # no float atomics: launches repeat bit for bit
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(1000).astype(np.float32)).to(dev)
     for block, k in ((1000, 100), (128, 4)):
         got = ops.block_topk(x, k_per_block=k, block=block)
@@ -395,7 +547,12 @@ def test_cuda_kernels_vs_plain():
         want = ref.block_topk_ref(xp, k_per_block=k, block=block)[:1000]
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     torch.cuda.synchronize()
-    assert runtime.LAUNCHES["l1_subgrad"] == 1 and runtime.LAUNCHES["block_topk"] == 2
+    assert runtime.LAUNCHES["l1_subgrad"] == 5 and runtime.LAUNCHES["block_topk"] == 2
+    for name, x32, block, k, dtype, _ in _TOPK_EDGE:  # the radix select's edge blocks
+        xt = torch.from_numpy(x32).to(getattr(torch, dtype)).to(dev)
+        view = torch.int16 if dtype == "bfloat16" else torch.int32
+        got = ops.block_topk(xt, k_per_block=k, block=block)
+        assert torch.equal(got.view(view), ref.block_topk_ref(xt, k_per_block=k, block=block).view(view)), name
 
 
 WIDTHS = [1, 4, 7, 8, 10, 13, 16, 32]
