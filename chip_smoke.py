@@ -83,7 +83,34 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     the host-clock time per message of the fused encoders against the host
     codec over the op.
 
-Prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
+(m) tracing: ``marina_p.run`` (perm, Polyak) and ``ef21p.run`` (TopK,
+    constant gamma) at d=1000, n=10, T=50 with measure_wire, with a tracker
+    (MemoryTracker + BenchJsonSink) and without: f_x and wire bits equal,
+    ``analyze.validate_spans`` / ``validate_perfetto`` clean, one ``round``
+    span a round, the BENCH document valid;
+(n) the lossy transport: MARINA-P (perm, Polyak) and EF21-P (TopK, Polyak)
+    through ``Fleet.make(10,
+    transport_bench.CHAOS_SPEC)`` (10% drop, 2% corrupt, 10% reorder in a
+    window of 4, seed 7), T=120, on the card and the CPU port at one seed:
+    every event counter of hist["transport"] equal, goodput and the s2w
+    ledger within rtol 1e-4 (a message's length follows the exact zeros of
+    x_{t+1} - x_t, which may differ in a late round), MARINA-P's f_x within
+    rtol 1e-4 a round, EF21-P's finite and falling; then
+    ``repro_torch.transport_bench`` on the card;
+(o) the fleet: ``fleet_run`` of MARINA-P (perm, Polyak) and EF21-P (TopK) at
+    d=1000, population 50,000, cohort 16, T=40, measure_wire, on the
+    flaky_mobile and two_tier_diurnal mixes (the evaluation cohort: 64
+    clients, 256 MB of f32 on the card), card against CPU at one seed:
+    participation stats, s2w, wire and join bits equal a round, MARINA-P's
+    f_x within rtol 1e-4, EF21-P's finite and falling; and
+    ``marina_p.run(participation=BernoulliStragglerPlan(0.2, 2.0))`` at n=10,
+    d=1000 against the CPU. The counters are zeroed before (m) and read
+    after (o): l1_subgrad, block_topk, sparse_streams, dense_bits and
+    pack_bits must have launched there; µs a round of each path is printed
+    with the card's name and power limit.
+
+Prints a ``{"kernels": [...]}`` JSON line (launches: the path of each row
+plus (m)-(o)), then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero,
 printing no result, where CUDA is unavailable or the port is missing.
 """
@@ -536,6 +563,224 @@ def fused_encode_buffers(np, torch, dev) -> int:
                 fail(f"(k) encode_per_worker same d={d} {mag}: != host codec over ops.bernk")
             checked += 14
     return checked
+
+
+# ---------------------------------------------------------------------------
+# tracing, the lossy transport and the client fleet (phases m-o)
+# ---------------------------------------------------------------------------
+
+SLICE_KERNELS = ("l1_subgrad", "block_topk", "sparse_streams", "dense_bits", "pack_bits")
+
+
+def timed_run(torch, dev, fn):
+    """(fn(), seconds) on the host clock, ended by a sync of ``dev`` where
+    it is a card."""
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def max_rel(np, got, want) -> float:
+    return float(np.max(np.abs(np.subtract(got, want)) / np.abs(want)))
+
+
+def tracing_phase(np, torch, dev, prob, T):
+    """(m): MARINA-P (perm, Polyak) and EF21-P (TopK, constant gamma) with
+    measure_wire, run with a tracker (a MemoryTracker and a BenchJsonSink)
+    and without: equal f_x and wire bits, a valid span stream and Perfetto
+    export with one ``round`` span a round, a BENCH document that passes
+    ``bench_json.validate``. Returns {run: (us/round traced, untraced)}."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.core import compressors as C
+    from repro_torch.core import ef21p, marina_p, stepsizes
+    from repro_torch.obs import analyze
+
+    D, N = prob.d, prob.n
+    k, p = D // N, (D // N) / D
+    gamma = stepsizes.ef21p_optimal_constant(prob.R0_sq, prob.L0, k / D, T)
+    runs = {
+        "marina_p_perm_polyak": lambda tracker: marina_p.run(
+            prob, mode="perm", k=k, p=p, stepsize=stepsizes.MarinaPPolyak(omega=N - 1.0, p=p),
+            T=T, seed=0, measure_wire=True, tracker=tracker),
+        "ef21p_topk_const": lambda tracker: ef21p.run(
+            prob, C.TopK(k=k), stepsizes.Constant(gamma), T=T, seed=0, measure_wire=True,
+            tracker=tracker),
+    }
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, run in runs.items():
+            mem = obs.MemoryTracker()
+            sink = obs.BenchJsonSink(f"chip_smoke_{name}", tmp, seed=0)
+            plain, s_plain = timed_run(torch, dev, lambda: run(None))
+            traced, s_traced = timed_run(torch, dev, lambda: run(obs.CompositeTracker(mem, sink)))
+            if traced["f_x"] != plain["f_x"] or traced["wire_bits"] != plain["wire_bits"]:
+                fail(f"(m) {name}: f_x or wire bits differ with the tracker")
+            errors = analyze.validate_spans(mem.events)
+            errors += analyze.validate_perfetto(analyze.to_perfetto(mem.events))
+            if errors:
+                fail(f"(m) {name}: {errors[:3]}")
+            roots = analyze.build_tree(mem.events)
+            names = {s.name for r in roots for s in r.walk()}
+            if len(roots) != T or {r.name for r in roots} != {"round"} or not {
+                    "subgrad", "stepsize"} <= names:
+                fail(f"(m) {name}: {len(roots)} root spans {sorted({r.name for r in roots})} for "
+                     f"{T} rounds, names {sorted(names)}")
+            sink.finish()
+            doc = obs.load(sink.path)
+            if obs.validate(doc) or doc["env"]["platform"] != ("gpu" if dev.type == "cuda" else "cpu"):
+                fail(f"(m) {name}: BENCH document invalid: {obs.validate(doc)} env {doc['env']}")
+            out[name] = (s_traced / T * 1e6, s_plain / T * 1e6)
+            log(f"(m) {name}: {T} round spans, {len(analyze.span_events(mem.events))} spans, "
+                f"Perfetto export valid, BENCH artifact valid (env {doc['env']['device_kind']}, "
+                f"torch {doc['env']['torch_version']}); f_x and wire bits equal with and without "
+                f"the tracker; us/round traced {out[name][0]:.1f}, untraced {out[name][1]:.1f}")
+    return out
+
+
+def transport_phase(np, torch, dev, prob, prob_cpu, T):
+    """(n): both algorithms through ``Fleet.make(n, CHAOS_SPEC)`` on the card
+    and on the CPU port, same seed: equal transport event counters, goodput
+    and s2w bits within TRAJ_RTOL; MARINA-P's f_x within TRAJ_RTOL a round,
+    EF21-P's finite and falling.
+    Then ``repro_torch.transport_bench`` on the card. Returns {run: us/round}."""
+    from repro_torch import transport_bench
+    from repro_torch.core import compressors as C
+    from repro_torch.core import ef21p, marina_p, stepsizes
+
+    spec = transport_bench.CHAOS_SPEC
+    D, N = prob.d, prob.n
+    k, p = D // N, (D // N) / D
+    runs = {
+        "marina_p_perm_polyak": lambda pr: marina_p.run(
+            pr, mode="perm", k=k, p=p, stepsize=stepsizes.MarinaPPolyak(omega=N - 1.0, p=p),
+            T=T, seed=0, transport=spec),
+        "ef21p_topk_polyak": lambda pr: ef21p.run(
+            pr, C.TopK(k=k), stepsizes.EF21PPolyak(alpha=k / D), T=T, seed=0, transport=spec),
+    }
+    out = {}
+    for name, run in runs.items():
+        card, secs = timed_run(torch, dev, lambda: run(prob))
+        cpu = run(prob_cpu)
+        # Every counter the fault schedules decide must be equal. The byte
+        # counts (so goodput) and the ledger follow the messages' lengths: a
+        # coordinate of x_{t+1} - x_t that rounds to exactly 0 on one device
+        # and not on the other (late in a run, where steps are tiny) drops
+        # one SPARSE entry there (ROADMAP Queue 3), so those two are held
+        # within TRAJ_RTOL and the rounds where they differ are reported.
+        events = {kk: v for kk, v in card["transport"].items() if kk != "transport/goodput"}
+        if events != {kk: cpu["transport"][kk] for kk in events}:
+            fail(f"(n) {name}: card and CPU transport counters differ: "
+                 f"{card['transport']} vs {cpu['transport']}")
+        g_card, g_cpu = card["transport"]["transport/goodput"], cpu["transport"]["transport/goodput"]
+        s2w_rel = max_rel(np, cpu["s2w_bits"], card["s2w_bits"])
+        if abs(g_card - g_cpu) > TRAJ_RTOL * g_cpu or s2w_rel > TRAJ_RTOL:
+            fail(f"(n) {name}: goodput {g_card} vs {g_cpu}, s2w rel diff {s2w_rel:.3e}")
+        differ = np.nonzero(np.diff(card["s2w_bits"], prepend=0.0)
+                            != np.diff(cpu["s2w_bits"], prepend=0.0))[0].tolist()
+        rel = max_rel(np, cpu["f_x"], card["f_x"])
+        if name.startswith("marina") and rel > TRAJ_RTOL:
+            fail(f"(n) {name}: CPU vs card f_x rel err {rel:.3e} > {TRAJ_RTOL}")
+        for h in (card, cpu):
+            if not (np.isfinite(h["f_x"]).all() and h["f_x"][-1] < h["f_x"][0]):
+                fail(f"(n) {name}: f_x not finite and falling")
+        tr = card["transport"]
+        out[name] = secs / T * 1e6
+        log(f"(n) {name} T={T} through CHAOS_SPEC: transport event counters equal on card and CPU "
+            f"(retries {tr['transport/retries']}, resyncs {tr['transport/resyncs']}, forced syncs "
+            f"{tr['transport/forced_syncs']}); goodput card {g_card!r} CPU {g_cpu!r}; rounds whose s2w "
+            f"bits differ {differ}; CPU vs card max rel f_x diff {rel:.3e}; us/round {out[name]:.1f}")
+    for row in transport_bench.framing_rows():
+        log(f"(n) transport_bench {row[0]:24s} {row[1]:10.1f} us/call {row[2]:8.4f} GB/s (host)")
+    metrics = transport_bench.chaos_metrics(device=dev)
+    log(f"(n) transport_bench chaos on the card: {metrics}")
+    if not 0 < metrics["transport/goodput"] <= 1:
+        fail(f"(n) transport_bench goodput {metrics['transport/goodput']}")
+    return out
+
+
+def fleet_phase(np, torch, dev, D, T, population, cohort):
+    """(o): ``fleet_run`` of MARINA-P (perm, Polyak) and EF21-P (TopK,
+    Polyak) with measure_wire on the flaky_mobile and two_tier_diurnal
+    mixes, on the card and the CPU port, same seed: equal participation
+    stats, per-round s2w, wire, fresh and delivered counts and join bits;
+    MARINA-P's f_x within TRAJ_RTOL, EF21-P's finite and falling. Returns
+    {run: (us/round, ms/round of the cohort's host-built matrices)}."""
+    import dataclasses
+
+    from repro_torch import fleet, scenario_matrix
+    from repro_torch.core import stepsizes
+    from repro_torch.fleet import cohort as fleet_cohort
+
+    k = max(1, D // cohort)
+    p = k / D
+    out = {}
+    for alg in ("marina_p", "ef21p"):
+        for mix in ("flaky_mobile", "two_tier_diurnal"):
+            spec = fleet.make_fleet(mix, population, seed=0)
+            prob = fleet.FleetL1Problem(spec, d=D)
+            sampler = fleet.make_sampler(scenario_matrix.MIX_SAMPLER[mix], spec, cohort, seed=0)
+            ss = (stepsizes.MarinaPPolyak(omega=cohort - 1.0, p=p) if alg == "marina_p"
+                  else stepsizes.EF21PPolyak(alpha=k / D))
+            kw = dict(algorithm=alg, mode="perm", k=k, p=p, T=T, seed=0, measure_wire=True)
+            card, secs = timed_run(torch, dev, lambda: fleet.fleet_run(prob, sampler, ss, device=dev, **kw))
+            cpu = fleet.fleet_run(prob, sampler, ss, device="cpu", **kw)
+            name = f"{alg}/{mix}"
+            if dataclasses.asdict(card["participation"]) != dataclasses.asdict(cpu["participation"]):
+                fail(f"(o) {name}: participation stats differ: {card['participation']} vs {cpu['participation']}")
+            for key in ("s2w_bits", "wire_bits", "participants", "fresh", "delivered", "join_bits_total"):
+                if card[key] != cpu[key]:
+                    fail(f"(o) {name}: card and CPU {key} differ")
+            rel = max_rel(np, cpu["f_x"], card["f_x"])
+            if alg == "marina_p" and rel > TRAJ_RTOL:
+                fail(f"(o) {name}: CPU vs card f_x rel err {rel:.3e} > {TRAJ_RTOL}")
+            for h in (card, cpu):
+                if not (np.isfinite(h["f_x"]).all() and h["f_x"][-1] < h["f_x"][0]):
+                    fail(f"(o) {name}: f_x not finite and falling")
+            host = []
+            for t in range(3):
+                _, s = timed_run(torch, dev, lambda: fleet_cohort.cohort_matrices(
+                    prob, sampler.cohort(t).ids, dev))
+                host.append(s * 1e3)
+            out[name] = (secs / T * 1e6, sorted(host)[1])
+            st = card["participation"]
+            log(f"(o) {name} population {population} cohort {cohort} d={D} T={T}: stats, s2w, wire, "
+                f"join bits equal on card and CPU (participant rounds {st.participant_rounds}, goodput "
+                f"{st.goodput:.4f}, fresh {st.fresh_frac:.3f}, join bits {card['join_bits_total']:.4g}, "
+                f"wire bits {card['wire_bits_total']:.4g}); CPU vs card max rel f_x diff {rel:.3e}; "
+                f"us/round {out[name][0]:.1f}, of which the cohort's matrices (materialize float64 on "
+                f"the host, copy, cast) {out[name][1]:.2f} ms")
+    return out
+
+
+def participation_phase(np, torch, dev, prob, prob_cpu, T):
+    """(o): ``marina_p.run(participation=BernoulliStragglerPlan(0.2, 2.0))``
+    on the card and the CPU port: equal cohort sizes, f_x within TRAJ_RTOL.
+    Returns us/round on the card."""
+    from repro_torch.core import marina_p, stepsizes
+    from repro_torch.fleet import BernoulliStragglerPlan
+
+    D, N = prob.d, prob.n
+    k, p = D // N, (D // N) / D
+
+    def run(pr):
+        return marina_p.run(pr, mode="perm", k=k, p=p, stepsize=stepsizes.MarinaPPolyak(omega=N - 1.0, p=p),
+                            T=T, seed=0, participation=BernoulliStragglerPlan(0.2, 2.0))
+
+    card, secs = timed_run(torch, dev, lambda: run(prob))
+    cpu = run(prob_cpu)
+    rel = max_rel(np, cpu["f_x"], card["f_x"])
+    if card["participants"] != cpu["participants"] or rel > TRAJ_RTOL:
+        fail(f"(o) participation: cohorts differ or CPU vs card f_x rel err {rel:.3e}")
+    if min(card["participants"]) >= N or not card["f_x"][-1] < card["f_x"][0]:
+        fail(f"(o) participation: no partial round, or f_x did not fall")
+    log(f"(o) marina_p perm Polyak with BernoulliStragglerPlan(0.2, 2.0), n={N} d={D} T={T}: cohorts "
+        f"{min(card['participants']):.0f}..{max(card['participants']):.0f} of {N}, equal on card and CPU; "
+        f"max rel f_x diff {rel:.3e}; us/round {secs / T * 1e6:.1f}")
+    return secs / T * 1e6
 
 
 def main() -> int:
@@ -1030,6 +1275,32 @@ def main() -> int:
         log(f"(l) encode {name:32s}: fused device path {dev_ms:.4f} ms, host codec over the op "
             f"{host_ms_:.4f} ms (host clock, each incl. its copy to the host)")
 
+    # --- (m)-(o): tracing, the lossy transport and the client fleet -----------------------
+    runtime.reset_launches()
+    t_m = time.perf_counter()
+    trace_us = tracing_phase(np, torch, dev, prob, T=50)
+    t_n = time.perf_counter()
+    transport_us = transport_phase(np, torch, dev, prob, prob_cpu, T=120)
+    t_o = time.perf_counter()
+    fleet_us = fleet_phase(np, torch, dev, D, T=40, population=50_000, cohort=16)
+    part_us = participation_phase(np, torch, dev, prob, prob_cpu, T=40)
+    torch.cuda.synchronize()
+    slice_launches = dict(runtime.LAUNCHES)
+    t_end = time.perf_counter()
+    log(f"(m)-(o) launches on the tracing / transport / fleet paths: {slice_launches}; phases took "
+        f"{t_n - t_m:.1f} / {t_o - t_n:.1f} / {t_end - t_o:.1f} s")
+    for kname in SLICE_KERNELS:
+        if slice_launches.get(kname, 0) <= 0:
+            fail(f"(m)-(o) the tracing / transport / fleet paths never launched {kname}")
+    for name, (traced, plain) in trace_us.items():
+        log(f"(m) us/round {name} d={D} n={N}: traced {traced:.1f}, untraced {plain:.1f} ({card})")
+    for name, us in transport_us.items():
+        log(f"(n) us/round {name} d={D} n={N} through CHAOS_SPEC: {us:.1f} ({card})")
+    for name, (us, host_ms) in fleet_us.items():
+        log(f"(o) us/round fleet_run {name} d={D} cohort 16: {us:.1f}, cohort matrices {host_ms:.2f} ms "
+            f"of it ({card})")
+    log(f"(o) us/round marina_p with BernoulliStragglerPlan d={D} n={N}: {part_us:.1f} ({card})")
+
     summary = {"kernels": [
         {"name": "l1_subgrad", "route": "cuda", "source": "src/repro_torch/csrc/l1_subgrad.cu",
          "replaces": "src/repro/kernels/l1_subgrad.py:46", "launches": launches["l1_subgrad"],
@@ -1062,6 +1333,8 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{replaces}", "launches": bench_launches[name],
             "max_abs_err": bench_err[name], "ms": ms_, "plain_ms": plain_, "bound_ms": bound_,
             "bound_by": by_, "library_ms": None})
+    for row in summary["kernels"]:  # the slice's paths launched these kernels too
+        row["launches"] += slice_launches.get(row["name"], 0)
     print(json.dumps(summary), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,28 @@ for comp in (C.RotK(n=3), C.BernK(k=30), C.NaturalCompression(), C.ScaledUnbiase
     q = comp(x, comp.draw(300, gen, "cpu"))
     wire.encode(q, comp)
 assert wire_bench.bench_encode(d=256, device="cpu")[-1][2] == 1.0
+# tracing, the lossy transport and the fleet: the branches that hold the
+# reference's lazy imports (link spans, fault specs of clients, encodes)
+from repro_torch import obs, federated_l1, scenario_matrix, transport_bench
+from repro_torch.obs import analyze
+from repro_torch.core import ef21p
+from repro_torch.fleet import BernoulliStragglerPlan, FleetL1Problem, fleet_run, make_fleet, make_sampler
+from repro_torch.transport import FaultSpec
+tr = obs.MemoryTracker()
+h = marina_p.run(prob, mode="perm", k=8, p=0.25, stepsize=stepsizes.Constant(0.01), T=4,
+                 transport=FaultSpec(drop=0.3, seed=1), tracker=tr, measure_wire=True,
+                 participation=BernoulliStragglerPlan(drop_prob=0.3))
+assert h["transport"]["transport/frames_sent"] > 0 and analyze.validate_spans(tr.events) == []
+assert any(e["name"].startswith("link/worker") for e in tr.events if e["kind"] == "span")
+h = ef21p.run(prob, C.TopK(k=8), stepsizes.Constant(0.01), T=4, transport=FaultSpec(drop=0.3, seed=1),
+              tracker=obs.MemoryTracker())
+spec = make_fleet("flaky_mobile", 256, seed=0)
+h = fleet_run(FleetL1Problem(spec, d=16), make_sampler("uniform", spec, 4, seed=1),
+              stepsizes.Constant(0.05), T=4, measure_wire=True, tracker=obs.MemoryTracker(), device="cpu")
+assert h["wire_bits_total"] > 0 and h["participation"].rounds == 4
+env = obs.environment(seed=0)
+assert env["jax_version"] is None and env["torch_version"] == torch.__version__, env
+assert transport_bench.framing_rows()[0][0] == "transport/frame_encode"
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print("ok")
