@@ -109,8 +109,31 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     pack_bits must have launched there; µs a round of each path is printed
     with the card's name and power limit.
 
+(p) the repairs on the card: ``rotk_apply`` in fp16 and bf16 bit-exact
+    against its plain version at d = 2**16, n in {7, 10, 16}, r in {-3, 0,
+    n+1}, IEEE corners (+-0, denormals, +-inf, NaNs, products that overflow
+    the dtype) in w and in kept and dropped coordinates, and its times;
+(q) the SPMD runner (``core/distributed.py``) as one NCCL rank at d = 1000,
+    n = 100 (400 MB of A): MARINA-P same/ind/perm (Polyak), 50 rounds,
+    against the single-process ``marina_p.make_step`` on the card fed the
+    same ``MarinaPDraws``, x and W within 1e-4 every round; EF21-P/TopK
+    teacher-forced per step (x and the k kept magnitudes every step, w
+    where the k-th magnitude gap exceeds 1e-5); µs a round of both;
+(r) the benchmark harness: ``repro_torch.run.main`` on the card for fig1,
+    stepsize_grid, comm_complexity, kernels, wire, encode, transport and
+    scenario; Table 2's n = 10 rows plus n = 100, s = 1 from (q)'s problem;
+    ``trace_smoke`` through ``obs.analyze`` (spans, Perfetto, degraded
+    rounds attributed); every BENCH document valid; then ``bench_diff``
+    against the reference's ``benchmarks/baselines`` for table2, wire,
+    encode, transport and scenario: a missing metric or a failing ``value``
+    gate fails; the ``us_per_call`` gates are printed, not enforced (those
+    baselines were timed on a CPU in Pallas interpret mode). The counters
+    are zeroed before (q) and read after (r): every kernel but unpack_bits
+    must have launched there.
+
 Prints a ``{"kernels": [...]}`` JSON line (launches: the path of each row
-plus (m)-(o)), then the card's name and power
+plus (m)-(o) and (q)-(r); the rotk_apply row names its dtypes, its numbers are float32's and
+``by_dtype`` gives each dtype's), then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero,
 printing no result, where CUDA is unavailable or the port is missing.
 """
@@ -783,6 +806,255 @@ def participation_phase(np, torch, dev, prob, prob_cpu, T):
     return secs / T * 1e6
 
 
+# ---------------------------------------------------------------------------
+# the repairs, the SPMD runner and the benchmark harness (phases p-r)
+# ---------------------------------------------------------------------------
+
+# kernels that must launch between (q) and (r): all but unpack_bits, which
+# only a decoder reaches (serve, not ported yet)
+HARNESS_KERNELS = ("l1_subgrad", "block_topk", "pack_bits", "sparse_streams", "dense_bits", "bernk",
+                   "rotk_apply", "mask_streams", "topk_streams")
+HARNESS_SUITES = ("fig1", "stepsize_grid", "comm_complexity", "kernels", "wire", "encode", "transport",
+                  "scenario")
+DIFF_SUITES = ("table2", "wire", "encode", "transport", "scenario")  # the suites with a baseline
+SPMD_ATOL = 1e-4
+
+
+def rotk16_phase(np, torch, dev, timed):
+    """(p): rotk_apply in fp16 and bf16 bit-exact against its plain version
+    at d = 2**16, n in {7, 10, 16}, r in {-3, 0, n + 1}, on inputs with IEEE
+    corners (+-0, fp32 / fp16 / bf16 denormals, +-inf, NaNs, values whose
+    product overflows the dtype) in w and in kept and dropped coordinates of
+    delta. Returns (max abs error, cases, {dtype: (ms, plain ms, bound ms)})."""
+    from repro_torch.kernels import ops, ref
+
+    d = 2**16
+    rng = np.random.default_rng(29)
+    extra = np.array([5.96e-8, -3.0e-5, 6.0e-5, 1.0e-6, 1e-39, -2e-40, 6.0e4, -65504.0, 3.0e38,
+                      -1.5e38], dtype=np.float32)
+    err, cases, times = 0.0, 0, {}
+    for dtype in (torch.float16, torch.bfloat16):
+        for n in (7, 10, 16):
+            w_np, d_np = with_corners(np, rng, d), with_corners(np, rng, d, at=40)
+            for at in range(0, 3 * n, 3):  # the corners on kept and on dropped coordinates
+                w_np[100 + at:100 + at + extra.size] = extra
+                d_np[300 + at:300 + at + extra.size] = extra[::-1]
+            w = torch.from_numpy(w_np).to(dev).to(dtype)
+            delta = torch.from_numpy(d_np).to(dev).to(dtype)
+            for r in (-3, 0, n + 1):
+                rot = torch.tensor([r], dtype=torch.int32, device=dev)
+                got = ops.rotk_apply(w, delta, rot, n=n, worker=2)
+                want = ref.rotk_apply_ref(w, delta, rot, n=n, worker=2)
+                torch.cuda.synchronize()
+                err = max(err, float_err(torch, got, want))
+                if not bits_equal(torch, got, want):
+                    bad = (got.view(torch.int16) != want.view(torch.int16)).nonzero().flatten()[:8].tolist()
+                    fail(f"(p) rotk_apply {dtype} n={n} r={r}: kernel != plain at {bad}")
+                cases += 1
+        # kernel_bench's setting: n = 16, worker 3, r = 2
+        x = torch.randn(d, generator=torch.Generator().manual_seed(5)).to(dev).to(dtype)
+        wt = torch.randn(d, generator=torch.Generator().manual_seed(6)).to(dev).to(dtype)
+        rot = torch.tensor([2], dtype=torch.int32, device=dev)
+        times[str(dtype).split(".")[-1]] = (
+            timed(lambda: ops.rotk_apply(wt, x, rot, n=16, worker=3)),
+            timed(lambda: ref.rotk_apply_ref(wt, x, rot, n=16, worker=3)),
+            (6 * d + 4) / HBM_BYTES_PER_S * 1e3)
+    return err, cases, times
+
+
+def spmd_phase(np, torch, dev, T):
+    """(q): the SPMD runner (``core/distributed.py``) as one NCCL rank at the
+    paper's largest width, d = 1000, n = 100 (A: 400 MB of f32): MARINA-P
+    same/ind/perm with Polyak for T rounds against the single-process
+    ``marina_p.make_step`` on the card fed the same ``MarinaPDraws``, x and W
+    within SPMD_ATOL every round; EF21-P/TopK (Polyak) teacher-forced per
+    step, x and the k kept magnitudes within SPMD_ATOL, w where the k-th
+    magnitude gap exceeds 1e-5 (at n = 100 exact ties there are common).
+    Returns (problem, datagen s, max abs error, {run: (SPMD µs/round,
+    single-process µs/round)})."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.core import compressors as C
+    from repro_torch.core import distributed, ef21p, marina_p, problems, stepsizes
+
+    N, D = 100, 1000
+    k, p = D // N, (D // N) / D
+    t0 = time.perf_counter()
+    prob = problems.generate_problem(n=N, d=D, noise_scale=1.0, seed=0, device=dev)
+    datagen_s = time.perf_counter() - t0
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    distributed.init_process_group(f"tcp://127.0.0.1:{port}", rank=0, world_size=1, device=dev)
+    worst, us = 0.0, {}
+
+    def per_round(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / T * 1e6
+
+    try:
+        group = dist.group.WORLD
+        if dist.get_backend(group) != "nccl":
+            fail(f"(q) the card's process group runs {dist.get_backend(group)}, not nccl")
+        A = distributed.shard_problem(group, prob.A, device=dev)
+        for mode, omega in (("same", D / k - 1.0), ("ind", D / k - 1.0), ("perm", N - 1.0)):
+            ss = stepsizes.MarinaPPolyak(omega=omega, p=p)
+            single = marina_p.make_step(prob, mode, k, p, ss)
+            spmd = distributed.make_marina_p_spmd_step(group, n=N, d=D, mode=mode, k=k, p=p,
+                                                       stepsize=ss, device=dev)
+            bcast = marina_p.make_broadcast(mode, N, k)
+            gen = torch.Generator().manual_seed(0)
+            draws = [marina_p.draw_round(bcast, p, D, gen, dev) for _ in range(T)]
+            state, sp = marina_p.init(prob.x0, N), distributed.init_marina_p(prob.x0, N)
+            for t in range(T):
+                state, m1 = single(state, draws[t])
+                sp, m2 = spmd(sp, A, draws[t])
+                e = max(float((state.x - sp.x).abs().max()), float((state.W - sp.W).abs().max()))
+                worst = max(worst, e)
+                if not e <= SPMD_ATOL or m1["q_nnz_mean"] != m2["q_nnz_mean"]:
+                    fail(f"(q) MARINA-P {mode} round {t}: SPMD vs single process max |diff| {e:.3e}, "
+                         f"q_nnz_mean {m2['q_nnz_mean']} / {m1['q_nnz_mean']}")
+
+            def run_single():
+                st = marina_p.init(prob.x0, N)
+                for dr in draws:
+                    st, _ = single(st, dr)
+
+            def run_spmd():
+                st = distributed.init_marina_p(prob.x0, N)
+                for dr in draws:
+                    st, _ = spmd(st, A, dr)
+
+            a, b, c, e_ = per_round(run_spmd), per_round(run_single), per_round(run_single), per_round(run_spmd)
+            us[f"marina_p_{mode}_polyak"] = ((a + e_) / 2, (b + c) / 2)
+        ss = stepsizes.EF21PPolyak(alpha=k / D)
+        single = ef21p.make_step(prob, C.TopK(k=k), ss)
+        spmd = distributed.make_ef21p_spmd_step(group, n=N, d=D, k=k, stepsize=ss, device=dev)
+        state, checked = ef21p.init(prob.x0), 0
+        for t in range(T):
+            new, _ = single(state)
+            sp, _ = spmd(distributed.SpmdEF21PState(x=state.x, w=state.w, t=state.t), A)
+            e = float((new.x - sp.x).abs().max())
+            mags = torch.sort((new.x - state.w).abs(), descending=True).values
+            if float(mags[k - 1] - mags[k]) > 1e-5:  # selection unambiguous
+                e = max(e, float((new.w - sp.w).abs().max()))
+                checked += 1
+            # whichever of tied coordinates each picks, the kept magnitudes agree
+            kept = [torch.sort((s_.w - state.w).abs(), descending=True).values[:k] for s_ in (new, sp)]
+            e = max(e, float((kept[0] - kept[1]).abs().max()))
+            worst = max(worst, e)
+            if not e <= SPMD_ATOL:
+                fail(f"(q) EF21-P round {t}: SPMD vs single process max |diff| {e:.3e}")
+            state = new  # teacher-force the single-process trajectory
+
+        def run_single_e():
+            st = ef21p.init(prob.x0)
+            for _ in range(T):
+                st, _ = single(st)
+
+        def run_spmd_e():
+            st = distributed.init_ef21p(prob.x0)
+            for _ in range(T):
+                st, _ = spmd(st, A)
+
+        a, b, c, e_ = per_round(run_spmd_e), per_round(run_single_e), per_round(run_single_e), per_round(run_spmd_e)
+        us["ef21p_topk_polyak"] = ((a + e_) / 2, (b + c) / 2)
+        # what one world-1 all_reduce of the uplink's d + 2 floats costs alone
+        buf = torch.zeros(D + 2, device=dev)
+
+        def reduce_rounds():
+            for _ in range(T):
+                dist.all_reduce(buf, group=group)
+                torch.cuda.synchronize()
+
+        us["all_reduce_uplink"] = (per_round(reduce_rounds), 0.0)
+        log(f"(q) EF21-P teacher-forced {T} rounds: x and the k kept magnitudes compared every round, w in "
+            f"the {checked} rounds whose k-th magnitude gap exceeds 1e-5 (the tridiagonal A_i tie |x - w| at "
+            "the k-th place)")
+    finally:
+        dist.destroy_process_group()
+    return prob, datagen_s, worst, us
+
+
+def harness_phase(np, torch, dev, prob100, datagen_s):
+    """(r): ``repro_torch.run.main`` on the card for HARNESS_SUITES, Table 2
+    (n = 10 rows, plus n = 100, s = 1 from (q)'s problem), ``trace_smoke``
+    through ``obs.analyze``; every BENCH document valid; then each suite of
+    DIFF_SUITES against the reference's committed baseline with
+    ``bench_diff.diff_docs``: a missing metric or a failing ``value`` gate
+    fails, the ``us_per_call`` gates are printed and not enforced (those
+    baselines were timed on a CPU in Pallas interpret mode). Returns
+    {suite: wall s}."""
+    import glob
+    import os
+    import tempfile
+
+    from repro_torch import bench_diff, obs, run, table2_sigma, trace_smoke
+    from repro_torch.obs import analyze
+
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = run.main([*HARNESS_SUITES, "--device", "cuda", "--out", tmp,
+                       "--jsonl", os.path.join(tmp, "events.jsonl")])
+        if rc != 0:
+            fail(f"(r) repro_torch.run exited {rc}")
+        cells = [(10, s) for s in (0.1, 1.0, 10.0)]
+        sink = obs.BenchJsonSink("table2", tmp, seed=0, gates=run.GATES["table2"])
+        t0 = time.perf_counter()
+        rows = table2_sigma.bench(cells=cells, tracker=sink, device=dev)
+        walls["table2 (n=10 rows)"] = time.perf_counter() - t0
+        rows.append(table2_sigma.row(100, 1.0, prob100.sigma_A, datagen_s * 1e6, sink))
+        for row in rows:
+            sink.log_row(*row)
+            log(f"(r) {row[0]:28s} sigma_A {row[2]!r} (datagen {row[1] / 1e6:.1f} s)")
+        sink.finish()
+        cells.append((100, 1.0))
+        t0 = time.perf_counter()
+        trace = trace_smoke.run(os.path.join(tmp, "trace.jsonl"), device=dev)
+        events = list(obs.read_jsonl(trace))
+        errors = analyze.validate_spans(events) + analyze.validate_perfetto(analyze.to_perfetto(events))
+        _, n_degraded = analyze.report(events)
+        rounds = sum(1 for r in analyze.build_tree(events) if r.name == "round")
+        walls["trace_smoke"] = time.perf_counter() - t0
+        if errors or rounds != trace_smoke.ROUNDS or n_degraded < 1:
+            fail(f"(r) trace_smoke: {errors[:3]}, {rounds} round spans, {n_degraded} degraded rounds")
+        log(f"(r) trace_smoke: {rounds} round spans valid, Perfetto export valid, {n_degraded} degraded "
+            "rounds attributed to worker links")
+        paths = sorted(glob.glob(os.path.join(tmp, "BENCH_*.json")))
+        for path in paths:
+            doc = obs.load(path)
+            if obs.validate(doc) or doc["env"]["platform"] != "gpu":
+                fail(f"(r) {os.path.basename(path)} invalid: {obs.validate(doc)[:3]} env {doc['env']}")
+        for suite in [*HARNESS_SUITES]:
+            walls[suite] = obs.load(os.path.join(tmp, f"BENCH_{suite}.json"))["timers"][f"{suite}/suite"]["total_s"]
+        log(f"(r) {len(paths)} BENCH documents valid (schema v1, platform gpu)")
+        for suite in DIFF_SUITES:
+            base = obs.load(os.path.join(str(ROOT), "benchmarks", "baselines", f"BENCH_{suite}.json"))
+            fresh = obs.load(os.path.join(tmp, f"BENCH_{suite}.json"))
+            if suite == "table2":  # only the cells this phase computed
+                base["metrics"] = {name: v for name, v in base["metrics"].items()
+                                   if any({f"n{n}", f"s{s}"} <= set(name.split("/")) for n, s in cells)}
+            value = dict(base, gates=[g for g in base["gates"] if g["field"] != "us_per_call"])
+            timing = dict(base, gates=[g for g in base["gates"] if g["field"] == "us_per_call"])
+            v_fail, v_checked = bench_diff.diff_docs(value, fresh)
+            t_fail, t_checked = bench_diff.diff_docs(timing, fresh)
+            missing = [f for f in t_fail if "missing" in f]
+            log(f"(r) bench_diff {suite}: {len(v_checked)} value gates checked, {len(v_fail)} failing; "
+                f"{len(t_checked)} us_per_call gates (CPU-interpret baseline, printed only), "
+                f"{len(t_fail) - len(missing)} over")
+            for f in t_fail:
+                if f not in missing:
+                    log(f"(r)   us_per_call, not enforced: {f}")
+            if v_fail or missing:
+                fail(f"(r) bench_diff {suite}: {(v_fail + missing)[:6]}")
+    return walls
+
+
 def main() -> int:
     import torch
 
@@ -823,7 +1095,10 @@ def main() -> int:
 
     # --- (a) kernels against their plain versions on the card -------------------
     l1_err = 0.0
-    for n, d in ((10, 1000), (100, 1000), (3, 257), (1, 1024)):  # d = 1024: 48 KB of tiles
+    # the last six: the shapes the harness's runs (q)-(r) give it (comm_complexity,
+    # fig1, stepsize_grid, scenario / transport / trace_smoke)
+    for n, d in ((10, 1000), (100, 1000), (3, 257), (1, 1024),  # d = 1024: 48 KB of tiles
+                 (8, 128), (10, 200), (50, 200), (10, 120), (16, 64), (8, 64)):
         A_np, X_np = l1_inputs(np, n, d, seed=n * 7919 + d)
         A, X = torch.from_numpy(A_np).to(dev), torch.from_numpy(X_np).to(dev)
         got = k_l1.l1_subgrad(A, X)
@@ -851,7 +1126,10 @@ def main() -> int:
 
     rng = np.random.default_rng(1)
     topk_cases = []
-    for d, block, k in ((1000, 1000, 100), (2048, 512, 16), (1000, 128, 4)):
+    # block = d: EF21-P's TopK on the harness's runs (q)-(r)
+    for d, block, k in ((1000, 1000, 100), (2048, 512, 16), (1000, 128, 4),
+                        (128, 128, 4), (128, 128, 16), (128, 128, 64), (200, 200, 20),
+                        (120, 120, 12), (64, 64, 8), (1000, 1000, 10)):
         topk_cases.append((f"d={d} block={block} k={k} f32",
                            torch.from_numpy(rng.standard_normal(d).astype(np.float32)), block, k))
         ties = np.round(rng.standard_normal(d) * 2) / 2  # many exact ties
@@ -1301,6 +1579,40 @@ def main() -> int:
             f"of it ({card})")
     log(f"(o) us/round marina_p with BernoulliStragglerPlan d={D} n={N}: {part_us:.1f} ({card})")
 
+    # --- (p) the repairs on the card: rotk_apply in fp16 and bf16 --------------------------
+    t_p = time.perf_counter()
+    rotk16_err, n16, rotk16_ms = rotk16_phase(np, torch, dev, timed)
+    bench_err["rotk_apply"] = max(bench_err["rotk_apply"], rotk16_err)
+    log(f"(p) rotk_apply fp16/bf16: {n16} cases bit-equal to the plain version, IEEE corners and a "
+        f"negative rotation included ({time.perf_counter() - t_p:.1f} s)")
+    for name, (ms_, plain_, bound_) in rotk16_ms.items():
+        log(f"(p) rotk_apply {name} d=2**16 n=16: {ms_:.5f} ms (plain {plain_:.5f}, bound {bound_:.2e} "
+            f"by bytes; f32 {st['rotk_apply'][0]:.5f}) ({card})")
+
+    # --- (q)-(r) the SPMD runner and the benchmark harness ------------------------------------
+    runtime.reset_launches()
+    t_q = time.perf_counter()
+    prob100, datagen_s, spmd_err, spmd_us = spmd_phase(np, torch, dev, T=50)
+    t_r = time.perf_counter()
+    walls = harness_phase(np, torch, dev, prob100, datagen_s)
+    torch.cuda.synchronize()
+    harness_launches = dict(runtime.LAUNCHES)
+    t_end = time.perf_counter()
+    log(f"(q)-(r) launches on the SPMD and harness paths: {harness_launches}; (q) {t_r - t_q:.1f} s "
+        f"(datagen n=100 {datagen_s:.1f} s), (r) {t_end - t_r:.1f} s")
+    for kname in HARNESS_KERNELS:
+        if harness_launches.get(kname, 0) <= 0:
+            fail(f"(q)-(r) the SPMD / harness paths never launched {kname}")
+    log(f"(q) d=1000 n=100, one NCCL rank: SPMD vs single process max |diff| {spmd_err:.3e} over 50 rounds "
+        "of MARINA-P same/ind/perm and 50 teacher-forced EF21-P steps")
+    reduce_us = spmd_us.pop("all_reduce_uplink")[0]
+    for name, (spmd_, single_) in spmd_us.items():
+        log(f"(q) us/round {name} d=1000 n=100: SPMD {spmd_:.1f}, single process {single_:.1f} ({card})")
+    log(f"(q) one NCCL all_reduce of the uplink's 1002 floats, world size 1, each followed by a sync: "
+        f"{reduce_us:.1f} us ({card})")
+    for suite, wall in walls.items():
+        log(f"(r) wall {suite}: {wall:.2f} s ({card})")
+
     summary = {"kernels": [
         {"name": "l1_subgrad", "route": "cuda", "source": "src/repro_torch/csrc/l1_subgrad.cu",
          "replaces": "src/repro/kernels/l1_subgrad.py:46", "launches": launches["l1_subgrad"],
@@ -1333,8 +1645,15 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{replaces}", "launches": bench_launches[name],
             "max_abs_err": bench_err[name], "ms": ms_, "plain_ms": plain_, "bound_ms": bound_,
             "bound_by": by_, "library_ms": None})
-    for row in summary["kernels"]:  # the slice's paths launched these kernels too
-        row["launches"] += slice_launches.get(row["name"], 0)
+    for row in summary["kernels"]:  # the later slices' paths launched these kernels too
+        row["launches"] += slice_launches.get(row["name"], 0) + harness_launches.get(row["name"], 0)
+        if row["name"] == "rotk_apply":
+            # max_abs_err covers all three dtypes; the row's ms, plain_ms, bound_ms and
+            # launches are float32's: no path runs the 16-bit variants, timed in (p)
+            row["dtypes"] = ["float32", "float16", "bfloat16"]
+            row["by_dtype"] = {"float32": {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "launches")}}
+            for name, (ms_, plain_, bound_) in rotk16_ms.items():
+                row["by_dtype"][name] = {"ms": ms_, "plain_ms": plain_, "bound_ms": bound_, "launches": 0}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,5 +7,7 @@
 * subgradient — baseline distributed SM (eq. 5)
 * ef21p       — distributed EF21-P (Algorithm 1)
 * marina_p    — non-smooth MARINA-P (Algorithm 2), three broadcast modes
+* distributed — both algorithms' rounds as SPMD steps over a torch.distributed group
+* jax_random  — numpy port of the jax.random draws the SEED/PERM decode needs
 """
 from . import comm_model, compressors, ef21p, marina_p, problems, stepsizes, subgradient  # noqa: F401

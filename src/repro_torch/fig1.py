@@ -2,7 +2,8 @@
 (same/ind/PermK), constant vs Polyak stepsizes, under equal per-worker
 downlink bit budgets.
 
-Port of ``benchmarks/fig1_convergence.py::run_suite``. Setup follows
+Port of ``benchmarks/fig1_convergence.py``: ``run_suite`` and the harness
+adapter ``bench`` (``python -m repro_torch.run fig1``). Setup follows
 §5/App.A: f_i = ||A_i x||_1, K = d/n, p = K/d, Algorithm 3 datagen with noise
 scales controlling sigma_A. The paper's scale is d=1000, n in {10, 100}.
 Runs on ``device`` (default the card).
@@ -67,3 +68,19 @@ def run_suite(*, d=200, n=10, noise=1.0, budget_bits=None, T=600, seed=0,
             stepsize=stepsizes.MarinaPPolyak(omega=o, p=p, f_star=0.0, factor=tuned_factor),
             seed=seed, **kw))
     return results
+
+
+def bench(tracker=None, *, device="cuda"):
+    """``repro_torch.run`` adapter: the reference's rows ``fig1/n{n}/{name}``
+    (µs per round, final f) for n in {10, 50}, d = 200, T = 400 (+ per-method
+    bits/round telemetry through ``tracker``)."""
+    rows = []
+    for n in (10, 50):
+        res = run_suite(d=200, n=n, noise=1.0, T=400, device=device)
+        for name, r in res.items():
+            rows.append((f"fig1/n{n}/{name}", r["us_per_round"], r["final_subopt"]))
+            if tracker is not None:
+                tracker.log({f"fig1/n{n}/{name}": {
+                    "bits_per_round": r["bits_per_worker"] / r["rounds"],
+                    "rounds": r["rounds"]}})
+    return rows

@@ -85,13 +85,15 @@ def rotk_apply(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *, 
                worker: int) -> torch.Tensor:
     """w + Q_worker(delta) of RotK: n * delta on the coordinates j with
     j mod n == (worker + r) mod n, w elsewhere (see :func:`.ref.rotk_apply_ref`).
-    w, delta: [d] f32; rotation: a one-element int32 tensor r on the same
-    device (the card reads it there, with no host sync)."""
+    w, delta: [d] of one dtype, f32, f16 or bf16 (these round the product,
+    then the sum, to their dtype); rotation: a one-element int32 tensor r on
+    the same device (the card reads it there, with no host sync)."""
     if w.dim() != 1 or delta.shape != w.shape:
         raise ValueError(f"rotk_apply: w and delta must be [d], got {tuple(w.shape)} and "
                          f"{tuple(delta.shape)}")
-    if w.dtype != torch.float32 or delta.dtype != torch.float32:
-        raise TypeError(f"rotk_apply: float32 only, got {w.dtype} and {delta.dtype}")
+    if w.dtype not in _permk.DTYPES or delta.dtype != w.dtype:
+        raise TypeError(f"rotk_apply: w and delta must share one dtype of {list(_permk.DTYPES)}, "
+                        f"got {w.dtype} and {delta.dtype}")
     if rotation.dtype != torch.int32 or rotation.numel() != 1:
         raise TypeError(f"rotk_apply: rotation must be one int32, got {rotation.dtype} "
                         f"{tuple(rotation.shape)}")

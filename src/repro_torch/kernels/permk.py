@@ -13,17 +13,21 @@ import torch
 
 from . import runtime
 
+# the kernel's dtype codes
+DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
 
 def rotk_apply(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *, n: int,
                worker: int) -> torch.Tensor:
-    """w, delta: [d] f32 contiguous on the card; rotation: one int32 on the
-    card, read by the kernel (no host sync). Returns w + Q_worker(delta)."""
+    """w, delta: [d] contiguous on the card, both f32, f16 or bf16; rotation:
+    one int32 on the card, read by the kernel (no host sync). Returns
+    w + Q_worker(delta)."""
     out = torch.empty_like(w)
     fn = runtime.function("permk", "rotk_apply", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    err = fn(w.data_ptr(), delta.data_ptr(), rotation.data_ptr(), out.data_ptr(), w.shape[0], n,
-             worker, runtime.stream_ptr(w))
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    err = fn(w.data_ptr(), delta.data_ptr(), rotation.data_ptr(), out.data_ptr(), DTYPES[w.dtype],
+             w.shape[0], n, worker, runtime.stream_ptr(w))
     runtime.check(err, "rotk_apply")
     runtime.count_launch("rotk_apply")
     return out

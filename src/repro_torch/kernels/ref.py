@@ -249,15 +249,31 @@ def bernk_ref(x: torch.Tensor, *, keep_prob: float, seed: int, worker: int = 0) 
     return torch.where(hb >= 2**15, hb - 2**16, hb).to(torch.int16).view(torch.bfloat16)
 
 
+def _to16(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 ``v`` rounded once to ``dtype`` (fp16 / bf16) on bit patterns:
+    nearest even, a NaN as numpy (fp16) / ml_dtypes (bf16) make it, whatever
+    the device's own cast would do."""
+    b = u32(v.view(torch.int32))
+    h = f32_to_f16_bits_ref(b) if dtype == torch.float16 else f32_to_bf16_bits_ref(b)
+    return torch.where(h >= 2**15, h - 2**16, h).to(torch.int16).view(dtype)
+
+
 def rotk_apply_ref(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *, n: int,
                    worker: int) -> torch.Tensor:
     """w + where(j mod n == (worker + r) mod n, delta * n, +0.0), as the
     reference kernel computes it: a floor mod (r may be negative), the
     product rounded before the sum (no FMA), and -0.0 in w turned into +0.0
-    where nothing is added. ``rotation``: a one-element int32 tensor r."""
+    where nothing is added. ``rotation``: a one-element int32 tensor r.
+
+    fp16 / bf16 (XLA computes each 16-bit operation in fp32 and rounds it):
+    q = T(f32(delta) * n), then T(f32(w) + f32(q)), each rounded once to
+    nearest even (:func:`_to16`); the widening casts are exact."""
     r = rotation.reshape(()).to(torch.int32)
     keep = torch.arange(w.shape[-1], device=w.device) % n == torch.remainder(r + worker, n)
-    return w + torch.where(keep, delta * float(n), 0.0)
+    if w.dtype == torch.float32:
+        return w + torch.where(keep, delta * float(n), 0.0)
+    q = _to16(delta.float() * float(n), w.dtype).float()
+    return _to16(w.float() + torch.where(keep, q, 0.0), w.dtype)
 
 
 def mask_streams_ref(x: torch.Tensor, workers: torch.Tensor, keep_prob: float, seed: int, mag: int):

@@ -9,8 +9,11 @@ client population on ``--device`` (default the card) and writes one
 schema-versioned ``BENCH_scenario_<cell>.json`` artifact (repro_torch.obs
 sink fan-out) reporting rounds-to-target, downlink bits (analytic 64-bit
 model + measured wire bytes) and participation/goodput stats; :func:`bench`
-returns the reference's gated row set per cell. The reference's Polyak
-factor sweep (``polyak_factor_grid``) is not ported yet.
+returns the reference's gated row set per cell.
+
+The paper's Table 3/6 Polyak-factor sweep is folded in as
+:func:`polyak_factor_grid` (the stepsize axis of the matrix), with
+``repro_torch.stepsize_grid`` as its deprecation shim, as in the reference.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from . import obs
-from .core import stepsizes
+from .core import compressors as C
+from .core import ef21p, marina_p, problems, stepsizes
 from .fleet import FleetL1Problem, fleet_run, make_fleet, make_sampler
 
 DEFAULT_OUT = os.environ.get("REPRO_BENCH_DIR", "runs/bench")
@@ -165,6 +169,52 @@ def bench(
         rows.append((f"scenario/{cid}/s2w_bits", dt_us, m["downlink_bits_analytic"]))
         rows.append((f"scenario/{cid}/goodput", dt_us, m["goodput"]))
         rows.append((f"scenario/{cid}/final_f", dt_us, m["final_f"]))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Folded-in stepsize axis (benchmarks/stepsize_grid.py in the reference):
+# paper Table 3/6 tuned multiplicative Polyak factors, App. A protocol. Row
+# names keep the historical ``stepsize_grid/...`` prefix.
+# ---------------------------------------------------------------------------
+
+
+def tune(method: str, prob, T=250, factors=None, seed=0):
+    """Sweep the factor grid for one method ("ef21p", "same", "ind" or
+    "perm"); return (best factor, final f)."""
+    d, n = prob.d, prob.n
+    k = max(1, d // n)
+    p, alpha = k / d, k / d
+    factors = factors or [2.0**e for e in range(-7, 6, 2)]
+    best = (None, float("inf"))
+    for f in factors:
+        if method == "ef21p":
+            ss = stepsizes.EF21PPolyak(alpha=alpha, f_star=0.0, factor=f)
+            h = ef21p.run(prob, C.TopK(k=k), ss, T=T, seed=seed, record_every=T - 1)
+        else:
+            omega = float(n - 1) if method == "perm" else d / k - 1.0
+            ss = stepsizes.MarinaPPolyak(omega=omega, p=p, f_star=0.0, factor=f)
+            h = marina_p.run(prob, mode=method, k=k, p=p, stepsize=ss, T=T,
+                             seed=seed, record_every=T - 1)
+        final = h["f_x"][-1]
+        if final < best[1]:
+            best = (f, final)
+    return best
+
+
+def polyak_factor_grid(tracker=None, *, prob=None, T=250, factors=None,
+                       methods=("ef21p", "same", "ind", "perm"), seed=0, device="cuda"):
+    """The legacy stepsize_grid suite body (row names unchanged); the default
+    problem is Algorithm 3 at n = 10, d = 120 on ``device``."""
+    rows = []
+    if prob is None:
+        prob = problems.generate_problem(n=10, d=120, noise_scale=1.0, seed=0, device=device)
+    for method in methods:
+        t0 = time.time()
+        f, final = tune(method, prob, T=T, factors=factors, seed=seed)
+        dt = (time.time() - t0) * 1e6
+        rows.append((f"stepsize_grid/polyak/{method}/best_factor", dt, f))
+        rows.append((f"stepsize_grid/polyak/{method}/final_subopt", dt, final))
     return rows
 
 

@@ -3,6 +3,7 @@
 overhead.
 
     PYTHONPATH=src python -m repro_torch.transport_bench [--device cpu]
+    PYTHONPATH=src python -m repro_torch.run transport [--device cpu]   (the harness: :func:`bench`)
 
 Two sections (DESIGN.md §8.6):
 
@@ -58,7 +59,9 @@ def framing_rows():
 def chaos_metrics(*, T=120, seed=1, device="cuda"):
     """Clean vs degraded MARINA-P on ``device``; returns the gateable
     scalars (``transport/chaos_run_s`` is host-clock seconds of the faulty
-    run, which ends in a host read of f_x every round)."""
+    run, which ends in a host read of f_x every round). Raises
+    ``StopIteration``, as the reference does, when the clean run never gets
+    below its target (the faulty run may: it then counts its last round)."""
     prob = problems.generate_problem(n=8, d=64, noise_scale=1.0, seed=0, device=device)
     k = prob.d // prob.n
     p = k / prob.d
@@ -66,7 +69,10 @@ def chaos_metrics(*, T=120, seed=1, device="cuda"):
 
     clean = marina_p.run(prob, mode="perm", k=k, p=p, stepsize=ss, T=T, seed=seed)
     target = 0.25 * clean["f_x"][0]
-    r_clean = next((t for t, f in zip(clean["t"], clean["f_x"]) if f < target), clean["t"][-1])
+    r_clean = next((t for t, f in zip(clean["t"], clean["f_x"]) if f < target), None)
+    if r_clean is None:  # the reference's bare next() raises StopIteration here
+        raise StopIteration(f"the clean run never reached 0.25 * f_x[0] = {target:g} in {T} rounds: "
+                            "rounds_ratio would be meaningless")
 
     fleet = Fleet.make(prob.n, CHAOS_SPEC, timeout=2, max_retries=1)
     t0 = time.perf_counter()
@@ -83,6 +89,17 @@ def chaos_metrics(*, T=120, seed=1, device="cuda"):
         "transport/recovery_ticks_mean": round(tr["transport/recovery_ticks_mean"], 3),
         "transport/chaos_run_s": round(chaos_s, 3),
     }
+
+
+def bench(tracker=None, *, device="cuda"):
+    """``repro_torch.run`` adapter: the framing rows (name, µs, GB/s); the
+    chaos-run scalars (goodput, rounds_ratio, counters) go through
+    ``tracker``, so that the BENCH artifact can gate on them."""
+    rows = framing_rows()
+    metrics = chaos_metrics(device=device)
+    if tracker is not None:
+        tracker.log(metrics)
+    return rows
 
 
 def main(argv=None) -> int:

@@ -14,7 +14,7 @@ Layout reference: DESIGN.md §3. The device path for SPARSE/DENSE is
 from .bitstream import from_bytes, n_words, pack_u32, to_bytes, unpack_u32  # noqa: F401
 from .natural import decode_natural, encode_natural  # noqa: F401
 from .registry import codec_for, decode, encode, encode_rows, peek  # noqa: F401
-from .seedonly import PermDecodeUnavailable, apply_seed, decode_seed, encode_seed  # noqa: F401
+from .seedonly import apply_seed, decode_seed, encode_seed  # noqa: F401
 from .sparse import decode_dense, decode_sparse, encode_dense, encode_sparse  # noqa: F401
 from .spec import (  # noqa: F401
     HEADER_BYTES,

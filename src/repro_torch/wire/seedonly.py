@@ -8,10 +8,10 @@ common header (28 bytes, fixed):
     [u8 family][pad x3][u32 seed][u32 round][f32 scale]
     [u32 n][u32 worker][f32 param]
 
-BERN and ROTK rematerialize here bit for bit. PERM re-derives Definition 5's
-permutation from ``jax.random`` in the reference; the port has no threefry2x32
-/ ``jax.random.permutation`` yet (pinned to JAX 0.9.0 when it comes), so
-:func:`apply_seed` raises :class:`PermDecodeUnavailable` for it.
+All three families rematerialize here bit for bit. PERM re-derives
+Definition 5's permutation as the reference draws it from ``jax.random``
+(``permutation(fold_in(PRNGKey(seed), round), d)``), through the numpy port
+of those draws in :mod:`repro_torch.core.jax_random` (JAX 0.9.0).
 """
 from __future__ import annotations
 
@@ -19,15 +19,11 @@ import struct
 
 import numpy as np
 
+from ..core import jax_random
 from ..kernels.randk import hash_uniform
 from .spec import CodecID, CorruptFrame, SeedFamily, SeedMessage, TruncatedFrame, pack_header
 
 _PAYLOAD = struct.Struct("<BxxxIIfIIf")
-
-
-class PermDecodeUnavailable(NotImplementedError):
-    """The PERM family's mask needs a port of threefry2x32 and
-    ``jax.random.permutation`` (pinned to JAX 0.9.0), which the port lacks."""
 
 
 def encode_seed(msg: SeedMessage, d: int) -> bytes:
@@ -69,9 +65,26 @@ def apply_seed(msg: SeedMessage, delta) -> np.ndarray:
         keep = (np.arange(d) % msg.n) == ((msg.worker + r) % msg.n)
         out = np.where(keep, x * msg.n, 0.0)
     elif msg.family == SeedFamily.PERM:
-        raise PermDecodeUnavailable(
-            "SEED/PERM decode needs the PermK mask of jax.random.permutation: the port "
-            "has no threefry2x32 / jax.random.permutation port yet (pinned to JAX 0.9.0)")
+        out = _permk(msg, x)
     else:  # pragma: no cover
         raise ValueError(msg.family)
     return (out * msg.scale).astype(np.float32)
+
+
+def _permk(msg: SeedMessage, x: np.ndarray) -> np.ndarray:
+    """The reference's ``PermK(n, worker)(fold_in(PRNGKey(seed), round), x)``
+    in float32, in its order of operations: worker i keeps block i of the
+    permutation (``dynamic_slice``: a start past the end is clamped to d - q),
+    ``(x * mask) * n``; worker 0 also keeps the d - q*n leftover entries."""
+    d, n = x.size, msg.n
+    perm = jax_random.permutation(jax_random.fold_in(jax_random.PRNGKey(msg.seed), msg.round), d)
+    q = d // n
+    start = min(msg.worker * q, d - q)
+    mask = np.zeros(d, dtype=np.float32)
+    mask[perm[start:start + q]] = 1.0
+    out = x * mask * np.float32(n)
+    if d > q * n and msg.worker == 0:
+        tmask = np.zeros(d, dtype=np.float32)
+        tmask[perm[q * n:]] = 1.0
+        out = out + x * tmask * np.float32(n)
+    return out

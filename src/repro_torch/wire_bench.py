@@ -1,6 +1,7 @@
 """Wire benchmark of the port (counterpart of ``benchmarks/wire_bench.py``).
 
     PYTHONPATH=src python -m repro_torch.wire_bench [--device cpu] [--T 200]
+    PYTHONPATH=src python -m repro_torch.run wire encode [--device cpu]   (the harness)
 
 Four sections, at the reference's full sizes, on ``--device`` (default the
 card):
@@ -164,6 +165,31 @@ def parity_rows(*, d: int, n: int, T: int = 200, device="cuda"):
     for name, h in hists.items():
         a, w = h["wire_model_ledger"].s2w_bits, h["wire_bits_total"]
         rows.append((name, a / T, w / T, 100.0 * (w - a) / a))
+    return rows
+
+
+def bench(tracker=None, *, device="cuda"):
+    """``repro_torch.run`` adapter (the reference's ``wire`` suite): rows
+    ``wire/{sparse_encode,sparse_decode,dense_encode}`` of the host codec at
+    d = 2**16, (name, µs per call, dense-payload GB/s); with a tracker, also
+    the smoke-size (d=256, n=4, T=30) measured-vs-analytic parity per run as
+    ``parity/<run>/{bits_per_round_analytic,bits_per_round_wire,diff_pct}``."""
+    dev = runtime.resolve_device(device)
+    dense, sparse_vec, _, _ = _inputs(1 << 16, dev)
+    rows = []
+    for name, fn in (
+        ("wire/sparse_encode", lambda: wire.encode_sparse(sparse_vec)),
+        ("wire/sparse_decode", lambda b=wire.encode_sparse(sparse_vec): wire.decode(b)),
+        ("wire/dense_encode", lambda: wire.encode_dense(dense)),
+    ):
+        dt = _seconds(fn, dev)
+        rows.append((name, dt * 1e6, round(dense.nbytes / 1e9 / dt, 3)))
+    if tracker is not None:
+        for name, analytic, measured, pct in parity_rows(d=256, n=4, T=30, device=dev):
+            tracker.log({f"parity/{name}": {
+                "bits_per_round_analytic": analytic,
+                "bits_per_round_wire": measured,
+                "diff_pct": pct}})
     return rows
 
 

@@ -1,6 +1,6 @@
 """The port stands alone: it runs with JAX and ml_dtypes unimportable,
-imports nothing of the JAX package ``repro``, and its entry points never
-default to the CPU."""
+imports nothing of the JAX package ``repro`` or of the reference's
+``benchmarks``, and its entry points never default to the CPU."""
 import os
 import pathlib
 import re
@@ -14,9 +14,11 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 # `import jax`, `from jax...`, `import ml_dtypes` (it comes with JAX),
-# `import repro`/`repro.x`, `from repro(.x) import`; `repro_torch` does not match.
+# `import repro`/`repro.x`, `from repro(.x) import`, `import benchmarks`,
+# `from benchmarks(.x) import`; `repro_torch` does not match.
 FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+ml_dtypes\b|from\s+ml_dtypes\b"
-                       r"|import\s+repro\b(?!_)|from\s+repro\b(?!_))")
+                       r"|import\s+repro\b(?!_)|from\s+repro\b(?!_)"
+                       r"|import\s+benchmarks\b|from\s+benchmarks\b)")
 
 JAX_FREE_RUN = """
 import sys
@@ -75,6 +77,60 @@ print("ok")
 """
 
 
+# the harness, the paper's remaining suites, the SPMD runner and the
+# SEED/PERM decode, with `repro` and `benchmarks` blocked as well
+HARNESS_RUN = """
+import os, sys, tempfile, warnings
+for mod in ("jax", "ml_dtypes", "repro", "benchmarks"):
+    sys.modules[mod] = None  # any import of them now raises ImportError
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch import bench_diff, comm_complexity, obs, run, stepsize_grid, table2_sigma, trace_smoke, wire
+from repro_torch.core import distributed, jax_random, marina_p, problems, stepsizes
+from repro_torch.obs import analyze
+tmp = tempfile.mkdtemp()
+assert run.main(["transport", "--device", "cpu", "--out", tmp]) == 0
+failures, report = bench_diff.diff_dirs(os.path.join(sys.argv[1], "benchmarks", "baselines"), tmp,
+                                        suites=["transport"])
+assert all(f.endswith(")") and "us_per_call" in f for f in failures), failures
+assert table2_sigma.bench(d=32, cells=[(10, 1.0)], device="cpu")[0][0] == "table2/sigmaA/n10/s1.0"
+prob, eps = comm_complexity.setting("cpu")
+assert comm_complexity.marina_ind_rounds(prob, 16, eps, T=3)[0] == -1
+assert comm_complexity.ef21p_rounds(prob, 16, eps, T=3)[0] == -1
+small = problems.generate_problem(n=4, d=16, noise_scale=1.0, seed=0, device="cpu")
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore", DeprecationWarning)
+    assert len(stepsize_grid.bench(prob=small, T=4, factors=[1.0], methods=("perm", "ef21p"))) == 4
+log = trace_smoke.run(os.path.join(tmp, "trace.jsonl"), rounds=3, device="cpu")
+assert analyze.validate_spans(list(obs.read_jsonl(log))) == []
+msg = wire.SeedMessage(wire.SeedFamily.PERM, 2**31 + 1, 3, 1.0, 4, 1)
+out = wire.decode(wire.encode_seed(msg, 64), delta=np.ones(64, np.float32))
+assert sorted(np.flatnonzero(out).tolist()) == sorted(jax_random.permutation(
+    jax_random.fold_in(jax_random.PRNGKey(2**31 + 1), 3), 64)[16:32].tolist())
+distributed.init_process_group("file://" + os.path.join(tmp, "rdv"), rank=0, world_size=1, device="cpu")
+g = dist.group.WORLD
+A = distributed.shard_problem(g, small.A, device="cpu")
+step = distributed.make_marina_p_spmd_step(g, n=4, d=16, mode="perm", k=4, p=0.25,
+                                           stepsize=stepsizes.Constant(0.01), device="cpu")
+bc = marina_p.make_broadcast("perm", 4, 4)
+st, m = step(distributed.init_marina_p(small.x0, 4), A, marina_p.draw_round(bc, 0.25, 16, torch.Generator(), "cpu"))
+assert st.t == 1 and torch.isfinite(st.W).all()
+dist.destroy_process_group()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("repro", "benchmarks") and sys.modules[m] is not None)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_harness_runs_without_jax_repro_or_benchmarks():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", HARNESS_RUN, str(ROOT)], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_port_runs_without_jax_and_without_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", JAX_FREE_RUN], env=env, cwd=ROOT,
@@ -96,6 +152,8 @@ def test_forbidden_pattern_itself():
     assert FORBIDDEN.match("import jax") and FORBIDDEN.match("  from jax.numpy import x")
     assert FORBIDDEN.match("from repro.core import problems") and FORBIDDEN.match("import repro")
     assert FORBIDDEN.match("import ml_dtypes") and FORBIDDEN.match("from ml_dtypes import bfloat16")
+    assert FORBIDDEN.match("from benchmarks import bench_diff") and FORBIDDEN.match("import benchmarks.run")
+    assert FORBIDDEN.match("from benchmarks.run import GATES")
     assert not FORBIDDEN.match("from repro_torch.core import problems")
     assert not FORBIDDEN.match("import repro_torch") and not FORBIDDEN.match("import jaxlib_x")
 

@@ -475,6 +475,41 @@ def test_rotk_apply_vs_pallas(jx, n, r):
         assert (_bits(fused) != _bits(separate)).any()  # so the check above can tell an FMA apart
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("n", [7, 10, 16])
+def test_rotk_apply_16bit_vs_pallas(jx, dtype, n):
+    """bf16 / f16 bit-exact against the Pallas kernel (XLA rounds the product
+    to the dtype, then the sum), with +-0, +-inf, NaNs of both signs and
+    values that overflow the dtype when scaled, in w and in kept and
+    dropped coordinates of delta. Rounding once, T(w + delta*n), differs on
+    hundreds of coordinates for n = 7 and 10 (at n = 16 the product is
+    exact), so the check can tell the two apart."""
+    jnp, jops, _, _ = jx
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    d = 2**14
+    rng = np.random.default_rng(n)
+    w = rng.standard_normal(d).astype(np.float32)
+    delta = rng.standard_normal(d).astype(np.float32)
+    corners = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 65504.0, -65504.0, 3.0e4,
+                        1e-3], np.float32)
+    for at in range(0, 3 * n, n // 2):
+        w[at:at + corners.size] = corners[::-1] if at % 2 else corners
+        delta[at + 50:at + 50 + corners.size] = corners
+    for r in (-3, 5):
+        wj, dj = jnp.asarray(w).astype(jdt), jnp.asarray(delta).astype(jdt)
+        want = np.asarray(jops.rotk_apply(wj, dj, jnp.int32(r), n=n, worker=2, block=1024))
+        wt = torch.from_numpy(np.asarray(wj).view(np.int16).copy()).view(tdt)
+        dt = torch.from_numpy(np.asarray(dj).view(np.int16).copy()).view(tdt)
+        got = ops.rotk_apply(wt, dt, torch.tensor([r], dtype=torch.int32), n=n, worker=2)
+        assert got.dtype == tdt
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(), want.view(np.int16))
+        keep = torch.arange(d) % n == (2 + r) % n
+        once = (wt.float() + torch.where(keep, dt.float() * n, 0.0)).to(tdt)
+        finite = torch.isfinite(got.float())
+        differ = int((once.view(torch.int16) != got.view(torch.int16))[finite].sum())
+        assert (differ > 100) if n != 16 else (differ == 0), differ
+
+
 def test_rotk_apply_negative_rotation_and_negative_zero(jx):
     """r = -3, worker 2, n = 10: (2 - 3) mod 10 = 9, so indices 9, 19, ...
     are kept (C's truncated % would give -1 and keep none); w = -0.0
@@ -495,7 +530,12 @@ def test_bernk_rotk_checks():
     x = torch.ones(8)
     rot = torch.tensor(1, dtype=torch.int32)
     with pytest.raises(TypeError):
-        ops.rotk_apply(x.bfloat16(), x.bfloat16(), rot, n=2, worker=0)  # bf16: a recorded gap
+        ops.rotk_apply(x.bfloat16(), x, rot, n=2, worker=0)  # w and delta of two dtypes
+    with pytest.raises(TypeError):
+        ops.rotk_apply(x.double(), x.double(), rot, n=2, worker=0)
+    for dt in (torch.float16, torch.bfloat16):  # 16-bit: same shape and dtype out
+        out = ops.rotk_apply(x.to(dt), x.to(dt), rot, n=2, worker=0)
+        assert out.dtype == dt and out.float().tolist() == [1.0, 3.0] * 4
     with pytest.raises(TypeError):
         ops.rotk_apply(x, x, rot.long(), n=2, worker=0)
     with pytest.raises(ValueError):
@@ -621,11 +661,16 @@ def test_cuda_seed_kernels_vs_plain():
             got = ops.bernk(xt, keep_prob=kp, seed=BIG_SEED, worker=BIG_WORKER)
             want = ref.bernk_ref(xt, keep_prob=kp, seed=BIG_SEED, worker=BIG_WORKER)
             assert torch.equal(got.view(view), want.view(view)), (dtype, kp)
-    w = torch.full((4096,), -0.0, device=dev)
-    for n, r in ((3, -3), (10, 11), (16, 0)):
-        rot = torch.tensor([r], dtype=torch.int32, device=dev)
-        assert torch.equal(ops.rotk_apply(w, xd, rot, n=n, worker=2).view(torch.int32),
-                           ref.rotk_apply_ref(w, xd, rot, n=n, worker=2).view(torch.int32))
+    for dtype, view in ((torch.float32, torch.int32), (torch.float16, torch.int16),
+                        (torch.bfloat16, torch.int16)):
+        w = torch.full((4096,), -0.0, device=dev, dtype=dtype)
+        xt = xd.to(dtype)
+        for n, r in ((3, -3), (7, 0), (10, 11), (16, 0)):
+            rot = torch.tensor([r], dtype=torch.int32, device=dev)
+            assert torch.equal(ops.rotk_apply(w, xt, rot, n=n, worker=2).view(view),
+                               ref.rotk_apply_ref(w, xt, rot, n=n, worker=2).view(view)), (dtype, n)
+            assert torch.equal(ops.rotk_apply(xt, xt.flip(0), rot, n=n, worker=1).view(view),
+                               ref.rotk_apply_ref(xt, xt.flip(0), rot, n=n, worker=1).view(view)), (dtype, n)
     workers = torch.arange(10, dtype=torch.int32, device=dev)
     for mag in ("fp32", "fp16", "bf16"):
         m = int(W.mag_dtype(mag))

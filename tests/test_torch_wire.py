@@ -169,18 +169,65 @@ def test_seed_bern_rotk_match_reference(family, param):
                                       _bits(JW.decode(buf, delta=delta)))
 
 
-def test_seed_perm_decode_is_a_typed_gap():
-    """PERM re-derives jax.random.permutation in the reference; the port has
-    no threefry port yet and says so with a typed error (a NotImplementedError)
-    where the reference decodes."""
-    d, n = 64, 4
-    delta = np.random.default_rng(10).standard_normal(d).astype(np.float32)
-    buf = W.encode_seed(W.SeedMessage(W.SeedFamily.PERM, 7, 5, 1.0, n, 1), d)
-    assert buf == JW.encode_seed(JW.SeedMessage(JW.SeedFamily.PERM, 7, 5, 1.0, n, 1), d)
-    assert JW.decode(buf, delta=delta).shape == (d,)
-    with pytest.raises(W.PermDecodeUnavailable, match="threefry") as e:
-        W.decode(buf, delta=delta)
-    assert isinstance(e.value, NotImplementedError)
+# (d, n, seed, round): every d with n in {1, 3, 10}; d = 1626 is the first
+# size whose shuffle takes two sort rounds; at d = 2**16 seed 1 / round 0 and
+# seed 2**32 - 1 / round 0 draw two equal 32-bit sort keys (a tie the stable
+# sort must break by position); seeds from 2**31 up come off the wire as u32
+PERM_CASES = [
+    (d, n, seed, rnd)
+    for i, (d, n) in enumerate((d, n) for d in (10, 64, 1000, 1626, 2**16) for n in (1, 3, 10))
+    for seed, rnd in [((0, 0), (7, 5), (2**31 + 12345, 3), (2**32 - 1, 0), (1, 0))[i % 5]]
+]
+
+
+@pytest.mark.parametrize("d,n,seed,rnd", PERM_CASES)
+def test_seed_perm_decode_matches_reference(d, n, seed, rnd):
+    """PERM rebuilds the reference's jax.random permutation bit for bit (the
+    port's numpy threefry2x32 / split / fold_in / _shuffle, JAX 0.9.0)."""
+    delta = np.random.default_rng(d + n).standard_normal(d).astype(np.float32)
+    for w in sorted({0, 1 % n, n - 1, n + 2}):  # n + 2: the start is clamped, as dynamic_slice does
+        msg = W.SeedMessage(W.SeedFamily.PERM, seed, rnd, 0.75, n, w)
+        buf = W.encode_seed(msg, d)
+        assert buf == JW.encode_seed(JW.SeedMessage(JW.SeedFamily.PERM, seed, rnd, 0.75, n, w), d)
+        np.testing.assert_array_equal(_bits(W.decode(buf, delta=delta)),
+                                      _bits(JW.decode(buf, delta=delta)))
+
+
+@pytest.mark.parametrize("seed", [0, 42, 2**31 + 5, 2**32 - 1, 2**40 + 3, -1])
+def test_jax_random_port_matches_jax(seed):
+    """repro_torch.core.jax_random against jax.random itself: PRNGKey, split,
+    fold_in, 32-bit bits and permutation (one and two shuffle rounds)."""
+    import jax
+
+    from repro_torch.core import jax_random as JRP
+
+    key = jax.random.PRNGKey(seed)
+    mine = JRP.PRNGKey(seed)
+    np.testing.assert_array_equal(mine, np.asarray(key))
+    np.testing.assert_array_equal(JRP.split(mine, 7), np.asarray(jax.random.split(key, 7)))
+    np.testing.assert_array_equal(JRP.split(mine), np.asarray(jax.random.split(key)))
+    for data in (0, 3, 2**31 + 1, 2**32 - 1):
+        np.testing.assert_array_equal(JRP.fold_in(mine, data), np.asarray(jax.random.fold_in(key, data)))
+    # the partitionable scheme of JAX 0.9.0: split(key, n)[i] == fold_in(key, i)
+    np.testing.assert_array_equal(JRP.split(mine, 4)[3], JRP.fold_in(mine, 3))
+    np.testing.assert_array_equal(JRP.random_bits(mine, 999),
+                                  np.asarray(jax.random.bits(key, (999,), np.uint32)))
+    for d in (1, 2, 17, 1625, 1626, 4099):
+        got, want = JRP.permutation(mine, d), np.asarray(jax.random.permutation(key, d))
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    assert [JRP.shuffle_rounds(d) for d in (1, 1625, 1626, 2**16)] == [0, 1, 2, 2]
+
+
+def test_jax_random_seed_outside_int64_raises_like_jax():
+    import jax
+
+    from repro_torch.core import jax_random as JRP
+
+    with pytest.raises(OverflowError):
+        jax.random.PRNGKey(2**64)
+    with pytest.raises(OverflowError):
+        JRP.PRNGKey(2**64)
 
 
 def test_seed_requires_delta():
