@@ -129,11 +129,38 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     gate fails; the ``us_per_call`` gates are printed, not enforced (those
     baselines were timed on a CPU in Pallas interpret mode). The counters
     are zeroed before (q) and read after (r): every kernel but unpack_bits
-    must have launched there.
+    (which only the serving path's decode reaches, (s)) must have launched
+    there.
+
+(s) the LM serving path (``repro_torch.models`` / ``serve``): (s1) for each
+    of the ten smoke configs, 32 decode steps on the card against the CPU
+    port from the same weights (within SERVE_DEV_RTOL / ATOL), decode
+    against forward on the card for the eight families of
+    test_decode_consistency (rtol = atol = 0.12, top-1 agreeing > 90%), and
+    greedy decoding through the engine's CUDA graph deterministic; (s2)
+    gemma3-1b at full width and depth (999,812,736 parameters, seeded
+    ``lm_init``): 3 requests of batch 4, 576-token prompts (the 512-slot
+    ring buffers wrap), 64 new tokens, with prefill / decode ms and tokens/s,
+    and the decoded logits of the last 64 prompt positions against
+    ``forward`` on the card; (s3) a 10**6-entry SPARSE delta over all its
+    coordinates from ``kernels.encode.sparse_encode``, framed as DATA and
+    applied by ``DecodeEngine.delta_sync``: ``decode_device`` bit-equal to
+    the host ``wire.decode``, the masters = masters + delta bit for bit, the
+    served logits moved, unpack_bits launched; at smoke width NATURAL,
+    DENSE / SYNC, StaleDelta, SequenceGap, SEED and a non-finite payload
+    refused before any change; (s4) the harness's serve suite
+    (``repro_torch.run``) and ``bench_diff`` against
+    ``benchmarks/baselines/BENCH_serve.json``: every gate holds. (s3)'s
+    messages are built by the sender's encoders and held against the host
+    codec before the counters are zeroed; the counters are zeroed before
+    (s1) and read after (s4), and unpack_bits must have launched there (the
+    replica's delta_sync is its only caller in that window). unpack_bits is
+    timed at (s3)'s three streams after the read.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches: the path of each row
-plus (m)-(o) and (q)-(r); the rotk_apply row names its dtypes, its numbers are float32's and
-``by_dtype`` gives each dtype's), then the card's name and power
+plus (m)-(o), (q)-(r) and (s); the rotk_apply row names its dtypes, its numbers are float32's and
+``by_dtype`` gives each dtype's; the unpack_bits row's ``serve_path`` gives
+its (s) launches and its times at (s3)'s streams), then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero,
 printing no result, where CUDA is unavailable or the port is missing.
 """
@@ -811,7 +838,7 @@ def participation_phase(np, torch, dev, prob, prob_cpu, T):
 # ---------------------------------------------------------------------------
 
 # kernels that must launch between (q) and (r): all but unpack_bits, which
-# only a decoder reaches (serve, not ported yet)
+# only a decoder reaches: the serving path's delta_sync, phase (s)
 HARNESS_KERNELS = ("l1_subgrad", "block_topk", "pack_bits", "sparse_streams", "dense_bits", "bernk",
                    "rotk_apply", "mask_streams", "topk_streams")
 HARNESS_SUITES = ("fig1", "stepsize_grid", "comm_complexity", "kernels", "wire", "encode", "transport",
@@ -1053,6 +1080,439 @@ def harness_phase(np, torch, dev, prob100, datagen_s):
             if v_fail or missing:
                 fail(f"(r) bench_diff {suite}: {(v_fail + missing)[:6]}")
     return walls
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path (phase s)
+# ---------------------------------------------------------------------------
+
+# (s1) decode on the card against the CPU port from the same weights: the
+# card's bf16 GEMMs (cuBLAS, fp32 accumulation) and the CPU's (an fp32
+# product rounded, as XLA's CPU backend) round ~1e-4 of their outputs one bf16
+# ulp apart, which two layers carry to the logits (|logit| <= ~5 at smoke
+# width, one ulp there 0.03); a tolerance three times tighter than the
+# reference's own decode-vs-forward bound (rtol = atol = 0.12,
+# tests/test_decode_consistency.py), which (s1) and (s2) apply to decode
+# against forward
+SERVE_DEV_RTOL, SERVE_DEV_ATOL = 0.04, 0.04
+DECODE_FWD_TOL, DECODE_FWD_AGREE = 0.12, 0.9
+CONSISTENCY_ARCHS = ("gemma-2b", "starcoder2-7b", "deepseek-v2-236b", "zamba2-1.2b", "rwkv6-1.6b",
+                     "gemma3-1b", "musicgen-large", "llama4-maverick-400b-a17b")
+FULL_ARCH, FULL_BATCH, FULL_PROMPT, FULL_NEW, FULL_REQUESTS, FULL_HELD = "gemma3-1b", 4, 576, 64, 3, 64
+DELTA_NNZ = 10**6
+# kernels that must launch between the counters' reset before (s1) and the read after
+# (s4): the replica's decode. The sender's encoders (sparse_streams, dense_bits) build
+# (s3)'s messages before the reset, and unpack_bits is timed after the read.
+SERVE_KERNELS = ("unpack_bits",)
+
+
+def _tokens(np, cfg, B, S, seed):
+    shape = (B, cfg.num_codebooks, S) if cfg.num_codebooks else (B, S)
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+
+
+def serve_smoke_phase(np, torch, dev):
+    """(s1): for each of the ten smoke configs, the port's weights from a seed
+    on the CPU and the same values on the card: 32 decode steps on the card
+    against the CPU port (logits each step within SERVE_DEV_RTOL / ATOL);
+    for the eight families of test_decode_consistency, decode against
+    forward on the card, teacher-forced (rtol = atol = 0.12, top-1 agreeing
+    > 90%); greedy decoding through the engine's CUDA graph twice with equal
+    tokens, and the graph's first-step logits equal to the eager step's.
+    Returns {arch: (card-vs-CPU err, decode-vs-forward err or None)}."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve import DecodeEngine
+
+    out = {}
+    for i, arch in enumerate(configs.ARCHS):
+        cfg = configs.get_smoke(arch)
+        p_cpu = lm.lm_init(cfg, device="cpu", seed=i)
+        p_dev = p_cpu.clone_to(dev)
+        B, S = 2, 32
+        toks = torch.from_numpy(_tokens(np, cfg, B, S, seed=100 + i))
+        t_dev = toks.to(dev)
+        c_cpu = lm.cache_init(cfg, B, S, device="cpu")
+        c_dev = lm.cache_init(cfg, B, S, device=dev)
+        err, used, dec = 0.0, 0.0, []
+        for t in range(S):
+            l_cpu, c_cpu = lm.decode_step(cfg, p_cpu, c_cpu, toks[..., t:t + 1], t)
+            l_dev, c_dev = lm.decode_step(cfg, p_dev, c_dev, t_dev[..., t:t + 1],
+                                          torch.tensor(t, device=dev))
+            dec.append(l_dev)
+            err = max(err, float_err(torch, l_dev.cpu(), l_cpu))
+            # the share of the tolerance the worst entry uses (allclose passes at <= 1)
+            gap = (l_dev.float().cpu() - l_cpu.float()).abs()
+            used = max(used, float((gap / (SERVE_DEV_ATOL + SERVE_DEV_RTOL * l_cpu.float().abs())).max()))
+            if not torch.allclose(l_dev.float().cpu(), l_cpu.float(), rtol=SERVE_DEV_RTOL,
+                                  atol=SERVE_DEV_ATOL):
+                fail(f"(s1) {arch} decode step {t}: card vs CPU max |diff| "
+                     f"{float_err(torch, l_dev.cpu(), l_cpu):.4g} over rtol/atol "
+                     f"{SERVE_DEV_RTOL}/{SERVE_DEV_ATOL}")
+        fwd_err = None
+        if arch in {configs.ALIASES[a] for a in CONSISTENCY_ARCHS}:
+            full = lm.forward(cfg, p_dev, {"tokens": t_dev}, chunk=8).float()
+            stepped = torch.stack(dec, dim=-2).float()
+            fwd_err = float((full - stepped).abs().max())
+            if not torch.allclose(stepped, full, rtol=DECODE_FWD_TOL, atol=DECODE_FWD_TOL):
+                fail(f"(s1) {arch}: decode vs forward on the card max |diff| {fwd_err:.4g}")
+            agree = float((full.argmax(-1) == stepped.argmax(-1)).float().mean())
+            if agree <= DECODE_FWD_AGREE:
+                fail(f"(s1) {arch}: decode and forward agree on the top-1 token at {agree:.3f}")
+        eng = DecodeEngine(cfg, p_dev, cache_len=16, batch_size=B, device=dev)
+        prompt = t_dev[..., :8]
+        a, b = eng.run(prompt, 8), eng.run(prompt, 8)
+        if not torch.equal(a, b):
+            fail(f"(s1) {arch}: greedy decoding through the CUDA graph is not deterministic")
+        graph_logits = eng._stepper()(prompt[..., :1], 0).clone()
+        eager_logits, _ = lm.decode_step(cfg, p_dev, lm.cache_init(cfg, B, 16, device=dev),
+                                         prompt[..., :1], 0)
+        same = bits_equal(torch, graph_logits, eager_logits)
+        if not torch.allclose(graph_logits.float(), eager_logits.float(), rtol=SERVE_DEV_RTOL,
+                              atol=SERVE_DEV_ATOL):
+            fail(f"(s1) {arch}: the graph's decode step differs from the eager step by "
+                 f"{float_err(torch, graph_logits, eager_logits):.4g}")
+        out[arch] = (err, fwd_err)
+        log(f"(s1) {arch}: 32 decode steps card vs CPU max |diff| {err:.4g} ({used:.2f} of the tolerance)"
+            + ("" if fwd_err is None else f"; decode vs forward on the card {fwd_err:.4g}")
+            + f"; greedy deterministic; graph step {'bit-equal to' if same else 'within tolerance of'}"
+            " the eager step")
+    return out
+
+
+def step_profile(torch, step, dev, reps=5):
+    """One eager decode step under ``torch.profiler`` (after warm-up): the
+    device kernels a step, device ms a step, and the GEMMs' ms of it (cuBLAS
+    kernels by name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.trace_round import _device_us
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize(dev)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    gemm = [e for e in events if any(k in e.key.lower() for k in ("gemm", "nvjet", "xmma", "cutlass"))]
+    return {"kernels": sum(e.count for e in events) / reps,
+            "device_ms": sum(_device_us(e) for e in events) / reps / 1e3,
+            "gemm_kernels": sum(e.count for e in gemm) / reps,
+            "gemm_ms": sum(_device_us(e) for e in gemm) / reps / 1e3}
+
+
+def serve_full_phase(np, torch, dev, card, timed):
+    """(s2): gemma3-1b at full width and depth (26 layers, d_model 1152, vocab
+    262144, 999,812,736 parameters from the port's seeded lm_init):
+    FULL_REQUESTS requests of batch 4, 576-token prompts (past the 512-slot
+    window: the local layers' ring buffers wrap) and 64 new tokens through
+    the engine; then the decoded logits of the last 64 prompt positions
+    against ``lm.forward`` on the card (rtol = atol = 0.12, top-1 agreeing
+    > 90%). Returns (engine, params, timings)."""
+    from repro_torch import configs, obs
+    from repro_torch.models import lm
+    from repro_torch.serve import DecodeEngine
+
+    cfg = configs.get(FULL_ARCH)
+    t0 = time.perf_counter()
+    params = lm.lm_init(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if params.size != cfg.param_count():
+        fail(f"(s2) {FULL_ARCH}: {params.size} parameters, the config counts {cfg.param_count()}")
+    tr = obs.MemoryTracker()
+    eng = DecodeEngine(cfg, params, cache_len=FULL_PROMPT + FULL_NEW, batch_size=FULL_BATCH,
+                       tracker=tr, device=dev)
+    prompts = [torch.from_numpy(_tokens(np, cfg, FULL_BATCH, FULL_PROMPT, seed=200 + r)).to(dev)
+               for r in range(FULL_REQUESTS)]
+    t0 = time.perf_counter()
+    eng.run(prompts[0], 1)  # the graph's capture (and a first request)
+    capture_s = time.perf_counter() - t0
+    toks = [eng.run(p, FULL_NEW, seed=r) for r, p in enumerate(prompts)]
+    for t in toks:
+        if t.shape != (FULL_BATCH, FULL_NEW) or int(t.min()) < 0 or int(t.max()) >= cfg.vocab_size:
+            fail(f"(s2) generated tokens of shape {tuple(t.shape)} outside [0, {cfg.vocab_size})")
+    timers = [e for e in tr.events if e["kind"] == "timer"][2:]
+    pre = sorted(e["seconds"] for e in timers if e["name"] == "serve/prefill")
+    dec = sorted(e["seconds"] for e in timers if e["name"] == "serve/decode")
+    tps = [e["metrics"]["serve/tokens_per_s"] for e in tr.events if e["kind"] == "metrics"][1:]
+    held = eng.prefill(eng._stepper(), prompts[0], keep_last=FULL_HELD).float()
+    full = lm.forward(cfg, params, {"tokens": prompts[0]})[:, -FULL_HELD:].float()
+    err = float((held - full).abs().max())
+    scale = float(full.abs().max())
+    if not torch.allclose(held, full, rtol=DECODE_FWD_TOL, atol=DECODE_FWD_TOL):
+        fail(f"(s2) decode vs forward over the last {FULL_HELD} prompt positions: max |diff| {err:.4g}")
+    agree = float((held.argmax(-1) == full.argmax(-1)).float().mean())
+    if agree <= DECODE_FWD_AGREE:
+        fail(f"(s2) decode and forward agree on the top-1 token at {agree:.3f}")
+    del held, full
+    # where a step's time goes: the graph's replay (CUDA events) and the
+    # eager step's kernels under the profiler
+    step = eng._stepper()
+    tok, pos = prompts[0][:, :1], FULL_PROMPT
+    graph_ms = timed(lambda: step(tok, pos))
+    caches = lm.cache_init(cfg, FULL_BATCH, FULL_PROMPT + FULL_NEW, device=dev)
+    pos_t = torch.tensor(pos, device=dev)
+    prof = step_profile(torch, lambda: lm.decode_step(cfg, params, caches, tok, pos_t), dev)
+    weight_bytes = 2 * params.size  # the bf16 copy, read once a step
+    log(f"(s2) one decode step at batch {FULL_BATCH}: graph replay {graph_ms:.4f} ms (CUDA events); eager "
+        f"step {prof['kernels']:.0f} kernels, {prof['device_ms']:.4f} ms of device time, "
+        f"{prof['gemm_kernels']:.0f} GEMMs {prof['gemm_ms']:.4f} ms of it; bound "
+        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (the {weight_bytes / 1e9:.2f} GB of bf16 weights "
+        f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) ({card})")
+    del caches
+    timing = {"init_s": init_s, "capture_s": capture_s, "graph_step_ms": graph_ms, "profile": prof,
+              "prefill_ms_per_token": [s / FULL_PROMPT * 1e3 for s in pre],
+              "decode_ms_per_step": [s / FULL_NEW * 1e3 for s in dec], "tokens_per_s": tps,
+              "decode_vs_forward_err": err, "logit_scale": scale, "top1_agree": agree}
+    log(f"(s2) {FULL_ARCH} full width and depth ({params.size:,} parameters, init {init_s:.2f} s, "
+        f"graph capture + first request {capture_s:.2f} s): {FULL_REQUESTS} requests of batch "
+        f"{FULL_BATCH}, prompt {FULL_PROMPT}, {FULL_NEW} new tokens: prefill ms/position "
+        f"{[round(v, 4) for v in timing['prefill_ms_per_token']]}, decode ms/step "
+        f"{[round(v, 4) for v in timing['decode_ms_per_step']]}, tokens/s "
+        f"{[round(v, 1) for v in tps]} ({card})")
+    log(f"(s2) decoded logits of the last {FULL_HELD} prompt positions vs forward on the card: max "
+        f"|diff| {err:.4g} (|logit| <= {scale:.3g}), top-1 agreement {agree:.4f}")
+    return eng, params, timing
+
+
+def _sparse_delta(torch, d, nnz, dev, seed):
+    """A dense fp32 [d] with ``nnz`` distinct random coordinates set."""
+    g = torch.Generator(dev).manual_seed(seed)
+    idx = torch.unique(torch.randint(0, d, (nnz + nnz // 8,), device=dev, generator=g))
+    idx = idx[torch.randperm(idx.numel(), device=dev, generator=g)[:nnz]]
+    delta = torch.zeros(d, dtype=torch.float32, device=dev)
+    delta[idx] = torch.randn(idx.numel(), device=dev, generator=g) * 1e-2
+    return delta
+
+
+def delta_messages(np, torch, dev, card):
+    """(s3)'s messages, built by the sender's encoders and held against the
+    host codec before the counters are zeroed (these launches are the
+    smoke's own, not the replica's): at full width a SPARSE delta of
+    DELTA_NNZ entries over all of gemma3-1b's coordinates
+    (``kernels.encode.sparse_encode``), its ``decode_device`` bit-equal to
+    the host ``wire.decode``; at smoke width (gemma-2b) NATURAL and DENSE
+    deltas, a DENSE SYNC, a SEED message and a non-finite SYNC, with
+    ``decode_device`` of DENSE fp32 / fp16 / bf16 equal to the host codec."""
+    from repro_torch import configs, wire
+    from repro_torch.kernels import encode as kenc
+    from repro_torch.models import lm
+
+    d = configs.get(FULL_ARCH).param_count()
+    t0 = time.perf_counter()
+    delta = _sparse_delta(torch, d, DELTA_NNZ, dev, seed=5)
+    buf = kenc.sparse_encode(delta)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    del delta
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host = wire.decode(buf)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = kenc.decode_device(buf, dev)
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    if not bits_equal(torch, got, torch.from_numpy(host).to(dev)):
+        fail("(s3) decode_device differs from the host wire.decode at full width")
+    del got
+    torch.cuda.empty_cache()
+    log(f"(s3) d={d:,}: SPARSE delta of {int(np.count_nonzero(host)):,} entries, {len(buf):,} bytes "
+        f"(device encode {encode_s:.2f} s); decode_device {device_s * 1e3:.2f} ms bit-equal to the host "
+        f"wire.decode {host_s * 1e3:.1f} ms ({card})")
+
+    cfg = configs.get_smoke("gemma-2b")
+    p = lm.lm_init(cfg, device=dev, seed=7)
+    n = p.size
+    flat0 = p.flat.detach().clone()
+    g = torch.Generator(dev).manual_seed(11)
+    nat = torch.ldexp(torch.ones(n, device=dev), torch.randint(-12, -4, (n,), device=dev, generator=g))
+    nat = torch.where(torch.rand(n, device=dev, generator=g) < 0.5, -nat, nat)
+    dense = torch.randn(n, device=dev, generator=g) * 1e-3
+    for mag in ("fp32", "fp16", "bf16"):
+        dbuf = kenc.dense_encode(dense, mag=mag)
+        if not bits_equal(torch, kenc.decode_device(dbuf, dev), torch.from_numpy(wire.decode(dbuf)).to(dev)):
+            fail(f"(s3) decode_device DENSE {mag} differs from the host codec")
+    bad = dense.clone()
+    bad[n // 2] = float("inf")
+    return {"d": d, "buf": buf, "host": host, "nnz": int(np.count_nonzero(host)), "encode_s": encode_s,
+            "host_decode_ms": host_s * 1e3, "decode_device_ms": device_s * 1e3,
+            "smoke": {"cfg": cfg, "params": p, "flat0": flat0, "nat": nat,
+                      "nat_buf": wire.encode_natural(nat.cpu().numpy()), "dense": dense,
+                      "bare": kenc.dense_encode(dense), "sync": kenc.dense_encode(flat0),
+                      "bad_sync": kenc.dense_encode(bad),
+                      "seed": wire.encode_seed(wire.SeedMessage(wire.SeedFamily.BERN, 0, 0, 1.0, 1, 0, 0.5),
+                                               n)}}
+
+
+def delta_phase(np, torch, dev, eng, params, msgs, card):
+    """(s3): the replica applies ``delta_messages``' messages. At full width
+    the SPARSE delta, framed as DATA seq 1, through
+    ``DecodeEngine.delta_sync``: the masters equal masters + delta bit for
+    bit, the bf16 copy refreshed, the served logits changed, unpack_bits
+    launched. Then at smoke width on the card: NATURAL and DENSE deltas, a
+    DENSE SYNC, StaleDelta, SequenceGap, SEED refused, and a non-finite
+    payload refused with the parameters untouched. Returns the timings and
+    the full-width delta_sync's launches."""
+    from repro_torch import transport, wire
+    from repro_torch.kernels import runtime
+    from repro_torch.serve import DecodeEngine
+
+    if params.size != msgs["d"]:
+        fail(f"(s3) the served model has {params.size} parameters, the delta {msgs['d']}")
+    frame = transport.encode_frame(transport.FrameType.DATA, 1, msgs["buf"])
+    probe = torch.from_numpy(_tokens(np, eng.cfg, FULL_BATCH, 16, seed=300)).to(dev)
+    before_logits = eng.prefill(eng._stepper(), probe)
+    before = params.flat.detach().clone()
+    counted = dict(runtime.LAUNCHES)
+    t0 = time.perf_counter()
+    eng.delta_sync(frame)
+    torch.cuda.synchronize()
+    sync_s = time.perf_counter() - t0
+    sync_launches = {k: v - counted.get(k, 0) for k, v in runtime.LAUNCHES.items()
+                     if v != counted.get(k, 0)}
+    if sync_launches.get("unpack_bits", 0) <= 0:
+        fail("(s3) delta_sync never launched unpack_bits")
+    if eng.params is not params or not bits_equal(
+            torch, params.flat.detach(), before + torch.from_numpy(msgs["host"]).to(dev)):
+        fail("(s3) the masters after delta_sync are not masters + delta bit for bit")
+    if not bits_equal(torch, params.flat_low, params.flat.detach().to(torch.bfloat16)):
+        fail("(s3) the bf16 copy was not refreshed")
+    after_logits = eng.prefill(eng._stepper(), probe)
+    moved = float((after_logits.float() - before_logits.float()).abs().max())
+    if moved == 0.0:
+        fail("(s3) the served logits did not change after the delta")
+    del before
+    log(f"(s3) delta_sync of the DATA frame {sync_s * 1e3:.1f} ms (incl. the frame's CRC32C in Python) "
+        f"with launches {sync_launches}; masters = masters + delta bit for bit, bf16 copy refreshed, "
+        f"served logits moved by up to {moved:.4g} ({card})")
+
+    # smoke width: the other codecs, the sequence gate, the refusals
+    m = msgs["smoke"]
+    p, flat0, bare = m["params"], m["flat0"], m["bare"]
+    e = DecodeEngine(m["cfg"], p, cache_len=16, batch_size=1, device=dev)
+    e.delta_sync(transport.encode_frame(transport.FrameType.DATA, 1, m["nat_buf"]))
+    if not bits_equal(torch, p.flat.detach(), flat0 + m["nat"]):
+        fail("(s3) NATURAL delta: masters != masters + delta")
+    before = p.flat.detach().clone()
+    e.delta_sync(transport.encode_frame(transport.FrameType.DATA, 2, bare))
+    if not bits_equal(torch, p.flat.detach(), before + m["dense"]):
+        fail("(s3) DENSE delta: masters != masters + delta")
+    for bad_seq, exc in ((2, transport.StaleDelta), (4, transport.SequenceGap)):
+        try:
+            e.delta_sync(transport.encode_frame(transport.FrameType.DATA, bad_seq, bare))
+        except exc:
+            pass
+        else:
+            fail(f"(s3) DATA seq {bad_seq} after 2 did not raise {exc.__name__}")
+    e.delta_sync(transport.encode_frame(transport.FrameType.SYNC, 9, m["sync"]))
+    if not bits_equal(torch, p.flat.detach(), flat0):
+        fail("(s3) SYNC did not restore the full model")
+    e.delta_sync(transport.encode_frame(transport.FrameType.DATA, 10, bare))  # the gate reset to 9
+    kept = p.flat.detach().clone()
+    for buf_, exc in ((m["seed"], ValueError),
+                      (transport.encode_frame(transport.FrameType.SYNC, 20, m["bad_sync"]), wire.CorruptFrame)):
+        try:
+            e.delta_sync(buf_)
+        except exc:
+            pass
+        else:
+            fail(f"(s3) a {'SEED' if buf_ is m['seed'] else 'non-finite'} message was applied")
+        if not bits_equal(torch, p.flat.detach(), kept):
+            fail("(s3) a refused message changed the parameters")
+    log("(s3) smoke width on the card: NATURAL and DENSE deltas exact, DENSE decode_device = host "
+        "codec in fp32/fp16/bf16, StaleDelta and SequenceGap raised, SYNC restores and resets the "
+        "gate, SEED and a non-finite SYNC refused with the parameters untouched")
+    return {"encode_s": msgs["encode_s"], "host_decode_ms": msgs["host_decode_ms"],
+            "decode_device_ms": msgs["decode_device_ms"], "delta_sync_ms": sync_s * 1e3,
+            "bytes": len(msgs["buf"]), "nnz": msgs["nnz"], "launches": sync_launches}
+
+
+def unpack_timing(np, torch, dev, buf, d, timed, card):
+    """unpack_bits at (s3)'s message's three streams (index, sign, fp32
+    magnitude; DELTA_NNZ values each), timed after the serving path's
+    counters were read: {width: (ms, bound_ms)}."""
+    from repro_torch import wire
+    from repro_torch.kernels import ops
+
+    count = DELTA_NNZ
+    words = torch.from_numpy(np.frombuffer(buf, dtype="<i4", offset=wire.HEADER_BYTES + 8).copy()).to(dev)
+    unpack = {}
+    o = 0
+    for w in (wire.index_width(d), 1, 32):
+        nw = wire.n_words(count, w)
+        stream = words[o:o + nw]
+        o += nw
+        ms = timed(lambda: ops.unpack_bits(stream, w, count))
+        bound = (nw * 4 + count * 4) / HBM_BYTES_PER_S * 1e3
+        unpack[w] = (ms, bound)
+        log(f"(s3) unpack_bits width {w}, {count:,} values: {ms:.5f} ms (bound {bound:.5f} by bytes) ({card})")
+    return unpack
+
+
+def eager_decode_ms(torch, dev):
+    """The serve suite's decode schedule (``serve_bench``: gemma-2b smoke,
+    batch 2, 16 greedy steps after an 8-token prompt) with ``lm.decode_step``
+    called eagerly, as the engine ran it before it captured the step in a
+    CUDA graph: the median wall ms of N_REQUESTS runs after one warm-up."""
+    import statistics
+
+    from repro_torch import configs, serve_bench
+    from repro_torch.models import lm
+
+    cfg = configs.get_smoke("gemma-2b")
+    p = lm.lm_init(cfg, device=dev, seed=0)
+    walls = []
+    for _ in range(serve_bench.N_REQUESTS + 1):
+        caches = lm.cache_init(cfg, serve_bench.BATCH, serve_bench.PROMPT_LEN + serve_bench.NEW_TOKENS,
+                               device=dev)
+        tok = torch.zeros((serve_bench.BATCH, 1), dtype=torch.int64, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(serve_bench.NEW_TOKENS):
+            logits, caches = lm.decode_step(cfg, p, caches, tok, serve_bench.PROMPT_LEN + i)
+            tok = torch.argmax(logits, dim=-1).reshape(serve_bench.BATCH, 1)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls[1:])
+
+
+def serve_suite_phase(np, torch, dev, card):
+    """(s4): the serve suite of the harness on the card (``repro_torch.run``'s
+    ``main(["serve"])``, what ``python -m repro_torch.run serve`` runs), then
+    ``bench_diff`` against ``benchmarks/baselines/BENCH_serve.json``: every
+    gate (the latency and tokens/s values and the us_per_call rows) must
+    hold. Returns the fresh rows."""
+    import os
+    import tempfile
+
+    from repro_torch import bench_diff, obs, run, serve_bench
+
+    out = tempfile.mkdtemp(prefix="serve_bench_")
+    t0 = time.perf_counter()
+    rc = run.main(["serve", "--out", out])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"(s4) repro_torch.run serve exited {rc}")
+    fresh = obs.load(os.path.join(out, "BENCH_serve.json"))
+    if obs.validate(fresh):
+        fail(f"(s4) BENCH_serve.json invalid: {obs.validate(fresh)}")
+    base = obs.load(str(ROOT / "benchmarks" / "baselines" / "BENCH_serve.json"))
+    failures, checked = bench_diff.diff_docs(base, fresh)
+    rows = {k: v.get("value") for k, v in fresh["metrics"].items() if k.endswith(("_ms", "_per_s"))}
+    log(f"(s4) python -m repro_torch.run serve: {wall:.1f} s; rows {rows} ({card})")
+    eager_ms = eager_decode_ms(torch, dev)
+    log(f"(s4) the suite's decode (16 greedy steps at batch 2) with the step eager, no CUDA graph, "
+        f"for the record: p50 {eager_ms:.4f} ms over {serve_bench.N_REQUESTS} runs, wall clock ({card})")
+    log(f"(s4) bench_diff against benchmarks/baselines/BENCH_serve.json: {len(checked)} gates checked, "
+        f"{len(failures)} failing")
+    if failures:
+        fail(f"(s4) bench_diff serve: {failures}")
+    return rows, wall
 
 
 def main() -> int:
@@ -1613,6 +2073,36 @@ def main() -> int:
     for suite, wall in walls.items():
         log(f"(r) wall {suite}: {wall:.2f} s ({card})")
 
+    # --- (s) the LM serving path ------------------------------------------------------------
+    from repro_torch.models.layers import set_reference_precision
+
+    set_reference_precision()
+    t_msg = time.perf_counter()
+    msgs = delta_messages(np, torch, dev, card)  # the sender's side, not counted
+    runtime.reset_launches()
+    t_s1 = time.perf_counter()
+    serve_smoke_phase(np, torch, dev)
+    t_s2 = time.perf_counter()
+    eng, params, _ = serve_full_phase(np, torch, dev, card, timed)
+    torch.cuda.empty_cache()
+    t_s3 = time.perf_counter()
+    delta = delta_phase(np, torch, dev, eng, params, msgs, card)
+    del eng, params
+    torch.cuda.empty_cache()
+    t_s4 = time.perf_counter()
+    serve_suite_phase(np, torch, dev, card)
+    torch.cuda.synchronize()
+    serve_launches = dict(runtime.LAUNCHES)
+    t_end = time.perf_counter()
+    log(f"(s) launches on the serving path: {serve_launches}; (s3)'s messages {t_s1 - t_msg:.1f} s, "
+        f"(s1) {t_s2 - t_s1:.1f} s, (s2) {t_s3 - t_s2:.1f} s, (s3) {t_s4 - t_s3:.1f} s, (s4) "
+        f"{t_end - t_s4:.1f} s")
+    for kname in SERVE_KERNELS:
+        if serve_launches.get(kname, 0) <= 0:
+            fail(f"(s) the serving path never launched {kname}")
+    unpack = unpack_timing(np, torch, dev, msgs["buf"], msgs["d"], timed, card)
+    del msgs
+
     summary = {"kernels": [
         {"name": "l1_subgrad", "route": "cuda", "source": "src/repro_torch/csrc/l1_subgrad.cu",
          "replaces": "src/repro/kernels/l1_subgrad.py:46", "launches": launches["l1_subgrad"],
@@ -1646,7 +2136,17 @@ def main() -> int:
             "max_abs_err": bench_err[name], "ms": ms_, "plain_ms": plain_, "bound_ms": bound_,
             "bound_by": by_, "library_ms": None})
     for row in summary["kernels"]:  # the later slices' paths launched these kernels too
-        row["launches"] += slice_launches.get(row["name"], 0) + harness_launches.get(row["name"], 0)
+        row["launches"] += (slice_launches.get(row["name"], 0) + harness_launches.get(row["name"], 0)
+                            + serve_launches.get(row["name"], 0))
+        if row["name"] == "unpack_bits":
+            # the serving path's decode: (s)'s launches (all from the replica's
+            # delta_sync), and the kernel at (s3)'s three streams of a 10**6-entry
+            # SPARSE delta over d = 999,812,736
+            row["serve_path"] = {
+                "launches": serve_launches["unpack_bits"],
+                "delta_sync_launches": delta["launches"].get("unpack_bits", 0),
+                "by_width": {str(w): {"count": DELTA_NNZ, "ms": ms_, "bound_ms": bound_}
+                             for w, (ms_, bound_) in unpack.items()}}
         if row["name"] == "rotk_apply":
             # max_abs_err covers all three dtypes; the row's ms, plain_ms, bound_ms and
             # launches are float32's: no path runs the 16-bit variants, timed in (p)

@@ -25,6 +25,10 @@ Per call:
 
 A CUDA tensor launches the kernels (or raises); a CPU tensor runs their
 plain versions (``ref.sparse_streams_ref`` etc.) through the same steps.
+
+The receiver's side is :func:`decode_device`: a SPARSE, NATURAL or DENSE
+message decoded where the parameters live, every stream unpacked on the card
+by the ``unpack_bits`` kernel.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ import numpy as np
 import torch
 
 from ..wire import bitstream as bs
-from ..wire.spec import MAG_BITS, CodecID, MagDType, index_width, mag_dtype, pack_header
+from ..wire.spec import (HEADER_BYTES, MAG_BITS, CodecID, CorruptFrame, MagDType, TruncatedFrame,
+                         index_width, mag_dtype, pack_header, unpack_header)
 from . import ops, randk, ref, runtime
 from . import topk as _topk
 
@@ -330,3 +335,136 @@ def topk_encode(x: torch.Tensor, *, k_per_block: int, block: int = 1024, mag="fp
     xp = torch.nn.functional.pad(x, (0, (-d) % block))
     streams = topk_streams(xp, k_per_block, block, m)
     return _encode_streams(d, m, *(t.reshape(1, -1) for t in streams))[0]
+
+
+# ---------------------------------------------------------------------------
+# decode on the card
+# ---------------------------------------------------------------------------
+
+_NATURAL_BITS = 9  # wire/natural.py's token: [sign:1][biased exponent:8]
+
+
+def _f16_to_f32_bits(h: torch.Tensor) -> torch.Tensor:
+    """fp32 patterns of fp16 patterns, int64 in and out: numpy's
+    ``npy_halfbits_to_floatbits``, as ``wire.sparse.f16_to_f32_bits`` (exact;
+    NaN payloads shifted up, a signalling NaN stays signalling)."""
+    h = h & 0xFFFF
+    sgn = (h & 0x8000) << 16
+    hexp = h & 0x7C00
+    hsig = h & 0x03FF
+    # subnormal: hsig * 2**-24 = 1.f * 2**(p - 24), p the top set bit of hsig
+    p = torch.zeros_like(hsig)
+    for k in range(1, 10):
+        p = torch.where((hsig >> k) != 0, k, p)
+    sub = ((p + 103) << 23) + (torch.bitwise_left_shift(hsig, 23 - p) & 0x007FFFFF)
+    sub = torch.where(hsig == 0, 0, sub)
+    special = 0x7F800000 | (hsig << 13)
+    normal = ((h & 0x7FFF) + 0x1C000) << 13
+    return sgn | torch.where(hexp == 0, sub, torch.where(hexp == 0x7C00, special, normal))
+
+
+def _from_wire_bits(b: torch.Tensor, m: MagDType) -> torch.Tensor:
+    """fp32 patterns (int64) of wire-dtype patterns (int64)."""
+    if m == MagDType.FP32:
+        return b
+    return _f16_to_f32_bits(b) if m == MagDType.FP16 else (b & 0xFFFF) << 16
+
+
+def _words(buf: bytes, offset: int, nwords: int, device) -> torch.Tensor:
+    """``nwords`` little-endian u32 words of ``buf`` from ``offset`` as an
+    int32 tensor on ``device`` (one host-to-device copy)."""
+    host = np.frombuffer(buf, dtype="<i4", count=nwords, offset=offset)
+    return torch.from_numpy(host.copy()).to(device)
+
+
+def _mag(m: int, what: str) -> MagDType:
+    try:
+        return MagDType(m)
+    except ValueError as e:
+        raise CorruptFrame(f"corrupt {what} wire message: bad mag dtype {m}") from e
+
+
+def _scatter_last(idx: torch.Tensor, vals: torch.Tensor, d: int) -> torch.Tensor:
+    """int32 [d]: zeros with ``vals[i]`` at ``idx[i]``, the last entry winning
+    where an index repeats (numpy's ``out[idx] = vals``). A scatter with
+    duplicates on CUDA keeps an arbitrary one, so the entries are sorted
+    stably by index and all but the last of each run go to a spare slot."""
+    order = torch.sort(idx, stable=True).indices
+    s = idx[order]
+    last = torch.ones_like(s, dtype=torch.bool)
+    last[:-1] = s[1:] != s[:-1]
+    out = torch.zeros(d + 1, dtype=torch.int32, device=idx.device)
+    out.scatter_(0, torch.where(last, s, d), vals[order])
+    return out[:d]
+
+
+def _decode_streams(buf: bytes, device) -> torch.Tensor:
+    """The torch decode behind :func:`decode_device` on ``device``: the host
+    codec's checks in its order, the streams unpacked by ``ops.unpack_bits``
+    (the kernel on a CUDA device, its plain version on the CPU), the fp16 /
+    bf16 -> fp32 conversions on bit patterns."""
+    codec, d = unpack_header(buf)
+    off = HEADER_BYTES
+    if codec == CodecID.SPARSE:
+        if len(buf) < off + _SPARSE_PAYLOAD.size:
+            raise TruncatedFrame("truncated sparse wire message")
+        m, count = _SPARSE_PAYLOAD.unpack_from(buf, off)
+        m = _mag(m, "sparse")
+        off += _SPARSE_PAYLOAD.size
+        if count > d:
+            raise CorruptFrame(f"corrupt sparse wire message: count {count} > d={d}")
+        widths = (index_width(d), 1, MAG_BITS[m])
+        nws = [bs.n_words(count, w) for w in widths]
+        if len(buf) < off + 4 * sum(nws):
+            raise TruncatedFrame("truncated sparse wire message")
+        words = _words(buf, off, sum(nws), device)
+        streams, o = [], 0
+        for w, nw in zip(widths, nws):
+            streams.append(ref.u32(ops.unpack_bits(words[o:o + nw], w, count)))
+            o += nw
+        idx, sign, magbits = streams
+        if count:
+            top = int(idx.max())
+            if top >= d:
+                raise CorruptFrame(f"corrupt sparse wire message: index {top} >= d={d}")
+        vals = ref.as_i32(_from_wire_bits(magbits, m) ^ (sign << 31))
+        return _scatter_last(idx, vals, d).view(torch.float32)
+    if codec == CodecID.NATURAL:
+        nw = bs.n_words(d, _NATURAL_BITS)
+        if len(buf) < off + 4 * nw:
+            raise TruncatedFrame("truncated natural wire message")
+        token = ref.u32(ops.unpack_bits(_words(buf, off, nw, device), _NATURAL_BITS, d))
+        return ref.as_i32(((token >> 8) << 31) | ((token & 0xFF) << 23)).view(torch.float32)
+    if codec == CodecID.DENSE:
+        if len(buf) < off + _DENSE_PAYLOAD.size:
+            raise TruncatedFrame("truncated dense wire message")
+        (m,) = _DENSE_PAYLOAD.unpack_from(buf, off)
+        m = _mag(m, "dense")
+        off += _DENSE_PAYLOAD.size
+        nw = bs.n_words(d, MAG_BITS[m])
+        if len(buf) < off + 4 * nw:
+            raise TruncatedFrame("truncated dense wire message")
+        bits = ref.u32(ops.unpack_bits(_words(buf, off, nw, device), MAG_BITS[m], d))
+        return ref.as_i32(_from_wire_bits(bits, m)).view(torch.float32)
+    raise ValueError(f"{codec.name} wire messages carry no payload to decode on a device; "
+                     "the SEED codec needs the receiver-local delta (wire.decode(buf, delta=...))")
+
+
+def decode_device(buf: bytes, device="cuda") -> torch.Tensor:
+    """Decode a SPARSE, NATURAL or DENSE wire message to fp32 [d] on
+    ``device``, bit for bit what the host codec (``wire.decode``) gives.
+
+    On the card every stream is unpacked by the ``unpack_bits`` kernel and
+    the rest (checks, fp16/bf16 -> fp32 on bit patterns, the scatter) are
+    torch ops there, so a model update is decoded where the parameters live;
+    only the message's bytes cross to the card. On the CPU the host codec is
+    the plain version. Raises what ``wire.decode`` raises, with the same
+    exception types (TruncatedFrame, CorruptFrame); a SEED message raises
+    ValueError."""
+    dev = runtime.resolve_device(device)
+    codec, _ = unpack_header(buf)
+    if codec == CodecID.SEED or dev.type == "cuda":
+        return _decode_streams(buf, dev)
+    from .. import wire
+
+    return torch.from_numpy(wire.decode(buf))

@@ -19,12 +19,12 @@ suite runs on ``--device`` (default the card). Suites:
   wire             DESIGN §3  wire codec throughput + measured-vs-analytic parity
   encode           DESIGN §11 device encode paths + byte-identity gate
   transport        DESIGN §8  frame/CRC throughput + clean-vs-degraded chaos run
+  serve            DESIGN §10 decode engine prefill/decode span p50/p99 + tokens/s
   scenario         DESIGN §9  (algorithm x stepsize x client mix) fleet cells,
                               one BENCH_scenario_<cell>.json each
 
-The reference's ``serve`` and ``roofline`` suites are not ported yet (they
-need the LM stack and ``serve/engine.py``, and ``launch/``); asking for one
-is an error. A suite that raises prints its traceback, emits a
+The reference's ``roofline`` suite is not ported yet (it needs ``launch/``);
+asking for it is an error. A suite that raises prints its traceback, emits a
 ``<suite>/FAILED,0,nan`` row, skips its BENCH artifact, and the run exits 1.
 """
 from __future__ import annotations
@@ -87,9 +87,8 @@ GATES = {
 }
 
 DEFAULT_SUITES = ["fig1", "table2", "stepsize_grid", "comm_complexity", "kernels",
-                  "wire", "encode", "transport", "scenario"]
+                  "wire", "encode", "transport", "serve", "scenario"]
 NOT_PORTED = {
-    "serve": "needs the LM stack and serve/engine.py (ROADMAP Queue 1 items 2-4)",
     "roofline": "needs launch/ (ROADMAP Queue 1 item 5)",
 }
 
@@ -97,8 +96,8 @@ NOT_PORTED = {
 def suites_for(args) -> dict:
     """{suite: bench(tracker=None) -> rows}, bound to ``args.device`` (and
     ``args.out`` for the per-cell scenario artifacts)."""
-    from . import (comm_complexity, fig1, kernel_bench, scenario_matrix, stepsize_grid,
-                   table2_sigma, transport_bench, wire_bench)
+    from . import (comm_complexity, fig1, kernel_bench, scenario_matrix, serve_bench,
+                   stepsize_grid, table2_sigma, transport_bench, wire_bench)
 
     dev = args.device
     return {
@@ -114,6 +113,7 @@ def suites_for(args) -> dict:
         "transport": lambda tracker=None: transport_bench.bench(tracker=tracker, device=dev),
         "scenario": lambda tracker=None: scenario_matrix.bench(
             tracker=tracker, out_dir=args.out, device=dev),
+        "serve": lambda tracker=None: serve_bench.bench(tracker=tracker, device=dev),
     }
 
 

@@ -131,10 +131,9 @@ def test_bench_diff_agrees_with_the_reference_on_committed_baselines(suite):
 
 def test_run_gates_and_suites_are_the_references():
     assert run.GATES == jrun.GATES
-    assert run.DEFAULT_SUITES == [s for s in ("fig1", "table2", "stepsize_grid", "comm_complexity",
-                                              "kernels", "wire", "encode", "transport", "serve",
-                                              "scenario") if s != "serve"]
-    assert set(run.NOT_PORTED) == {"serve", "roofline"}
+    assert run.DEFAULT_SUITES == ["fig1", "table2", "stepsize_grid", "comm_complexity",
+                                  "kernels", "wire", "encode", "transport", "serve", "scenario"]
+    assert set(run.NOT_PORTED) == {"roofline"}
 
 
 def test_run_propagates_suite_failure(tmp_path, monkeypatch, capsys):
@@ -167,7 +166,7 @@ def test_run_writes_schema_valid_artifact(tmp_path, monkeypatch):
     assert doc["env"]["platform"] == "cpu" and doc["env"]["jax_version"] is None
 
 
-@pytest.mark.parametrize("suite", ["serve", "roofline"])
+@pytest.mark.parametrize("suite", ["roofline"])
 def test_run_refuses_suites_not_ported(suite, capsys):
     with pytest.raises(SystemExit) as e:
         run.main([suite, "--device", "cpu"])

@@ -1,6 +1,7 @@
-"""The port stands alone: it runs with JAX and ml_dtypes unimportable,
-imports nothing of the JAX package ``repro`` or of the reference's
-``benchmarks``, and its entry points never default to the CPU."""
+"""The port stands alone: it runs with JAX and ml_dtypes unimportable
+(the paper's runs, the harness and the LM serving path), imports nothing of
+the JAX package ``repro`` or of the reference's ``benchmarks``, and its
+entry points never default to the CPU."""
 import os
 import pathlib
 import re
@@ -123,6 +124,61 @@ print("ok")
 """
 
 
+# the LM serving path: configs, models, checkpoint, serve, with `repro`,
+# `benchmarks`, jax and ml_dtypes blocked
+SERVE_RUN = """
+import os, sys, tempfile
+for mod in ("jax", "ml_dtypes", "repro", "benchmarks"):
+    sys.modules[mod] = None  # any import of them now raises ImportError
+import numpy as np
+import torch
+from repro_torch import configs, obs, wire
+from repro_torch import transport
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+from repro_torch.models import lm
+from repro_torch.serve import DecodeEngine
+cfg = configs.get_smoke("gemma-2b")
+assert configs.get("gemma3-1b").param_count() == 999812736
+params = lm.lm_init(cfg, device="cpu", seed=0)
+tr = obs.MemoryTracker()
+eng = DecodeEngine(cfg, params, cache_len=12, batch_size=2, tracker=tr, device="cpu")
+prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 4))
+toks = eng.run(prompts, n_new_tokens=4)
+assert toks.shape == (2, 4), toks.shape
+before = params.flat.clone()
+delta = np.zeros(params.size, np.float32)
+delta[::97] = 0.5
+eng.delta_sync(transport.encode_frame(transport.FrameType.DATA, 1, wire.encode_sparse(delta)))
+assert torch.equal(params.flat, before + torch.from_numpy(delta))
+path = os.path.join(tempfile.mkdtemp(), "ckpt.npz")
+save_checkpoint(path, params, step=2)
+back, meta = load_checkpoint(path, params)
+assert meta["step"] == 2 and torch.equal(back.flat, params.flat)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("repro", "benchmarks") and sys.modules[m] is not None)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_serving_path_runs_without_jax_repro_or_benchmarks():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", SERVE_RUN], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_entry_points_default_to_the_card():
+    """Every entry point of the port with a --device flag defaults to the
+    card; serve_bench and serve_lm are among them."""
+    flagged = {p.name for p in PORT_FILES
+               if re.search(r'add_argument\("--device"', p.read_text())}
+    assert {"serve_bench.py", "serve_lm.py", "run.py", "wire_bench.py"} <= flagged
+    for p in PORT_FILES:
+        for m in re.finditer(r'add_argument\("--device",\s*default="([a-z]+)"', p.read_text()):
+            assert m.group(1) == "cuda", p.name
+
+
 def test_harness_runs_without_jax_repro_or_benchmarks():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", HARNESS_RUN, str(ROOT)], env=env, cwd=ROOT,
@@ -170,3 +226,16 @@ def test_default_device_is_the_card():
         problems.generate_problem(n=2, d=8, noise_scale=1.0)
     with pytest.raises(RuntimeError, match="cuda"):
         convert.ef21p_state_from_numpy([0.0], [0.0], 0)
+    from repro_torch import configs, serve_bench, serve_lm
+    from repro_torch.models import lm
+    from repro_torch.serve import DecodeEngine
+
+    cfg = configs.get_smoke("gemma-2b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm.lm_init(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DecodeEngine(cfg, lm.lm_init(cfg, device="cpu"), cache_len=8, batch_size=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_bench.bench()
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_lm.main(["--layers", "1", "--d-model", "64", "--ckpt", "no-such-file"])
