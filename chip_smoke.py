@@ -157,10 +157,35 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     replica's delta_sync is its only caller in that window). unpack_bits is
     timed at (s3)'s three streams after the read.
 
+(t) the LM training path (``repro_torch.optim`` / ``data`` / ``train``):
+    (t0) block_topk and rotk_apply (f32, bf16) at every leaf size of
+    demo-100m against their plain versions, AdamW and SGD on the card against
+    the CPU, all bit for bit; then, with the counters zeroed: (t1) each of the
+    ten smoke configs, 2 workers, 3 marina:perm steps on the card against the
+    CPU port from the same weights, batches and draws (losses within
+    TRAIN_DEV_LOSS_ATOL); (t2) demo-100m at full width (``train_lm.model_100m``,
+    119,550,720 parameters), 4 workers x batch 2 x seq 512, AdamW, 8 steps
+    under each of marina:perm / ind / same, ef21p:128:1024 and none, and
+    marina:perm with bf16 replicas: finite losses, RotK's exact mean after
+    every no-sync round, bits_per_worker equal to the formula, EF21-P's drift
+    contracting at the final server; ms a step, tokens/s, peak memory, one
+    step under the profiler; (t3)
+    ``measure_wire`` at full width for a sync round and a compressed round of
+    each mode and of EF21-P (device encode), with the measured-vs-analytic
+    gap; (t4) ``train_loop`` through ``transport_bench.CHAOS_SPEC`` at
+    tests/test_transport.py's tiny-LM width on the card and the CPU: every
+    transport counter equal. The
+    counters are read after (t4): block_topk, rotk_apply (f32 and bf16),
+    pack_bits, sparse_streams and dense_bits must have launched. Then (t3)'s
+    device buffers against the host codec, byte for byte, and block_topk and
+    rotk_apply timed at the largest leaf.
+
 Prints a ``{"kernels": [...]}`` JSON line (launches: the path of each row
-plus (m)-(o), (q)-(r) and (s); the rotk_apply row names its dtypes, its numbers are float32's and
-``by_dtype`` gives each dtype's; the unpack_bits row's ``serve_path`` gives
-its (s) launches and its times at (s3)'s streams), then the card's name and power
+plus (m)-(o), (q)-(r), (s) and (t); the rotk_apply row names its dtypes, its numbers are float32's and
+``by_dtype`` gives each dtype's, its bf16 launches the training path's; the unpack_bits row's ``serve_path`` gives
+its (s) launches and its times at (s3)'s streams; every row's ``train_path``
+its (t) launches, and block_topk's and rotk_apply's their times at the
+largest leaf), then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero,
 printing no result, where CUDA is unavailable or the port is missing.
 """
@@ -1515,6 +1540,409 @@ def serve_suite_phase(np, torch, dev, card):
     return rows, wall
 
 
+# ---------------------------------------------------------------------------
+# the LM training path (phase t)
+# ---------------------------------------------------------------------------
+
+TRAIN_SPECS = ("marina:perm", "marina:ind", "marina:same", "ef21p:128:1024", "none")
+TRAIN_W, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2, 512, 8
+TRAIN_PARAMS = 119_550_720  # examples/train_lm.py::model_100m, by the reference's count_params
+# (t1) the card's train steps against the CPU port's from the same weights,
+# batches and draws: the first step's loss differs only by the forward's
+# bf16 products (cuBLAS against an fp32 product rounded once), a few 1e-4 at
+# a loss of ~6; the next two add AdamW's per-coordinate sign flips of tiny
+# gradients (<= 2.2 lr a coordinate, lr 1e-3)
+TRAIN_DEV_LOSS_ATOL = 0.02
+MEAN_ATOL = 1e-5  # RotK's exact mean in fp32 (tests/test_trainer.py's bound)
+# kernels that must launch between the counters' reset before (t1) and the read after (t4)
+TRAIN_KERNELS = ("block_topk", "rotk_apply", "pack_bits", "sparse_streams", "dense_bits")
+
+
+def _to(torch, x, dev):
+    """``x`` (a tensor, or dicts and lists of them beside host values) on ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: _to(torch, v, dev) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_to(torch, v, dev) for v in x]
+    return x
+
+
+def _draws_to(torch, draws, dev):
+    return draws._replace(rot=_to(torch, draws.rot, dev), masks=_to(torch, draws.masks, dev))
+
+
+def train_kernels_vs_plain(np, torch, dev, sizes):
+    """(t0), before the counters' reset: block_topk (k 128, block 1024) and
+    rotk_apply (n 4, every worker, f32 and bf16) at every leaf size of
+    demo-100m against their plain versions, bit for bit; AdamW and SGD on the
+    card against the CPU, bit for bit (the FMA forms of optim/optimizers.py).
+    Returns {kernel: max abs error}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import optimizers as O
+
+    gen = torch.Generator(dev).manual_seed(41)
+    err = {"block_topk": 0.0, "rotk_apply": 0.0}
+    for s in sorted(set(sizes)):
+        x = torch.randn(s, generator=gen, device=dev) * 1e-3
+        got = ops.block_topk(x, k_per_block=128, block=1024)
+        want = ref.block_topk_ref(F.pad(x, (0, (-s) % 1024)), k_per_block=128, block=1024)[:s]
+        torch.cuda.synchronize()
+        if not bits_equal(torch, got, want):
+            fail(f"(t0) block_topk at {s} values: kernel != plain")
+        err["block_topk"] = max(err["block_topk"], float_err(torch, got, want))
+        for dtype in (torch.float32, torch.bfloat16):
+            w = torch.randn(s, generator=gen, device=dev).to(dtype)
+            delta = (torch.randn(s, generator=gen, device=dev) * 1e-3).to(dtype)
+            rot = torch.randint(0, TRAIN_W, (1,), generator=gen, device=dev, dtype=torch.int32)
+            for i in range(TRAIN_W):
+                got = ops.rotk_apply(w, delta, rot, n=TRAIN_W, worker=i)
+                want = ref.rotk_apply_ref(w, delta, rot, n=TRAIN_W, worker=i)
+                torch.cuda.synchronize()
+                if not bits_equal(torch, got, want):
+                    fail(f"(t0) rotk_apply {dtype} at {s} values, worker {i}: kernel != plain")
+                err["rotk_apply"] = max(err["rotk_apply"], float_err(torch, got, want))
+    rng = np.random.default_rng(43)
+    n = 1_000_003
+    p, g, m = (torch.from_numpy((rng.standard_normal(n) * sc).astype(np.float32)) for sc in (1.0, 1e-2, 1e-3))
+    v = torch.from_numpy((np.abs(rng.standard_normal(n)) * 1e-5).astype(np.float32))
+    for count in (0, 3, 99):
+        for lr in (np.float32(3e-4), torch.tensor(np.float32(3e-4))):
+            cpu = O.adamw_update(g, {"m": m, "v": v, "count": count}, p, lr, weight_decay=0.01)
+            card = O.adamw_update(g.to(dev), {"m": m.to(dev), "v": v.to(dev), "count": count}, p.to(dev),
+                                  _to(torch, lr, dev), weight_decay=0.01)
+            for a, b in ((cpu[0], card[0]), (cpu[1]["m"], card[1]["m"]), (cpu[1]["v"], card[1]["v"])):
+                if not bits_equal(torch, a, b.cpu()):
+                    fail(f"(t0) adamw_update count={count} lr={type(lr).__name__}: card != CPU")
+    cpu = O.sgd_update(g, {"mu": m}, p, np.float32(2e-3), momentum=0.9, weight_decay=0.01)
+    card = O.sgd_update(g.to(dev), {"mu": m.to(dev)}, p.to(dev), np.float32(2e-3), momentum=0.9,
+                        weight_decay=0.01)
+    if not (bits_equal(torch, cpu[0], card[0].cpu()) and bits_equal(torch, cpu[1]["mu"], card[1]["mu"].cpu())):
+        fail("(t0) sgd_update: card != CPU")
+    log(f"(t0) block_topk and rotk_apply (f32, bf16) bit-equal to their plain versions at all "
+        f"{len(set(sizes))} leaf sizes of demo-100m; AdamW and SGD on the card bit-equal to the CPU")
+    return err
+
+
+def train_smoke_phase(np, torch, dev):
+    """(t1): every smoke config, 2 workers, 3 MARINA-P (perm) steps on the
+    card and on the CPU port from the same weights, batches and draws: losses
+    within TRAIN_DEV_LOSS_ATOL, finite. Returns the worst |loss diff|."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import lm
+    from repro_torch.models import params as P
+    from repro_torch.optim import constant_lr, make_optimizer
+    from repro_torch.train import TrainerConfig, init_state, make_downlink, make_train_step
+    from repro_torch.train import downlink as D
+
+    worst = 0.0
+    for arch in configs.ALIASES:
+        cfg = configs.get_smoke(arch)
+        tcfg = TrainerConfig(n_workers=2, attn_chunk=32)
+        dl, opt = make_downlink("marina:perm", 2), make_optimizer("adamw")
+        step = make_train_step(cfg, tcfg, dl, opt, constant_lr(1e-3))
+        st_cpu = init_state(cfg, tcfg, dl, opt, seed=0, device="cpu")
+        st_dev = _to(torch, st_cpu, dev)
+        data = SyntheticLMData(cfg, 2, 2, 64, device="cpu")
+        sizes = P.leaf_sizes(lm.lm_spec(cfg))
+        gen = torch.Generator().manual_seed(1)
+        diffs = []
+        for i in range(3):
+            batch, draws = data.batch(i), D.draw_round(dl, sizes, gen, gen)
+            st_cpu, m_cpu = step(st_cpu, batch, draws)
+            st_dev, m_dev = step(st_dev, _to(torch, batch, dev), _draws_to(torch, draws, dev))
+            lc, lg = float(m_cpu["loss"]), float(m_dev["loss"])
+            if not np.isfinite(lg) or abs(lg - lc) > TRAIN_DEV_LOSS_ATOL:
+                fail(f"(t1) {arch} step {i}: card loss {lg} vs CPU {lc}")
+            diffs.append(abs(lg - lc))
+        worst = max(worst, max(diffs))
+        log(f"(t1) {arch:26s} losses on the card {float(m_dev['loss']):.5f} (CPU {float(m_cpu['loss']):.5f}), "
+            f"max |card - CPU| over 3 steps {max(diffs):.2e}")
+    return worst
+
+
+def train_step_profile(torch, dev, step):
+    """One train step (``step()``) under ``torch.profiler``: host ms, the
+    device kernels, device ms and the GEMMs' ms of it, and the five kernels
+    of most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.trace_round import _device_us
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    gemm = [e for e in events if any(k in e.key.lower() for k in ("gemm", "nvjet", "xmma", "cutlass"))]
+    top = sorted(events, key=_device_us, reverse=True)[:5]
+    return {"wall_ms": wall_ms, "kernels": sum(e.count for e in events),
+            "device_ms": sum(_device_us(e) for e in events) / 1e3,
+            "gemm_ms": sum(_device_us(e) for e in gemm) / 1e3,
+            "top": [(e.key[:48], e.count, _device_us(e) / 1e3) for e in top]}
+
+
+def train_full_phase(np, torch, dev, card):
+    """(t2): demo-100m at full width (train_lm.model_100m: 119,550,720
+    parameters, 12 leaves), 4 workers x batch 2 x seq 512, AdamW (wd 0.01),
+    cosine_warmup(3e-4), TRAIN_STEPS steps under each downlink spec and
+    marina:perm with bf16 replicas: finite losses; RotK's exact mean after
+    every no-sync fp32 round; bits_per_worker equal to the formula over the
+    drawn coins; EF21-P's drift contracting over 6 rounds at the final server.
+    Returns ({run: (ms a step, tokens/s, peak GiB, last loss)}, bf16 rotk
+    launches, (x_old, x_new) of the last fp32 perm step, the sizes)."""
+    from repro_torch.core.comm_model import CommModel
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import runtime
+    from repro_torch.models import lm
+    from repro_torch.models import params as P
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.schedules import cosine_warmup
+    from repro_torch.train import TrainerConfig, init_state, make_downlink, make_train_step
+    from repro_torch.train import downlink as D
+    from repro_torch.train_lm import model_100m
+
+    cfg = model_100m()
+    sizes = P.leaf_sizes(lm.lm_spec(cfg))
+    d = sum(sizes)
+    if d != TRAIN_PARAMS or lm.count_params(cfg) != d or len(sizes) != 12:
+        fail(f"(t2) demo-100m has {d} parameters in {len(sizes)} leaves, expected {TRAIN_PARAMS} in 12")
+    cm = CommModel(d=d)
+    out, pair, bf16_launches = {}, None, 0
+    for spec, wdt in [(s, torch.float32) for s in TRAIN_SPECS] + [("marina:perm", torch.bfloat16)]:
+        name = spec + ("/bf16" if wdt == torch.bfloat16 else "")
+        tcfg = TrainerConfig(n_workers=TRAIN_W, attn_chunk=128, weight_dtype=wdt)
+        dl = make_downlink(spec, TRAIN_W)
+        opt = make_optimizer("adamw", weight_decay=0.01)
+        step = make_train_step(cfg, tcfg, dl, opt,
+                               cosine_warmup(3e-4, warmup=min(50, TRAIN_STEPS // 4), total=TRAIN_STEPS))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = runtime.LAUNCHES["rotk_apply"]
+        state = init_state(cfg, tcfg, dl, opt, seed=0, device=dev)
+        data = SyntheticLMData(cfg, TRAIN_W, TRAIN_B, TRAIN_S, device=str(dev))
+        gen, dgen = torch.Generator().manual_seed(7), torch.Generator(dev).manual_seed(7)
+        bits, times, losses, mean_err, syncs = np.float32(0), [], [], 0.0, 0
+        for i in range(TRAIN_STEPS):
+            batch, draws = data.batch(i), D.draw_round(dl, sizes, gen, dgen)
+            x_old = state["server"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, draws)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            if dl is None:
+                continue
+            sync = isinstance(dl, D.MarinaPDownlink) and draws.coin
+            syncs += sync
+            frac = dl.frac if isinstance(dl, D.MarinaPDownlink) else dl.k_per_block / dl.block
+            bits = np.float32(bits + np.float32(cm.dense_bits() if sync else cm.sparse_bits(frac * d)))
+            if spec == "marina:perm" and wdt == torch.float32 and not sync:
+                err = (state["workers"].mean(0) - state["server"]).abs().max().item()
+                mean_err = max(mean_err, err)
+                if err > MEAN_ATOL:
+                    fail(f"(t2) {name} step {i}: max |mean_i w_i - x| = {err} > {MEAN_ATOL}")
+                pair = (x_old, state["server"])
+        if not np.all(np.isfinite(losses)):
+            fail(f"(t2) {name}: losses {losses}")
+        if spec == "marina:perm" and wdt == torch.float32 and pair is None:
+            fail(f"(t2) {name}: every round was a sync; no compressed round to measure in (t3)")
+        if state["bits_per_worker"] != bits:
+            fail(f"(t2) {name}: bits_per_worker {state['bits_per_worker']} != formula {bits}")
+        extra = ""
+        if isinstance(dl, D.EF21PDownlink):
+            target, shift = state["server"], state["workers"]
+            drifts = [float(dl.worker_drift(target, shift))]
+            for _ in range(6):
+                shift, _ = dl.round(D.DownlinkDraws(), sizes, target, shift)
+                drifts.append(float(dl.worker_drift(target, shift)))
+            if not drifts[-1] < 0.3 * drifts[0]:
+                fail(f"(t2) {name}: EF21-P drift at a fixed server {drifts} does not contract")
+            extra = f", drift at the final server over 6 rounds {drifts[0]:.3e} -> {drifts[-1]:.3e}"
+        if spec == "marina:perm":
+            extra = (f", {syncs} sync rounds, max |mean_i w_i - x| {mean_err:.2e}" if wdt == torch.float32
+                     else f", {syncs} sync rounds, drift {float(m['drift']):.3e}")
+        if spec == "marina:perm" and wdt == torch.float32:
+            # where a step's time goes: the last step again, under the profiler
+            prof = train_step_profile(torch, dev, lambda: step(state, batch, draws))
+            log(f"(t2) {name} one step under the profiler: {prof['wall_ms']:.1f} ms on the host clock, "
+                f"{prof['kernels']} kernels, {prof['device_ms']:.2f} ms of device time (busy share "
+                f"{prof['device_ms'] / prof['wall_ms']:.3f}), GEMMs {prof['gemm_ms']:.2f} ms; top "
+                + "; ".join(f"{k} x{c} {ms_:.2f} ms" for k, c, ms_ in prof["top"]) + f" ({card})")
+        if wdt == torch.bfloat16:
+            bf16_launches = runtime.LAUNCHES["rotk_apply"] - before
+        ms = float(np.median(times[2:])) * 1e3
+        tokens_s = TRAIN_W * TRAIN_B * TRAIN_S / (ms / 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        out[name] = (ms, tokens_s, peak, losses[-1])
+        log(f"(t2) {name:18s} {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+            f"{ms:.2f} ms a step (median of steps 2-{TRAIN_STEPS - 1}; first {times[0] * 1e3:.1f}), "
+            f"{tokens_s:,.0f} tokens/s, peak {peak:.2f} GiB, bits/worker {float(bits):.6e} = formula{extra} "
+            f"({card})")
+        del state, m, data, step
+    torch.cuda.empty_cache()
+    return out, bf16_launches, pair, sizes
+
+
+def train_wire_phase(np, torch, dev, sizes, pair, card):
+    """(t3a), inside the launch window: measure_wire at full width (device
+    encode) of one sync round and one compressed round of each MARINA-P mode
+    (perm, ind, same) and of EF21-P, from the last fp32 perm step's x_t and
+    x_{t+1}: the measured-vs-analytic gap, seconds and peak memory of each.
+    Returns {name: (downlink, draws)} for (t3b)."""
+    from repro_torch.train import downlink as D
+
+    x_old, x_new = pair
+    gen, dgen = torch.Generator().manual_seed(3), torch.Generator(dev).manual_seed(3)
+    cases = {f"marina:{mode}": (D.MarinaPDownlink(TRAIN_W, mode, p=1e-12), None)
+             for mode in ("perm", "ind", "same")}
+    cases = {k: (dl, D.draw_round(dl, sizes, gen, dgen)) for k, (dl, _) in cases.items()}
+    cases["sync"] = (D.MarinaPDownlink(TRAIN_W, "perm"), D.DownlinkDraws(coin=True))
+    cases["ef21p:128:1024"] = (D.EF21PDownlink(TRAIN_W, 128, 1024), D.DownlinkDraws())
+    for name, (dl, draws) in cases.items():
+        if draws.coin != (name == "sync"):
+            fail(f"(t3) {name}: drew coin={draws.coin}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = dl.measure_wire(draws, sizes, x_new, x_old, device_encode=True)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        gap = (res["bits_mean"] - res["bits_analytic"]) / res["bits_analytic"]
+        log(f"(t3) measure_wire {name:15s} d={sum(sizes):,}: measured {res['bits_mean']:.6e} bits/worker, "
+            f"analytic {res['bits_analytic']:.6e}, gap {gap * 100:+.3f}%, {secs:.2f} s, peak "
+            f"{peak:.2f} GiB ({card})")
+    return cases
+
+
+def train_wire_buffers(np, torch, dev, sizes, pair, cases):
+    """(t3b), after the counters' read: the device buffers of (t3a)'s rounds
+    against the host codec, byte for byte: the DENSE sync buffer, EF21-P's
+    message, rows 0 and W-1 of perm and row 0 of ind and same (the host
+    codec takes ~6 s a 30M-entry row)."""
+    from repro_torch import wire
+    from repro_torch.kernels import encode as kenc
+
+    x_old, x_new = pair
+    compared = 0
+    for name, (dl, draws) in cases.items():
+        if name == "sync":
+            pairs = [(kenc.dense_encode(x_new), x_new, wire.encode_dense)]
+        elif name.startswith("ef21p"):
+            delta = dl.compressed(sizes, x_new, x_old)
+            pairs = [(kenc.sparse_encode(delta), delta, wire.encode_sparse)]
+        else:  # perm: the first and last workers' partitions; ind: worker 0; same: its one row
+            Q = dl.messages(draws, sizes, x_new, x_old)
+            bufs = kenc.encode_rows(Q)
+            rows = (0, Q.shape[0] - 1) if name == "marina:perm" else (0,)
+            pairs = [(bufs[i], Q[i], wire.encode_sparse) for i in rows]
+        for buf, x, host in pairs:
+            if buf != host(x.cpu().numpy()):
+                fail(f"(t3) {name}: device buffer != host codec")
+            compared += 1
+    log(f"(t3) {compared} full-width device buffers byte-identical to the host codec "
+        "(DENSE sync, EF21-P, rows 0 and W-1 of perm, row 0 of ind and of same)")
+
+
+def train_transport_phase(np, torch, dev, card):
+    """(t4): ``train_loop`` of tests/test_transport.py's tiny LM (1 layer,
+    d_model 32, 4 workers; the frames' CRC32C is pure Python, ~0.25 s a MB,
+    so a smoke config's messages would take seconds a round) through
+    ``transport_bench.CHAOS_SPEC`` under marina:perm and ef21p:16:64, 12
+    rounds, on the card and on the CPU port from the same weights and draws
+    (init_state and draw_round patched to draw on the CPU): every transport
+    counter equal, losses within TRAIN_DEV_LOSS_ATOL. Returns ms a round on
+    the card."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.optim import constant_lr, make_optimizer
+    from repro_torch.train import TrainerConfig, make_downlink, train_loop
+    from repro_torch.train import downlink as D
+    from repro_torch.train import trainer as TR
+    from repro_torch.transport_bench import CHAOS_SPEC
+
+    cfg = ModelConfig(arch_id="t", family="gqa", num_layers=1, d_model=32, num_heads=2, num_kv_heads=2,
+                      head_dim=16, d_ff=64, vocab_size=64)
+    real_init, real_draw = TR.init_state, D.draw_round
+    ms = {}
+    for spec in ("marina:perm", "ef21p:16:64"):
+        runs = {}
+        for device in ("cpu", dev):
+            cpu_gen = torch.Generator().manual_seed(11)
+
+            def init_on_cpu(*a, device, **kw):
+                return _to(torch, real_init(*a, device="cpu", **kw), device)
+
+            def draw_on_cpu(dl, sizes, gen, dev_gen, device=device, cpu_gen=cpu_gen):
+                return _draws_to(torch, real_draw(dl, sizes, gen, cpu_gen), device)
+
+            TR.init_state, D.draw_round = init_on_cpu, draw_on_cpu
+            try:
+                t0 = time.perf_counter()
+                _, m = train_loop(cfg, TrainerConfig(n_workers=4, attn_chunk=32), make_downlink(spec, 4),
+                                  make_optimizer("adamw"), constant_lr(1e-3),
+                                  SyntheticLMData(cfg, 4, 2, 64, device=str(device)), steps=12, seed=2,
+                                  device=device, transport=CHAOS_SPEC)
+                runs[str(device)] = (m, (time.perf_counter() - t0) / 12 * 1e3)
+            finally:
+                TR.init_state, D.draw_round = real_init, real_draw
+        (mc, _), (mg, ms[spec]) = runs["cpu"], runs[str(dev)]
+        if mc["transport"] != mg["transport"]:
+            diff = {k: (mc["transport"][k], mg["transport"].get(k)) for k in mc["transport"]
+                    if mc["transport"][k] != mg["transport"].get(k)}
+            fail(f"(t4) {spec} through CHAOS_SPEC: transport counters differ (CPU, card): {diff}")
+        if abs(float(mc["loss"]) - float(mg["loss"])) > TRAIN_DEV_LOSS_ATOL:
+            fail(f"(t4) {spec}: loss on the card {float(mg['loss'])} vs CPU {float(mc['loss'])}")
+        t = mg["transport"]
+        log(f"(t4) {spec} through CHAOS_SPEC, 12 rounds: transport counters equal on card and CPU "
+            f"(frames {t['transport/frames_sent']:.0f}, retries {t['transport/retries']:.0f}, "
+            f"forced syncs {t['transport/forced_syncs']:.0f}, goodput {t['transport/goodput']:.6f}); "
+            f"{ms[spec]:.1f} ms a round on the card ({card})")
+    return ms
+
+
+def train_kernel_timing(np, torch, dev, timed, big, card):
+    """block_topk (k 128, block 1024) and rotk_apply (n 4; f32, bf16) at the
+    largest leaf of demo-100m (the embedding, ``big`` values), timed after
+    the training path's counters were read: {name: (ms, plain ms, bound ms,
+    library ms or None)}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(dev).manual_seed(47)
+    x = torch.randn(big, generator=gen, device=dev)
+    xp = F.pad(x, (0, (-big) % 1024))
+
+    def library():
+        idx = torch.topk(xp.view(-1, 1024).abs(), 128, dim=1).indices
+        return torch.zeros_like(xp).view(-1, 1024).scatter_(1, idx, xp.view(-1, 1024).gather(1, idx))
+
+    out = {"block_topk": (timed(lambda: ops.block_topk(x, k_per_block=128, block=1024)),
+                          timed(lambda: ref.block_topk_ref(xp, k_per_block=128, block=1024)),
+                          8 * big / HBM_BYTES_PER_S * 1e3, timed(library))}
+    rot = torch.tensor([1], dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        w, delta = x.to(dtype), (x * 1e-3).to(dtype)
+        size = 4 if dtype == torch.float32 else 2
+        out[f"rotk_apply/{str(dtype).split('.')[-1]}"] = (
+            timed(lambda: ops.rotk_apply(w, delta, rot, n=TRAIN_W, worker=2)),
+            timed(lambda: ref.rotk_apply_ref(w, delta, rot, n=TRAIN_W, worker=2)),
+            (3 * size * big + 4) / HBM_BYTES_PER_S * 1e3, None)
+    for name, (ms_, plain_, bound_, lib_) in out.items():
+        log(f"(t) {name} at {big:,} values: {ms_:.5f} ms, plain {plain_:.5f}, bound {bound_:.5f} by bytes"
+            + (f", torch.topk + scatter {lib_:.5f}" if lib_ is not None else "") + f" ({card})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2102,6 +2530,42 @@ def main() -> int:
             fail(f"(s) the serving path never launched {kname}")
     unpack = unpack_timing(np, torch, dev, msgs["buf"], msgs["d"], timed, card)
     del msgs
+    torch.cuda.empty_cache()
+
+    # --- (t) the LM training path ----------------------------------------------------------
+    from repro_torch.models import lm as lm_
+    from repro_torch.models import params as params_
+    from repro_torch.train_lm import model_100m
+
+    t_t0 = time.perf_counter()
+    train_err = train_kernels_vs_plain(np, torch, dev, params_.leaf_sizes(lm_.lm_spec(model_100m())))
+    runtime.reset_launches()
+    t_t1 = time.perf_counter()
+    smoke_diff = train_smoke_phase(np, torch, dev)
+    t_t2 = time.perf_counter()
+    full, bf16_launches, pair, sizes = train_full_phase(np, torch, dev, card)
+    t_t3 = time.perf_counter()
+    wire_cases = train_wire_phase(np, torch, dev, sizes, pair, card)
+    t_t4 = time.perf_counter()
+    train_loop_ms = train_transport_phase(np, torch, dev, card)
+    torch.cuda.synchronize()
+    train_launches = dict(runtime.LAUNCHES)
+    t_end = time.perf_counter()
+    log(f"(t) launches on the training path: {train_launches} (rotk_apply bf16: {bf16_launches}); "
+        f"(t0) {t_t1 - t_t0:.1f} s, (t1) {t_t2 - t_t1:.1f} s, (t2) {t_t3 - t_t2:.1f} s, "
+        f"(t3) {t_t4 - t_t3:.1f} s, (t4) {t_end - t_t4:.1f} s")
+    for kname in TRAIN_KERNELS:
+        if train_launches.get(kname, 0) <= 0:
+            fail(f"(t) the training path never launched {kname}")
+    if bf16_launches <= 0:
+        fail("(t) the bf16 replicas never launched the bf16 rotk_apply")
+    log(f"(t1) all ten smoke configs: card vs CPU loss within {smoke_diff:.2e} "
+        f"(tolerance {TRAIN_DEV_LOSS_ATOL})")
+    train_wire_buffers(np, torch, dev, sizes, pair, wire_cases)
+    del pair, wire_cases
+    torch.cuda.empty_cache()
+    train_times = train_kernel_timing(np, torch, dev, timed, max(sizes), card)
+    log(f"(t) took {time.perf_counter() - t_t0:.1f} s")
 
     summary = {"kernels": [
         {"name": "l1_subgrad", "route": "cuda", "source": "src/repro_torch/csrc/l1_subgrad.cu",
@@ -2137,7 +2601,15 @@ def main() -> int:
             "bound_by": by_, "library_ms": None})
     for row in summary["kernels"]:  # the later slices' paths launched these kernels too
         row["launches"] += (slice_launches.get(row["name"], 0) + harness_launches.get(row["name"], 0)
-                            + serve_launches.get(row["name"], 0))
+                            + serve_launches.get(row["name"], 0) + train_launches.get(row["name"], 0))
+        # the training path (t): its launches, and the time at its largest leaf
+        row["train_path"] = {"launches": train_launches.get(row["name"], 0)}
+        if row["name"] in train_err:
+            row["max_abs_err"] = max(row["max_abs_err"], train_err[row["name"]])
+        if row["name"] == "block_topk":
+            ms_, plain_, bound_, lib_ = train_times["block_topk"]
+            row["train_path"].update(values=max(sizes), k_per_block=128, block=1024, ms=ms_,
+                                     plain_ms=plain_, bound_ms=bound_, library_ms=lib_)
         if row["name"] == "unpack_bits":
             # the serving path's decode: (s)'s launches (all from the replica's
             # delta_sync), and the kernel at (s3)'s three streams of a 10**6-entry
@@ -2148,12 +2620,20 @@ def main() -> int:
                 "by_width": {str(w): {"count": DELTA_NNZ, "ms": ms_, "bound_ms": bound_}
                              for w, (ms_, bound_) in unpack.items()}}
         if row["name"] == "rotk_apply":
-            # max_abs_err covers all three dtypes; the row's ms, plain_ms, bound_ms and
-            # launches are float32's: no path runs the 16-bit variants, timed in (p)
+            # max_abs_err covers all three dtypes; the row's ms, plain_ms and bound_ms are
+            # float32's at kernel_bench's d = 2**16, the 16-bit ones timed in (p); the
+            # training path's bf16 replicas (t2) are the only path to run a 16-bit variant
             row["dtypes"] = ["float32", "float16", "bfloat16"]
-            row["by_dtype"] = {"float32": {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "launches")}}
+            row["by_dtype"] = {"float32": {k: row[k] for k in ("ms", "plain_ms", "bound_ms")}}
+            row["by_dtype"]["float32"]["launches"] = row["launches"] - bf16_launches
             for name, (ms_, plain_, bound_) in rotk16_ms.items():
-                row["by_dtype"][name] = {"ms": ms_, "plain_ms": plain_, "bound_ms": bound_, "launches": 0}
+                row["by_dtype"][name] = {"ms": ms_, "plain_ms": plain_, "bound_ms": bound_,
+                                         "launches": bf16_launches if name == "bfloat16" else 0}
+            row["train_path"]["bfloat16_launches"] = bf16_launches
+            for dt in ("float32", "bfloat16"):
+                ms_, plain_, bound_, _ = train_times[f"rotk_apply/{dt}"]
+                row["train_path"][dt] = {"values": max(sizes), "n": TRAIN_W, "ms": ms_,
+                                         "plain_ms": plain_, "bound_ms": bound_}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

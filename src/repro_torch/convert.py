@@ -102,3 +102,55 @@ def unravel_params(flat: torch.Tensor, like):
     if sum(leaf.size for leaf in leaves(spec)) != flat.numel():
         raise ValueError(f"flat vector of {flat.numel()} values does not fit the tree")
     return _views(spec, flat, None, [0])[0]
+
+
+# ---------------------------------------------------------------------------
+# the LM trainer's state
+# ---------------------------------------------------------------------------
+
+
+def _flat(tree, cfg) -> np.ndarray:
+    """A tree shaped as ``lm_spec(cfg)`` as its ravel-order vector (fp32)."""
+    from .models import lm, params as P
+
+    got = P.leaves_with_path(tree)
+    want = P.leaves_with_path(lm.lm_spec(cfg))
+    if [p for p, _ in got] != [p for p, _ in want]:
+        raise ValueError("tree differs from the port's lm_spec")
+    return np.concatenate([np.asarray(a, np.float32).reshape(-1) for _, a in got])
+
+
+def train_state_from_numpy(cfg, tcfg, state, device="cuda"):
+    """The reference trainer's state (``jax.tree.map(np.asarray, state)``:
+    ``server``, ``opt``, optional ``workers``, ``step``, ``bits_per_worker``,
+    ``uplink_bits_per_worker``) as the port's (``train.init_state``'s
+    layout): parameter trees as ravel-order vectors, MARINA-P's replicas
+    [W, d] in ``tcfg.weight_dtype`` (bf16 leaves by bit pattern, so exact),
+    EF21-P's shift [d], counters on the host as float32."""
+    from .models import params as P
+
+    dev = resolve_device(device)
+    out = {
+        "server": torch.from_numpy(_flat(state["server"], cfg)).to(dev),
+        "step": int(state["step"]),
+        "bits_per_worker": np.float32(state["bits_per_worker"]),
+        "uplink_bits_per_worker": np.float32(state["uplink_bits_per_worker"]),
+    }
+    opt = state["opt"]
+    if "m" in opt:
+        out["opt"] = {"m": torch.from_numpy(_flat(opt["m"], cfg)).to(dev),
+                      "v": torch.from_numpy(_flat(opt["v"], cfg)).to(dev),
+                      "count": int(opt["count"])}
+    else:
+        out["opt"] = {k: torch.from_numpy(_flat(v, cfg)).to(dev) for k, v in opt.items()}
+    if "workers" in state:
+        from .models import lm
+
+        leaves = [_tensor(a, dev) for a in P.leaves(state["workers"])]
+        shapes = [leaf.shape for leaf in P.leaves(lm.lm_spec(cfg))]
+        if [tuple(t.shape) for t in leaves] == shapes:  # EF21-P: one shift tree
+            workers = torch.cat([t.reshape(-1) for t in leaves])
+        else:  # MARINA-P: a leading worker axis on every leaf
+            workers = torch.cat([t.reshape(t.shape[0], -1) for t in leaves], dim=1)
+        out["workers"] = workers.to(tcfg.weight_dtype)
+    return out

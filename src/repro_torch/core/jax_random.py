@@ -1,4 +1,5 @@
-"""The few ``jax.random`` functions the SEED/PERM decode needs, in numpy.
+"""The few ``jax.random`` functions the SEED/PERM decode and the synthetic LM
+data need, in numpy.
 
 The reference rebuilds Definition 5's permutation of a SEED/PERM message from
 ``jax.random`` (``repro/wire/seedonly.py``: ``PermK(n, worker)(fold_in(
@@ -16,7 +17,9 @@ re-derives those draws bit for bit, pinned to JAX 0.9.0 with its default
   for the flat index j;
 * :func:`permutation` of ``range(d)``, ``jax.random._shuffle``: ``ceil(3 ln d
   / ln(2**32 - 1))`` rounds, each splitting the key, drawing 32-bit sort keys
-  and sorting stably by them.
+  and sorting stably by them;
+* :func:`uniform`, float32 in [0, 1) from the 32-bit draws: the synthetic
+  LM data's tokens (``repro_torch.data``).
 
 Keys are ``uint32`` arrays of shape [2], as ``jax.random.PRNGKey`` returns them.
 """
@@ -97,3 +100,13 @@ def permutation(key: np.ndarray, d: int) -> np.ndarray:
         order = np.argsort(random_bits(subkey, d), kind="stable")
         x = x[order]
     return x
+
+
+def uniform(key: np.ndarray, shape) -> np.ndarray:
+    """``jax.random.uniform(key, shape)`` (float32 in [0, 1)): the 23 high
+    bits of each 32-bit draw as the mantissa of a float in [1, 2), less 1.0
+    (``(bits >> 9) | 0x3F800000`` read as float32, minus 1.0)."""
+    shape = tuple(shape)
+    bits = random_bits(key, int(np.prod(shape, dtype=np.int64)))
+    floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    return floats.reshape(shape)

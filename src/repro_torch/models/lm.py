@@ -10,10 +10,11 @@ The three input modalities of the reference:
                     embeddings; logits over the text positions only
 
 ``params`` is a :class:`~.params.FlatParams` (what :func:`lm_init` and
-``convert.lm_params_from_numpy`` return) or a plain tree of tensors.
-``cross_entropy``/``loss_fn`` and ``forward``'s training and sharding
-arguments (``remat``, ``remat_policy``, ``act_spec``) wait for the training
-slice; ``forward`` accepts ``remat`` and ignores it.
+``convert.lm_params_from_numpy`` return) or a plain tree of tensors, such as
+the training view ``params.grad_tree`` that autograd differentiates.
+``forward``'s ``remat`` / ``remat_policy`` checkpoint activations (see
+:mod:`.transformer`); ``act_spec``, a sharding constraint of the reference's
+mesh, has no meaning on one card and is refused.
 """
 from __future__ import annotations
 
@@ -98,24 +99,46 @@ def logits_from_hidden(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tenso
 
 
 # ---------------------------------------------------------------------------
-# forward
+# forward / loss
 # ---------------------------------------------------------------------------
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
-            window_override: Optional[int] = None, chunk: int = 512, remat: bool = True):
+            window_override: Optional[int] = None, chunk: int = 512, remat: bool = True,
+            act_spec=None, remat_policy: Optional[str] = None):
     """Logits [B, S, V] (text / vlm over the text positions) or [B, K, S, V].
-    ``remat`` (activation checkpointing for training) is accepted and has no
-    effect here."""
+    ``remat``: recompute each block's activations in the backward pass
+    (``remat_policy`` None / "full": all of them; "dots": all but the
+    matmuls without batch dimensions); no effect outside autograd."""
+    if act_spec is not None:
+        raise ValueError("act_spec pins activations onto a device mesh; the port runs on one card "
+                         "and has no mesh")
     p = tree_of(params)
     x = embed_tokens(cfg, p, batch["tokens"])
     if cfg.num_patches:
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)  # [B, P + S, D]
-    x = T.stack_apply(cfg, p["stack"], x, window_override=window_override, chunk=chunk)
+    x = T.stack_apply(cfg, p["stack"], x, window_override=window_override, chunk=chunk,
+                      remat=remat, remat_policy=remat_policy)
     x = L.rmsnorm(p["ln_f"], x, cfg.rms_eps)
     if cfg.num_patches:
         x = x[:, cfg.num_patches:]
     return logits_from_hidden(cfg, p, x)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE. logits [..., S, V] (fp32 statistics), labels [..., S]."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    return torch.mean(lse - ll)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, **fwd_kw) -> torch.Tensor:
+    logits = forward(cfg, params, batch, **fwd_kw)
+    tokens = batch["tokens"]
+    if cfg.num_codebooks:
+        return cross_entropy(logits[..., :-1, :], tokens[..., 1:])
+    return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,12 @@ every matmul; that cast is a pure function of the masters, so a copy made
 once per change of the masters gives the same bits, and the layers read it
 through :func:`weight`. Whoever changes ``flat`` calls
 :meth:`FlatParams.refresh` (the wire, checkpoint and conversion paths do).
+
+Training differentiates instead (:func:`grad_tree`): a fresh tree of views
+of one flat row that requires grad, with no bf16 copy, so :func:`weight`
+casts inside autograd and the row's ``.grad`` is the flat gradient in ravel
+order. The tree, and the repetitions :func:`index_tree` memoises on it, live
+for one forward and backward.
 """
 from __future__ import annotations
 
@@ -229,6 +235,22 @@ class FlatParams(nn.Module):
     def clone_to(self, device) -> "FlatParams":
         """A copy of these parameters on ``device``."""
         return FlatParams(self.spec, device).load_flat(self.flat.detach())
+
+
+def leaf_sizes(spec) -> Tuple[int, ...]:
+    """The sizes of a tree's leaves in ravel order (the wire's segments)."""
+    return tuple(leaf.size for leaf in leaves(shape_tree(spec)))
+
+
+def grad_tree(spec, flat: torch.Tensor):
+    """The tree of ``spec`` as views of ``flat`` [d] (any float dtype; a
+    leaf that requires grad, for training) in ravel order, with no bf16
+    copy: :func:`weight` casts each weight inside autograd."""
+    spec = shape_tree(spec)
+    if flat.dim() != 1 or flat.numel() != sum(leaf_sizes(spec)):
+        raise ValueError(f"flat row of shape {tuple(flat.shape)} does not fit the tree "
+                         f"({sum(leaf_sizes(spec))} values)")
+    return _views(spec, flat, None, [0])[0]
 
 
 def tree_of(params):

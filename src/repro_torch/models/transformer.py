@@ -19,6 +19,7 @@ leaves, everything else is unrolled. The reference scans a segment with
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -213,10 +214,53 @@ def _layers(cfg: ModelConfig, params):
                 yield bk, rep_params[f"b{j}"], si, rep, f"b{j}"
 
 
-def stack_apply(cfg: ModelConfig, params, x, *, window_override=None, chunk=512):
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the matmuls with no batch dimension, recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _make_checkpoint(remat: bool, remat_policy: Optional[str]):
+    """``fn(f, x)``: ``f(x)``, under activation checkpointing when ``remat``
+    and autograd records (``torch.no_grad`` runs it plainly)."""
+    if remat_policy not in (None, "full", "dots"):
+        raise ValueError(f"remat_policy {remat_policy!r} not in None / 'full' / 'dots'")
+    if not remat:
+        return lambda f, x: f(x)
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+
+    def run(f, x):
+        if not torch.is_grad_enabled():
+            return f(x)
+        return checkpoint(f, x, use_reentrant=False, **kw)
+
+    return run
+
+
+def stack_apply(cfg: ModelConfig, params, x, *, window_override=None, chunk=512, remat=True,
+                remat_policy=None):
     shared = params.get("shared_blk")
-    for kind, blk, *_ in _layers(cfg, params):
-        x = block_apply(cfg, kind, blk, shared, x, window_override=window_override, chunk=chunk)
+    ckpt = _make_checkpoint(remat, remat_policy)
+    segs = plan_stack(cfg.block_pattern)
+    for seg, seg_params in zip(segs, params["segments"]):
+        reps = [seg_params] if seg.kind == "unroll" else [index_tree(seg_params, r)
+                                                           for r in range(seg.count)]
+        for rep_params in reps:
+            def body(h, rep_params=rep_params, seg=seg):
+                for j, bk in enumerate(seg.block_kinds):
+                    p = rep_params if seg.kind == "unroll" else rep_params[f"b{j}"]
+                    h = block_apply(cfg, bk, p, shared, h, window_override=window_override,
+                                    chunk=chunk)
+                return h
+
+            x = ckpt(body, x)
     return x
 
 

@@ -18,18 +18,8 @@ import numpy as np
 
 from .checkpoint import load_checkpoint
 from .models import lm
-from .models.config import ModelConfig, uniform_pattern
 from .serve import DecodeEngine, greedy_sample, temperature_sample
-
-
-def model_100m(layers=8, d_model=768):
-    """~100M params, gemma-flavoured (GeGLU, MQA): a copy of
-    ``examples/train_lm.py::model_100m``."""
-    return ModelConfig(
-        arch_id="demo-100m", family="dense", num_layers=layers, d_model=d_model,
-        num_heads=12, num_kv_heads=4, head_dim=64, d_ff=3072, vocab_size=32768,
-        block_pattern=uniform_pattern("attn", layers), mlp_kind="geglu",
-    )
+from .train_lm import model_100m
 
 
 def main(argv=None) -> int:

@@ -1,5 +1,5 @@
 """The port stands alone: it runs with JAX and ml_dtypes unimportable
-(the paper's runs, the harness and the LM serving path), imports nothing of
+(the paper's runs, the harness, the LM serving and training paths), imports nothing of
 the JAX package ``repro`` or of the reference's ``benchmarks``, and its
 entry points never default to the CPU."""
 import os
@@ -160,6 +160,57 @@ print("ok")
 """
 
 
+# the LM training path: optim, data, train (both downlinks, measure_wire,
+# the transport, participation) and `python -m repro_torch.train_lm`, with
+# `repro`, `benchmarks`, jax and ml_dtypes blocked
+TRAIN_RUN = """
+import os, runpy, sys, tempfile
+for mod in ("jax", "ml_dtypes", "repro", "benchmarks"):
+    sys.modules[mod] = None  # any import of them now raises ImportError
+import numpy as np
+import torch
+from repro_torch import configs, obs
+from repro_torch.data import SyntheticLMData, batch_specs
+from repro_torch.models import lm, params as P
+from repro_torch.optim import constant_lr, cosine_warmup, make_optimizer
+from repro_torch.train import TrainerConfig, make_downlink, train_loop
+from repro_torch.train import downlink as D
+from repro_torch.transport import FaultSpec
+cfg = configs.get_smoke("gemma-2b")
+assert batch_specs(cfg, 2, 1, 16)["tokens"].shape == (2, 1, 16)
+for spec in ("marina:ind", "ef21p:16:64"):
+    tcfg = TrainerConfig(n_workers=2, attn_chunk=16, drop_prob=0.3)
+    state, m = train_loop(cfg, tcfg, make_downlink(spec, 2), make_optimizer("adamw"), cosine_warmup(1e-3, 1, 3),
+                          SyntheticLMData(cfg, 2, 1, 16, device="cpu"), steps=3, device="cpu",
+                          tracker=obs.MemoryTracker(), transport=FaultSpec(drop=0.2, seed=1))
+    assert np.isfinite(float(m["loss"])) and m["transport"]["transport/frames_sent"] > 0, m
+dl = make_downlink("marina:perm", 2)
+sizes = P.leaf_sizes(lm.lm_spec(cfg))
+draws = D.DownlinkDraws(rot=torch.zeros(len(sizes), dtype=torch.int32))
+res = dl.measure_wire(draws, sizes, state["server"] + 0.01, state["server"], mag="bf16", device_encode=True)
+assert res["bits_mean"] > 0 and not res["full_sync"], res
+ckpt = os.path.join(tempfile.mkdtemp(), "ckpt.npz")
+sys.argv = ["train_lm", "--device", "cpu", "--layers", "1", "--d-model", "64", "--seq", "32",
+            "--steps", "2", "--workers", "2", "--downlink", "marina:same", "--ckpt", ckpt]
+try:
+    runpy.run_module("repro_torch.train_lm", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert os.path.exists(ckpt)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("repro", "benchmarks") and sys.modules[m] is not None)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_training_path_runs_without_jax_repro_or_benchmarks():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", TRAIN_RUN], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_serving_path_runs_without_jax_repro_or_benchmarks():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", SERVE_RUN], env=env, cwd=ROOT,
@@ -173,7 +224,7 @@ def test_entry_points_default_to_the_card():
     card; serve_bench and serve_lm are among them."""
     flagged = {p.name for p in PORT_FILES
                if re.search(r'add_argument\("--device"', p.read_text())}
-    assert {"serve_bench.py", "serve_lm.py", "run.py", "wire_bench.py"} <= flagged
+    assert {"serve_bench.py", "serve_lm.py", "run.py", "wire_bench.py", "train_lm.py"} <= flagged
     for p in PORT_FILES:
         for m in re.finditer(r'add_argument\("--device",\s*default="([a-z]+)"', p.read_text()):
             assert m.group(1) == "cuda", p.name
@@ -239,3 +290,14 @@ def test_default_device_is_the_card():
         serve_bench.bench()
     with pytest.raises(RuntimeError, match="cuda"):
         serve_lm.main(["--layers", "1", "--d-model", "64", "--ckpt", "no-such-file"])
+    from repro_torch import train_lm
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import TrainerConfig, init_state
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_state(cfg, TrainerConfig(n_workers=2), None, make_optimizer("sgd"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        SyntheticLMData(cfg, 2, 1, 8).batch(0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_lm.main(["--layers", "1", "--d-model", "64", "--steps", "1"])
