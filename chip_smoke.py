@@ -60,11 +60,16 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     mask_streams, topk_streams) against their plain versions on the card, bit
     for bit: bernk in f32 and bf16 over keep probabilities {0.03, 0.1, 0.25,
     1/3, 0.9}, a seed and a worker above 2**31 and d in {1, 777, 1000, 2**16,
-    2**20}; rotk_apply over n in {3, 4, 10, 16} and r in {-3, 0, n+1}, w full
-    of -0.0; mask_streams over 10 worker rows; topk_streams over block in
+    2**20}; rotk_apply over d in {1000, 2**16, 2**20} (2**20: the 16-byte
+    vector path), n in {3, 4, 10, 16} and r in {-3, 0, n+1}, w full of -0.0;
+    mask_streams over 10 worker rows; topk_streams over block in
     {128, 1000, 1024} and k in {1, 64, >= block}, on random, tie-heavy,
     every-|x|-equal and top-24-bits-equal inputs; IEEE corners (denormals,
-    +-0, +-inf, quiet and signalling NaNs) in the first input; then each kernel at
+    +-0, +-inf, quiet and signalling NaNs) in the first input; rotk_apply_rows
+    over n rows (n in {3, 4, 10, 16}, the same r, one -0.0 row broadcast) into
+    a new tensor and into a view one column into a wider output; both rotk
+    entries at column offsets 0, 1 and 3 of wider buffers and sizes
+    ROTK_SIZES (n in {1, 3}); then each kernel at
     the settings and on the very inputs of (k)'s path (d = 2**16 and 2**14:
     topk_streams k=64 block=1024, one-row mask_streams and bernk at keep 1/16
     seed 7; kernel_bench's bernk and rotk_apply at 2**16), and on copies of
@@ -109,10 +114,12 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     pack_bits must have launched there; µs a round of each path is printed
     with the card's name and power limit.
 
-(p) the repairs on the card: ``rotk_apply`` in fp16 and bf16 bit-exact
-    against its plain version at d = 2**16, n in {7, 10, 16}, r in {-3, 0,
-    n+1}, IEEE corners (+-0, denormals, +-inf, NaNs, products that overflow
-    the dtype) in w and in kept and dropped coordinates, and its times;
+(p) the repairs on the card: ``rotk_apply`` and ``rotk_apply_rows`` in fp16
+    and bf16 bit-exact against their plain versions at d = 2**16, n in {7,
+    10, 16}, and d = 2**20, n = 7, r in {-3, 0, n+1}, IEEE corners (+-0,
+    denormals, +-inf, NaNs, products that overflow the dtype) in w and in
+    kept and dropped coordinates, both at misaligned offsets and odd sizes,
+    and ``rotk_apply``'s times;
 (q) the SPMD runner (``core/distributed.py``) as one NCCL rank at d = 1000,
     n = 100 (400 MB of A): MARINA-P same/ind/perm (Polyak), 50 rounds,
     against the single-process ``marina_p.make_step`` on the card fed the
@@ -158,16 +165,19 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     timed at (s3)'s three streams after the read.
 
 (t) the LM training path (``repro_torch.optim`` / ``data`` / ``train``):
-    (t0) block_topk and rotk_apply (f32, bf16) at every leaf size of
-    demo-100m against their plain versions, AdamW and SGD on the card against
-    the CPU, all bit for bit; then, with the counters zeroed: (t1) each of the
+    (t0) block_topk, rotk_apply and rotk_apply_rows (4 rows; f32, fp16,
+    bf16) at every leaf size of demo-100m against their plain versions, both
+    rotk entries at misaligned offsets and odd sizes, AdamW and SGD on the
+    card against the CPU, all bit for bit; then, with the counters zeroed:
+    (t1) each of the
     ten smoke configs, 2 workers, 3 marina:perm steps on the card against the
     CPU port from the same weights, batches and draws (losses within
     TRAIN_DEV_LOSS_ATOL); (t2) demo-100m at full width (``train_lm.model_100m``,
     119,550,720 parameters), 4 workers x batch 2 x seq 512, AdamW, 8 steps
     under each of marina:perm / ind / same, ef21p:128:1024 and none, and
     marina:perm with bf16 replicas: finite losses, RotK's exact mean after
-    every no-sync round, bits_per_worker equal to the formula, EF21-P's drift
+    every no-sync round, one rotk_apply_rows launch a leaf in each compressed
+    perm round, bits_per_worker equal to the formula, EF21-P's drift
     contracting at the final server; ms a step, tokens/s, peak memory, one
     step under the profiler; (t3)
     ``measure_wire`` at full width for a sync round and a compressed round of
@@ -175,14 +185,19 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     gap; (t4) ``train_loop`` through ``transport_bench.CHAOS_SPEC`` at
     tests/test_transport.py's tiny-LM width on the card and the CPU: every
     transport counter equal. The
-    counters are read after (t4): block_topk, rotk_apply (f32 and bf16),
-    pack_bits, sparse_streams and dense_bits must have launched. Then (t3)'s
-    device buffers against the host codec, byte for byte, and block_topk and
-    rotk_apply timed at the largest leaf.
+    counters are read after (t4): block_topk, rotk_apply_rows (f32 and
+    bf16), pack_bits, sparse_streams and dense_bits must have launched, the
+    one-row rotk_apply never. Then (t3)'s device buffers against the host
+    codec, byte for byte; block_topk, rotk_apply (f32, fp16, bf16),
+    rotk_apply_rows (4 rows; f32, bf16) and the per-worker path it replaced
+    timed at the largest leaf; and a whole perm round at full width on the
+    rows path and on the per-worker path, in turns, the card's time (CUDA
+    events behind a 10 ms spin) and the host clock's, outputs bit-equal.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches: the path of each row
 plus (m)-(o), (q)-(r), (s) and (t); the rotk_apply row names its dtypes, its numbers are float32's and
-``by_dtype`` gives each dtype's, its bf16 launches the training path's; the unpack_bits row's ``serve_path`` gives
+``by_dtype`` gives each dtype's; the rotk_apply_rows row's are 4 f32 rows of the largest leaf, with
+``by_dtype`` for bf16, the per-worker path's time and a whole round's; the unpack_bits row's ``serve_path`` gives
 its (s) launches and its times at (s3)'s streams; every row's ``train_path``
 its (t) launches, and block_topk's and rotk_apply's their times at the
 largest leaf), then the card's name and power
@@ -456,6 +471,9 @@ def wire_runs(torch, prob, k, p, T, device_encode, runtime=None):
 # ---------------------------------------------------------------------------
 
 BENCH_KERNELS = ("bernk", "rotk_apply", "mask_streams", "topk_streams")
+# rotk sizes at misaligned offsets: shorter than a head, one value a thread, and 16-byte vectors
+# with a head and an odd tail (600,000 values: more than a block of vectors an SM in every dtype)
+ROTK_SIZES = (1, 7, 1003, 4096, 600_000, 600_003)
 BIG_SEED, BIG_WORKER = 2**31 + 12345, 2**31 + 7
 
 
@@ -475,6 +493,79 @@ def float_err(torch, got, want) -> float:
     return float((g - w).abs()[finite].max()) if bool(finite.any()) else 0.0
 
 
+def rotk_rows_cases(np, torch, dev, what, w_rows, delta, n, rs=None):
+    """``rotk_apply_rows`` against its plain version, bit for bit, for each r
+    of ``rs`` (default -3, 0, n + 1): into a new tensor (16-byte vectors where
+    w_rows and delta allow), and into a view one column into a wider output
+    (no common alignment: one value at a time), whose other columns stay
+    untouched. Returns (max abs error, cases)."""
+    from repro_torch.kernels import ops, ref
+
+    err, cases = 0.0, 0
+    R, s = w_rows.shape
+    for r in (-3, 0, n + 1) if rs is None else rs:
+        rot = torch.tensor([r], dtype=torch.int32, device=dev)
+        want = ref.rotk_apply_rows_ref(w_rows, delta, rot, n=n)
+        wide = torch.full((R, s + 2), 7.0, dtype=w_rows.dtype, device=dev)
+        for got in (ops.rotk_apply_rows(w_rows, delta, rot, n=n),
+                    ops.rotk_apply_rows(w_rows, delta, rot, n=n, out=wide[:, 1:1 + s])):
+            torch.cuda.synchronize()
+            err = max(err, float_err(torch, got, want))
+            if not bits_equal(torch, got, want):
+                iv = torch.int16 if got.element_size() == 2 else torch.int32
+                bad = (got.view(iv) != want.view(iv)).nonzero()[:4].tolist()
+                fail(f"{what} rotk_apply_rows {w_rows.dtype} R={R} s={s} n={n} r={r}: kernel != plain at {bad}")
+            cases += 1
+        if not bool((wide[:, 0] == 7).all() and (wide[:, -1] == 7).all()):
+            fail(f"{what} rotk_apply_rows R={R} s={s} n={n} r={r}: wrote outside out")
+    return err, cases
+
+
+def rotk_offsets_vs_plain(np, torch, dev, what, sizes, n, dtypes):
+    """Both rotk entries at column offsets 0, 1 and 3 of wider buffers (1 and
+    3: off the 16-byte grid) and at ``sizes`` (odd ones leave a tail, tiny
+    ones are shorter than the head), bit for bit against their plain
+    versions: the rows entry with delta at w's offset (16-byte vectors after a
+    head of single values where the row stride holds whole vectors) and at
+    offset 0 (no common alignment), writing into a view of a wider output
+    whose other columns stay untouched, and for one row; the single-row
+    entry on each row. Returns ({kernel: max abs error}, cases)."""
+    from repro_torch.kernels import ops, ref
+
+    err, cases = {"rotk_apply": 0.0, "rotk_apply_rows": 0.0}, 0
+    gen = torch.Generator(dev).manual_seed(17)
+    rot = torch.tensor([n + 1], dtype=torch.int32, device=dev)
+
+    def check(kname, tag, got, want):
+        nonlocal cases
+        torch.cuda.synchronize()
+        err[kname] = max(err[kname], float_err(torch, got, want))
+        if not bits_equal(torch, got, want):
+            fail(f"{what} {kname} {tag}: kernel != plain")
+        cases += 1
+
+    for dtype in dtypes:
+        for s in sizes:
+            W = torch.randn(n, s + 8, generator=gen, device=dev).to(dtype)
+            D = torch.randn(s + 8, generator=gen, device=dev).to(dtype)
+            for c in (0, 1, 3):
+                tag = f"{dtype} n={n} s={s} offset {c}"
+                w, delta = W[:, c:c + s], D[c:c + s]
+                for dl, how in ((delta, "delta at w's offset"), (delta.clone(), "delta at offset 0")):
+                    want = ref.rotk_apply_rows_ref(w, dl, rot, n=n)
+                    wide = torch.full_like(W, 7.0)
+                    check("rotk_apply_rows", f"{tag}, {how}",
+                          ops.rotk_apply_rows(w, dl, rot, n=n, out=wide[:, c:c + s]), want)
+                    if not (bool((wide[:, :c] == 7).all()) and bool((wide[:, c + s:] == 7).all())):
+                        fail(f"{what} rotk_apply_rows {tag}: wrote outside out")
+                    check("rotk_apply_rows", f"{tag}, {how}, one row",
+                          ops.rotk_apply_rows(w[:1], dl, rot, n=n), want[:1])
+                for i in range(n):
+                    check("rotk_apply", f"{tag} worker {i}", ops.rotk_apply(W[i, c:c + s], delta, rot, n=n, worker=i),
+                          ref.rotk_apply_ref(W[i, c:c + s], delta, rot, n=n, worker=i))
+    return err, cases
+
+
 def bench_kernels_vs_plain(np, torch, dev):
     """(j): each kernel against its plain version on the card, bit for bit.
     Returns ({kernel: max abs error}, number of cases)."""
@@ -482,7 +573,7 @@ def bench_kernels_vs_plain(np, torch, dev):
     from repro_torch.kernels import encode as kenc
     from repro_torch.kernels import ops, ref
 
-    err = dict.fromkeys(BENCH_KERNELS, 0.0)
+    err = dict.fromkeys(BENCH_KERNELS + ("rotk_apply_rows",), 0.0)
     cases = 0
     rng = np.random.default_rng(13)
     for dtype in (torch.float32, torch.bfloat16):
@@ -496,7 +587,7 @@ def bench_kernels_vs_plain(np, torch, dev):
                 if not bits_equal(torch, got, want):
                     fail(f"(j) bernk {dtype} d={d} keep_prob={kp}: kernel != plain")
                 cases += 1
-    for d in (1000, 2**16):
+    for d in (1000, 2**16, 2**20):  # 2**20: the 16-byte vector path (at least a block of vectors an SM)
         delta = torch.from_numpy(with_corners(np, rng, d)).to(dev)
         for w in (torch.full((d,), -0.0, device=dev), torch.from_numpy(with_corners(np, rng, d, at=7)).to(dev)):
             for n in (3, 4, 10, 16):
@@ -509,6 +600,17 @@ def bench_kernels_vs_plain(np, torch, dev):
                     if not bits_equal(torch, got, want):
                         fail(f"(j) rotk_apply d={d} n={n} r={r}: kernel != plain")
                     cases += 1
+        for n in (3, 4, 10, 16):  # rotk_apply_rows: n rows, IEEE corners in each; one -0.0 row broadcast
+            rows = torch.from_numpy(np.stack([with_corners(np, rng, d, at=7 + 3 * i) for i in range(n)])).to(dev)
+            for w_rows in (rows, torch.full((d,), -0.0, device=dev).expand(n, d)):
+                e, c = rotk_rows_cases(np, torch, dev, f"(j) d={d}", w_rows, delta, n)
+                err["rotk_apply_rows"] = max(err["rotk_apply_rows"], e)
+                cases += c
+    for n in (1, 3):  # every lane kept; two kept lanes a 16-byte f32 vector
+        e, c = rotk_offsets_vs_plain(np, torch, dev, "(j)", ROTK_SIZES, n, (torch.float32,))
+        for kname in e:
+            err[kname] = max(err[kname], e[kname])
+        cases += c
     workers = torch.tensor(list(range(8)) + [2**31 - 1, -5], dtype=torch.int32, device=dev)
     for d in (1000, 2**16):
         x = torch.from_numpy(with_corners(np, rng, d)).to(dev)
@@ -874,19 +976,21 @@ SPMD_ATOL = 1e-4
 
 def rotk16_phase(np, torch, dev, timed):
     """(p): rotk_apply in fp16 and bf16 bit-exact against its plain version
-    at d = 2**16, n in {7, 10, 16}, r in {-3, 0, n + 1}, on inputs with IEEE
+    at d = 2**16, n in {7, 10, 16}, and d = 2**20, n = 7, r in {-3, 0,
+    n + 1}, on inputs with IEEE
     corners (+-0, fp32 / fp16 / bf16 denormals, +-inf, NaNs, values whose
     product overflows the dtype) in w and in kept and dropped coordinates of
-    delta. Returns (max abs error, cases, {dtype: (ms, plain ms, bound ms)})."""
+    delta; ``rotk_apply_rows`` alike over n rows (w rolled by 3 i in row i),
+    and both entries at misaligned offsets and odd sizes. Returns ({kernel:
+    max abs error}, cases, {dtype: (ms, plain ms, bound ms)})."""
     from repro_torch.kernels import ops, ref
 
-    d = 2**16
     rng = np.random.default_rng(29)
     extra = np.array([5.96e-8, -3.0e-5, 6.0e-5, 1.0e-6, 1e-39, -2e-40, 6.0e4, -65504.0, 3.0e38,
                       -1.5e38], dtype=np.float32)
-    err, cases, times = 0.0, 0, {}
+    err, cases, times = {"rotk_apply": 0.0, "rotk_apply_rows": 0.0}, 0, {}
     for dtype in (torch.float16, torch.bfloat16):
-        for n in (7, 10, 16):
+        for d, n in [(2**16, n) for n in (7, 10, 16)] + [(2**20, 7)]:  # 2**20: the 16-byte vector path
             w_np, d_np = with_corners(np, rng, d), with_corners(np, rng, d, at=40)
             for at in range(0, 3 * n, 3):  # the corners on kept and on dropped coordinates
                 w_np[100 + at:100 + at + extra.size] = extra
@@ -898,12 +1002,20 @@ def rotk16_phase(np, torch, dev, timed):
                 got = ops.rotk_apply(w, delta, rot, n=n, worker=2)
                 want = ref.rotk_apply_ref(w, delta, rot, n=n, worker=2)
                 torch.cuda.synchronize()
-                err = max(err, float_err(torch, got, want))
+                err["rotk_apply"] = max(err["rotk_apply"], float_err(torch, got, want))
                 if not bits_equal(torch, got, want):
                     bad = (got.view(torch.int16) != want.view(torch.int16)).nonzero().flatten()[:8].tolist()
                     fail(f"(p) rotk_apply {dtype} n={n} r={r}: kernel != plain at {bad}")
                 cases += 1
+            e, c = rotk_rows_cases(np, torch, dev, "(p)", torch.stack([w.roll(3 * i) for i in range(n)]), delta, n)
+            err["rotk_apply_rows"] = max(err["rotk_apply_rows"], e)
+            cases += c
+        e, c = rotk_offsets_vs_plain(np, torch, dev, "(p)", ROTK_SIZES, 7, (dtype,))
+        for kname in e:
+            err[kname] = max(err[kname], e[kname])
+        cases += c
         # kernel_bench's setting: n = 16, worker 3, r = 2
+        d = 2**16
         x = torch.randn(d, generator=torch.Generator().manual_seed(5)).to(dev).to(dtype)
         wt = torch.randn(d, generator=torch.Generator().manual_seed(6)).to(dev).to(dtype)
         rot = torch.tensor([2], dtype=torch.int32, device=dev)
@@ -1555,7 +1667,7 @@ TRAIN_PARAMS = 119_550_720  # examples/train_lm.py::model_100m, by the reference
 TRAIN_DEV_LOSS_ATOL = 0.02
 MEAN_ATOL = 1e-5  # RotK's exact mean in fp32 (tests/test_trainer.py's bound)
 # kernels that must launch between the counters' reset before (t1) and the read after (t4)
-TRAIN_KERNELS = ("block_topk", "rotk_apply", "pack_bits", "sparse_streams", "dense_bits")
+TRAIN_KERNELS = ("block_topk", "rotk_apply_rows", "pack_bits", "sparse_streams", "dense_bits")
 
 
 def _to(torch, x, dev):
@@ -1574,18 +1686,20 @@ def _draws_to(torch, draws, dev):
 
 
 def train_kernels_vs_plain(np, torch, dev, sizes):
-    """(t0), before the counters' reset: block_topk (k 128, block 1024) and
-    rotk_apply (n 4, every worker, f32 and bf16) at every leaf size of
-    demo-100m against their plain versions, bit for bit; AdamW and SGD on the
-    card against the CPU, bit for bit (the FMA forms of optim/optimizers.py).
-    Returns {kernel: max abs error}."""
+    """(t0), before the counters' reset: block_topk (k 128, block 1024),
+    rotk_apply (n 4, every worker) and rotk_apply_rows (4 rows, as the perm
+    downlink calls it; f32, fp16 and bf16) at every leaf size of demo-100m
+    against their plain versions, bit for bit, and both rotk entries at
+    misaligned offsets and odd sizes; AdamW and SGD on the card against the
+    CPU, bit for bit (the FMA forms of optim/optimizers.py). Returns {kernel:
+    max abs error}."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
     from repro_torch.optim import optimizers as O
 
     gen = torch.Generator(dev).manual_seed(41)
-    err = {"block_topk": 0.0, "rotk_apply": 0.0}
+    err = {"block_topk": 0.0, "rotk_apply": 0.0, "rotk_apply_rows": 0.0}
     for s in sorted(set(sizes)):
         x = torch.randn(s, generator=gen, device=dev) * 1e-3
         got = ops.block_topk(x, k_per_block=128, block=1024)
@@ -1594,7 +1708,7 @@ def train_kernels_vs_plain(np, torch, dev, sizes):
         if not bits_equal(torch, got, want):
             fail(f"(t0) block_topk at {s} values: kernel != plain")
         err["block_topk"] = max(err["block_topk"], float_err(torch, got, want))
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
             w = torch.randn(s, generator=gen, device=dev).to(dtype)
             delta = (torch.randn(s, generator=gen, device=dev) * 1e-3).to(dtype)
             rot = torch.randint(0, TRAIN_W, (1,), generator=gen, device=dev, dtype=torch.int32)
@@ -1605,6 +1719,16 @@ def train_kernels_vs_plain(np, torch, dev, sizes):
                 if not bits_equal(torch, got, want):
                     fail(f"(t0) rotk_apply {dtype} at {s} values, worker {i}: kernel != plain")
                 err["rotk_apply"] = max(err["rotk_apply"], float_err(torch, got, want))
+            rows = torch.stack([w] + [w + (torch.randn(s, generator=gen, device=dev) * 1e-3).to(dtype)
+                                      for _ in range(TRAIN_W - 1)])
+            e, _ = rotk_rows_cases(np, torch, dev, f"(t0) at {s} values", rows, delta, TRAIN_W,
+                                   rs=(int(rot), -3))
+            err["rotk_apply_rows"] = max(err["rotk_apply_rows"], e)
+            del rows
+    e, _ = rotk_offsets_vs_plain(np, torch, dev, "(t0)", (7, 1_000_000, 1_000_003), TRAIN_W,
+                                 (torch.float32, torch.float16, torch.bfloat16))
+    for kname in e:
+        err[kname] = max(err[kname], e[kname])
     rng = np.random.default_rng(43)
     n = 1_000_003
     p, g, m = (torch.from_numpy((rng.standard_normal(n) * sc).astype(np.float32)) for sc in (1.0, 1e-2, 1e-3))
@@ -1622,8 +1746,9 @@ def train_kernels_vs_plain(np, torch, dev, sizes):
                         weight_decay=0.01)
     if not (bits_equal(torch, cpu[0], card[0].cpu()) and bits_equal(torch, cpu[1]["mu"], card[1]["mu"].cpu())):
         fail("(t0) sgd_update: card != CPU")
-    log(f"(t0) block_topk and rotk_apply (f32, bf16) bit-equal to their plain versions at all "
-        f"{len(set(sizes))} leaf sizes of demo-100m; AdamW and SGD on the card bit-equal to the CPU")
+    log(f"(t0) block_topk, rotk_apply and rotk_apply_rows (f32, fp16, bf16) bit-equal to their plain "
+        f"versions at all {len(set(sizes))} leaf sizes of demo-100m, the rotk entries also at misaligned "
+        "offsets and odd sizes; AdamW and SGD on the card bit-equal to the CPU")
     return err
 
 
@@ -1696,8 +1821,10 @@ def train_full_phase(np, torch, dev, card):
     marina:perm with bf16 replicas: finite losses; RotK's exact mean after
     every no-sync fp32 round; bits_per_worker equal to the formula over the
     drawn coins; EF21-P's drift contracting over 6 rounds at the final server.
-    Returns ({run: (ms a step, tokens/s, peak GiB, last loss)}, bf16 rotk
-    launches, (x_old, x_new) of the last fp32 perm step, the sizes)."""
+    marina:perm launches rotk_apply_rows once a leaf in every compressed
+    round and nothing else launches it. Returns ({run: (ms a step, tokens/s,
+    peak GiB, last loss)}, bf16 rotk_apply_rows launches, (x_old, x_new) of
+    the last fp32 perm step, the sizes)."""
     from repro_torch.core.comm_model import CommModel
     from repro_torch.data import SyntheticLMData
     from repro_torch.kernels import runtime
@@ -1725,7 +1852,7 @@ def train_full_phase(np, torch, dev, card):
                                cosine_warmup(3e-4, warmup=min(50, TRAIN_STEPS // 4), total=TRAIN_STEPS))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        before = runtime.LAUNCHES["rotk_apply"]
+        before = runtime.LAUNCHES["rotk_apply_rows"]
         state = init_state(cfg, tcfg, dl, opt, seed=0, device=dev)
         data = SyntheticLMData(cfg, TRAIN_W, TRAIN_B, TRAIN_S, device=str(dev))
         gen, dgen = torch.Generator().manual_seed(7), torch.Generator(dev).manual_seed(7)
@@ -1751,6 +1878,11 @@ def train_full_phase(np, torch, dev, card):
                 if err > MEAN_ATOL:
                     fail(f"(t2) {name} step {i}: max |mean_i w_i - x| = {err} > {MEAN_ATOL}")
                 pair = (x_old, state["server"])
+        rows_launches = runtime.LAUNCHES["rotk_apply_rows"] - before
+        want_rows = len(sizes) * (TRAIN_STEPS - syncs) if spec == "marina:perm" else 0
+        if rows_launches != want_rows:
+            fail(f"(t2) {name}: {rows_launches} rotk_apply_rows launches, expected {want_rows} "
+                 f"(one a leaf in each of {TRAIN_STEPS - syncs} compressed rounds)")
         if not np.all(np.isfinite(losses)):
             fail(f"(t2) {name}: losses {losses}")
         if spec == "marina:perm" and wdt == torch.float32 and pair is None:
@@ -1770,6 +1902,7 @@ def train_full_phase(np, torch, dev, card):
         if spec == "marina:perm":
             extra = (f", {syncs} sync rounds, max |mean_i w_i - x| {mean_err:.2e}" if wdt == torch.float32
                      else f", {syncs} sync rounds, drift {float(m['drift']):.3e}")
+            extra += f", {rows_launches} rotk_apply_rows launches ({len(sizes)} a compressed round)"
         if spec == "marina:perm" and wdt == torch.float32:
             # where a step's time goes: the last step again, under the profiler
             prof = train_step_profile(torch, dev, lambda: step(state, batch, draws))
@@ -1778,7 +1911,7 @@ def train_full_phase(np, torch, dev, card):
                 f"{prof['device_ms'] / prof['wall_ms']:.3f}), GEMMs {prof['gemm_ms']:.2f} ms; top "
                 + "; ".join(f"{k} x{c} {ms_:.2f} ms" for k, c, ms_ in prof["top"]) + f" ({card})")
         if wdt == torch.bfloat16:
-            bf16_launches = runtime.LAUNCHES["rotk_apply"] - before
+            bf16_launches = rows_launches
         ms = float(np.median(times[2:])) * 1e3
         tokens_s = TRAIN_W * TRAIN_B * TRAIN_S / (ms / 1e3)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1910,10 +2043,12 @@ def train_transport_phase(np, torch, dev, card):
 
 
 def train_kernel_timing(np, torch, dev, timed, big, card):
-    """block_topk (k 128, block 1024) and rotk_apply (n 4; f32, bf16) at the
-    largest leaf of demo-100m (the embedding, ``big`` values), timed after
-    the training path's counters were read: {name: (ms, plain ms, bound ms,
-    library ms or None)}."""
+    """block_topk (k 128, block 1024), rotk_apply (n 4; f32, fp16, bf16),
+    rotk_apply_rows (4 rows, n 4; f32, bf16) and the per-worker path the rows
+    entry replaced (4 x rotk_apply + a copy into the row) at the largest leaf
+    of demo-100m (the embedding, ``big`` values), timed after the training
+    path's counters were read; plain versions at the leaf median of 5:
+    {name: (ms, plain ms or None, bound ms, library ms or None)}."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -1930,16 +2065,125 @@ def train_kernel_timing(np, torch, dev, timed, big, card):
                           timed(lambda: ref.block_topk_ref(xp, k_per_block=128, block=1024)),
                           8 * big / HBM_BYTES_PER_S * 1e3, timed(library))}
     rot = torch.tensor([1], dtype=torch.int32, device=dev)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        dt = str(dtype).split('.')[-1]
         w, delta = x.to(dtype), (x * 1e-3).to(dtype)
-        size = 4 if dtype == torch.float32 else 2
-        out[f"rotk_apply/{str(dtype).split('.')[-1]}"] = (
+        size = w.element_size()
+        out[f"rotk_apply/{dt}"] = (
             timed(lambda: ops.rotk_apply(w, delta, rot, n=TRAIN_W, worker=2)),
-            timed(lambda: ref.rotk_apply_ref(w, delta, rot, n=TRAIN_W, worker=2)),
+            timed(lambda: ref.rotk_apply_ref(w, delta, rot, n=TRAIN_W, worker=2), reps=5),
             (3 * size * big + 4) / HBM_BYTES_PER_S * 1e3, None)
+        if dtype == torch.float16:  # the replicas are f32 or bf16
+            continue
+        W4 = torch.randn(TRAIN_W, big, generator=gen, device=dev).to(dtype)
+        O4 = torch.empty_like(W4)
+
+        def per_worker():
+            for i in range(TRAIN_W):
+                O4[i] = ops.rotk_apply(W4[i], delta, rot, n=TRAIN_W, worker=i)
+
+        rows_bound = ((2 * TRAIN_W + 1) * size * big + 4) / HBM_BYTES_PER_S * 1e3
+        out[f"rotk_apply_rows/{dt}"] = (
+            timed(lambda: ops.rotk_apply_rows(W4, delta, rot, n=TRAIN_W, out=O4)),
+            timed(lambda: ref.rotk_apply_rows_ref(W4, delta, rot, n=TRAIN_W), reps=5), rows_bound, None)
+        out[f"per-worker rotk_apply + copy/{dt}"] = (timed(per_worker), None, rows_bound, None)
+        del W4, O4
     for name, (ms_, plain_, bound_, lib_) in out.items():
-        log(f"(t) {name} at {big:,} values: {ms_:.5f} ms, plain {plain_:.5f}, bound {bound_:.5f} by bytes"
+        log(f"(t) {name} at {big:,} values: {ms_:.5f} ms"
+            + (f", plain {plain_:.5f}" if plain_ is not None else "")
+            + f", bound {bound_:.5f} by bytes (share {bound_ / ms_:.3f})"
             + (f", torch.topk + scatter {lib_:.5f}" if lib_ is not None else "") + f" ({card})")
+    return out
+
+
+def per_worker_round(dl, draws, sizes, server_new, server_old, workers):
+    """The perm round as the downlink made it before the rows entry: one
+    rotk_apply a worker and leaf, copied into the worker's row (timed beside
+    ``MarinaPDownlink.round``; its outputs must equal the rows path's)."""
+    from repro_torch.kernels import ops
+
+    n = dl.n_workers
+    new = workers.new_empty(workers.shape)
+    o = 0
+    for li, s in enumerate(sizes):
+        delta = (server_new[o:o + s] - server_old[o:o + s]).to(workers.dtype)
+        for i in range(n):
+            new[i, o:o + s] = ops.rotk_apply(workers[i, o:o + s], delta, draws.rot[li:li + 1], n=n, worker=i)
+        o += s
+    return new
+
+
+def downlink_round_timing(np, torch, dev, flush, sizes, card):
+    """The perm downlink's time a compressed round at full width (demo-100m's
+    leaves, TRAIN_W replicas; f32 and bf16 replicas): ``MarinaPDownlink.round``
+    (one rotk_apply_rows a leaf) against :func:`per_worker_round`, in turns
+    (per-worker, rows, rows, per-worker), each the median of 5 rounds between
+    CUDA events queued behind a ~10 ms spin (so the host has queued the whole
+    round: the card's time) and of 5 on the host clock ending in a sync; the
+    outputs bit-equal, and the launches of each. Returns {dtype: {path: (device
+    ms, host ms, launches)}}."""
+    from repro_torch.kernels import runtime
+    from repro_torch.train import downlink as D
+
+    d = sum(sizes)
+    gen = torch.Generator(dev).manual_seed(53)
+    old = torch.randn(d, generator=gen, device=dev)
+    new_s = old + torch.randn(d, generator=gen, device=dev) * 1e-3
+    dl = D.MarinaPDownlink(n_workers=TRAIN_W, mode="perm")
+    draws = D.DownlinkDraws(rot=torch.randint(0, TRAIN_W, (len(sizes),), generator=gen, device=dev,
+                                              dtype=torch.int32))
+
+    def device_ms(fn, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(20_000_000)
+            flush.sum()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[reps // 2]
+
+    def host_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[reps // 2]
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        workers = (old + torch.randn(TRAIN_W, d, generator=gen, device=dev) * 1e-3).to(dtype)
+        paths = {"per-worker": lambda: per_worker_round(dl, draws, sizes, new_s, old, workers),
+                 "rows": lambda: dl.round(draws, sizes, new_s, old, workers)[0]}
+        launches, outs = {}, {}
+        for name, fn in paths.items():
+            before = dict(runtime.LAUNCHES)
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            launches[name] = {k: v - before.get(k, 0) for k, v in runtime.LAUNCHES.items()
+                              if v != before.get(k, 0)}
+        if not bits_equal(torch, outs["rows"], outs["per-worker"]):
+            fail(f"(t) the perm round's rows path != the per-worker path ({dtype})")
+        del outs
+        times = {name: [] for name in paths}
+        for name in ("per-worker", "rows", "rows", "per-worker"):
+            times[name].append((device_ms(paths[name]), host_ms(paths[name])))
+        dt = str(dtype).split(".")[-1]
+        out[dt] = {name: (float(np.mean([t[0] for t in ts])), float(np.mean([t[1] for t in ts])), launches[name])
+                   for name, ts in times.items()}
+        for name, (dev_ms, wall_ms, ln) in out[dt].items():
+            log(f"(t) perm downlink round {dt} replicas, {name:10s} path: {dev_ms:.4f} ms of card time "
+                f"({[round(t[0], 4) for t in times[name]]}), {wall_ms:.2f} ms on the host clock, launches {ln} "
+                f"({card})")
+        del workers
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2340,8 +2584,9 @@ def main() -> int:
     # --- (j) the encode- and kernel-benchmark kernels against their plain versions ------------
     t_j = time.perf_counter()
     bench_err, n_cases = bench_kernels_vs_plain(np, torch, dev)
-    log(f"(j) bernk, rotk_apply, mask_streams, topk_streams: {n_cases} cases bit-equal to their plain "
-        f"versions, IEEE corners included ({time.perf_counter() - t_j:.1f} s)")
+    log(f"(j) bernk, rotk_apply, rotk_apply_rows, mask_streams, topk_streams: {n_cases} cases bit-equal "
+        f"to their plain versions, IEEE corners, misaligned offsets and odd sizes included "
+        f"({time.perf_counter() - t_j:.1f} s)")
 
     # --- (k) their path: wire_bench's codec and encode sections, kernel_bench --------------------
     t_k = time.perf_counter()
@@ -2470,9 +2715,11 @@ def main() -> int:
     # --- (p) the repairs on the card: rotk_apply in fp16 and bf16 --------------------------
     t_p = time.perf_counter()
     rotk16_err, n16, rotk16_ms = rotk16_phase(np, torch, dev, timed)
-    bench_err["rotk_apply"] = max(bench_err["rotk_apply"], rotk16_err)
-    log(f"(p) rotk_apply fp16/bf16: {n16} cases bit-equal to the plain version, IEEE corners and a "
-        f"negative rotation included ({time.perf_counter() - t_p:.1f} s)")
+    for kname, e in rotk16_err.items():
+        bench_err[kname] = max(bench_err[kname], e)
+    log(f"(p) rotk_apply and rotk_apply_rows fp16/bf16: {n16} cases bit-equal to the plain versions, IEEE "
+        f"corners, a negative rotation, misaligned offsets and odd sizes included "
+        f"({time.perf_counter() - t_p:.1f} s)")
     for name, (ms_, plain_, bound_) in rotk16_ms.items():
         log(f"(p) rotk_apply {name} d=2**16 n=16: {ms_:.5f} ms (plain {plain_:.5f}, bound {bound_:.2e} "
             f"by bytes; f32 {st['rotk_apply'][0]:.5f}) ({card})")
@@ -2551,21 +2798,27 @@ def main() -> int:
     torch.cuda.synchronize()
     train_launches = dict(runtime.LAUNCHES)
     t_end = time.perf_counter()
-    log(f"(t) launches on the training path: {train_launches} (rotk_apply bf16: {bf16_launches}); "
+    log(f"(t) launches on the training path: {train_launches} (rotk_apply_rows bf16: {bf16_launches}); "
         f"(t0) {t_t1 - t_t0:.1f} s, (t1) {t_t2 - t_t1:.1f} s, (t2) {t_t3 - t_t2:.1f} s, "
         f"(t3) {t_t4 - t_t3:.1f} s, (t4) {t_end - t_t4:.1f} s")
     for kname in TRAIN_KERNELS:
         if train_launches.get(kname, 0) <= 0:
             fail(f"(t) the training path never launched {kname}")
     if bf16_launches <= 0:
-        fail("(t) the bf16 replicas never launched the bf16 rotk_apply")
+        fail("(t) the bf16 replicas never launched the bf16 rotk_apply_rows")
+    if train_launches.get("rotk_apply", 0):
+        fail(f"(t) the training path launched the one-row rotk_apply {train_launches['rotk_apply']} times: "
+             "the perm downlink updates a leaf's replicas with one rotk_apply_rows")
     log(f"(t1) all ten smoke configs: card vs CPU loss within {smoke_diff:.2e} "
         f"(tolerance {TRAIN_DEV_LOSS_ATOL})")
     train_wire_buffers(np, torch, dev, sizes, pair, wire_cases)
     del pair, wire_cases
     torch.cuda.empty_cache()
+    t_tk = time.perf_counter()
     train_times = train_kernel_timing(np, torch, dev, timed, max(sizes), card)
-    log(f"(t) took {time.perf_counter() - t_t0:.1f} s")
+    rounds = downlink_round_timing(np, torch, dev, flush_buf, sizes, card)
+    log(f"(t) kernel and downlink timings {time.perf_counter() - t_tk:.1f} s; (t) took "
+        f"{time.perf_counter() - t_t0:.1f} s")
 
     summary = {"kernels": [
         {"name": "l1_subgrad", "route": "cuda", "source": "src/repro_torch/csrc/l1_subgrad.cu",
@@ -2599,6 +2852,11 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{replaces}", "launches": bench_launches[name],
             "max_abs_err": bench_err[name], "ms": ms_, "plain_ms": plain_, "bound_ms": bound_,
             "bound_by": by_, "library_ms": None})
+    ms_, plain_, bound_, _ = train_times["rotk_apply_rows/float32"]
+    summary["kernels"].append({  # the perm downlink's path, (t): launches from the loop below
+        "name": "rotk_apply_rows", "route": "cuda", "source": "src/repro_torch/csrc/permk.cu",
+        "replaces": "src/repro/kernels/permk.py:39", "launches": 0, "max_abs_err": bench_err["rotk_apply_rows"],
+        "ms": ms_, "plain_ms": plain_, "bound_ms": bound_, "bound_by": "bytes", "library_ms": None})
     for row in summary["kernels"]:  # the later slices' paths launched these kernels too
         row["launches"] += (slice_launches.get(row["name"], 0) + harness_launches.get(row["name"], 0)
                             + serve_launches.get(row["name"], 0) + train_launches.get(row["name"], 0))
@@ -2621,19 +2879,30 @@ def main() -> int:
                              for w, (ms_, bound_) in unpack.items()}}
         if row["name"] == "rotk_apply":
             # max_abs_err covers all three dtypes; the row's ms, plain_ms and bound_ms are
-            # float32's at kernel_bench's d = 2**16, the 16-bit ones timed in (p); the
-            # training path's bf16 replicas (t2) are the only path to run a 16-bit variant
+            # float32's at kernel_bench's d = 2**16, the 16-bit ones timed in (p); every
+            # launch is float32's (kernel_bench); the training path runs rotk_apply_rows
             row["dtypes"] = ["float32", "float16", "bfloat16"]
             row["by_dtype"] = {"float32": {k: row[k] for k in ("ms", "plain_ms", "bound_ms")}}
-            row["by_dtype"]["float32"]["launches"] = row["launches"] - bf16_launches
+            row["by_dtype"]["float32"]["launches"] = row["launches"]
             for name, (ms_, plain_, bound_) in rotk16_ms.items():
-                row["by_dtype"][name] = {"ms": ms_, "plain_ms": plain_, "bound_ms": bound_,
-                                         "launches": bf16_launches if name == "bfloat16" else 0}
-            row["train_path"]["bfloat16_launches"] = bf16_launches
-            for dt in ("float32", "bfloat16"):
+                row["by_dtype"][name] = {"ms": ms_, "plain_ms": plain_, "bound_ms": bound_, "launches": 0}
+            for dt in ("float32", "float16", "bfloat16"):  # at the training path's largest leaf
                 ms_, plain_, bound_, _ = train_times[f"rotk_apply/{dt}"]
                 row["train_path"][dt] = {"values": max(sizes), "n": TRAIN_W, "ms": ms_,
                                          "plain_ms": plain_, "bound_ms": bound_}
+        if row["name"] == "rotk_apply_rows":
+            # the row's numbers: 4 f32 rows of the largest leaf (the perm downlink's call);
+            # bf16 replicas beside them, the per-worker path it replaced, and a whole round
+            row["dtypes"] = ["float32", "float16", "bfloat16"]
+            row["by_dtype"] = {}
+            for dt in ("float32", "bfloat16"):
+                ms_, plain_, bound_, _ = train_times[f"rotk_apply_rows/{dt}"]
+                row["by_dtype"][dt] = {
+                    "rows": TRAIN_W, "values": max(sizes), "n": TRAIN_W, "ms": ms_, "plain_ms": plain_,
+                    "bound_ms": bound_, "per_worker_ms": train_times[f"per-worker rotk_apply + copy/{dt}"][0],
+                    "launches": bf16_launches if dt == "bfloat16" else row["launches"] - bf16_launches,
+                    "downlink_round": {path: {"device_ms": dev_ms, "host_ms": wall_ms, "launches": ln}
+                                       for path, (dev_ms, wall_ms, ln) in rounds[dt].items()}}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

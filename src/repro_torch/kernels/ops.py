@@ -16,7 +16,8 @@ reference's padding rules:
   the reference's, ``ceil(n*width/32)`` words and ``count`` values;
 * :func:`bernk` and :func:`rotk_apply` take no ``block``: both kernels index
   globally, so the reference's output does not depend on its tile, and its
-  zero padding is trimmed away.
+  zero padding is trimmed away; :func:`rotk_apply_rows` is the reference
+  downlink's vmap of ``rotk_apply`` over the workers, one launch a leaf.
 """
 from __future__ import annotations
 
@@ -91,14 +92,7 @@ def rotk_apply(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *, 
     if w.dim() != 1 or delta.shape != w.shape:
         raise ValueError(f"rotk_apply: w and delta must be [d], got {tuple(w.shape)} and "
                          f"{tuple(delta.shape)}")
-    if w.dtype not in _permk.DTYPES or delta.dtype != w.dtype:
-        raise TypeError(f"rotk_apply: w and delta must share one dtype of {list(_permk.DTYPES)}, "
-                        f"got {w.dtype} and {delta.dtype}")
-    if rotation.dtype != torch.int32 or rotation.numel() != 1:
-        raise TypeError(f"rotk_apply: rotation must be one int32, got {rotation.dtype} "
-                        f"{tuple(rotation.shape)}")
-    if n < 1:
-        raise ValueError(f"rotk_apply: n={n} < 1")
+    _check_rotk("rotk_apply", w, delta, rotation, n)
     if w.shape[0] > 1 and (w.stride(0) != 1 or delta.stride(0) != 1):
         raise ValueError("rotk_apply: w and delta must be contiguous")
     if w.shape[0] == 0:
@@ -106,6 +100,50 @@ def rotk_apply(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *, 
     if not runtime.on_cuda(w, delta, rotation):
         return ref.rotk_apply_ref(w, delta, rotation, n=n, worker=worker)
     return _permk.rotk_apply(w, delta, rotation, n=n, worker=worker)
+
+
+def _check_rotk(what: str, w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, n: int):
+    if w.dtype not in _permk.DTYPES or delta.dtype != w.dtype:
+        raise TypeError(f"{what}: w and delta must share one dtype of {list(_permk.DTYPES)}, "
+                        f"got {w.dtype} and {delta.dtype}")
+    if rotation.dtype != torch.int32 or rotation.numel() != 1:
+        raise TypeError(f"{what}: rotation must be one int32, got {rotation.dtype} "
+                        f"{tuple(rotation.shape)}")
+    if n < 1:
+        raise ValueError(f"{what}: n={n} < 1")
+
+
+def rotk_apply_rows(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *, n: int,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row i of the result is ``rotk_apply(w[i], delta, rotation, n=n,
+    worker=i)``: the R <= n replicas of one leaf updated in one launch, delta
+    read once (see :func:`.ref.rotk_apply_rows_ref`). w: [R, s] with unit
+    column stride and any row stride (0: one row broadcast); delta: [s]
+    contiguous, w's dtype (f32, f16 or bf16); rotation: one int32 on the same
+    device. ``out``: an [R, s] view with unit column stride, overlapping
+    neither input, written in place and returned (the caller's slice of a
+    larger tensor: no temporary, no copy); a new tensor if None."""
+    if w.dim() != 2 or delta.dim() != 1 or delta.shape[0] != w.shape[1]:
+        raise ValueError(f"rotk_apply_rows: w must be [R, s] and delta [s], got {tuple(w.shape)} "
+                         f"and {tuple(delta.shape)}")
+    _check_rotk("rotk_apply_rows", w, delta, rotation, n)
+    R, s = w.shape
+    if R > n:
+        raise ValueError(f"rotk_apply_rows: {R} rows > n={n}: row i is worker i < n")
+    if s > 1 and (w.stride(1) != 1 or delta.stride(0) != 1):
+        raise ValueError("rotk_apply_rows: w needs unit column stride and delta must be contiguous")
+    if out is not None:
+        if out.shape != w.shape or out.dtype != w.dtype or out.device != w.device:
+            raise ValueError(f"rotk_apply_rows: out must be [R, s] {w.dtype} on {w.device}, got "
+                             f"{tuple(out.shape)} {out.dtype} on {out.device}")
+        if s > 1 and out.stride(1) != 1:
+            raise ValueError("rotk_apply_rows: out needs unit column stride")
+    if R == 0 or s == 0:
+        return torch.empty_like(w) if out is None else out
+    if not runtime.on_cuda(w, delta, rotation):
+        res = ref.rotk_apply_rows_ref(w, delta, rotation, n=n)
+        return res if out is None else out.copy_(res)
+    return _permk.rotk_apply_rows(w, delta, rotation, n=n, out=out)
 
 
 def l1_subgrad(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:

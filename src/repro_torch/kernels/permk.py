@@ -1,13 +1,21 @@
-"""Launcher of the CUDA kernel ``csrc/permk.cu``: the RotK update
-``w + Q_i(delta)``.
+"""Launchers of the CUDA kernel ``csrc/permk.cu``: the RotK update
+``w + Q_i(delta)``, for one replica (:func:`rotk_apply`) or for the R
+replicas of a leaf in one launch (:func:`rotk_apply_rows`, row i worker i).
 
-Port of ``repro/kernels/permk.py`` (the Pallas kernel ``_rotk_apply_kernel``).
-Takes CUDA tensors only; :func:`repro_torch.kernels.ops.rotk_apply` is the
-public, device-dispatching wrapper.
+Port of ``repro/kernels/permk.py`` (the Pallas kernel ``_rotk_apply_kernel``)
+and of the reference downlink's vmap of it over the workers. The kernel moves
+16-byte vectors of w, delta and out where the three share an alignment
+(single values before the first aligned column and after the last whole
+vector) and the leaf holds at least a block of vectors an SM (shorter leaves
+run one value a thread), carries each vector's residue j mod n by adds, and
+in the rows entry reads delta once for all rows. Takes CUDA tensors only;
+:func:`repro_torch.kernels.ops.rotk_apply` / :func:`~repro_torch.kernels.ops.rotk_apply_rows`
+are the public, device-dispatching wrappers.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -30,4 +38,23 @@ def rotk_apply(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *, 
              w.shape[0], n, worker, runtime.stream_ptr(w))
     runtime.check(err, "rotk_apply")
     runtime.count_launch("rotk_apply")
+    return out
+
+
+def rotk_apply_rows(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *, n: int,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """w: [R, s] on the card with unit column stride (row stride 0 allowed);
+    delta: [s] contiguous, same dtype; rotation: one int32 on the card; R <= n.
+    Writes w[i] + Q_i(delta) into row i of ``out`` ([R, s], unit column stride,
+    overlapping neither input; allocated if None) and returns it."""
+    R, s = w.shape
+    if out is None:
+        out = torch.empty((R, s), dtype=w.dtype, device=w.device)
+    fn = runtime.function("permk", "rotk_apply_rows", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    err = fn(w.data_ptr(), w.stride(0), delta.data_ptr(), rotation.data_ptr(), out.data_ptr(),
+             out.stride(0), DTYPES[w.dtype], R, s, n, runtime.stream_ptr(w))
+    runtime.check(err, "rotk_apply_rows")
+    runtime.count_launch("rotk_apply_rows")
     return out

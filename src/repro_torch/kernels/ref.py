@@ -258,6 +258,18 @@ def _to16(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.where(h >= 2**15, h - 2**16, h).to(torch.int16).view(dtype)
 
 
+def _rotk_ref(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, n: int,
+              workers) -> torch.Tensor:
+    """w + Q(delta) with the kept residue (workers + r) mod n of the int32
+    sum: ``workers`` an int for a [d] w, an int32 tensor [R] for w [R, d]."""
+    r = rotation.reshape(()).to(torch.int32)
+    keep = torch.arange(w.shape[-1], device=w.device) % n == torch.remainder(r + workers, n)[..., None]
+    if w.dtype == torch.float32:
+        return w + torch.where(keep, delta * float(n), 0.0)
+    q = _to16(delta.float() * float(n), w.dtype).float()
+    return _to16(w.float() + torch.where(keep, q, 0.0), w.dtype)
+
+
 def rotk_apply_ref(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *, n: int,
                    worker: int) -> torch.Tensor:
     """w + where(j mod n == (worker + r) mod n, delta * n, +0.0), as the
@@ -268,12 +280,15 @@ def rotk_apply_ref(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor,
     fp16 / bf16 (XLA computes each 16-bit operation in fp32 and rounds it):
     q = T(f32(delta) * n), then T(f32(w) + f32(q)), each rounded once to
     nearest even (:func:`_to16`); the widening casts are exact."""
-    r = rotation.reshape(()).to(torch.int32)
-    keep = torch.arange(w.shape[-1], device=w.device) % n == torch.remainder(r + worker, n)
-    if w.dtype == torch.float32:
-        return w + torch.where(keep, delta * float(n), 0.0)
-    q = _to16(delta.float() * float(n), w.dtype).float()
-    return _to16(w.float() + torch.where(keep, q, 0.0), w.dtype)
+    return _rotk_ref(w, delta, rotation, n, worker)
+
+
+def rotk_apply_rows_ref(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *,
+                        n: int) -> torch.Tensor:
+    """[R, s]: row i is :func:`rotk_apply_ref` of w[i] with worker i, as the
+    reference downlink's vmap over the workers computes it (w [R, s], which
+    may be one row broadcast; delta [s])."""
+    return _rotk_ref(w, delta, rotation, n, torch.arange(w.shape[0], dtype=torch.int32, device=w.device))
 
 
 def mask_streams_ref(x: torch.Tensor, workers: torch.Tensor, keep_prob: float, seed: int, mag: int):

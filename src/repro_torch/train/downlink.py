@@ -8,7 +8,9 @@ data-parallel worker replica is compressed:
   one [W, d] tensor in ravel order (the reference's leading ``W`` axis), in
   fp32 or the trainer's ``weight_dtype``; broadcast modes:
     - ``perm``: RotK cyclic-partition PermK (omega = W-1, exact-mean
-      identity), through the ``rotk_apply`` kernel, leaf by leaf;
+      identity), through the ``rotk_apply_rows`` kernel: one launch a leaf
+      updates the W replicas, reading the leaf's delta once and writing
+      straight into the new [W, d] (no per-worker loop, no copy);
     - ``ind`` : per-worker Bernoulli-K (omega = d/k - 1);
     - ``same``: one Bernoulli-K mask shared by the workers.
   With probability ``p`` the full model is synchronized (Bernoulli coin).
@@ -163,10 +165,9 @@ class MarinaPDownlink:
             scale = float(1 / torch.tensor(self.frac, dtype=workers.dtype).float())
             for li, o, s in _segments(sizes):
                 delta = (server_new[o:o + s] - server_old[o:o + s]).to(workers.dtype)
-                if self.mode == "perm":
-                    rot = draws.rot[li:li + 1]
-                    for i in range(n):
-                        new[i, o:o + s] = ops.rotk_apply(workers[i, o:o + s], delta, rot, n=n, worker=i)
+                if self.mode == "perm":  # all W replicas of the leaf in one launch
+                    ops.rotk_apply_rows(workers[:, o:o + s], delta, draws.rot[li:li + 1], n=n,
+                                        out=new[:, o:o + s])
                 else:
                     q = torch.where(draws.masks[li], delta * scale, 0)
                     torch.add(workers[:, o:o + s], q, out=new[:, o:o + s])
@@ -188,12 +189,11 @@ class MarinaPDownlink:
         for li, o, s in _segments(sizes):
             delta = (server_new[o:o + s] - server_old[o:o + s]).float()
             if self.mode == "perm":
-                # Q_i(delta) is rotk_apply on a zero replica: n * delta where kept
-                # (0 + x = x exactly), +0.0 elsewhere, which SPARSE drops as it
-                # drops the reference's -0.0
-                zero = torch.zeros_like(delta)
-                for i in range(n):
-                    Q[i, o:o + s] = ops.rotk_apply(zero, delta, draws.rot[li:li + 1], n=n, worker=i)
+                # Q_i(delta) is rotk_apply on a zero replica (one row broadcast to
+                # the W rows): n * delta where kept (0 + x = x exactly), +0.0
+                # elsewhere, which SPARSE drops as it drops the reference's -0.0
+                ops.rotk_apply_rows(torch.zeros_like(delta).expand(n, s), delta, draws.rot[li:li + 1],
+                                    n=n, out=Q[:, o:o + s])
             else:
                 q = delta / delta.new_full((), self.frac)
                 Q[:, o:o + s] = torch.where(draws.masks[li], q, 0)

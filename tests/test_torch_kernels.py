@@ -690,3 +690,44 @@ def test_cuda_seed_kernels_vs_plain():
     torch.cuda.synchronize()
     for name in ("bernk", "rotk_apply", "mask_streams", "topk_streams"):
         assert runtime.LAUNCHES[name] > 0, name
+
+
+@pytest.mark.cuda
+def test_cuda_rotk_apply_rows_vs_plain():
+    """rotk_apply_rows and rotk_apply on the card == their plain versions,
+    bit for bit, in f32, fp16 and bf16: 16-byte vectors, the scalar head and
+    tail of views at column offsets 1 and 3 with delta at the same offset,
+    one value a thread for short leaves and where delta sits elsewhere, a
+    broadcast row, odd and tiny sizes; one launch per rows call."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    runtime.reset_launches()
+    calls = 0
+    for dtype, view in ((torch.float32, torch.int32), (torch.float16, torch.int16),
+                        (torch.bfloat16, torch.int16)):
+        # one value a thread below a block of 16-byte vectors an SM; vectors (with a head and a tail) above
+        for n, s in ((1, 7), (3, 1003), (16, 65536), (4, 600_000), (7, 600_003)):
+            W = torch.randn(n, s + 8, generator=gen, device=dev).to(dtype)
+            W[:, 3::11] = -0.0
+            D = torch.randn(s + 8, generator=gen, device=dev).to(dtype)
+            for c in (0, 1, 3):
+                for r in (-3, n + 1):
+                    rot = torch.tensor([r], dtype=torch.int32, device=dev)
+                    w = W[:, c:c + s]
+                    for delta in (D[c:c + s], D[c:c + s].clone()):
+                        want = ref.rotk_apply_rows_ref(w, delta, rot, n=n)
+                        out = torch.full_like(W, 5.0)
+                        got = ops.rotk_apply_rows(w, delta, rot, n=n, out=out[:, c:c + s])
+                        assert torch.equal(got.view(view), want.view(view)), (dtype, n, s, c, r)
+                        assert bool((out[:, :c] == 5).all() and (out[:, c + s:] == 5).all())
+                        bc = ops.rotk_apply_rows(w[0].expand(n, s), delta, rot, n=n)
+                        assert torch.equal(bc.view(view), ref.rotk_apply_rows_ref(
+                            w[0].expand(n, s), delta, rot, n=n).view(view)), (dtype, n, s, c, r)
+                        calls += 2
+                    for i in range(n):
+                        assert torch.equal(ops.rotk_apply(W[i, c:c + s], D[c:c + s], rot, n=n, worker=i).view(view),
+                                           ref.rotk_apply_ref(W[i, c:c + s], D[c:c + s], rot, n=n, worker=i).view(view))
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["rotk_apply_rows"] == calls
