@@ -194,8 +194,24 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     rows path and on the per-worker path, in turns, the card's time (CUDA
     events behind a 10 ms spin) and the host clock's, outputs bit-equal.
 
+(u) the dry-run (``repro_torch.launch``): (u0) ``python -m
+    repro_torch.launch.dryrun --arch A`` for the ten architectures (one
+    process each, all started together), every shape (train_4k, prefill_32k,
+    decode_32k, long_500k) on the 16x16 mesh description, counted on
+    ``meta``: 40 records, each valid (finite counts, a dominant H100
+    roofline term, the useful-FLOPs ratio in range); (u1) gemma3-1b's four
+    steps on the card at ``dryrun.REDUCED``'s sizes (``dryrun.measure_step``:
+    the marina:perm train step with bf16 replicas, W = 2 x 1 x 4096;
+    forward at 1 x 32768; the DecodeEngine's graph step at 16 x 32768 and
+    1 x 524288): a finite output, ms (median of 5 CUDA-event times after 2),
+    peak memory, the same reduced step counted on ``meta``, its bound on one
+    H100, roofline_share and (train, prefill) mfu, merged into the records;
+    the counters are zeroed before (u1) and read after it: rotk_apply_rows
+    must have launched once a leaf a train step; (u2) ``repro_torch.run
+    roofline`` over the records: BENCH_roofline.json valid, and the table.
+
 Prints a ``{"kernels": [...]}`` JSON line (launches: the path of each row
-plus (m)-(o), (q)-(r), (s) and (t); the rotk_apply row names its dtypes, its numbers are float32's and
+plus (m)-(o), (q)-(r), (s), (t) and (u) (``dryrun_path``: (u)'s own); the rotk_apply row names its dtypes, its numbers are float32's and
 ``by_dtype`` gives each dtype's; the rotk_apply_rows row's are 4 f32 rows of the largest leaf, with
 ``by_dtype`` for bf16, the per-worker path's time and a whole round's; the unpack_bits row's ``serve_path`` gives
 its (s) launches and its times at (s3)'s streams; every row's ``train_path``
@@ -2187,6 +2203,122 @@ def downlink_round_timing(np, torch, dev, flush, sizes, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the dry-run and the measured roofline share (phase u)
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = ROOT / "runs" / "dryrun_chip"
+MEASURED_ARCH = "gemma3-1b"
+# kernels that must launch between the counters' reset before (u1) and the read after it:
+# the compressed perm round of train_4k, one launch a leaf a step
+DRYRUN_KERNELS = ("rotk_apply_rows",)
+
+
+def dryrun_phase(card):
+    """(u0): ``python -m repro_torch.launch.dryrun --arch A --out DRYRUN_DIR``
+    for each of the ten architectures, all four shapes on the 16x16 mesh
+    description, counted on ``meta`` (no card), one process an architecture,
+    all started together; every record valid (``dryrun.record_problems``).
+    Returns ({(arch, shape): record}, seconds)."""
+    import os
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, specs
+
+    if DRYRUN_DIR.exists():
+        for f in DRYRUN_DIR.glob("*.json"):
+            f.unlink()
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = {arch: subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                                     "--out", str(DRYRUN_DIR)], env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for arch in configs.ALIASES}
+    try:
+        outs = {arch: proc.communicate(timeout=600)[0] for arch, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = time.perf_counter() - t0
+    for arch, proc in procs.items():
+        if proc.returncode != 0:
+            fail(f"(u0) the dry-run of {arch} exited {proc.returncode}:\n{outs[arch][-3000:]}")
+    recs = {}
+    for arch in configs.ALIASES:
+        for shape in specs.SHAPES:
+            path = DRYRUN_DIR / f"{arch}__{shape}__16x16.json"
+            rec = json.loads(path.read_text())
+            problems = dryrun.record_problems(rec)
+            if problems:
+                fail(f"(u0) {path.name}: {problems}")
+            recs[arch, shape] = rec
+            t = rec["roofline"]
+            log(f"(u0) {arch:26s} {shape:12s} flops {rec['flops_global']:.4e} bytes {rec['bytes_global']:.4e} "
+                f"count {rec['t_count_s']:6.2f} s; per device (256, even): compute {t['compute_s']:.4e} s, "
+                f"memory {t['memory_s']:.4e} s, {t['dominant']}; useful {rec['useful_flops_ratio']:.4f}")
+    log(f"(u0) {len(recs)} dry-run records valid in {secs:.1f} s (H100 constants; no card used)")
+    return recs, secs
+
+
+def measured_phase(np, torch, dev, recs, card):
+    """(u1): gemma3-1b's four steps on the card at ``dryrun.REDUCED``'s sizes
+    (``dryrun.measure_step``: train_4k's marina:perm train step, W = 2 x 1 x
+    4096; prefill_32k's forward, batch 1 x 32768; decode_32k's and
+    long_500k's DecodeEngine step through its CUDA graph, batch 16 x 32768
+    and 1 x 524288), each merged into its (u0) record: finite output, ms,
+    peak memory, the reduced step's count and bound, roofline_share, mfu."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+
+    out, params = {}, None
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        t0 = time.perf_counter()
+        if shape != "train_4k" and params is None:  # the serving shapes share one set of weights
+            params = lm.lm_init(configs.get(MEASURED_ARCH), device=dev, seed=0)
+        m = dryrun.measure_step(MEASURED_ARCH, shape, device=dev, params=params)
+        rec = dict(recs[MEASURED_ARCH, shape], measured=m)
+        problems = dryrun.record_problems(rec)
+        if problems:
+            fail(f"(u1) {MEASURED_ARCH} {shape}: {problems}")
+        (DRYRUN_DIR / f"{MEASURED_ARCH}__{shape}__16x16.json").write_text(json.dumps(rec, indent=1))
+        out[shape] = m
+        t = m["roofline"]
+        log(f"(u1) {MEASURED_ARCH} {shape:12s} ({m['reduced']}): {m['ms']:.3f} ms a step (median of "
+            f"{len(m['ms_runs'])} after {m['warmup']}: {[round(x, 3) for x in m['ms_runs']]}), peak "
+            f"{m['peak_bytes'] / 2**30:.2f} GiB, output {m['output_shape']} finite; counted {m['flops']:.4e} "
+            f"FLOPs, {m['bytes']:.4e} bytes: bound {t['bound_s'] * 1e3:.4f} ms ({t['dominant']}), "
+            f"roofline_share {m['roofline_share']:.5f}, mfu {m['mfu']}; launches {m['launches']}; "
+            f"{time.perf_counter() - t0:.1f} s ({m['card']})")
+        log(f"(u1) top ops by bytes: {m['top_ops'][:5]}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def roofline_suite_phase(card):
+    """(u2): ``repro_torch.run roofline`` over the records: a valid
+    BENCH_roofline.json; then the report's table."""
+    import os
+    import tempfile
+
+    from repro_torch import obs, roofline_report, run
+
+    roofline_report.DEFAULT_DIR = str(DRYRUN_DIR)
+    out = tempfile.mkdtemp()
+    if run.main(["roofline", "--out", out]) != 0:
+        fail("(u2) repro_torch.run roofline failed")
+    doc = obs.load(os.path.join(out, "BENCH_roofline.json"))
+    problems = obs.validate(doc)
+    if problems or len(doc["metrics"]) != 44:
+        fail(f"(u2) BENCH_roofline.json: {problems}, {len(doc['metrics'])} metrics (want 40 + 4)")
+    log("(u2) BENCH_roofline.json valid, 44 metrics; the roofline table (16x16, H100 constants):")
+    log(roofline_report.markdown_table(roofline_report.load(str(DRYRUN_DIR))))
+
+
 def main() -> int:
     import torch
 
@@ -2820,6 +2952,29 @@ def main() -> int:
     log(f"(t) kernel and downlink timings {time.perf_counter() - t_tk:.1f} s; (t) took "
         f"{time.perf_counter() - t_t0:.1f} s")
 
+    # --- (u) the dry-run and the measured roofline share -------------------------------
+    t_u0 = time.perf_counter()
+    recs, u0_s = dryrun_phase(card)
+    runtime.reset_launches()
+    t_u1 = time.perf_counter()
+    measured = measured_phase(np, torch, dev, recs, card)
+    torch.cuda.synchronize()
+    u_launches = dict(runtime.LAUNCHES)
+    t_u2 = time.perf_counter()
+    for kname in DRYRUN_KERNELS:
+        if u_launches.get(kname, 0) <= 0:
+            fail(f"(u1) the measured train step never launched {kname}")
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import REPS, WARMUP
+
+    want_rows = len(params_.leaf_sizes(lm_.lm_spec(configs.get(MEASURED_ARCH)))) * (WARMUP + REPS)
+    if u_launches.get("rotk_apply_rows", 0) != want_rows:
+        fail(f"(u1) {u_launches.get('rotk_apply_rows', 0)} rotk_apply_rows launches, expected {want_rows} "
+             f"(one a leaf in each of {WARMUP + REPS} compressed train steps)")
+    roofline_suite_phase(card)
+    log(f"(u) launches on the measured path: {u_launches}; (u0) {u0_s:.1f} s, (u1) {t_u2 - t_u1:.1f} s, "
+        f"(u2) {time.perf_counter() - t_u2:.1f} s; (u) took {time.perf_counter() - t_u0:.1f} s ({card})")
+
     summary = {"kernels": [
         {"name": "l1_subgrad", "route": "cuda", "source": "src/repro_torch/csrc/l1_subgrad.cu",
          "replaces": "src/repro/kernels/l1_subgrad.py:46", "launches": launches["l1_subgrad"],
@@ -2859,7 +3014,10 @@ def main() -> int:
         "ms": ms_, "plain_ms": plain_, "bound_ms": bound_, "bound_by": "bytes", "library_ms": None})
     for row in summary["kernels"]:  # the later slices' paths launched these kernels too
         row["launches"] += (slice_launches.get(row["name"], 0) + harness_launches.get(row["name"], 0)
-                            + serve_launches.get(row["name"], 0) + train_launches.get(row["name"], 0))
+                            + serve_launches.get(row["name"], 0) + train_launches.get(row["name"], 0)
+                            + u_launches.get(row["name"], 0))
+        # the dry-run's measured steps (u1): their launches
+        row["dryrun_path"] = {"launches": u_launches.get(row["name"], 0)}
         # the training path (t): its launches, and the time at its largest leaf
         row["train_path"] = {"launches": train_launches.get(row["name"], 0)}
         if row["name"] in train_err:
@@ -2900,7 +3058,8 @@ def main() -> int:
                 row["by_dtype"][dt] = {
                     "rows": TRAIN_W, "values": max(sizes), "n": TRAIN_W, "ms": ms_, "plain_ms": plain_,
                     "bound_ms": bound_, "per_worker_ms": train_times[f"per-worker rotk_apply + copy/{dt}"][0],
-                    "launches": bf16_launches if dt == "bfloat16" else row["launches"] - bf16_launches,
+                    "launches": (bf16_launches + u_launches.get("rotk_apply_rows", 0) if dt == "bfloat16"
+                                 else row["launches"] - bf16_launches - u_launches.get("rotk_apply_rows", 0)),
                     "downlink_round": {path: {"device_ms": dev_ms, "host_ms": wall_ms, "launches": ln}
                                        for path, (dev_ms, wall_ms, ln) in rounds[dt].items()}}
     print(json.dumps(summary), flush=True)

@@ -18,6 +18,10 @@ reference's padding rules:
   globally, so the reference's output does not depend on its tile, and its
   zero padding is trimmed away; :func:`rotk_apply_rows` is the reference
   downlink's vmap of ``rotk_apply`` over the workers, one launch a leaf.
+
+Under an open op count (the dry-run's, :mod:`repro_torch.launch.op_cost`) each
+wrapper charges its kernel's analytic bytes and FLOPs once
+(:func:`.runtime.kernel_cost`), on every device.
 """
 from __future__ import annotations
 
@@ -57,10 +61,11 @@ def block_topk(x: torch.Tensor, *, k_per_block: int, block: int = 1024) -> torch
     xp, d = _pad_to(x, block)
     if xp.shape[0] == 0:
         return x.clone()
-    if runtime.on_cuda(xp):
-        out = _topk.block_topk_compress(xp, k_per_block=k_per_block, block=block)
-    else:
-        out = ref.block_topk_ref(xp, k_per_block=k_per_block, block=block)
+    with runtime.kernel_cost("block_topk", 2 * xp.numel() * xp.element_size()):
+        if runtime.on_cuda(xp):
+            out = _topk.block_topk_compress(xp, k_per_block=k_per_block, block=block)
+        else:
+            out = ref.block_topk_ref(xp, k_per_block=k_per_block, block=block)
     return out[:d]
 
 
@@ -77,9 +82,10 @@ def bernk(x: torch.Tensor, *, keep_prob: float, seed: int, worker: int = 0) -> t
     _randk.keep_prob_constants(keep_prob)  # raises outside (0, 1]
     if x.shape[0] == 0:
         return x.clone()
-    if not runtime.on_cuda(x):
-        return ref.bernk_ref(x, keep_prob=keep_prob, seed=seed, worker=worker)
-    return _randk.bernk_compress(x, keep_prob=keep_prob, seed=seed, worker=worker)
+    with runtime.kernel_cost("bernk", 2 * x.numel() * x.element_size()):
+        if not runtime.on_cuda(x):
+            return ref.bernk_ref(x, keep_prob=keep_prob, seed=seed, worker=worker)
+        return _randk.bernk_compress(x, keep_prob=keep_prob, seed=seed, worker=worker)
 
 
 def rotk_apply(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *, n: int,
@@ -97,9 +103,10 @@ def rotk_apply(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *, 
         raise ValueError("rotk_apply: w and delta must be contiguous")
     if w.shape[0] == 0:
         return w.clone()
-    if not runtime.on_cuda(w, delta, rotation):
-        return ref.rotk_apply_ref(w, delta, rotation, n=n, worker=worker)
-    return _permk.rotk_apply(w, delta, rotation, n=n, worker=worker)
+    with runtime.kernel_cost("rotk_apply", 3 * w.numel() * w.element_size()):
+        if not runtime.on_cuda(w, delta, rotation):
+            return ref.rotk_apply_ref(w, delta, rotation, n=n, worker=worker)
+        return _permk.rotk_apply(w, delta, rotation, n=n, worker=worker)
 
 
 def _check_rotk(what: str, w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, n: int):
@@ -140,10 +147,12 @@ def rotk_apply_rows(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor
             raise ValueError("rotk_apply_rows: out needs unit column stride")
     if R == 0 or s == 0:
         return torch.empty_like(w) if out is None else out
-    if not runtime.on_cuda(w, delta, rotation):
-        res = ref.rotk_apply_rows_ref(w, delta, rotation, n=n)
-        return res if out is None else out.copy_(res)
-    return _permk.rotk_apply_rows(w, delta, rotation, n=n, out=out)
+    rows_read = 1 if w.stride(0) == 0 else R  # (2R + 1) values a column; a broadcast row once
+    with runtime.kernel_cost("rotk_apply_rows", (rows_read + R + 1) * s * w.element_size()):
+        if not runtime.on_cuda(w, delta, rotation):
+            res = ref.rotk_apply_rows_ref(w, delta, rotation, n=n)
+            return res if out is None else out.copy_(res)
+        return _permk.rotk_apply_rows(w, delta, rotation, n=n, out=out)
 
 
 def l1_subgrad(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -161,15 +170,16 @@ def l1_subgrad(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     if A.dtype != torch.float32 or X.dtype != torch.float32:
         raise TypeError(f"l1_subgrad: float32 only, got {A.dtype} and {X.dtype}")
     n, m, d = A.shape
-    if not runtime.on_cuda(A, X):
-        return ref.l1_subgrad_ref(A, X)
-    if not A.is_contiguous():
-        raise ValueError("l1_subgrad: A must be contiguous")
-    if d > 1 and X.stride(1) != 1:
-        raise ValueError("l1_subgrad: X must have unit inner stride")
-    if n == 0 or m == 0 or d == 0:
-        return torch.zeros((n, d), dtype=torch.float32, device=A.device)
-    return _l1.l1_subgrad(A, X)
+    with runtime.kernel_cost("l1_subgrad", 4 * (n * m * d + 2 * n * d), 4 * n * m * d):
+        if not runtime.on_cuda(A, X):
+            return ref.l1_subgrad_ref(A, X)
+        if not A.is_contiguous():
+            raise ValueError("l1_subgrad: A must be contiguous")
+        if d > 1 and X.stride(1) != 1:
+            raise ValueError("l1_subgrad: X must have unit inner stride")
+        if n == 0 or m == 0 or d == 0:
+            return torch.zeros((n, d), dtype=torch.float32, device=A.device)
+        return _l1.l1_subgrad(A, X)
 
 
 def _bit_rows(t: torch.Tensor, what: str) -> torch.Tensor:
@@ -199,10 +209,11 @@ def pack_bits(values: torch.Tensor, width: int, *, out: Optional[torch.Tensor] =
     elif tuple(out.shape) != tuple(shape):
         raise ValueError(f"pack_bits: out has shape {tuple(out.shape)}, needs {tuple(shape)}")
     o = _bit_rows(out, "pack_bits out")
-    if not runtime.on_cuda(v, o):
-        o.copy_(ref.pack_bits_ref(v, width))
-    elif nw and v.shape[0]:
-        _pack.pack_bits_device(v, width, o)
+    with runtime.kernel_cost("pack_bits", 4 * v.shape[0] * (v.shape[1] + nw)):
+        if not runtime.on_cuda(v, o):
+            o.copy_(ref.pack_bits_ref(v, width))
+        elif nw and v.shape[0]:
+            _pack.pack_bits_device(v, width, o)
     return out
 
 
@@ -214,10 +225,11 @@ def unpack_bits(words: torch.Tensor, width: int, count: int) -> torch.Tensor:
     if count < 0:
         raise ValueError(f"unpack_bits: count {count} < 0")
     w = _bit_rows(words, "unpack_bits")
-    if not runtime.on_cuda(w):
-        out = ref.unpack_bits_ref(w, width, count)
-    else:
-        out = torch.empty((w.shape[0], count), dtype=torch.int32, device=w.device)
-        if count and w.shape[0]:
-            _pack.unpack_bits_device(w, width, out)
+    with runtime.kernel_cost("unpack_bits", 4 * w.shape[0] * (w.shape[1] + count)):
+        if not runtime.on_cuda(w):
+            out = ref.unpack_bits_ref(w, width, count)
+        else:
+            out = torch.empty((w.shape[0], count), dtype=torch.int32, device=w.device)
+            if count and w.shape[0]:
+                _pack.unpack_bits_device(w, width, out)
     return out[0] if words.dim() == 1 else out

@@ -16,11 +16,13 @@ implies flush-to-zero, and the sign and selection semantics depend on exact
 IEEE compares of denormals, -0.0, inf and NaN.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on the
-card; :func:`reset_launches` zeroes it.
+card; :func:`reset_launches` zeroes it. :func:`kernel_cost` charges a
+wrapper's analytic bytes and FLOPs to an open op count (the dry-run's).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -45,6 +47,8 @@ NVCC_FLAGS = (
 MAX_SMEM_BYTES = 232448
 
 LAUNCHES: collections.Counter = collections.Counter()
+# the op counts open (launch/op_cost.py), innermost last: kernel_cost charges it
+COUNTS: list = []
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -59,26 +63,46 @@ def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
 
 
-def resolve_device(device) -> torch.device:
+@contextlib.contextmanager
+def kernel_cost(name: str, nbytes: float, flops: float = 0.0):
+    """Charge a hand kernel's analytic bytes and FLOPs (PERF.md's kernel
+    table: each input read once, each output written once) to the innermost
+    open op count (:func:`repro_torch.launch.op_cost.counting`), if any, and
+    hide the body from it: the launch, or the plain version on the CPU or
+    ``meta``, whose own ops are not the kernel's work. No count open: the
+    body runs as it is."""
+    if not COUNTS:
+        yield
+        return
+    count = COUNTS[-1]
+    count.charge(f"kernel:{name}", nbytes, flops)
+    with count.paused():
+        yield
+
+
+def resolve_device(device, *, meta_ok: bool = False) -> torch.device:
     """``torch.device(device)``, raising if CUDA is asked for and absent.
 
     Entry points default to ``"cuda"``; on a machine without a card that
-    default raises here instead of quietly running on the CPU."""
+    default raises here instead of quietly running on the CPU. ``meta_ok``:
+    the caller also builds shapes without storage (``device="meta"``, the
+    dry-run's count, :mod:`repro_torch.launch`); no default ever picks it."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device='cuda' requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu") and not (meta_ok and dev.type == "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True if every tensor lies on the card, False if every one lies on the
-    CPU; raises on a mix or any other device."""
+    CPU or every one on ``meta`` (shapes only: the plain version runs there
+    for the dry-run's count); raises on a mix or any other device."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return False
     if kinds == {"cuda"}:
         return True

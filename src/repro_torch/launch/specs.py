@@ -1,0 +1,175 @@
+"""Per-(architecture x input shape x mesh) step specs (counterpart of
+``repro/launch/specs.py``).
+
+``build(arch_id, shape_id, mesh)`` returns the port's step function, its
+abstract arguments (``meta`` tensors: shapes and dtypes, no storage) and
+the matching partition specs (:mod:`.sharding`) for the mesh description.
+
+Input shapes (assigned):
+    train_4k      seq=4096    global_batch=256   -> train step (MARINA-P round)
+    prefill_32k   seq=32768   global_batch=32    -> prefill (forward)
+    decode_32k    seq=32768   global_batch=128   -> serve step (1 token + cache)
+    long_500k     seq=524288  global_batch=1     -> serve step; sub-quadratic
+                  natively (rwkv6, gemma3) or via the sliding-window variant
+                  (window = cfg.long_context_window) for full-attention archs.
+
+The port's train state holds flat vectors in ravel order (``server`` [d],
+the AdamW moments [d], the ``workers`` [W, d]); its specs are given as the
+trees those vectors concatenate, leaf by leaf, as the reference's state
+holds them. The train step's randomness is an argument
+(``train/downlink.DownlinkDraws``): the abstract draws are a compressed
+round's (no sync coin), the branch every count and measurement takes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from .. import configs
+from ..data import batch_specs as data_batch_specs
+from ..models import lm
+from ..models.config import ModelConfig
+from ..models.params import Leaf, leaf_sizes, map_tree, stacked
+from ..optim import make_optimizer
+from ..optim.schedules import cosine_warmup
+from ..train import TrainerConfig, init_state, make_downlink, make_train_step
+from ..train.downlink import DownlinkDraws, MarinaPDownlink
+from . import sharding as sh
+from .mesh import n_workers as mesh_n_workers
+
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq=524288, global_batch=1),
+}
+
+META = torch.device("meta")
+
+
+def long_ctx_window(cfg: ModelConfig) -> Optional[int]:
+    """Sliding-window override for 500k decode (DESIGN.md §4)."""
+    if not cfg.subquadratic:
+        return cfg.long_context_window  # dense/moe/vlm/audio: swa variant
+    if cfg.family == "hybrid":
+        return cfg.long_context_window  # zamba2: window its shared attn slots
+    return None  # rwkv6 / gemma3: native
+
+
+@dataclasses.dataclass
+class Built:
+    fn: Any
+    args: Tuple[Any, ...]
+    specs: Tuple[Any, ...]
+    meta: dict
+
+
+def empty(shape, dtype, device=META) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+
+def compressed_draws(downlink, sizes, device=META) -> DownlinkDraws:
+    """A compressed round's draws (no sync) of the shapes ``draw_round``
+    gives, unfilled: the perm rotations or the Bernoulli masks."""
+    if not isinstance(downlink, MarinaPDownlink):
+        return DownlinkDraws()
+    if downlink.mode == "perm":
+        return DownlinkDraws(rot=empty((len(sizes),), torch.int32, device))
+    n = downlink.n_workers
+    return DownlinkDraws(masks=[empty((n, s) if downlink.mode == "ind" else (s,), torch.bool, device)
+                                for s in sizes])
+
+
+def serve_batch(cfg: ModelConfig, B: int, S: int, device=META) -> dict:
+    """A prefill batch of B sequences of S positions (the vlm's patches
+    among them)."""
+    if cfg.num_codebooks:
+        return {"tokens": empty((B, cfg.num_codebooks, S), torch.int32, device)}
+    if cfg.num_patches:
+        return {"tokens": empty((B, S - cfg.num_patches), torch.int32, device),
+                "patches": empty((B, cfg.num_patches, cfg.d_model), torch.bfloat16, device)}
+    return {"tokens": empty((B, S), torch.int32, device)}
+
+
+def decode_token(cfg: ModelConfig, B: int, device=META) -> torch.Tensor:
+    return empty((B, cfg.num_codebooks, 1) if cfg.num_codebooks else (B, 1), torch.int32, device)
+
+
+def train_parts(cfg: ModelConfig, W: int, *, downlink_spec: str = "marina:perm", remat: bool = True,
+                attn_chunk: int = 512, remat_policy=None):
+    """(step, downlink, TrainerConfig) of the train step the dry-run counts:
+    ``downlink_spec`` over W workers, AdamW, cosine_warmup(3e-4, 200,
+    20000), bf16 replicas."""
+    tcfg = TrainerConfig(n_workers=W, remat=remat, attn_chunk=attn_chunk,
+                         weight_dtype=torch.bfloat16, remat_policy=remat_policy)
+    downlink = make_downlink(downlink_spec, W)
+    optimizer = make_optimizer("adamw")
+    step = make_train_step(cfg, tcfg, downlink, optimizer, cosine_warmup(3e-4, 200, 20000))
+    return step, downlink, tcfg, optimizer
+
+
+def build(arch_id: str, shape_id: str, mesh, *, downlink_spec: str = "marina:perm",
+          remat: bool = True, attn_chunk: int = 512, serve_layout: str = "serve",
+          remat_policy=None, train_act_model_sharded: bool = False) -> Built:
+    cfg = configs.get(arch_id)
+    info = SHAPES[shape_id]
+    W = mesh_n_workers(mesh)
+    if train_act_model_sharded:
+        raise ValueError("train_act_model_sharded pins the activations onto a mesh axis (act_spec); "
+                         "the port runs on one card and has no mesh to pin them to")
+
+    if info["kind"] == "train":
+        if info["global_batch"] % W:
+            raise ValueError(f"global batch {info['global_batch']} does not split over {W} workers")
+        bpw = info["global_batch"] // W
+        step, downlink, tcfg, optimizer = train_parts(
+            cfg, W, downlink_spec=downlink_spec, remat=remat, attn_chunk=attn_chunk,
+            remat_policy=remat_policy)
+        state = init_state(cfg, tcfg, downlink, optimizer, device=META)
+        batch = {k: empty(s.shape, s.dtype) for k, s in data_batch_specs(cfg, W, bpw, info["seq"]).items()}
+        tree = lm.lm_spec(cfg)
+        draws = compressed_draws(downlink, leaf_sizes(tree))
+        server = sh.param_specs(tree, mesh, "server")
+        state_specs = {
+            "server": server,
+            "opt": sh.param_specs({k: tree if isinstance(v, torch.Tensor) else Leaf(())
+                                   for k, v in state["opt"].items()}, mesh, "server"),
+            "step": sh.Spec(),
+            "bits_per_worker": sh.Spec(),
+            "uplink_bits_per_worker": sh.Spec(),
+        }
+        if "workers" in state:  # MARINA-P's replicas [W, d]; EF21-P's one shift [d]
+            wtree = map_tree(lambda leaf: stacked(leaf, W), tree) if state["workers"].dim() == 2 else tree
+            state_specs["workers"] = sh.param_specs(wtree, mesh, "worker")
+        specs = (state_specs, sh.train_batch_spec(batch, mesh), sh.Spec())
+        return Built(step, (state, batch, draws), specs, dict(cfg=cfg, W=W, bpw=bpw, **info))
+
+    params = lm.lm_init(cfg, device=META)
+    p_specs = sh.param_specs(lm.lm_spec(cfg), mesh, serve_layout)
+    if info["kind"] == "prefill":
+        B, S = info["global_batch"], info["seq"]
+
+        def prefill_step(params, batch):
+            with torch.no_grad():
+                return lm.forward(cfg, params, batch, chunk=attn_chunk, remat=remat)
+
+        batch = serve_batch(cfg, B, S)
+        return Built(prefill_step, (params, batch), (p_specs, sh.serve_batch_spec(batch, mesh, B)),
+                     dict(cfg=cfg, **info))
+
+    # ---- decode ---------------------------------------------------------------
+    B, S = info["global_batch"], info["seq"]
+    window = long_ctx_window(cfg) if shape_id == "long_500k" else None
+    caches = lm.cache_init(cfg, B, S, window_override=window, device=META)
+
+    def serve_step(params, caches, token, pos):
+        with torch.no_grad():
+            return lm.decode_step(cfg, params, caches, token, pos, window_override=window)
+
+    token = decode_token(cfg, B)
+    pos = empty((), torch.int32)
+    specs = (p_specs, sh.cache_specs(caches, mesh, B), sh.serve_batch_spec(token, mesh, B), sh.Spec())
+    return Built(serve_step, (params, caches, token, pos), specs, dict(cfg=cfg, window=window, **info))
+

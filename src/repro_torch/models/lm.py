@@ -51,8 +51,12 @@ def lm_init(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *, de
     """Random parameters from ``generator`` (a ``torch.Generator`` on
     ``device``; by default one seeded with ``seed``). The draws are the
     port's own, not the reference's: to hold the two packages against each
-    other, convert the reference's tree (``convert.lm_params_from_numpy``)."""
-    dev = resolve_device(device)
+    other, convert the reference's tree (``convert.lm_params_from_numpy``).
+    ``device="meta"`` (asked for explicitly) gives the shapes and dtypes
+    alone, with nothing drawn: the dry-run's abstract parameters."""
+    dev = resolve_device(device, meta_ok=True)
+    if dev.type == "meta":
+        return FlatParams(lm_spec(cfg), dev)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(seed)
     return materialize(lm_spec(cfg), generator, dev)
@@ -148,8 +152,10 @@ def loss_fn(cfg: ModelConfig, params, batch, **fwd_kw) -> torch.Tensor:
 
 def cache_init(cfg: ModelConfig, batch: int, cache_len: int, *, window_override=None,
                dtype=L.COMPUTE_DTYPE, device="cuda"):
+    """Zero caches for ``batch`` sequences of ``cache_len`` positions
+    (``device="meta"``: shapes only)."""
     return T.stack_cache_init(cfg, batch, cache_len, window_override=window_override,
-                              dtype=dtype, device=resolve_device(device))
+                              dtype=dtype, device=resolve_device(device, meta_ok=True))
 
 
 def decode_step(cfg: ModelConfig, params, caches, token: torch.Tensor, pos, *,

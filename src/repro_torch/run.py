@@ -22,10 +22,14 @@ suite runs on ``--device`` (default the card). Suites:
   serve            DESIGN §10 decode engine prefill/decode span p50/p99 + tokens/s
   scenario         DESIGN §9  (algorithm x stepsize x client mix) fleet cells,
                               one BENCH_scenario_<cell>.json each
+  roofline_report  §Roofline  H100 bound per (arch x shape) dry-run record
+                              (``repro_torch.launch.dryrun``), with the measured
+                              share where a record has one
 
-The reference's ``roofline`` suite is not ported yet (it needs ``launch/``);
-asking for it is an error. A suite that raises prints its traceback, emits a
-``<suite>/FAILED,0,nan`` row, skips its BENCH artifact, and the run exits 1.
+With no suites named, every suite runs, ``roofline`` only where dry-run
+records exist (``DRYRUN_DIR``, default ``runs/dryrun_torch``). A suite that
+raises prints its traceback, emits a ``<suite>/FAILED,0,nan`` row, skips its
+BENCH artifact, and the run exits 1.
 """
 from __future__ import annotations
 
@@ -88,16 +92,13 @@ GATES = {
 
 DEFAULT_SUITES = ["fig1", "table2", "stepsize_grid", "comm_complexity", "kernels",
                   "wire", "encode", "transport", "serve", "scenario"]
-NOT_PORTED = {
-    "roofline": "needs launch/ (ROADMAP Queue 1 item 5)",
-}
 
 
 def suites_for(args) -> dict:
     """{suite: bench(tracker=None) -> rows}, bound to ``args.device`` (and
     ``args.out`` for the per-cell scenario artifacts)."""
-    from . import (comm_complexity, fig1, kernel_bench, scenario_matrix, serve_bench,
-                   stepsize_grid, table2_sigma, transport_bench, wire_bench)
+    from . import (comm_complexity, fig1, kernel_bench, roofline_report, scenario_matrix,
+                   serve_bench, stepsize_grid, table2_sigma, transport_bench, wire_bench)
 
     dev = args.device
     return {
@@ -114,6 +115,7 @@ def suites_for(args) -> dict:
         "scenario": lambda tracker=None: scenario_matrix.bench(
             tracker=tracker, out_dir=args.out, device=dev),
         "serve": lambda tracker=None: serve_bench.bench(tracker=tracker, device=dev),
+        "roofline": roofline_report.bench,
     }
 
 
@@ -133,14 +135,17 @@ def main(argv=None) -> int:
                     help="where every suite runs (default the card; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
 
-    not_ported = [f"{s} ({NOT_PORTED[s]})" for s in args.suites if s in NOT_PORTED]
-    if not_ported:
-        ap.error(f"suites not ported yet: {', '.join(not_ported)}")
     suites = suites_for(args)
     unknown = [s for s in args.suites if s not in suites]
     if unknown:
         ap.error(f"unknown suites {unknown}; choose from {sorted(suites)}")
-    selected = list(args.suites) or list(DEFAULT_SUITES)
+    selected = list(args.suites)
+    if not selected:
+        from . import roofline_report
+
+        selected = list(DEFAULT_SUITES)
+        if os.path.isdir(roofline_report.DEFAULT_DIR) and os.listdir(roofline_report.DEFAULT_DIR):
+            selected.append("roofline")
 
     jsonl = obs.JsonlTracker(args.jsonl) if args.jsonl else None
     print("name,us_per_call,derived")

@@ -96,6 +96,17 @@ def temperature_sample(temp: float = 1.0):
     return fn
 
 
+def decode_into(cfg: ModelConfig, params, caches, tok: torch.Tensor, pos, *,
+                window_override: Optional[int] = None) -> torch.Tensor:
+    """One ``lm.decode_step`` with its new caches copied back into
+    ``caches`` (static buffers): the step the engine's graph replays.
+    Returns the logits."""
+    logits, new = lm.decode_step(cfg, params, caches, tok, pos, window_override=window_override)
+    for s, n in zip(leaves(caches), leaves(new)):
+        s.copy_(n)
+    return logits
+
+
 class _GraphStep:
     """One decode step captured in a CUDA graph: ``logits = step(tok, pos)``
     against static token / position / cache buffers, the new caches copied
@@ -108,14 +119,10 @@ class _GraphStep:
         self.tok = torch.zeros(shape, dtype=torch.int64, device=dev)
         self.pos = torch.zeros((), dtype=torch.int64, device=dev)
         self.caches = engine.fresh_caches()
-        static = leaves(self.caches)
 
         def step():
-            logits, new = lm.decode_step(cfg, engine.params, self.caches, self.tok, self.pos,
-                                         window_override=engine.window_override)
-            for s, n in zip(static, leaves(new)):
-                s.copy_(n)
-            return logits
+            return decode_into(cfg, engine.params, self.caches, self.tok, self.pos,
+                               window_override=engine.window_override)
 
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))

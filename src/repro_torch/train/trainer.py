@@ -77,8 +77,9 @@ def participation_plan(tcfg: TrainerConfig):
 def init_state(cfg: ModelConfig, tcfg: TrainerConfig, downlink, optimizer: Optimizer, *,
                seed: int = 0, device="cuda"):
     """Random parameters from ``lm.lm_init(cfg, seed=seed)`` on ``device``,
-    the optimizer's state, zero counters and the replicas (or the shift)."""
-    server = lm.lm_init(cfg, device=resolve_device(device), seed=seed).flat.detach()
+    the optimizer's state, zero counters and the replicas (or the shift).
+    ``device="meta"``: the same state as shapes alone (the dry-run's)."""
+    server = lm.lm_init(cfg, device=device, seed=seed).flat.detach()
     state = {
         "server": server,
         "opt": optimizer.init(server),
@@ -89,6 +90,17 @@ def init_state(cfg: ModelConfig, tcfg: TrainerConfig, downlink, optimizer: Optim
     if downlink is not None:
         state["workers"] = downlink.init_workers(server).to(tcfg.weight_dtype)
     return state
+
+
+def worker_value_and_grad(cfg: ModelConfig, spec, fwd_kw: dict, row: torch.Tensor, shard):
+    """One worker's (loss, fp32 flat gradient) at its replica ``row`` [d]:
+    the loss differentiated through ``params.grad_tree`` of a fresh leaf.
+    The step looks this name up at each call (the dry-run's count replaces
+    it to charge W identical workers one worker's count each)."""
+    leaf = row.detach().requires_grad_(True)
+    loss = lm.loss_fn(cfg, P.grad_tree(spec, leaf), shard, **fwd_kw)
+    loss.backward()
+    return loss.detach(), leaf.grad.float()
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, downlink, optimizer: Optimizer,
@@ -103,12 +115,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, downlink, optimizer: 
     plan = participation_plan(tcfg)
     partial = not plan.is_full
     W = tcfg.n_workers
-
-    def value_and_grad(row: torch.Tensor, shard):
-        leaf = row.detach().requires_grad_(True)
-        loss = lm.loss_fn(cfg, P.grad_tree(spec, leaf), shard, **fwd_kw)
-        loss.backward()
-        return loss.detach(), leaf.grad.float()
 
     def train_step(state, batch, draws: Optional[DownlinkDraws] = None, force_sync=False):
         draws = draws if draws is not None else DownlinkDraws()
@@ -128,7 +134,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, downlink, optimizer: 
             weights = participate.float() / n_part
         losses, grads = [], None
         for i in range(W):
-            loss_i, g = value_and_grad(rows[i], {k: v[i] for k, v in batch.items()})
+            loss_i, g = worker_value_and_grad(cfg, spec, fwd_kw, rows[i],
+                                              {k: v[i] for k, v in batch.items()})
             if partial:
                 g = g * weights[i]
             grads = g if grads is None else grads.add_(g)

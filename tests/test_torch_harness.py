@@ -7,6 +7,7 @@ The bench_diff and run cases are the reference's own, run on the port's
 copies; the gates, suite names and row names are compared with the
 reference's directly. Everything runs on the CPU at small sizes.
 """
+import argparse
 import json
 import os
 import warnings
@@ -133,7 +134,8 @@ def test_run_gates_and_suites_are_the_references():
     assert run.GATES == jrun.GATES
     assert run.DEFAULT_SUITES == ["fig1", "table2", "stepsize_grid", "comm_complexity",
                                   "kernels", "wire", "encode", "transport", "serve", "scenario"]
-    assert set(run.NOT_PORTED) == {"roofline"}
+    suites = run.suites_for(argparse.Namespace(device="cpu", out="unused"))
+    assert set(suites) == set(run.DEFAULT_SUITES) | {"roofline"}  # every suite is ported
 
 
 def test_run_propagates_suite_failure(tmp_path, monkeypatch, capsys):
@@ -167,11 +169,15 @@ def test_run_writes_schema_valid_artifact(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("suite", ["roofline"])
-def test_run_refuses_suites_not_ported(suite, capsys):
-    with pytest.raises(SystemExit) as e:
-        run.main([suite, "--device", "cpu"])
-    assert e.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+def test_run_refuses_suites_not_ported(suite, tmp_path, monkeypatch, capsys):
+    """Every suite is ported now; the roofline suite, asked for where no
+    dry-run record exists, fails the run (no empty artifact)."""
+    from repro_torch import roofline_report
+
+    monkeypatch.setattr(roofline_report, "DEFAULT_DIR", str(tmp_path / "no_records"))
+    assert run.main([suite, "--device", "cpu", "--out", str(tmp_path)]) == 1
+    assert f"{suite}/FAILED,0,nan" in capsys.readouterr().out
+    assert not os.path.exists(os.path.join(tmp_path, f"BENCH_{suite}.json"))
 
 
 def test_run_transport_suite_on_cpu_passes_its_baseline(tmp_path):

@@ -1,5 +1,6 @@
 """The port stands alone: it runs with JAX and ml_dtypes unimportable
-(the paper's runs, the harness, the LM serving and training paths), imports nothing of
+(the paper's runs, the harness, the LM serving and training paths, the
+dry-run), imports nothing of
 the JAX package ``repro`` or of the reference's ``benchmarks``, and its
 entry points never default to the CPU."""
 import os
@@ -201,6 +202,37 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("repro", "benchmarks"
 assert not bad, bad
 print("ok")
 """
+
+
+# the dry-run (launch/): a full-width count on meta, its record, reanalyze and
+# the roofline report, with `repro`, `benchmarks`, jax and ml_dtypes blocked
+LAUNCH_RUN = """
+import os, sys, tempfile
+for mod in ("jax", "ml_dtypes", "repro", "benchmarks"):
+    sys.modules[mod] = None  # any import of them now raises ImportError
+import json
+from repro_torch import roofline_report
+from repro_torch.launch import dryrun, mesh, reanalyze, sharding, specs
+out = tempfile.mkdtemp()
+dryrun.main(["--arch", "gemma3-1b", "--shape", "decode_32k", "--out", out])
+recs = roofline_report.load(out)
+assert len(recs) == 1 and dryrun.record_problems(recs[0]) == [], recs
+assert reanalyze.reanalyze(out, tempfile.mkdtemp()) == recs
+assert roofline_report.bench(out)[0][0] == "roofline/gemma3-1b/decode_32k/bound_s"
+built = specs.build("gemma3-1b", "train_4k", mesh.make_production_mesh(multi_pod=True))
+assert built.meta["W"] == 32 and built.specs[1]["tokens"][0] == ("pod", "data")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("repro", "benchmarks") and sys.modules[m] is not None)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_dry_run_runs_without_jax_repro_or_benchmarks():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", LAUNCH_RUN], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_training_path_runs_without_jax_repro_or_benchmarks():
