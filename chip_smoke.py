@@ -131,10 +131,13 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     scenario; Table 2's n = 10 rows plus n = 100, s = 1 from (q)'s problem;
     ``trace_smoke`` through ``obs.analyze`` (spans, Perfetto, degraded
     rounds attributed); every BENCH document valid; then ``bench_diff``
-    against the reference's ``benchmarks/baselines`` for table2, wire,
-    encode, transport and scenario: a missing metric or a failing ``value``
-    gate fails; the ``us_per_call`` gates are printed, not enforced (those
-    baselines were timed on a CPU in Pallas interpret mode). The counters
+    twice: against the reference's ``benchmarks/baselines`` for table2, wire,
+    encode, transport and scenario, where a missing metric or a failing
+    ``value`` gate fails and the ``us_per_call`` gates are printed, not
+    enforced (those baselines were timed on a CPU in Pallas interpret mode);
+    then those five and kernels against the port's own baselines from an
+    H100 (``src/repro_torch/baselines``), every gate enforced, ``us_per_call``
+    included. The counters
     are zeroed before (q) and read after (r): every kernel but unpack_bits
     (which only the serving path's decode reaches, (s)) must have launched
     there.
@@ -156,8 +159,9 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     served logits moved, unpack_bits launched; at smoke width NATURAL,
     DENSE / SYNC, StaleDelta, SequenceGap, SEED and a non-finite payload
     refused before any change; (s4) the harness's serve suite
-    (``repro_torch.run``) and ``bench_diff`` against
-    ``benchmarks/baselines/BENCH_serve.json``: every gate holds. (s3)'s
+    (``repro_torch.run``) and ``bench_diff`` as in (r): the reference's
+    ``value`` gates from ``benchmarks/baselines/BENCH_serve.json``, then every
+    gate of ``src/repro_torch/baselines/BENCH_serve.json``. (s3)'s
     messages are built by the sender's encoders and held against the host
     codec before the counters are zeroed; the counters are zeroed before
     (s1) and read after (s4), and unpack_bits must have launched there (the
@@ -210,8 +214,26 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     must have launched once a leaf a train step; (u2) ``repro_torch.run
     roofline`` over the records: BENCH_roofline.json valid, and the table.
 
+(v) the port's last one-card entry points: (v1) ``python -m
+    repro_torch.federated_l1`` (``main(["--out", tmp, "--device", "cuda"])``),
+    the paper's reduced grid (d = 200, n = 10, noise s in {0.1, 1, 10}, 4e6
+    downlink bits a worker; 8 runs a cell): 24 CSV rows under the reference's
+    header, every run stopped at the first round at or past its budget; the
+    s = 1 cell against the CPU port's ``fig1.run_suite`` (a process of its
+    own, meanwhile): constant-stepsize MARINA-P f_x within TRAJ_RTOL every
+    round with equal rounds and bits, EF21-P equal rounds and bits, Polyak
+    MARINA-P bits within TRAJ_RTOL and rounds within one (their f_x gap is
+    printed: a Polyak trajectory follows the last bits of gamma); (v2)
+    ``python -m repro_torch.wire_bench --smoke`` exits 0; (v3)
+    ``problems.sigma_A`` of (q)'s n = 100 problem, recomputed from its host
+    matrices, equal to ``prob.sigma_A`` bit for bit. The counters are zeroed
+    before (v1) and read after it (l1_subgrad and block_topk must have
+    launched), then zeroed before (v2) and read after it (every kernel but
+    the two rotk entries must have launched).
+
 Prints a ``{"kernels": [...]}`` JSON line (launches: the path of each row
-plus (m)-(o), (q)-(r), (s), (t) and (u) (``dryrun_path``: (u)'s own); the rotk_apply row names its dtypes, its numbers are float32's and
+plus (m)-(o), (q)-(r), (s), (t), (u) and (v) (``dryrun_path``: (u)'s own;
+``grid_path`` and ``wire_smoke_path``: (v1)'s and (v2)'s); the rotk_apply row names its dtypes, its numbers are float32's and
 ``by_dtype`` gives each dtype's; the rotk_apply_rows row's are 4 f32 rows of the largest leaf, with
 ``by_dtype`` for bf16, the per-worker path's time and a whole round's; the unpack_bits row's ``serve_path`` gives
 its (s) launches and its times at (s3)'s streams; every row's ``train_path``
@@ -986,8 +1008,57 @@ HARNESS_KERNELS = ("l1_subgrad", "block_topk", "pack_bits", "sparse_streams", "d
                    "rotk_apply", "mask_streams", "topk_streams")
 HARNESS_SUITES = ("fig1", "stepsize_grid", "comm_complexity", "kernels", "wire", "encode", "transport",
                   "scenario")
-DIFF_SUITES = ("table2", "wire", "encode", "transport", "scenario")  # the suites with a baseline
+# the suites whose rows match the reference's baselines (benchmarks/baselines), and those held to
+# the port's own baselines from an H100 (src/repro_torch/baselines): kernels' rows are the port's
+DIFF_SUITES = ("table2", "wire", "encode", "transport", "scenario")
+PORT_DIFF_SUITES = DIFF_SUITES + ("kernels",)
+REF_BASELINES = ROOT / "benchmarks" / "baselines"
+PORT_BASELINES = SRC / "repro_torch" / "baselines"
 SPMD_ATOL = 1e-4
+
+
+def hold_to_baselines(what, suite, fresh, *, keep=None, reference=True):
+    """``bench_diff`` of a fresh BENCH document twice. First against the
+    reference's baseline (``benchmarks/baselines``): a missing metric or a
+    failing ``value`` gate fails; its ``us_per_call`` gates, timed on a CPU in
+    Pallas interpret mode, are printed and not enforced. Then against the
+    port's own baseline from an H100 (``src/repro_torch/baselines``): every
+    gate, ``us_per_call`` included, must hold. ``keep`` selects the
+    baselines' metrics that this run computed."""
+    from repro_torch import bench_diff, obs
+
+    def load(directory):
+        doc = obs.load(str(directory / f"BENCH_{suite}.json"))
+        if keep is not None:
+            doc["metrics"] = {name: v for name, v in doc["metrics"].items() if keep(name)}
+        return doc
+
+    if reference:
+        base = load(REF_BASELINES)
+        value = dict(base, gates=[g for g in base["gates"] if g["field"] != "us_per_call"])
+        timing = dict(base, gates=[g for g in base["gates"] if g["field"] == "us_per_call"])
+        v_fail, v_checked = bench_diff.diff_docs(value, fresh)
+        t_fail, t_checked = bench_diff.diff_docs(timing, fresh)
+        missing = [f for f in t_fail if "missing" in f]
+        log(f"{what} bench_diff {suite} against benchmarks/baselines: {len(v_checked)} value gates checked, "
+            f"{len(v_fail)} failing; {len(t_checked)} us_per_call gates (CPU-interpret baseline, printed only), "
+            f"{len(t_fail) - len(missing)} over")
+        for f in t_fail:
+            if f not in missing:
+                log(f"{what}   us_per_call, not enforced: {f}")
+        if v_fail or missing:
+            fail(f"{what} bench_diff {suite} against benchmarks/baselines: {(v_fail + missing)[:6]}")
+    base = load(PORT_BASELINES)
+    if base["env"]["platform"] != "gpu":
+        fail(f"{what} src/repro_torch/baselines/BENCH_{suite}.json was not made on a card: {base['env']}")
+    failures, checked = bench_diff.diff_docs(base, fresh)
+    ratios = [fresh["metrics"][name]["us_per_call"] / max(base["metrics"][name]["us_per_call"], 1e-12)
+              for name, field in (c.rsplit(":", 1) for c in checked) if field == "us_per_call"]
+    spread = f" (fresh / baseline {min(ratios):.3f}-{max(ratios):.3f})" if ratios else ""
+    log(f"{what} bench_diff {suite} against src/repro_torch/baselines ({base['env']['device_kind']}): "
+        f"{len(checked)} gates checked, {len(ratios)} of them us_per_call{spread}, {len(failures)} failing")
+    if failures:
+        fail(f"{what} bench_diff {suite} against src/repro_torch/baselines: {failures[:6]}")
 
 
 def rotk16_phase(np, torch, dev, timed):
@@ -1165,16 +1236,14 @@ def harness_phase(np, torch, dev, prob100, datagen_s):
     """(r): ``repro_torch.run.main`` on the card for HARNESS_SUITES, Table 2
     (n = 10 rows, plus n = 100, s = 1 from (q)'s problem), ``trace_smoke``
     through ``obs.analyze``; every BENCH document valid; then each suite of
-    DIFF_SUITES against the reference's committed baseline with
-    ``bench_diff.diff_docs``: a missing metric or a failing ``value`` gate
-    fails, the ``us_per_call`` gates are printed and not enforced (those
-    baselines were timed on a CPU in Pallas interpret mode). Returns
-    {suite: wall s}."""
+    PORT_DIFF_SUITES through :func:`hold_to_baselines`: the reference's
+    ``value`` gates (DIFF_SUITES), then every gate of the port's own H100
+    baseline, ``us_per_call`` included. Returns {suite: wall s}."""
     import glob
     import os
     import tempfile
 
-    from repro_torch import bench_diff, obs, run, table2_sigma, trace_smoke
+    from repro_torch import obs, run, table2_sigma, trace_smoke
     from repro_torch.obs import analyze
 
     walls = {}
@@ -1213,25 +1282,12 @@ def harness_phase(np, torch, dev, prob100, datagen_s):
         for suite in [*HARNESS_SUITES]:
             walls[suite] = obs.load(os.path.join(tmp, f"BENCH_{suite}.json"))["timers"][f"{suite}/suite"]["total_s"]
         log(f"(r) {len(paths)} BENCH documents valid (schema v1, platform gpu)")
-        for suite in DIFF_SUITES:
-            base = obs.load(os.path.join(str(ROOT), "benchmarks", "baselines", f"BENCH_{suite}.json"))
-            fresh = obs.load(os.path.join(tmp, f"BENCH_{suite}.json"))
+        for suite in PORT_DIFF_SUITES:
+            keep = None
             if suite == "table2":  # only the cells this phase computed
-                base["metrics"] = {name: v for name, v in base["metrics"].items()
-                                   if any({f"n{n}", f"s{s}"} <= set(name.split("/")) for n, s in cells)}
-            value = dict(base, gates=[g for g in base["gates"] if g["field"] != "us_per_call"])
-            timing = dict(base, gates=[g for g in base["gates"] if g["field"] == "us_per_call"])
-            v_fail, v_checked = bench_diff.diff_docs(value, fresh)
-            t_fail, t_checked = bench_diff.diff_docs(timing, fresh)
-            missing = [f for f in t_fail if "missing" in f]
-            log(f"(r) bench_diff {suite}: {len(v_checked)} value gates checked, {len(v_fail)} failing; "
-                f"{len(t_checked)} us_per_call gates (CPU-interpret baseline, printed only), "
-                f"{len(t_fail) - len(missing)} over")
-            for f in t_fail:
-                if f not in missing:
-                    log(f"(r)   us_per_call, not enforced: {f}")
-            if v_fail or missing:
-                fail(f"(r) bench_diff {suite}: {(v_fail + missing)[:6]}")
+                keep = lambda name: any({f"n{n}", f"s{s}"} <= set(name.split("/")) for n, s in cells)  # noqa: E731
+            hold_to_baselines("(r)", suite, obs.load(os.path.join(tmp, f"BENCH_{suite}.json")), keep=keep,
+                              reference=suite in DIFF_SUITES)
     return walls
 
 
@@ -1637,13 +1693,13 @@ def eager_decode_ms(torch, dev):
 def serve_suite_phase(np, torch, dev, card):
     """(s4): the serve suite of the harness on the card (``repro_torch.run``'s
     ``main(["serve"])``, what ``python -m repro_torch.run serve`` runs), then
-    ``bench_diff`` against ``benchmarks/baselines/BENCH_serve.json``: every
-    gate (the latency and tokens/s values and the us_per_call rows) must
-    hold. Returns the fresh rows."""
+    :func:`hold_to_baselines`: the reference's ``value`` gates (latency and
+    tokens/s) and every gate of the port's H100 baseline. Returns the fresh
+    rows."""
     import os
     import tempfile
 
-    from repro_torch import bench_diff, obs, run, serve_bench
+    from repro_torch import obs, run, serve_bench
 
     out = tempfile.mkdtemp(prefix="serve_bench_")
     t0 = time.perf_counter()
@@ -1654,17 +1710,12 @@ def serve_suite_phase(np, torch, dev, card):
     fresh = obs.load(os.path.join(out, "BENCH_serve.json"))
     if obs.validate(fresh):
         fail(f"(s4) BENCH_serve.json invalid: {obs.validate(fresh)}")
-    base = obs.load(str(ROOT / "benchmarks" / "baselines" / "BENCH_serve.json"))
-    failures, checked = bench_diff.diff_docs(base, fresh)
     rows = {k: v.get("value") for k, v in fresh["metrics"].items() if k.endswith(("_ms", "_per_s"))}
     log(f"(s4) python -m repro_torch.run serve: {wall:.1f} s; rows {rows} ({card})")
     eager_ms = eager_decode_ms(torch, dev)
     log(f"(s4) the suite's decode (16 greedy steps at batch 2) with the step eager, no CUDA graph, "
         f"for the record: p50 {eager_ms:.4f} ms over {serve_bench.N_REQUESTS} runs, wall clock ({card})")
-    log(f"(s4) bench_diff against benchmarks/baselines/BENCH_serve.json: {len(checked)} gates checked, "
-        f"{len(failures)} failing")
-    if failures:
-        fail(f"(s4) bench_diff serve: {failures}")
+    hold_to_baselines("(s4)", "serve", fresh)
     return rows, wall
 
 
@@ -2319,6 +2370,146 @@ def roofline_suite_phase(card):
     log(roofline_report.markdown_table(roofline_report.load(str(DRYRUN_DIR))))
 
 
+# ---------------------------------------------------------------------------
+# the paper's grid, the wire smoke and sigma_A (phase v)
+# ---------------------------------------------------------------------------
+
+# kernels that must launch in (v1) (the grid's runs) and in (v2) (wire_bench --smoke)
+GRID_KERNELS = ("l1_subgrad", "block_topk")
+WIRE_SMOKE_KERNELS = ("l1_subgrad", "block_topk", "bernk", "pack_bits", "unpack_bits", "sparse_streams",
+                      "dense_bits", "mask_streams", "topk_streams")
+# the reference's CSV columns (examples/federated_l1.py)
+GRID_HEADER = ["d", "n", "noise", "method", "final_subopt", "rounds", "bits_per_worker"]
+# (v1)'s CPU run of the s = 1 cell, in a process of its own beside the card's grid
+GRID_CPU_CELL = """
+import json, sys
+import torch
+torch.set_num_threads(1)
+from repro_torch import fig1
+d, n, s, budget = json.loads(sys.argv[2])
+res = fig1.run_suite(d=d, n=n, noise=s, budget_bits=budget, device="cpu")
+with open(sys.argv[1], "w") as f:
+    json.dump({name: {"f_x": r["hist"]["f_x"], "rounds": r["rounds"], "bits_per_worker": r["bits_per_worker"]}
+               for name, r in res.items()}, f)
+"""
+
+
+def grid_phase(np, torch, dev, card):
+    """(v1): ``federated_l1.main(["--out", tmp, "--device", "cuda"])``, the
+    reduced grid (d = 200, n = 10, noise s in {0.1, 1, 10}, 4e6 bits a
+    worker) of ``examples/federated_l1.py``: 24 rows under the reference's
+    header; every run stopped at the first round at or past its budget. The
+    s = 1 cell against the CPU port's ``fig1.run_suite`` (run in a process
+    of its own meanwhile): the three constant-stepsize MARINA-P runs' f_x
+    within TRAJ_RTOL every round, with equal rounds and bits; EF21-P's two
+    runs equal rounds and bits (their f is the TopK tie lottery); the three
+    Polyak MARINA-P runs' bits within TRAJ_RTOL and rounds within one, their
+    f_x gap reported: a Polyak trajectory follows the last bits of gamma
+    (tests/test_torch_federated_l1.py), and a late message can be one SPARSE
+    entry shorter on one device, as in (n). Returns wall s."""
+    import csv
+    import os
+    import tempfile
+
+    from repro_torch import federated_l1, fig1
+
+    d, n, s1, budget = federated_l1.REDUCED_CELLS[1]
+    tmp = tempfile.mkdtemp(prefix="federated_l1_")
+    out, cpu_json = os.path.join(tmp, "federated_l1.csv"), os.path.join(tmp, "cpu.json")
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    cpu = subprocess.Popen([sys.executable, "-c", GRID_CPU_CELL, cpu_json, json.dumps([d, n, s1, budget])],
+                           env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    results = {}
+
+    def recording(**kw):
+        results[kw["noise"]] = fig1.run_suite(**kw)
+        return results[kw["noise"]]
+
+    try:
+        federated_l1.run_suite = recording
+        t0 = time.perf_counter()
+        rc = federated_l1.main(["--out", out, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        cpu_log = cpu.communicate(timeout=900)[0]
+        waited = time.perf_counter() - t1
+    finally:
+        federated_l1.run_suite = fig1.run_suite
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+    if rc != 0 or cpu.returncode != 0:
+        fail(f"(v1) federated_l1.main exited {rc}; the CPU run exited {cpu.returncode}:\n{cpu_log[-3000:]}")
+    with open(out, newline="") as f:
+        rows = list(csv.reader(f))
+    if rows[0] != GRID_HEADER or len(rows) != 1 + 24:
+        fail(f"(v1) {out}: header {rows[0]}, {len(rows) - 1} rows (want the reference's header and 24)")
+    for row in rows[1:]:
+        s, name, rounds, bits = float(row[2]), row[3], int(row[5]), float(row[6])
+        hist = results[s][name]["hist"]
+        last = hist["s2w_bits"][-1] - hist["s2w_bits"][-2]
+        if not (bits == hist["s2w_bits"][-1] and rounds == len(hist["f_x"]) and bits >= budget > bits - last
+                and np.isfinite(hist["f_x"]).all()):
+            fail(f"(v1) {row}: not stopped at the first round past {budget:g} bits (last round {last} bits, "
+                 f"{len(hist['f_x'])} rounds recorded)")
+        log(f"(v1) d={row[0]} n={row[1]} s={s:5.1f} {name:20s} f-f*={float(row[4]):.6g} rounds={rounds} "
+            f"bits/worker={bits:.6g} (last round {last:g} bits)")
+    with open(cpu_json) as f:
+        cpu_res = json.load(f)
+    for name, want in cpu_res.items():
+        got = results[s1][name]
+        f_card, f_cpu = got["hist"]["f_x"], want["f_x"]
+        m = min(len(f_card), len(f_cpu))
+        rel = np.abs(np.subtract(f_card[:m], f_cpu[:m])) / np.abs(f_cpu[:m])
+        over = np.flatnonzero(rel > TRAJ_RTOL)
+        bits_rel = abs(got["bits_per_worker"] - want["bits_per_worker"]) / want["bits_per_worker"]
+        log(f"(v1) s={s1} {name:20s} card vs CPU: rounds {got['rounds']} / {want['rounds']}, bits/worker "
+            f"{got['bits_per_worker']!r} / {want['bits_per_worker']!r}, largest f_x gap {rel.max():.3e}"
+            + (f" (first over {TRAJ_RTOL} at round {over[0]})" if over.size else ""))
+        exact = name.startswith("ef21p") or name.endswith("const")
+        if exact and (got["rounds"], got["bits_per_worker"]) != (want["rounds"], want["bits_per_worker"]):
+            fail(f"(v1) {name}: rounds or bits differ between card and CPU")
+        if not exact and (bits_rel > TRAJ_RTOL or abs(got["rounds"] - want["rounds"]) > 1):
+            fail(f"(v1) {name}: bits rel diff {bits_rel:.3e}, rounds {got['rounds']} / {want['rounds']}")
+        if name.startswith("marina") and name.endswith("const") and (m != len(f_cpu) or over.size):
+            fail(f"(v1) {name}: card vs CPU f_x rel gap {rel.max():.3e} > {TRAJ_RTOL}")
+    log(f"(v1) python -m repro_torch.federated_l1 (3 cells, 24 runs): {wall:.1f} s on the card, the CPU's s={s1} "
+        f"cell done {waited:.1f} s after it ({card})")
+    return wall
+
+
+def wire_smoke_phase():
+    """(v2): ``wire_bench.main(["--smoke", "--device", "cuda"])`` returns 0
+    (byte identity, every MARINA-P gap below 5% at d=256, n=4, T=30).
+    Returns wall s."""
+    from repro_torch import wire_bench
+
+    t0 = time.perf_counter()
+    rc = wire_bench.main(["--smoke", "--device", "cuda"])
+    if rc != 0:
+        fail(f"(v2) python -m repro_torch.wire_bench --smoke exited {rc}")
+    return time.perf_counter() - t0
+
+
+def sigma_phase(sigma100):
+    """(v3): ``problems.sigma_A`` of (q)'s n = 100 problem, recomputed from
+    its A on the host (Algorithm 3's float64 matrices, before
+    ``generate_problem`` placed them on the card as float32), equal to
+    ``prob.sigma_A`` bit for bit. Returns wall s."""
+    from repro_torch.core import problems
+
+    t0 = time.perf_counter()
+    A, _ = problems.algorithm3(n=100, d=1000, noise_scale=1.0, seed=0)
+    got = problems.sigma_A(A)
+    if got != sigma100:
+        fail(f"(v3) sigma_A of the n=100 problem's A {got!r} != generate_problem's {sigma100!r}")
+    secs = time.perf_counter() - t0
+    log(f"(v3) problems.sigma_A(A) of (q)'s n=100, d=1000, s=1 problem: {got!r}, bit-equal to "
+        f"generate_problem's ({secs:.1f} s on the host)")
+    return secs
+
+
 def main() -> int:
     import torch
 
@@ -2860,6 +3051,7 @@ def main() -> int:
     runtime.reset_launches()
     t_q = time.perf_counter()
     prob100, datagen_s, spmd_err, spmd_us = spmd_phase(np, torch, dev, T=50)
+    sigma100 = prob100.sigma_A
     t_r = time.perf_counter()
     walls = harness_phase(np, torch, dev, prob100, datagen_s)
     torch.cuda.synchronize()
@@ -2975,6 +3167,24 @@ def main() -> int:
     log(f"(u) launches on the measured path: {u_launches}; (u0) {u0_s:.1f} s, (u1) {t_u2 - t_u1:.1f} s, "
         f"(u2) {time.perf_counter() - t_u2:.1f} s; (u) took {time.perf_counter() - t_u0:.1f} s ({card})")
 
+    # --- (v) the paper's grid, the wire smoke and sigma_A ----------------------------------
+    runtime.reset_launches()
+    grid_s = grid_phase(np, torch, dev, card)
+    torch.cuda.synchronize()
+    grid_launches = dict(runtime.LAUNCHES)
+    runtime.reset_launches()
+    smoke_s = wire_smoke_phase()
+    torch.cuda.synchronize()
+    smoke_launches = dict(runtime.LAUNCHES)
+    for what, got_launches, want in (("(v1) the grid", grid_launches, GRID_KERNELS),
+                                     ("(v2) wire_bench --smoke", smoke_launches, WIRE_SMOKE_KERNELS)):
+        for kname in want:
+            if got_launches.get(kname, 0) <= 0:
+                fail(f"{what} never launched {kname}")
+    sigma_s = sigma_phase(sigma100)
+    log(f"(v) launches: (v1) {grid_launches}, (v2) {smoke_launches}; (v1) {grid_s:.1f} s, (v2) {smoke_s:.1f} s, "
+        f"(v3) {sigma_s:.1f} s ({card})")
+
     summary = {"kernels": [
         {"name": "l1_subgrad", "route": "cuda", "source": "src/repro_torch/csrc/l1_subgrad.cu",
          "replaces": "src/repro/kernels/l1_subgrad.py:46", "launches": launches["l1_subgrad"],
@@ -3015,9 +3225,13 @@ def main() -> int:
     for row in summary["kernels"]:  # the later slices' paths launched these kernels too
         row["launches"] += (slice_launches.get(row["name"], 0) + harness_launches.get(row["name"], 0)
                             + serve_launches.get(row["name"], 0) + train_launches.get(row["name"], 0)
-                            + u_launches.get(row["name"], 0))
+                            + u_launches.get(row["name"], 0) + grid_launches.get(row["name"], 0)
+                            + smoke_launches.get(row["name"], 0))
         # the dry-run's measured steps (u1): their launches
         row["dryrun_path"] = {"launches": u_launches.get(row["name"], 0)}
+        # (v1) the paper's reduced grid, (v2) wire_bench --smoke: their launches
+        row["grid_path"] = {"launches": grid_launches.get(row["name"], 0)}
+        row["wire_smoke_path"] = {"launches": smoke_launches.get(row["name"], 0)}
         # the training path (t): its launches, and the time at its largest leaf
         row["train_path"] = {"launches": train_launches.get(row["name"], 0)}
         if row["name"] in train_err:

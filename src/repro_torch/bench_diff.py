@@ -18,7 +18,14 @@ the flag exists so brand-new suites can land before their first baseline.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.bench_diff --fresh runs/bench \
-        --baseline benchmarks/baselines [--suite wire --suite kernels]
+        [--baseline DIR] [--suite wire --suite kernels]
+
+``--baseline`` defaults to :data:`DEFAULT_BASELINE`, the port's own
+documents (``src/repro_torch/baselines``), made on an H100 with
+``python -m repro_torch.run <suites> --device cuda``, so their
+``us_per_call`` gates hold a card run against a card run. The reference's
+``benchmarks/baselines`` were timed on a CPU in Pallas interpret mode: pass
+that directory to hold the port to its ``value`` gates.
 
 Exit code 0 = no regressions; 1 = regression / missing artifact.
 Baseline update workflow: DESIGN.md §7.4.
@@ -33,6 +40,7 @@ import sys
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 _EPS = 1e-12
+DEFAULT_BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "baselines")
 
 
 def _check(base: float, fresh: float, direction: str, rtol: float) -> Optional[str]:
@@ -129,8 +137,9 @@ def diff_dirs(
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--baseline", default="benchmarks/baselines",
-                    help="directory of committed BENCH_*.json baselines")
+    ap.add_argument("--baseline", default=DEFAULT_BASELINE,
+                    help="directory of committed BENCH_*.json baselines (default: the port's own, "
+                         "made on an H100)")
     ap.add_argument("--fresh", default="runs/bench",
                     help="directory of freshly produced BENCH_*.json")
     ap.add_argument("--suite", action="append", default=None,

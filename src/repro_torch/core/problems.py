@@ -99,12 +99,11 @@ def _tridiag(d: int) -> np.ndarray:
     return m / 4.0
 
 
-def generate_problem(
-    *, n: int, d: int, noise_scale: float, seed: int = 0, mu: float = 1e-6, device="cuda"
-) -> L1Problem:
-    """Algorithm 3 of the paper (synthetic dataset generation), placed on
-    ``device``. The default ``"cuda"`` raises where no card is present."""
-    dev = resolve_device(device)
+def algorithm3(
+    *, n: int, d: int, noise_scale: float, seed: int = 0, mu: float = 1e-6
+) -> tuple[np.ndarray, np.ndarray]:
+    """Algorithm 3's A [n, d, d] and x0 [d] on the host, in float64, as
+    :func:`generate_problem` draws them before placing them on its device."""
     rng = np.random.default_rng(seed)
     base = _tridiag(d)
     nus = 1.0 + noise_scale * rng.standard_normal(n)
@@ -113,15 +112,30 @@ def generate_problem(
     lam_min = float(np.linalg.eigvalsh(Abar).min())
     A = A + (mu - lam_min) * np.eye(d)[None]
     x0 = rng.standard_normal(d)
+    return A, x0
+
+
+def generate_problem(
+    *, n: int, d: int, noise_scale: float, seed: int = 0, mu: float = 1e-6, device="cuda"
+) -> L1Problem:
+    """Algorithm 3 of the paper (synthetic dataset generation), placed on
+    ``device``. The default ``"cuda"`` raises where no card is present."""
+    dev = resolve_device(device)
+    A, x0 = algorithm3(n=n, d=d, noise_scale=noise_scale, seed=seed, mu=mu)
     # spectral norms (symmetric => max |eig|); tridiagonal Toeplitz-like but
     # after shift no longer exactly Toeplitz — compute numerically.
     L0i = np.array([np.abs(np.linalg.eigvalsh(Ai)).max() for Ai in A])
-    spec = np.array([np.linalg.norm(Ai, 2) for Ai in A])
-    sigma_A = float(np.sqrt(max((spec**2).mean() - spec.mean() ** 2, 0.0)))
     return L1Problem(
         A=torch.as_tensor(A, dtype=torch.float32).to(dev),
         x0=torch.as_tensor(x0, dtype=torch.float32).to(dev),
         L0i=torch.as_tensor(L0i, dtype=torch.float32).to(dev),
-        sigma_A=sigma_A,
+        sigma_A=sigma_A(A),
     )
 
+
+def sigma_A(A: np.ndarray) -> float:
+    """Data dissimilarity measure, eq. (31)/(33): the spread of the workers'
+    spectral norms, from a numpy ``[n, d, d]`` array on the host. Its last
+    bits follow the BLAS library's thread count."""
+    spec = np.array([np.linalg.norm(Ai, 2) for Ai in np.asarray(A)])
+    return float(np.sqrt(max((spec**2).mean() - spec.mean() ** 2, 0.0)))

@@ -8,8 +8,10 @@ composite tracker (repro_torch.obs): stdout CSV, an optional JSONL event
 log, and a schema-v1 ``BENCH_<suite>.json`` perf artifact with provenance
 (git rev, torch/CUDA versions, device kind, seed) and the reference's
 regression gates, which ``repro_torch.bench_diff`` reads back against a
-baseline directory (``benchmarks/baselines`` holds the reference's). Every
-suite runs on ``--device`` (default the card). Suites:
+baseline directory: by default the port's own, ``src/repro_torch/baselines``,
+made on an H100 (``benchmarks/baselines`` holds the reference's, timed on a
+CPU in Pallas interpret mode). Every suite runs on ``--device`` (default the
+card). Suites:
 
   fig1             Fig. 1/7   EF21-P vs MARINA-P (same/ind/perm), const/Polyak
   table2           Table 2    sigma_A per (n, noise scale), paper sizes

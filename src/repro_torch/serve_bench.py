@@ -17,8 +17,9 @@ span tree is reduced to the reference's five gated rows:
 The percentiles come from the span durations (linear interpolation,
 ``obs.hist``), as in the reference. ``repro_torch.run`` bakes the
 reference's gates (``GATES["serve"]``) into ``BENCH_serve.json``, and
-``repro_torch.bench_diff`` holds it against
-``benchmarks/baselines/BENCH_serve.json``.
+``repro_torch.bench_diff`` holds it against the port's own baseline from the
+H100, ``src/repro_torch/baselines/BENCH_serve.json`` (the reference's, taken on
+a CPU, is ``benchmarks/baselines/BENCH_serve.json``).
 """
 from __future__ import annotations
 

@@ -1,20 +1,20 @@
 """Wire benchmark of the port (counterpart of ``benchmarks/wire_bench.py``).
 
-    PYTHONPATH=src python -m repro_torch.wire_bench [--device cpu] [--T 200]
+    PYTHONPATH=src python -m repro_torch.wire_bench [--smoke] [--device cpu] [--T 200]
     PYTHONPATH=src python -m repro_torch.run wire encode [--device cpu]   (the harness)
 
-Four sections, at the reference's full sizes, on ``--device`` (default the
-card):
+Four sections, at the reference's full sizes (``--smoke``: its smoke sizes),
+on ``--device`` (default the card):
 
-* **codec throughput** (:func:`throughput_rows`, d = 2**20): encode/decode
-  GB/s of the host codecs (SPARSE at 1/16 density, NATURAL over a
-  ``NaturalCompression`` output, DENSE) and of the ``pack_bits`` /
-  ``unpack_bits`` kernels, against the dense fp32 payload;
-* **fused encode roofline** (:func:`encode_roofline_rows`, d = 2**16): GB/s
-  of each encode path in two modes, ``host`` (the numpy codec) and
-  ``device`` (``kernels/encode.py``: the CUDA kernels on a card, their plain
-  versions on ``--device cpu``): SPARSE, block-TopK (k = 64 of 1024), BernK
-  mask (keep 1/16, seed 7) and DENSE;
+* **codec throughput** (:func:`throughput_rows`, d = 2**20; ``--smoke``
+  2**16): encode/decode GB/s of the host codecs (SPARSE at 1/16 density,
+  NATURAL over a ``NaturalCompression`` output, DENSE) and of the
+  ``pack_bits`` / ``unpack_bits`` kernels, against the dense fp32 payload;
+* **fused encode roofline** (:func:`encode_roofline_rows`, d = 2**16;
+  ``--smoke`` 2**14): GB/s of each encode path in two modes, ``host`` (the
+  numpy codec) and ``device`` (``kernels/encode.py``: the CUDA kernels on a
+  card, their plain versions on ``--device cpu``): SPARSE, block-TopK (k = 64
+  of 1024), BernK mask (keep 1/16, seed 7) and DENSE;
 * **encode suite** (:func:`bench_encode`, d = 2**14): µs per call of the same
   paths and ``encode/byte_identical``, 1.0 iff every fused buffer equals the
   host codec's over the matching op (``ops.block_topk``, ``ops.bernk``);
@@ -23,7 +23,8 @@ card):
   constant stepsize 0.02, run with ``measure_wire=True``; each row is the
   wire-matched analytic ledger's bits per round (value_bits 32), the
   measured bits per round, and their gap, at the reference's setting
-  (d=1024, n=4) and at the paper's (d=1000, n=10). DESIGN.md §3.5 requires
+  (d=1024, n=4) and at the paper's (d=1000, n=10), T = 200 (``--smoke``: the
+  reference's one smoke setting, d=256, n=4, T=30). DESIGN.md §3.5 requires
   a gap below 5% for the three MARINA-P modes.
 
 Times are host-clock medians around calls that end in a device sync. Exits 1
@@ -46,6 +47,10 @@ from .kernel_bench import median_ms
 from .kernels import ops, runtime
 
 SETTINGS = ((1024, 4), (1000, 10))  # (d, n): the reference's bench, the paper's Figure 1
+# ``--smoke``: the reference's smoke sizes (benchmarks/wire_bench.py: throughput_rows,
+# encode_roofline_rows, parity_rows)
+SMOKE = {"throughput_d": 1 << 16, "roofline_d": 1 << 14, "settings": ((256, 4),), "T": 30}
+FULL = {"throughput_d": 1 << 20, "roofline_d": 1 << 16, "settings": SETTINGS, "T": 200}
 GAP_LIMIT_PCT = 5.0
 # the reference's fused-encode settings (benchmarks/wire_bench.py::_encode_cases)
 TOPK_K, TOPK_BLOCK = 64, 1024
@@ -201,14 +206,23 @@ def failures(rows) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--T", type=int, default=200)
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reference's smoke sizes: throughput at d=2**16, the encode roofline at "
+                         "2**14, parity at d=256 n=4 T=30")
+    ap.add_argument("--T", type=int, default=None,
+                    help=f"parity rounds (default {FULL['T']}, or {SMOKE['T']} with --smoke; "
+                         "--T wins over --smoke)")
     args = ap.parse_args(argv)
+    sizes = SMOKE if args.smoke else FULL
+    T = args.T if args.T is not None else sizes["T"]
     where = f"on {args.device}"
-    print(f"== codec throughput, d=2**20 {where} (dense-payload GB/s) ==")
-    for name, gbs, nbytes in throughput_rows(device=args.device):
+    d = sizes["throughput_d"]
+    print(f"== codec throughput, d=2**{d.bit_length() - 1} {where} (dense-payload GB/s) ==")
+    for name, gbs, nbytes in throughput_rows(d=d, device=args.device):
         print(f"{name:32s} {gbs:8.3f} GB/s   ({nbytes} wire bytes)")
-    print(f"\n== fused encode roofline, d=2**16 {where} (dense-payload GB/s) ==")
-    for name, gbs, nbytes in encode_roofline_rows(device=args.device):
+    d = sizes["roofline_d"]
+    print(f"\n== fused encode roofline, d=2**{d.bit_length() - 1} {where} (dense-payload GB/s) ==")
+    for name, gbs, nbytes in encode_roofline_rows(d=d, device=args.device):
         print(f"{name:32s} {gbs:8.3f} GB/s   ({nbytes} wire bytes)")
     print(f"\n== encode suite, d=2**14 {where} (us per call, GB/s) ==")
     enc = bench_encode(device=args.device)
@@ -217,10 +231,10 @@ def main(argv=None) -> int:
     bad = []
     if enc[-1][2] != 1.0:
         bad.append("encode/byte_identical = 0: a device buffer differs from the host codec's")
-    for d, n in SETTINGS:
+    for d, n in sizes["settings"]:
         t0 = time.perf_counter()
-        rows = parity_rows(d=d, n=n, T=args.T, device=args.device)
-        print(f"\n== d={d} n={n} T={args.T} {where}: measured vs analytic bits/round "
+        rows = parity_rows(d=d, n=n, T=T, device=args.device)
+        print(f"\n== d={d} n={n} T={T} {where}: measured vs analytic bits/round "
               f"({time.perf_counter() - t0:.1f} s)")
         for name, analytic, measured, pct in rows:
             print(f"{name:20s} analytic={analytic:12.1f}  wire={measured:12.1f}  gap={pct:+.3f}%")

@@ -555,6 +555,6 @@ def test_federated_l1_fleet_demo_on_cpu(tmp_path, capsys):
     assert len(out.read_text().splitlines()) == 4
     assert "wrote" in capsys.readouterr().out
     out2 = tmp_path / "main.csv"
-    assert federated_l1.main(["--device", "cpu", "--population", "512", "--cohort", "8", "-T", "3",
-                              "--out", str(out2)]) == 0
+    assert federated_l1.main(["--fleet", "--device", "cpu", "--population", "512", "--cohort", "8",
+                              "-T", "3", "--out", str(out2)]) == 0
     assert out2.read_text().splitlines()[0].startswith("method,final_f")

@@ -227,6 +227,45 @@ print("ok")
 """
 
 
+# the paper's grid (python -m repro_torch.federated_l1, its three
+# modes) and `python -m repro_torch.wire_bench --smoke`, with `repro`,
+# `benchmarks`, jax and ml_dtypes blocked; the grids run through the real
+# run_suite at budgets cut 10,000x (the paper's d and n cut to 200 and 10)
+PAPER_RUN = """
+import os, sys, tempfile
+for mod in ("jax", "ml_dtypes", "repro", "benchmarks"):
+    sys.modules[mod] = None  # any import of them now raises ImportError
+import torch
+torch.set_num_threads(1)
+from repro_torch import federated_l1, wire_bench
+real = federated_l1.run_suite
+federated_l1.run_suite = lambda *, d, n, budget_bits, **kw: real(d=min(d, 200), n=min(n, 10),
+                                                             budget_bits=budget_bits / 10_000, **kw)
+tmp = tempfile.mkdtemp()
+for mode, cells in (([], 3), (["--paper"], 6)):
+    out = os.path.join(tmp, f"grid{len(mode)}.csv")
+    assert federated_l1.main([*mode, "--device", "cpu", "--out", out]) == 0
+    rows = open(out).read().splitlines()
+    assert rows[0] == "d,n,noise,method,final_subopt,rounds,bits_per_worker" and len(rows) == 1 + 8 * cells, rows
+out = os.path.join(tmp, "fleet.csv")
+assert federated_l1.main(["--fleet", "--device", "cpu", "--population", "256", "--cohort", "4", "-T", "2",
+                          "--out", out]) == 0
+assert open(out).read().startswith("method,final_f")
+assert wire_bench.main(["--smoke", "--device", "cpu"]) == 0
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("repro", "benchmarks") and sys.modules[m] is not None)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_paper_grid_and_wire_smoke_run_without_jax_repro_or_benchmarks():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", PAPER_RUN], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_dry_run_runs_without_jax_repro_or_benchmarks():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", LAUNCH_RUN], env=env, cwd=ROOT,
