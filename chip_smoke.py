@@ -231,8 +231,31 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     launched), then zeroed before (v2) and read after it (every kernel but
     the two rotk entries must have launched).
 
+(w) the LM train step across a process group (``repro_torch.train.sharded``):
+    (w1) as one NCCL rank (mesh (1, 1)), demo-100m at full width (TRAIN_W x
+    TRAIN_B x TRAIN_S), AdamW, SHARDED_STEPS steps under marina:perm (bf16
+    replicas), marina:ind and ef21p:128:1024, beside ``make_train_step``
+    from the same state, batches and draws: state and metrics bit for bit
+    every step, the collective bytes handed to NCCL equal to the dry-run's
+    count of the same step on ``meta``, ms a step of both paths in turns; the
+    counters are zeroed before (w1) and read around its sharded steps alone:
+    rotk_apply_rows must launch once a leaf in each compressed perm round and
+    block_topk once a leaf in each EF21-P step; (w2) 4 gloo processes on the
+    one card on a (4, 1) mesh (demo-100m's marina:perm with bf16 replicas at
+    full width, the smoke gemma-2b's marina:ind and ef21p) and a (2, 2) mesh
+    with act_spec (the smoke gemma-2b, W = 4 x 2 x 64, all three), within
+    ``train/sharded_check``'s bounds of the single-process step (the CPU
+    tests' own), rows at an offset launching rotk_apply_rows; only gloo's
+    own refusal of the collectives on CUDA tensors, met by a probe before
+    the steps, is logged in place of the run, and any other error on either
+    mesh fails it; (w3) ``python -m
+    repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
+    --train-act-model-sharded`` on ``meta``: a per_rank record with its
+    collective bytes by kind and a collective term.
+
 Prints a ``{"kernels": [...]}`` JSON line (launches: the path of each row
-plus (m)-(o), (q)-(r), (s), (t), (u) and (v) (``dryrun_path``: (u)'s own;
+plus (m)-(o), (q)-(r), (s), (t), (u), (v) and (w1) (``sharded_path``: (w1)'s
+own; ``dryrun_path``: (u)'s own;
 ``grid_path`` and ``wire_smoke_path``: (v1)'s and (v2)'s); the rotk_apply row names its dtypes, its numbers are float32's and
 ``by_dtype`` gives each dtype's; the rotk_apply_rows row's are 4 f32 rows of the largest leaf, with
 ``by_dtype`` for bf16, the per-worker path's time and a whole round's; the unpack_bits row's ``serve_path`` gives
@@ -2510,6 +2533,361 @@ def sigma_phase(sigma100):
     return secs
 
 
+# ---------------------------------------------------------------------------
+# the LM train step across a process group (phase w)
+# ---------------------------------------------------------------------------
+
+# (w1): the downlinks of the sharded step at demo-100m's full width, one NCCL rank
+SHARDED_SPECS = (("marina:perm", "bfloat16"), ("marina:ind", "float32"), ("ef21p:128:1024", "float32"))
+SHARDED_STEPS = 8
+# kernels that must launch in the sharded steps of (w1)
+SHARDED_KERNELS = ("rotk_apply_rows", "block_topk")
+SHARDED_DRYRUN_DIR = ROOT / "runs" / "dryrun_chip_act"
+# (w2): 4 gloo ranks on the one card, each mesh one process group of its own:
+# (mesh, act_spec, cases (name, arch, downlink, replica dtype, B, S, attn_chunk)).
+# The (4, 1) mesh runs demo-100m at full width, so ranks 1-3 apply rotations
+# (r + off) mod W through rotk_apply_rows' vector kernel at the real leaves.
+GLOO_SMOKE = (("marina:ind", "gemma-2b", "marina:ind", "float32", 2, 64, 32),
+              ("ef21p:16:64", "gemma-2b", "ef21p:16:64", "float32", 2, 64, 32))
+GLOO_RUNS = (("4x1", False, (("marina:perm/bf16", "demo-100m", "marina:perm", "bfloat16", TRAIN_B, TRAIN_S, 128),)
+                            + GLOO_SMOKE),
+             ("2x2", True, (("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32),) + GLOO_SMOKE))
+
+def _states_equal(torch, a, b) -> list:
+    """Keys of two train states (or metrics) that differ in a bit, with the
+    largest |difference| of each."""
+    out = []
+    for k in sorted(set(a) | set(b)):
+        x, y = a.get(k), b.get(k)
+        if isinstance(x, dict):
+            out += [f"{k}/{e}" for e in _states_equal(torch, x, y or {})]
+        elif isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            x, y = torch.as_tensor(x), torch.as_tensor(y)
+            if x.dtype != y.dtype or x.shape != y.shape:
+                out.append(f"{k} {x.dtype}{tuple(x.shape)} vs {y.dtype}{tuple(y.shape)}")
+            elif not torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)):
+                out.append(f"{k} (max |diff| {float((x.float() - y.float()).abs().max()):.3e})")
+        elif x != y:
+            out.append(f"{k} ({x!r} vs {y!r})")
+    return out
+
+
+def sharded_phase(np, torch, dev, card):
+    """(w1): ``train/sharded.make_sharded_train_step`` as one NCCL rank (mesh
+    (1, 1)) at demo-100m's full width (TRAIN_W workers x TRAIN_B x TRAIN_S),
+    AdamW (wd 0.01), SHARDED_STEPS steps under each of SHARDED_SPECS, beside
+    ``make_train_step`` from the same state, batches and draws: the gathered
+    state and the metrics bit for bit after every step; the bytes the
+    communicator handed to NCCL in each step equal to the dry-run's count of
+    the same step on ``meta`` (``CountingComm``); ms a step of both paths
+    (host clock after a sync, the two in turns). Returns the sharded steps'
+    launches."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import compressed_draws
+    from repro_torch.models import lm
+    from repro_torch.models import params as P
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.schedules import cosine_warmup
+    from repro_torch.train import TrainerConfig, init_state, make_downlink, make_train_step
+    from repro_torch.train import downlink as D
+    from repro_torch.train import sharded as SH
+    from repro_torch.train_lm import model_100m
+
+    cfg = model_100m()
+    sizes = P.leaf_sizes(lm.lm_spec(cfg))
+    d = sum(sizes)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(torch.cuda.current_device())  # before the DeviceMesh, which otherwise guesses
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    launches = {}
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"(w1) the card's process group runs {dist.get_backend()}, not nccl")
+        layout, comm = SH.connect(Mesh(("data", "model"), (1, 1)), TRAIN_W, d)
+        aux = SH.Comm()  # the checks' gathers, apart from the step's tally
+        for spec, dtype in SHARDED_SPECS:
+            name = spec + ("/bf16" if dtype == "bfloat16" else "")
+            tcfg = TrainerConfig(n_workers=TRAIN_W, attn_chunk=128, weight_dtype=getattr(torch, dtype))
+            dl = make_downlink(spec, TRAIN_W)
+            opt = make_optimizer("adamw", weight_decay=0.01)
+            lr = cosine_warmup(3e-4, warmup=min(50, SHARDED_STEPS // 4), total=SHARDED_STEPS)
+            single = make_train_step(cfg, tcfg, dl, opt, lr)
+            step = SH.make_sharded_train_step(cfg, tcfg, dl, opt, lr, layout, comm)
+            counter = SH.CountingComm()
+            metastep = SH.make_sharded_train_step(cfg, tcfg, dl, opt, lr, layout, counter)
+            meta_state = SH.init_state(cfg, tcfg, dl, opt, layout, device="meta")
+            torch.cuda.empty_cache()
+            state = init_state(cfg, tcfg, dl, opt, seed=0, device=dev)
+            sp = SH.shard_state(state, layout)
+            data = SyntheticLMData(cfg, TRAIN_W, TRAIN_B, TRAIN_S, device=str(dev))
+            gen, dgen = torch.Generator().manual_seed(7), torch.Generator(dev).manual_seed(7)
+            t_single, t_sharded, counted_by_coin, syncs, mine = [], [], {}, 0, {}
+            for i in range(SHARDED_STEPS):
+                batch, draws = data.batch(i), D.draw_round(dl, sizes, gen, dgen)
+                syncs += draws.coin
+                before = dict(comm.bytes)
+                for path in ((single, step) if i % 2 == 0 else (step, single)):
+                    torch.cuda.synchronize()
+                    before_l = runtime.LAUNCHES.copy()
+                    t0 = time.perf_counter()
+                    if path is single:
+                        new, m1 = single(state, batch, draws)
+                    else:
+                        sp, m2 = step(sp, batch, draws)
+                        for k, v in runtime.LAUNCHES.items():  # the sharded step's own launches
+                            if v - before_l.get(k, 0):
+                                mine[k] = mine.get(k, 0) + v - before_l.get(k, 0)
+                    torch.cuda.synchronize()
+                    (t_single if path is single else t_sharded).append(time.perf_counter() - t0)
+                moved = {k: v - before.get(k, 0) for k, v in comm.bytes.items()}
+                if draws.coin not in counted_by_coin:  # the dry-run's count of this branch
+                    mdraws = D.DownlinkDraws(coin=True) if draws.coin else compressed_draws(dl, sizes)
+                    mbatch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in batch.items()}
+                    with op_cost.counting() as c:
+                        metastep(meta_state, mbatch, mdraws)
+                    counted_by_coin[draws.coin] = {k: float(v) for k, v in c.coll.items()}
+                if {k: float(v) for k, v in moved.items()} != counted_by_coin[draws.coin]:
+                    fail(f"(w1) {name} step {i}: bytes handed to NCCL {moved} != counted "
+                         f"{counted_by_coin[draws.coin]}")
+                full = SH.gather_state(sp, layout, aux)
+                bad = _states_equal(torch, full, new) + [f"metrics: {e}" for e in _states_equal(torch, m2, m1)]
+                if bad:
+                    again, _ = single(state, batch, draws)
+                    fail(f"(w1) {name} step {i}: the sharded step differs from make_train_step in {bad[:6]} "
+                         f"(make_train_step run twice from the same state differs in "
+                         f"{_states_equal(torch, again, new)[:6]})")
+                state = new
+                del full
+            if not np.isfinite(float(m1["loss"])):
+                fail(f"(w1) {name}: loss {float(m1['loss'])}")
+            # one launch a leaf: rotk_apply_rows in each compressed perm round, block_topk each EF21-P step
+            want = ({"rotk_apply_rows": len(sizes) * (SHARDED_STEPS - syncs)} if spec == "marina:perm"
+                    else {"block_topk": len(sizes) * SHARDED_STEPS} if spec.startswith("ef21p") else {})
+            if {k: mine.get(k, 0) for k in ("rotk_apply_rows", "block_topk", "rotk_apply")} != {
+                    "rotk_apply_rows": 0, "block_topk": 0, "rotk_apply": 0, **want}:
+                fail(f"(w1) {name}: the sharded steps launched {mine}, expected {want}")
+            for k, v in mine.items():
+                launches[k] = launches.get(k, 0) + v
+            ms_sh, ms_si = (float(np.median(t[2:])) * 1e3 for t in (t_sharded, t_single))
+            log(f"(w1) {name:18s} demo-100m d={d:,}, {SHARDED_STEPS} steps ({syncs} syncs) on one NCCL rank: "
+                f"state and metrics bit-equal to make_train_step every step; {ms_sh:.2f} ms a step sharded, "
+                f"{ms_si:.2f} ms single-process (medians of steps 2-{SHARDED_STEPS - 1}, in turns); "
+                f"collective bytes a step handed to NCCL = counted: "
+                + ", ".join(f"{'sync' if c else 'compressed'} {b}" for c, b in sorted(counted_by_coin.items()))
+                + f"; loss {float(m1['loss']):.4f} ({card})")
+            del state, sp, new, m1, m2, data, step, single
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# (w2)'s rank: 3 teacher-forced steps a case (train/sharded_check.run_case) on
+# the one card over gloo, held to train/sharded_check's bounds
+GLOO_RANK = """
+import datetime, json, os, re, sys
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+WORLD = 4
+# gloo's own refusal of a device: ProcessGroupGloo's "unsupported device type",
+# or no gloo backend registered for cuda
+REFUSAL = re.compile(r"unsupported device type|No backend type associated with device type")
+
+
+def probe(dev):
+    # the step's three collectives on CUDA tensors: gloo's refusal, or None
+    try:
+        dist.reduce_scatter_tensor(torch.empty(2, device=dev), torch.ones(2 * WORLD, device=dev))
+        dist.all_gather_into_tensor(torch.empty(2 * WORLD, device=dev), torch.ones(2, device=dev))
+        dist.all_reduce(torch.ones(1, device=dev))
+    except (RuntimeError, ValueError) as e:
+        if REFUSAL.search(str(e)):
+            return f"{type(e).__name__}: {e}"[:600]
+        raise
+    return None
+
+
+def rank_main(rank, init, shape, act, cases, out_dir):
+    sys.path.insert(0, os.environ["PORT_SRC"])
+    from repro_torch import configs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import lm, params as P
+    from repro_torch.train import TrainerConfig
+    from repro_torch.train import sharded as SH, sharded_check as SC
+    from repro_torch.train_lm import model_100m
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    res = {"rank": rank}
+    try:
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=WORLD,
+                                timeout=datetime.timedelta(seconds=240))
+        res["refusal"] = probe(dev)
+        if res["refusal"] is None:
+            res["cases"] = {}
+            for name, arch, spec, dtype, rows, seq, chunk in cases:
+                cfg = model_100m() if arch == "demo-100m" else configs.get_smoke(arch)
+                layout, comm = SH.connect(Mesh(("data", "model"), shape), 4, sum(P.leaf_sizes(lm.lm_spec(cfg))))
+                tcfg = TrainerConfig(n_workers=4, attn_chunk=chunk, weight_dtype=getattr(torch, dtype),
+                                     act_spec=SH.ACT_SPEC if act else None)
+                r = SC.run_case(cfg, tcfg, spec, layout, comm, SH.Comm(), batch_rows=rows, seq=seq,
+                                device=dev)
+                SC.hold(name, r, SC.bounds(act), 4)
+                res["cases"][name] = dict(r, d=layout.d, off=layout.off)
+                torch.cuda.empty_cache()
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        dist.destroy_process_group()
+    except Exception as e:  # every error fails (w2): the parent reports it
+        import traceback
+        res["error"] = f"{type(e).__name__}: {e}"[:600]
+        res["trace"] = traceback.format_exc()[-3000:]
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+if __name__ == "__main__":
+    init, shape, act, cases, out_dir = sys.argv[1:6]
+    mp.spawn(rank_main, args=(init, tuple(int(x) for x in shape.split("x")), act == "act", json.loads(cases),
+                              out_dir), nprocs=WORLD, join=True)
+"""
+
+
+def gloo_card_phase(card):
+    """(w2): 4 gloo processes on the one card for each mesh of GLOO_RUNS
+    (both meshes' 8 processes at once): 3 teacher-forced steps a case
+    against the single-process step on the card, within
+    ``train/sharded_check``'s bounds (the CPU tests' own), the bytes handed
+    to gloo equal to the dry-run's count each step, and every rank holding
+    rows at an offset launching rotk_apply_rows. A refusal counts only where
+    gloo itself refuses the step's collectives on CUDA tensors (each rank
+    probes them first): it is logged, and nothing runs in its place. Any
+    other error, on either mesh, fails the phase. Returns (the refusal or
+    None, s)."""
+    import os
+    import tempfile
+
+    from repro_torch.train.sharded_check import WORST_KEYS
+
+    t0 = time.perf_counter()
+    runs = {}
+    # 8 processes share the card: the allocator's expandable segments keep each one's reserve near its use
+    env = dict(os.environ, PORT_SRC=str(SRC), PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    for shape, act, cases in GLOO_RUNS:
+        tmp = tempfile.mkdtemp(prefix="gloo_card_")
+        script = os.path.join(tmp, "ranks.py")
+        with open(script, "w") as f:
+            f.write(GLOO_RANK)
+        runs[shape] = (act, cases, tmp, subprocess.Popen(
+            [sys.executable, script, f"file://{tmp}/rdv", shape, "act" if act else "-", json.dumps(cases), tmp],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        outs = {shape: run[3].communicate(timeout=600) for shape, run in runs.items()}
+    finally:
+        for *_, proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    problems, refusals, results = [], [], {}
+    for shape, (act, cases, tmp, proc) in runs.items():
+        ranks = []
+        for r in range(4):
+            path = os.path.join(tmp, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    ranks.append(json.load(f))
+        if proc.returncode != 0 or len(ranks) != 4:
+            problems.append(f"mesh {shape}: the 4 gloo processes exited {proc.returncode} with {len(ranks)} "
+                            f"reports:\n{outs[shape][1][-3000:]}")
+        for r in ranks:
+            if "error" in r:
+                problems.append(f"mesh {shape} rank {r['rank']}: {r['error']}\n{r['trace'][-1500:]}")
+            elif r["refusal"] is not None:
+                refusals.append(f"mesh {shape} rank {r['rank']}: {r['refusal']}")
+        results[shape] = ranks
+    if problems:
+        fail("(w2) " + "\n".join(problems))
+    if refusals:
+        if len(refusals) != 4 * len(runs):
+            fail(f"(w2) gloo refused CUDA tensors on some ranks only: {refusals}")
+        log(f"(w2) gloo refused the step's collectives on CUDA tensors ({refusals[0]}); the 4-rank step on the "
+            "card did not run (no CPU run stands in for it)")
+        return refusals[0], time.perf_counter() - t0
+    for shape, act, cases in GLOO_RUNS:
+        ranks = results[shape]
+        for name, arch, spec, *_ in cases:
+            for r in ranks:
+                c = r["cases"][name]
+                if spec == "marina:perm" and c["off"] > 0 and c["launches"].get("rotk_apply_rows", 0) <= 0:
+                    fail(f"(w2) mesh {shape} {name} rank {r['rank']} (rows from worker {c['off']}): "
+                         "rotk_apply_rows never launched")
+            worst = [max(r["cases"][name]["worst"][j] for r in ranks) for j in range(6)]
+            c0 = ranks[0]["cases"][name]
+            log(f"(w2) 4 gloo ranks on the one card, mesh {shape}{' + act_spec' if act else ''}, {name} {arch} "
+                f"d={c0['d']:,}: within {'the act_spec' if act else 'the data-axis'} bounds of the single-process "
+                f"step: " + ", ".join(f"{k} {v:.3g}" for k, v in zip(WORST_KEYS, worst))
+                + f"; bytes a rank a step {c0['moved']} = counted; launches by rank "
+                f"{[r['cases'][name]['launches'] for r in ranks]} ({card})")
+        log(f"(w2) mesh {shape}: peak GiB allocated by rank {[round(r['peak_gib'], 2) for r in ranks]} ({card})")
+    return None, time.perf_counter() - t0
+
+
+def sharded_dryrun_start():
+    """(w3)'s count, started in a process of its own: ``python -m
+    repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
+    --train-act-model-sharded`` into SHARDED_DRYRUN_DIR."""
+    import os
+
+    if SHARDED_DRYRUN_DIR.exists():
+        for f in SHARDED_DRYRUN_DIR.glob("*.json"):
+            f.unlink()
+    SHARDED_DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", MEASURED_ARCH,
+                             "--shape", "train_4k", "--train-act-model-sharded", "--out",
+                             str(SHARDED_DRYRUN_DIR)], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def sharded_dryrun_phase(proc, card):
+    """(w3): the count started by :func:`sharded_dryrun_start`: a valid
+    per_rank record with a collective term. Returns the record."""
+    from repro_torch.launch import dryrun
+
+    try:
+        outp = proc.communicate(timeout=600)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        fail(f"(w3) the act-sharded dry-run exited {proc.returncode}:\n{outp[-3000:]}")
+    rec = json.loads((SHARDED_DRYRUN_DIR / f"{MEASURED_ARCH}__train_4k__16x16__act.json").read_text())
+    problems = dryrun.record_problems(rec)
+    t = rec["roofline"]
+    if problems or rec["split"] != "per_rank" or t["collective_s"] is None:
+        fail(f"(w3) {MEASURED_ARCH} train_4k act-sharded record: {problems}, split {rec['split']}, {t}")
+    log(f"(w3) {MEASURED_ARCH} train_4k on 16x16 with act_spec, one rank counted on meta "
+        f"({rec['t_count_s']} s): {rec['flops_per_device']:.4e} FLOPs, {rec['bytes_per_device']:.4e} bytes, "
+        f"collective bytes {rec['collective_bytes_per_device']} ({rec['collective_total_per_device']:.4e}); "
+        f"compute {t['compute_s']:.4e} s, memory {t['memory_s']:.4e} s, collective {t['collective_s']:.4e} s "
+        f"(NVLink 450e9 B/s): {t['dominant']}; state bytes a device {rec['state_bytes_per_device']} "
+        f"(H100 constants; no card used)")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3185,6 +3563,22 @@ def main() -> int:
     log(f"(v) launches: (v1) {grid_launches}, (v2) {smoke_launches}; (v1) {grid_s:.1f} s, (v2) {smoke_s:.1f} s, "
         f"(v3) {sigma_s:.1f} s ({card})")
 
+    # --- (w) the LM train step across a process group ---------------------------------
+    t_w0 = time.perf_counter()
+    runtime.reset_launches()
+    w_launches = sharded_phase(np, torch, dev, card)
+    torch.cuda.synchronize()
+    for kname in SHARDED_KERNELS:
+        if w_launches.get(kname, 0) <= 0:
+            fail(f"(w1) the sharded train steps never launched {kname}")
+    t_w1 = time.perf_counter()
+    w3 = sharded_dryrun_start()  # on the host's cores beside (w2)
+    gloo_refusal, w2_s = gloo_card_phase(card)
+    sharded_dryrun_phase(w3, card)
+    log(f"(w) launches of the sharded steps: {w_launches}; (w1) {t_w1 - t_w0:.1f} s, (w2) {w2_s:.1f} s"
+        f"{' (gloo refused CUDA tensors)' if gloo_refusal else ''}; (w) took {time.perf_counter() - t_w0:.1f} s "
+        f"({card})")
+
     summary = {"kernels": [
         {"name": "l1_subgrad", "route": "cuda", "source": "src/repro_torch/csrc/l1_subgrad.cu",
          "replaces": "src/repro/kernels/l1_subgrad.py:46", "launches": launches["l1_subgrad"],
@@ -3226,7 +3620,9 @@ def main() -> int:
         row["launches"] += (slice_launches.get(row["name"], 0) + harness_launches.get(row["name"], 0)
                             + serve_launches.get(row["name"], 0) + train_launches.get(row["name"], 0)
                             + u_launches.get(row["name"], 0) + grid_launches.get(row["name"], 0)
-                            + smoke_launches.get(row["name"], 0))
+                            + smoke_launches.get(row["name"], 0) + w_launches.get(row["name"], 0))
+        # (w1) the sharded train steps (one NCCL rank): their launches
+        row["sharded_path"] = {"launches": w_launches.get(row["name"], 0)}
         # the dry-run's measured steps (u1): their launches
         row["dryrun_path"] = {"launches": u_launches.get(row["name"], 0)}
         # (v1) the paper's reduced grid, (v2) wire_bench --smoke: their launches
@@ -3267,13 +3663,15 @@ def main() -> int:
             # bf16 replicas beside them, the per-worker path it replaced, and a whole round
             row["dtypes"] = ["float32", "float16", "bfloat16"]
             row["by_dtype"] = {}
+            w_rows = w_launches.get("rotk_apply_rows", 0)  # (w1)'s perm runs bf16 replicas
             for dt in ("float32", "bfloat16"):
                 ms_, plain_, bound_, _ = train_times[f"rotk_apply_rows/{dt}"]
                 row["by_dtype"][dt] = {
                     "rows": TRAIN_W, "values": max(sizes), "n": TRAIN_W, "ms": ms_, "plain_ms": plain_,
                     "bound_ms": bound_, "per_worker_ms": train_times[f"per-worker rotk_apply + copy/{dt}"][0],
-                    "launches": (bf16_launches + u_launches.get("rotk_apply_rows", 0) if dt == "bfloat16"
-                                 else row["launches"] - bf16_launches - u_launches.get("rotk_apply_rows", 0)),
+                    "launches": (bf16_launches + u_launches.get("rotk_apply_rows", 0) + w_rows if dt == "bfloat16"
+                                 else row["launches"] - bf16_launches - u_launches.get("rotk_apply_rows", 0)
+                                 - w_rows),
                     "downlink_round": {path: {"device_ms": dev_ms, "host_ms": wall_ms, "launches": ln}
                                        for path, (dev_ms, wall_ms, ln) in rounds[dt].items()}}
     print(json.dumps(summary), flush=True)

@@ -17,7 +17,8 @@ IEEE compares of denormals, -0.0, inf and NaN.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on the
 card; :func:`reset_launches` zeroes it. :func:`kernel_cost` charges a
-wrapper's analytic bytes and FLOPs to an open op count (the dry-run's).
+wrapper's analytic bytes and FLOPs to an open op count (the dry-run's),
+:func:`collective_cost` a collective's bytes.
 """
 from __future__ import annotations
 
@@ -61,6 +62,21 @@ def reset_launches() -> None:
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def collective_cost(kind: str, nbytes: float):
+    """Charge a collective's result-shape bytes to the innermost open op
+    count under ``kind`` (``all-gather``, ``reduce-scatter``, ``all-reduce``)
+    as link traffic, and hide the body (the call into the process group)
+    from it. No count open: the body runs as it is."""
+    if not COUNTS:
+        yield
+        return
+    count = COUNTS[-1]
+    count.charge(kind, nbytes, collective=True)
+    with count.paused():
+        yield
 
 
 @contextlib.contextmanager

@@ -11,10 +11,17 @@ Usage:
 The reference lowers and compiles a partitioned SPMD program for 256 or 512
 devices and reads per-device totals from its HLO. The port compiles no
 program: it counts the global step once on ``meta`` (:mod:`.op_cost`) and
-splits the count evenly over the mesh's devices (``"split": "even"``). Its
-bytes are the eager program's, op by op; there are no HLO collective bytes,
-no XLA memory analysis (``argument_bytes`` is the built arguments' size) and
-no saved HLO.
+splits the count evenly over the mesh's devices (``"split": "even"``; no
+collective term: the reference's program is tensor-parallel over "model",
+the port's is not, ``collective_note``). With ``--train-act-model-sharded``
+a train shape counts one rank of ``train/sharded.py``'s step instead
+(``"split": "per_rank"``, the record ``<arch>__<shape>__<mesh>__act.json``):
+its collectives' result-shape bytes by kind
+(``collective_bytes_per_device``) give the roofline's third term, and
+``state_bytes_per_device`` puts the rank's flat ZeRO-1 state beside the
+reference's per-leaf specs. Its bytes are the eager program's, op by op;
+there is no XLA memory analysis (``argument_bytes`` is the built arguments'
+size) and no saved HLO.
 
 ``--measure`` runs the step on one card (``--device``, the card by
 default; there is no CPU fallback) at the sizes of :data:`REDUCED`, times it
@@ -37,8 +44,9 @@ import torch
 from .. import configs, obs
 from ..kernels import runtime
 from ..models import lm
-from ..models.params import FlatParams, leaf_sizes
+from ..models.params import FlatParams, leaf_sizes, map_tree, stacked
 from . import op_cost, roofline
+from . import sharding as sh
 from .mesh import make_hierarchical_mesh, make_production_mesh
 from .specs import (META, SHAPES, build, compressed_draws, decode_token, long_ctx_window, serve_batch,
                     train_parts)
@@ -46,6 +54,12 @@ from .specs import (META, SHAPES, build, compressed_draws, decode_token, long_ct
 log = obs.get_logger("dryrun")
 
 DEFAULT_OUT = "runs/dryrun_torch"
+COLLECTIVE_KINDS = ("all-gather", "reduce-scatter", "all-reduce")
+# why a record of the even split has no collective term
+EVEN_NOTE = ("collective_s is None: this step is counted once for the whole mesh and split evenly; the "
+             "reference's program moves activations and weights over 'model' (tensor parallelism), which "
+             "the port does not run (train shapes: --train-act-model-sharded counts one rank's step with "
+             "its collectives)")
 WARMUP, REPS = 2, 5
 # the measured step on one card: how each shape is cut to fit it
 REDUCED = {
@@ -104,10 +118,19 @@ def run_one(arch: str, shape: str, *, multi_pod: bool = False, downlink: str = "
     t0 = time.perf_counter()
     c = count(built.meta["kind"], built.fn, *built.args)
     t_count = time.perf_counter() - t0
-    flops, nbytes = c.total_flops, c.total_bytes
     cfg, kind = built.meta["cfg"], built.meta["kind"]
+    per_rank = built.meta.get("split") == "per_rank"
+    if per_rank:  # one rank's step: the count is per device, collectives included
+        flops_dev, bytes_dev = c.total_flops, c.total_bytes
+        flops, nbytes = flops_dev * chips, bytes_dev * chips
+        coll = {k: float(c.coll[k]) for k in COLLECTIVE_KINDS}
+        coll_dev = c.total_coll
+    else:
+        flops, nbytes = c.total_flops, c.total_bytes
+        flops_dev, bytes_dev = flops / chips, nbytes / chips
+        coll = coll_dev = None
     mf = roofline.model_flops(cfg, kind, built.meta["global_batch"], built.meta["seq"])
-    terms = roofline.roofline_terms(flops / chips, nbytes / chips)
+    terms = roofline.roofline_terms(flops_dev, bytes_dev, coll_dev)
     rec = {
         "arch": arch,
         "shape": shape,
@@ -122,9 +145,11 @@ def run_one(arch: str, shape: str, *, multi_pod: bool = False, downlink: str = "
         "t_count_s": round(t_count, 3),
         "flops_global": flops,
         "bytes_global": nbytes,
-        "split": "even",
-        "flops_per_device": flops / chips,
-        "bytes_per_device": nbytes / chips,
+        "split": "per_rank" if per_rank else "even",
+        "flops_per_device": flops_dev,
+        "bytes_per_device": bytes_dev,
+        "collective_bytes_per_device": coll,
+        "collective_total_per_device": coll_dev,
         "argument_bytes": argument_bytes(built.args),
         "top_ops": c.top(),
         "model_flops": mf,
@@ -133,6 +158,11 @@ def run_one(arch: str, shape: str, *, multi_pod: bool = False, downlink: str = "
         "params_total": cfg.param_count(),
         "params_active": cfg.active_param_count(),
     }
+    if per_rank:
+        rec["act_spec"] = list(built.meta["act_spec"])
+        rec["state_bytes_per_device"] = state_bytes_per_device(built)
+    else:
+        rec["collective_note"] = EVEN_NOTE
     if verbose:
         log.info(f"{arch:26s} {shape:12s} mesh={rec['mesh']:8s} count={t_count:6.1f}s "
                  f"flops={flops:.3e} bytes={nbytes:.3e} dominant={terms['dominant'].replace('_s', '')}")
@@ -142,6 +172,32 @@ def run_one(arch: str, shape: str, *, multi_pod: bool = False, downlink: str = "
     if measure:
         rec["measured"] = measure_step(arch, shape, device=device, downlink=downlink)
     return rec
+
+
+def state_bytes_per_device(built) -> dict:
+    """Per-device bytes of the counted rank's train state (``server``,
+    ``opt``, ``workers``) in the port's flat ZeRO-1 layout, beside the same
+    state under the reference's per-leaf specs (``sharding.param_specs``:
+    ``server`` for the master and the moments, ``worker`` for the replicas)."""
+    state, specs = built.args[0], built.specs[0]
+    mesh = built.meta["layout"].mesh
+    tree = lm.lm_spec(built.meta["cfg"])
+
+    def spec_bytes(tree, spec, itemsize):
+        if isinstance(spec, sh.Spec):
+            return sh.local_numel(tree.shape, spec, mesh) * itemsize
+        keys = spec.keys() if isinstance(spec, dict) else range(len(spec))
+        return sum(spec_bytes(tree[k], spec[k], itemsize) for k in keys)
+
+    ref = spec_bytes(tree, specs["server"], 4)
+    ref += sum(spec_bytes(tree, specs["opt"][k], 4) for k, v in state["opt"].items()
+               if isinstance(v, torch.Tensor))
+    if "workers" in state:
+        w = state["workers"]
+        wtree = map_tree(lambda leaf: stacked(leaf, built.meta["W"]), tree) if w.dim() == 2 else tree
+        ref += spec_bytes(wtree, specs["workers"], w.element_size())
+    flat = argument_bytes([state[k] for k in ("server", "opt", "workers") if k in state])
+    return {"flat_zero1": flat, "param_specs": ref}
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +371,8 @@ def record_problems(rec: dict) -> list:
     t = rec["roofline"]
     if t.get("dominant") not in ("compute_s", "memory_s", "collective_s") or not t["bound_s"] > 0:
         out.append(f"roofline {t}")
+    if rec.get("split") == "per_rank" and not (t.get("collective_s") or 0) > 0:
+        out.append(f"a per-rank count without a collective term: {t}")
     ratio, limit = rec["useful_flops_ratio"], 1.05 * n / (n - table)
     if not (ratio is not None and 0 < ratio <= limit):
         out.append(f"useful_flops_ratio {ratio} outside (0, {limit:.4f}]")
@@ -363,6 +421,8 @@ def main(argv=None):
         for arch in archs:
             for shape in shapes:
                 tag = f"{arch}__{shape}__{mesh_name(mp, args.hierarchical_workers)}"
+                if args.train_act_model_sharded and SHAPES[shape]["kind"] == "train":
+                    tag += "__act"
                 path = os.path.join(args.out, tag + ".json")
                 if os.path.exists(path):
                     log.info(f"skip (cached) {tag}")

@@ -23,6 +23,13 @@ every ATen op:
   their analytic bytes and FLOPs (:func:`repro_torch.kernels.runtime.kernel_cost`),
   on every device; the ops of their plain version (CPU, ``meta``) are hidden
   from the count, and a launch on the card is invisible to a dispatch mode.
+* **collectives** (``all-gather``, ``reduce-scatter``, ``all-reduce``) are
+  charged by the sharded train step's communicator
+  (``train/sharded.py``, :func:`repro_torch.kernels.runtime.collective_cost`)
+  at their result-shape bytes per device, the reference's proxy for the
+  bytes a collective moves (``repro/launch/roofline.py::collective_bytes``).
+  They go to ``coll``, not ``bytes``: the roofline prices them over the
+  link, not over HBM.
 
 :func:`one_worker_for_all` counts a train step of W identical workers with
 one worker's forward and backward, charged W times.
@@ -74,8 +81,8 @@ def _outer_product(packet, args) -> bool:
 
 class OpCount(TorchDispatchMode):
     """FLOPs and bytes by op name (``flops``, ``bytes``, ``calls``;
-    hand kernels as ``kernel:<name>``) of what runs while it is open.
-    Open it with :func:`counting`."""
+    hand kernels as ``kernel:<name>``) and collective bytes by kind
+    (``coll``) of what runs while it is open. Open it with :func:`counting`."""
 
     def __init__(self):
         super().__init__()
@@ -87,6 +94,7 @@ class OpCount(TorchDispatchMode):
         self.flops: collections.Counter = collections.Counter()
         self.bytes: collections.Counter = collections.Counter()
         self.calls: collections.Counter = collections.Counter()
+        self.coll: collections.Counter = collections.Counter()
 
     # -- totals -----------------------------------------------------------------
     @property
@@ -97,8 +105,12 @@ class OpCount(TorchDispatchMode):
     def total_bytes(self) -> float:
         return float(sum(self.bytes.values()))
 
+    @property
+    def total_coll(self) -> float:
+        return float(sum(self.coll.values()))
+
     def snapshot(self) -> tuple:
-        return (self.flops.copy(), self.bytes.copy(), self.calls.copy())
+        return (self.flops.copy(), self.bytes.copy(), self.calls.copy(), self.coll.copy())
 
     def since(self, snap: tuple) -> tuple:
         """What was counted after ``snap`` (a :meth:`snapshot`)."""
@@ -106,12 +118,15 @@ class OpCount(TorchDispatchMode):
 
     def add(self, part: tuple) -> None:
         """Count ``part`` (a :meth:`since`) once more."""
-        for mine, theirs in zip((self.flops, self.bytes, self.calls), part):
+        for mine, theirs in zip((self.flops, self.bytes, self.calls, self.coll), part):
             mine.update(theirs)
 
-    def charge(self, name: str, nbytes: float, flops: float = 0.0) -> None:
+    def charge(self, name: str, nbytes: float, flops: float = 0.0, *, collective: bool = False) -> None:
+        """Charge ``nbytes`` (and ``flops``) to ``name``; a ``collective``'s
+        bytes go to ``coll`` (link traffic), every other charge's to
+        ``bytes`` (memory traffic)."""
         if not self._paused:
-            self.bytes[name] += nbytes
+            (self.coll if collective else self.bytes)[name] += nbytes
             self.flops[name] += flops
             self.calls[name] += 1
 

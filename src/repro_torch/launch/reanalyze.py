@@ -1,7 +1,8 @@
 """Re-derive roofline terms from saved dry-run records without counting
 again (counterpart of ``repro/launch/reanalyze.py``, which re-derives them
 from saved ``.hlo.gz``): the records keep their global counts
-(``flops_global``, ``bytes_global``, and a measured step's ``flops`` /
+(``flops_global``, ``bytes_global``; a ``per_rank`` record its per-device
+counts and ``collective_total_per_device``; a measured step's ``flops`` /
 ``bytes`` / ``ms``), so new constants in :mod:`.roofline` apply to them.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.reanalyze runs/dryrun_torch [out_dir]
@@ -30,10 +31,11 @@ def reanalyze(dirpath: str, out_dir: str | None = None) -> list:
     for jf in sorted(glob.glob(os.path.join(dirpath, "*.json"))):
         with open(jf) as f:
             rec = json.load(f)
-        chips = rec["chips"]
-        rec["flops_per_device"] = rec["flops_global"] / chips
-        rec["bytes_per_device"] = rec["bytes_global"] / chips
-        rec["roofline"] = roofline.roofline_terms(rec["flops_per_device"], rec["bytes_per_device"])
+        if rec.get("split") != "per_rank":  # one count for the mesh, split evenly
+            rec["flops_per_device"] = rec["flops_global"] / rec["chips"]
+            rec["bytes_per_device"] = rec["bytes_global"] / rec["chips"]
+        rec["roofline"] = roofline.roofline_terms(rec["flops_per_device"], rec["bytes_per_device"],
+                                                  rec.get("collective_total_per_device"))
         if rec.get("model_flops") and rec["flops_global"]:
             rec["useful_flops_ratio"] = rec["model_flops"] / rec["flops_global"]
         if "measured" in rec:

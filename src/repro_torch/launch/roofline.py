@@ -12,11 +12,17 @@ Terms per counted step, from PER-DEVICE totals:
     memory     = bytes_per_device      / HBM_BW
     collective = coll_bytes_per_device / LINK_BW   (None: nothing counted)
 
-The reference parses collective bytes from its compiled HLO; a torch
-program on one card has no HLO and no collective, so ``collective_s`` is
-``None`` unless a caller counted collective bytes, and ``dominant`` /
-``bound_s`` are taken over the terms that exist (never reading a missing
-term as 0).
+The reference parses collective bytes from its compiled HLO
+(``collective_bytes``: each collective's result-shape bytes, its proxy for
+the bytes moved). The port counts the same quantity where its program
+calls the collectives: the sharded train step's communicator
+(``train/sharded.py``) charges each ``all-gather``, ``reduce-scatter`` and
+``all-reduce`` at its result bytes per device, and the dry-run's ``per_rank``
+records price their sum over one card's NVLink bandwidth. A count without
+collectives (the ``even`` split of a whole-mesh count, whose reference
+program is tensor-parallel over "model") passes ``None``: ``collective_s``
+is then ``None``, and ``dominant`` / ``bound_s`` are taken over the terms
+that exist (never reading a missing term as 0).
 """
 from __future__ import annotations
 

@@ -238,6 +238,17 @@ def scalar_specs(tree_shape):
     return map_with_path(lambda path, leaf: Spec(), tree_shape)
 
 
+def local_numel(shape, spec: Spec, mesh) -> int:
+    """Values of a leaf of ``shape`` that one device holds under ``spec``
+    (each dim cut into as many blocks as its axes have devices, rounded up)."""
+    n = 1
+    for i, size in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        axes = entry if isinstance(entry, tuple) else (entry,) if entry is not None else ()
+        n *= -(-size // _axes_size(mesh, axes))
+    return n
+
+
 def placements(spec: Spec, mesh) -> tuple:
     """DTensor placements of ``spec`` on ``mesh`` (a :class:`~.mesh.Mesh` or
     a ``DeviceMesh``), one a mesh dimension: ``Shard(dim)`` where the spec

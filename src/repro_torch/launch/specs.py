@@ -19,6 +19,16 @@ trees those vectors concatenate, leaf by leaf, as the reference's state
 holds them. The train step's randomness is an argument
 (``train/downlink.DownlinkDraws``): the abstract draws are a compressed
 round's (no sync coin), the branch every count and measurement takes.
+
+``train_act_model_sharded=True`` (the reference's ``act_spec =
+P("model", None, None)`` where a worker's batch splits over "model") builds
+one rank's step of ``train/sharded.py`` for the mesh instead: rank 0's state
+(its ZeRO-1 slices and its workers' rows), the global batch, and a
+:class:`~repro_torch.train.sharded.CountingComm` that charges the step's
+collectives and calls no process group (``meta["split"] = "per_rank"``).
+Where the reference would drop ``act_spec`` (the batch does not split over
+"model") it runs tensor parallelism over "model", which the port does not:
+that, and ``act_spec`` for configs with experts, raise.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ from ..models.params import Leaf, leaf_sizes, map_tree, stacked
 from ..optim import make_optimizer
 from ..optim.schedules import cosine_warmup
 from ..train import TrainerConfig, init_state, make_downlink, make_train_step
+from ..train import sharded as SH
 from ..train.downlink import DownlinkDraws, MarinaPDownlink
 from . import sharding as sh
 from .mesh import n_workers as mesh_n_workers
@@ -106,8 +117,13 @@ def train_parts(cfg: ModelConfig, W: int, *, downlink_spec: str = "marina:perm",
                          weight_dtype=torch.bfloat16, remat_policy=remat_policy)
     downlink = make_downlink(downlink_spec, W)
     optimizer = make_optimizer("adamw")
-    step = make_train_step(cfg, tcfg, downlink, optimizer, cosine_warmup(3e-4, 200, 20000))
+    step = make_train_step(cfg, tcfg, downlink, optimizer, train_lr())
     return step, downlink, tcfg, optimizer
+
+
+def train_lr():
+    """The counted train step's schedule (the reference's)."""
+    return cosine_warmup(3e-4, 200, 20000)
 
 
 def build(arch_id: str, shape_id: str, mesh, *, downlink_spec: str = "marina:perm",
@@ -116,9 +132,6 @@ def build(arch_id: str, shape_id: str, mesh, *, downlink_spec: str = "marina:per
     cfg = configs.get(arch_id)
     info = SHAPES[shape_id]
     W = mesh_n_workers(mesh)
-    if train_act_model_sharded:
-        raise ValueError("train_act_model_sharded pins the activations onto a mesh axis (act_spec); "
-                         "the port runs on one card and has no mesh to pin them to")
 
     if info["kind"] == "train":
         if info["global_batch"] % W:
@@ -128,6 +141,18 @@ def build(arch_id: str, shape_id: str, mesh, *, downlink_spec: str = "marina:per
             cfg, W, downlink_spec=downlink_spec, remat=remat, attn_chunk=attn_chunk,
             remat_policy=remat_policy)
         state = init_state(cfg, tcfg, downlink, optimizer, device=META)
+        meta = dict(cfg=cfg, W=W, bpw=bpw, split="even", **info)
+        if train_act_model_sharded:
+            if bpw % mesh.shape["model"]:
+                raise ValueError(f"{bpw} rows a worker do not split over 'model' = {mesh.shape['model']}: "
+                                 "the reference drops act_spec there and runs tensor parallelism over "
+                                 "'model', which the port does not")
+            tcfg = dataclasses.replace(tcfg, act_spec=SH.ACT_SPEC)
+            layout = SH.Layout(mesh, 0, W, sum(leaf_sizes(lm.lm_spec(cfg))))
+            comm = SH.CountingComm()
+            step = SH.make_sharded_train_step(cfg, tcfg, downlink, optimizer, train_lr(), layout, comm)
+            state = SH.shard_state(state, layout)
+            meta.update(split="per_rank", act_spec=SH.ACT_SPEC, layout=layout, comm=comm)
         batch = {k: empty(s.shape, s.dtype) for k, s in data_batch_specs(cfg, W, bpw, info["seq"]).items()}
         tree = lm.lm_spec(cfg)
         draws = compressed_draws(downlink, leaf_sizes(tree))
@@ -144,7 +169,7 @@ def build(arch_id: str, shape_id: str, mesh, *, downlink_spec: str = "marina:per
             wtree = map_tree(lambda leaf: stacked(leaf, W), tree) if state["workers"].dim() == 2 else tree
             state_specs["workers"] = sh.param_specs(wtree, mesh, "worker")
         specs = (state_specs, sh.train_batch_spec(batch, mesh), sh.Spec())
-        return Built(step, (state, batch, draws), specs, dict(cfg=cfg, W=W, bpw=bpw, **info))
+        return Built(step, (state, batch, draws), specs, meta)
 
     params = lm.lm_init(cfg, device=META)
     p_specs = sh.param_specs(lm.lm_spec(cfg), mesh, serve_layout)

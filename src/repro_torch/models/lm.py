@@ -14,7 +14,8 @@ The three input modalities of the reference:
 the training view ``params.grad_tree`` that autograd differentiates.
 ``forward``'s ``remat`` / ``remat_policy`` checkpoint activations (see
 :mod:`.transformer`); ``act_spec``, a sharding constraint of the reference's
-mesh, has no meaning on one card and is refused.
+mesh, is refused here: ``train/sharded.py`` realizes it by splitting each
+worker's rows over the mesh's "model" axis.
 """
 from __future__ import annotations
 
@@ -115,8 +116,9 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     (``remat_policy`` None / "full": all of them; "dots": all but the
     matmuls without batch dimensions); no effect outside autograd."""
     if act_spec is not None:
-        raise ValueError("act_spec pins activations onto a device mesh; the port runs on one card "
-                         "and has no mesh")
+        raise ValueError("act_spec pins activations onto a device mesh; lm.forward runs one device's "
+                         "rows: the sharded train step (train/sharded.make_sharded_train_step) realizes "
+                         "it by splitting each worker's rows over the mesh's 'model' axis")
     p = tree_of(params)
     x = embed_tokens(cfg, p, batch["tokens"])
     if cfg.num_patches:

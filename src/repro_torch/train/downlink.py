@@ -21,6 +21,8 @@ data-parallel worker replica is compressed:
 The model is a flat [d] vector in ravel order; ``sizes`` (``params.leaf_sizes``
 of the model's spec) cuts it into the reference's leaves, which matter: the
 RotK coordinate index and the top-k blocks restart in every leaf.
+``MarinaPDownlink.round_rows`` updates replicas ``off ...`` of the W only
+(one rank's rows in ``train/sharded.py``).
 
 A round's randomness is drawn once, by :func:`draw_round` (tests monkeypatch
 it to inject the reference's draws): the sync coin on the host, so the round
@@ -154,30 +156,54 @@ class MarinaPDownlink:
         sync casts x^{t+1} into every replica; otherwise replica i adds
         Q_i(x^{t+1} - x^t) in its own dtype. ``force_sync`` promotes the round
         to the full broadcast, the transport layer's resync path."""
+        return self._round(draws, sizes, server_new, lambda o, s: server_new[o:o + s] - server_old[o:o + s],
+                           workers, 0, force_sync)
+
+    def round_rows(self, draws: DownlinkDraws, sizes, server_new, delta, workers, off: int,
+                   force_sync=False):
+        """:meth:`round` for replicas ``off ... off + R - 1`` of the W
+        (``workers``: [R, d], one rank's rows of the sharded train step),
+        from the round's fp32 delta x^{t+1} - x^t [d] (None in a sync
+        round). Row i is worker ``off + i``: perm passes the rotation
+        ``(r + off) mod W`` to ``rotk_apply_rows``, ind takes mask rows
+        ``off ... off + R - 1``; the values equal rows ``off ...`` of
+        :meth:`round`'s bit for bit."""
+        return self._round(draws, sizes, server_new, lambda o, s: delta[o:o + s], workers, off, force_sync)
+
+    def _round(self, draws, sizes, server_new, leaf_delta, workers, off, force_sync):
         n = self.n_workers
         sync = draws.coin or force_sync
         if sync:
             new = server_new.to(workers.dtype).expand_as(workers).clone()
         else:
+            R = workers.shape[0]
             new = torch.empty_like(workers)
             # XLA rewrites the jitted reference's delta / frac as a float32 product
             # with the float32 reciprocal of frac in the replicas' dtype
             scale = float(1 / torch.tensor(self.frac, dtype=workers.dtype).float())
+            # row i is worker off + i: rotate by off on the device, once a round
+            rot = (None if self.mode != "perm" else draws.rot if off == 0
+                   else torch.remainder(draws.rot + off, n).to(torch.int32))
             for li, o, s in _segments(sizes):
-                delta = (server_new[o:o + s] - server_old[o:o + s]).to(workers.dtype)
-                if self.mode == "perm":  # all W replicas of the leaf in one launch
-                    ops.rotk_apply_rows(workers[:, o:o + s], delta, draws.rot[li:li + 1], n=n,
+                delta = leaf_delta(o, s).to(workers.dtype)
+                if self.mode == "perm":  # all R replicas of the leaf in one launch
+                    ops.rotk_apply_rows(workers[:, o:o + s], delta, rot[li:li + 1], n=n,
                                         out=new[:, o:o + s])
                 else:
-                    q = torch.where(draws.masks[li], delta * scale, 0)
+                    mask = draws.masks[li] if self.mode == "same" else draws.masks[li][off:off + R]
+                    q = torch.where(mask, delta * scale, 0)
                     torch.add(workers[:, o:o + s], q, out=new[:, o:o + s])
         d = sum(sizes)
         cm = CommModel(d=d)  # single source of truth for the bit formulas
         return new, F32(cm.dense_bits() if sync else cm.sparse_bits(self.frac * d))
 
+    def drift_sum(self, server, workers) -> torch.Tensor:
+        """sum_i ||w_i - x||^2 over the rows of ``workers``."""
+        return ((workers.float() - server.float()) ** 2).sum()
+
     def worker_drift(self, server, workers) -> torch.Tensor:
         """mean_i ||w_i - x||^2, the Lyapunov drift term of Theorem 2."""
-        return ((workers.float() - server.float()) ** 2).sum() / self.n_workers
+        return self.drift_sum(server, workers) / self.n_workers
 
     def messages(self, draws, sizes, server_new, server_old) -> torch.Tensor:
         """The compressed deltas [W, d] fp32 (one row in 'same' mode, where

@@ -1,0 +1,181 @@
+"""Holding the sharded train step (:mod:`.sharded`) on R ranks against the
+single-process step (``trainer.make_train_step``), teacher-forced: each step
+starts from the single-process state of that step, so the bound is one
+step's. The CPU tests (4 gloo ranks) and ``chip_smoke.py``'s 4 gloo ranks on
+one card both run :func:`run_case` on every rank and :func:`hold` on its
+result, with the bounds set here.
+
+Only the order of the sums over workers (and, under ``act_spec``, over row
+blocks) differs from the single-process step. The bounds are (loss, max
+|dg| / max |g| with g recovered from AdamW's first moment, grad_norm's and
+the drift's rel, the new master's max |diff| / lr, the share of its
+coordinates past 0.1 lr). A (D, 1) mesh sums the same per-worker gradients
+in another order (measured with the smoke gemma-2b on 4 CPU ranks: loss
+equal, g within 1.0e-7, the master within 3e-5 lr). Under ``act_spec`` each
+worker's rows are M blocks whose bf16 forward rounds elsewhere, so the
+bounds are the ones held against the reference (tests/test_torch_train_step.py)
+where the run needs them (measured there: loss 4.8e-7, g 6.6e-3, grad_norm
+2.9e-4, the master 2.0 lr with 6.4e-4 of its coordinates past 0.1 lr).
+MARINA-P's replicas are held to W times the master's bound (a kept
+coordinate adds W times the master's delta) plus one bf16 ulp of their
+largest value; EF21-P's shift bit for bit to the downlink of the ranks' own
+gathered x^{t+1} (TopK's near-ties follow its last bit); the counters
+exactly.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..data import SyntheticLMData
+from ..kernels import runtime
+from ..launch import op_cost
+from ..launch.specs import compressed_draws
+from ..models import lm
+from ..models import params as P
+from ..optim import constant_lr, make_optimizer
+from . import downlink as D
+from . import sharded as SH
+from . import trainer
+
+LR = 2e-3  # the steps' constant lr, which the bounds are in units of
+DATA_BOUNDS = (1e-5, 1e-5, 1e-5, 0.01, 0.0)
+ACT_BOUNDS = (1e-5, 1.1e-2, 1e-3, 2.2, 2e-3)   # 2.2 lr: two AdamW updates of opposite sign
+B1 = 0.9  # AdamW's first-moment decay (make_optimizer's default)
+WORST_KEYS = ("loss", "g", "server_lr", "bulk", "rows_lr", "norms")
+
+
+def bounds(act: bool) -> tuple:
+    return ACT_BOUNDS if act else DATA_BOUNDS
+
+
+def _g_of(opt_new, opt_old):
+    # AdamW's m = (1 - b1) g + b1 m_old: the step's g, to rounding
+    return (opt_new["m"] - B1 * opt_old["m"]) / (1 - B1)
+
+
+def compare(full, want, m2, m1, old, rows) -> list:
+    """The step's distances, in :data:`WORST_KEYS`' order, of the gathered
+    sharded state ``full`` and metrics ``m2`` from the single-process ones
+    (``want``, ``m1``), both from ``old``; ``rows`` the replicas to hold
+    ``full``'s to. Raises where a counter differs."""
+    g2, g1 = _g_of(full["opt"], old["opt"]), _g_of(want["opt"], old["opt"])
+    ds = (full["server"] - want["server"]).abs()
+    out = [abs(float(m2["loss"]) - float(m1["loss"])),
+           float((g2 - g1).abs().max() / g1.abs().max()),
+           float(ds.max()) / LR, float((ds > 0.1 * LR).float().mean()), 0.0,
+           abs(float(m2["grad_norm"]) / float(m1["grad_norm"]) - 1)]
+    if "workers" in want:
+        fw, rw = (full["workers"], rows) if rows.dim() == 2 else (full["workers"][None], rows[None])
+        out[4] = max(float((a.float() - b.float()).abs().max()) for a, b in zip(fw, rw)) / LR  # a row at a time
+        a, b = float(m2["drift"]), float(m1["drift"])  # 0 after a sync
+        out[5] = max(out[5], abs(a - b) / max(abs(b), 1e-30))
+    for k in ("step", "bits_per_worker", "uplink_bits_per_worker"):
+        if full[k] != want[k]:
+            raise AssertionError(f"{k}: {full[k]} != {want[k]}")
+    if full["opt"]["count"] != want["opt"]["count"]:
+        raise AssertionError(f"opt count {full['opt']['count']} != {want['opt']['count']}")
+    if set(m2) != set(m1) or float(m2["bits_per_worker"]) != float(m1["bits_per_worker"]):
+        raise AssertionError(f"metrics {sorted(m2)} vs {sorted(m1)}")
+    if float(m2["lr"]) != float(m1["lr"]):
+        raise AssertionError(f"lr {float(m2['lr'])} != {float(m1['lr'])}")
+    if "participants" in m1 and float(m2["participants"]) != float(m1["participants"]):
+        raise AssertionError(f"participants {float(m2['participants'])} != {float(m1['participants'])}")
+    return out
+
+
+def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Comm, *, batch_rows: int,
+             seq: int, device, steps: int = 3, forced: bool = False) -> dict:
+    """``steps`` teacher-forced steps of the sharded step under downlink
+    ``spec`` (``tcfg`` as the sharded step takes it; the single-process step
+    runs it without ``act_spec``) on a [W, batch_rows, seq] synthetic batch
+    from seed 1's state and seed 11's draws, every rank calling it. Each
+    step also checks that ``shard_state`` / ``gather_state`` give the state
+    back bit for bit and that the bytes ``comm`` handed to the group equal
+    the dry-run's count of the same step on ``meta``; a forced sync at step
+    1 where ``forced``. Returns {"worst": the largest distances
+    (:data:`WORST_KEYS`), "moved": the last step's bytes by kind, "wmax":
+    the replicas' largest |value|, "launches": the sharded steps' kernel
+    launches}."""
+    W = layout.n_workers
+    sizes = P.leaf_sizes(lm.lm_spec(cfg))
+    dl, opt = D.make_downlink(spec, W), make_optimizer("adamw", weight_decay=0.01)
+    single = trainer.make_train_step(cfg, dataclasses.replace(tcfg, act_spec=None), dl, opt, constant_lr(LR))
+    step = SH.make_sharded_train_step(cfg, tcfg, dl, opt, constant_lr(LR), layout, comm)
+    counter = SH.CountingComm()
+    metastep = SH.make_sharded_train_step(cfg, tcfg, dl, opt, constant_lr(LR), layout, counter)
+    meta_state = SH.init_state(cfg, tcfg, dl, opt, layout, device="meta")
+    plan = trainer.participation_plan(tcfg)
+    state = trainer.init_state(cfg, tcfg, dl, opt, device=device, seed=1)
+    data = SyntheticLMData(cfg, W, batch_rows, seq, device=str(device))
+    gen, pgen = torch.Generator().manual_seed(11), torch.Generator().manual_seed(11)
+    dgen = torch.Generator(device).manual_seed(11)
+    worst, moved, launches = [0.0] * len(WORST_KEYS), {}, {}
+    for i in range(steps):
+        batch = data.batch(i)
+        draws = D.draw_round(dl, sizes, gen, dgen)
+        if not plan.is_full:
+            draws = draws._replace(part=plan.draw(W, pgen, device))
+        force = forced and i == 1
+        sp = SH.shard_state(state, layout)
+        back = SH.gather_state(sp, layout, aux)
+        pairs = [(back["server"], state["server"]), (back["opt"]["m"], state["opt"]["m"]),
+                 (back["opt"]["v"], state["opt"]["v"])]
+        if "workers" in state:
+            pairs.append((back["workers"], state["workers"]))
+        if not all(_bit_equal(a, b) for a, b in pairs):
+            raise AssertionError(f"{spec} step {i}: gather_state(shard_state(state)) != state")
+        del back
+        before, l0 = dict(comm.bytes), runtime.LAUNCHES.copy()
+        sp, m2 = step(sp, batch, draws, force)
+        for k, v in runtime.LAUNCHES.items():  # the sharded step's own launches
+            if v - l0.get(k, 0):
+                launches[k] = launches.get(k, 0) + v - l0.get(k, 0)
+        moved = {k: v - before.get(k, 0) for k, v in comm.bytes.items()}
+        mdraws = D.DownlinkDraws(coin=True) if draws.coin else compressed_draws(dl, sizes)
+        if not plan.is_full:
+            mdraws = mdraws._replace(part=tuple(torch.empty(W, device="meta") for _ in range(2)))
+        before = dict(counter.bytes)
+        with op_cost.counting() as c:
+            metastep(meta_state, {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                                  for k, v in batch.items()}, mdraws, force)
+        counted = {k: v - before.get(k, 0) for k, v in counter.bytes.items()}
+        if not moved == counted == dict(c.coll):
+            raise AssertionError(f"{spec} step {i}: bytes handed to the group {moved} != counted {counted} "
+                                 f"(op count {dict(c.coll)})")
+        new, m1 = single(state, batch, draws, force)
+        full = SH.gather_state(sp, layout, aux)
+        rows = new.get("workers")
+        if isinstance(dl, D.EF21PDownlink):
+            rows, _ = dl.round(D.DownlinkDraws(), sizes, full["server"], state["workers"], force)
+            if not torch.equal(full["workers"], rows):
+                raise AssertionError(f"{spec} step {i}: the shift != the downlink of the ranks' own x^(t+1)")
+        got = compare(full, new, m2, m1, state, rows)
+        worst = [max(a, b) for a, b in zip(worst, got)]
+        state = new
+        del full, rows
+    if sp["server"].shape != (layout.shard_len,):
+        raise AssertionError(f"a rank's master slice {tuple(sp['server'].shape)}, not ({layout.shard_len},)")
+    if "workers" in sp and sp["workers"].dim() == 2 and sp["workers"].shape != (layout.local, layout.d):
+        raise AssertionError(f"a rank's replicas {tuple(sp['workers'].shape)}, not ({layout.local}, {layout.d})")
+    wmax = float(state["workers"].float().abs().max()) if "workers" in state else 0.0
+    return {"worst": worst, "moved": moved, "wmax": wmax, "launches": launches}
+
+
+def hold(name: str, res: dict, bnds: tuple, n_workers: int) -> None:
+    """Raises unless :func:`run_case`'s result ``res`` for the case ``name``
+    (a downlink spec, with "bf16" in it for bf16 replicas) is within
+    ``bnds``: the master's, and MARINA-P's replicas within W times the
+    master's bound plus one bf16 ulp of their largest value."""
+    loss_b, g_b, gnorm_b, server_b, bulk_b = bnds
+    loss, g_rel, server, bulk, rows, gnorm = res["worst"]
+    ulp = 2**-8 * res["wmax"] / LR if "bf16" in name else 0.0
+    rows_b = (n_workers if name.startswith("marina") else 1) * server_b + ulp
+    if not (loss <= loss_b and g_rel <= g_b and gnorm <= gnorm_b and server <= server_b and bulk <= bulk_b
+            and rows <= rows_b):
+        raise AssertionError(f"{name}: {dict(zip(WORST_KEYS, res['worst']))} outside {bnds} (rows {rows_b})")

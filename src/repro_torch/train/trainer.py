@@ -55,7 +55,7 @@ class TrainerConfig:
     polyak_f_star: float = 0.0
     window_override: Optional[int] = None
     remat_policy: Optional[str] = None    # None/"full" | "dots"
-    act_spec: Any = None                  # a mesh's activation spec: refused on one card
+    act_spec: Any = None                  # Spec("model", None, None): train/sharded.py only
     drop_prob: float = 0.0                # legacy shim over BernoulliStragglerPlan
     straggler_cutoff: float = 0.0         # legacy shim over BernoulliStragglerPlan
     participation: Any = None             # repro_torch.fleet ParticipationPlan (None = full)
@@ -103,6 +103,75 @@ def worker_value_and_grad(cfg: ModelConfig, spec, fwd_kw: dict, row: torch.Tenso
     return loss.detach(), leaf.grad.float()
 
 
+def replica_rows(downlink, state, server, n: int) -> list:
+    """The rows the round's ``n`` workers differentiate at: the master (the
+    exact broadcast), EF21-P's shift, or MARINA-P's own replicas."""
+    if downlink is None:
+        return [server] * n
+    if isinstance(downlink, EF21PDownlink):
+        return [state["workers"]] * n
+    return list(state["workers"])
+
+
+def participation_weights(plan, draws: DownlinkDraws, W: int, step: int, device):
+    """(the round's participation mask [W], each worker's weight 1/|S| or 0),
+    or (None, None) under full participation. Only the uplink is masked; the
+    downlink still addresses everyone."""
+    if plan.is_full:
+        return None, None
+    participate = plan.mask(draws.part, W, step, device)
+    return participate, participate.float() / torch.clamp(participate.sum(), min=1)
+
+
+def worker_grad_sum(cfg: ModelConfig, spec, fwd_kw: dict, rows, batch: dict, first: int, weights):
+    """(losses [n], the sum of the n workers' fp32 gradients, in worker
+    order): worker ``first + i`` at ``rows[i]`` on ``batch``'s row i, its
+    gradient times its participation weight where ``weights`` is given."""
+    losses, grads = [], None
+    for i, row in enumerate(rows):
+        loss_i, g = worker_value_and_grad(cfg, spec, fwd_kw, row, {k: v[i] for k, v in batch.items()})
+        if weights is not None:
+            g = g * weights[first + i]
+        grads = g if grads is None else grads.add_(g)
+        losses.append(loss_i)
+    return torch.stack(losses), grads
+
+
+def server_lr(tcfg: TrainerConfig, lr_fn: Callable, loss, gnorm_sq, step: int):
+    """The step's learning rate: Polyak's from the loss and ||g||^2, or the
+    schedule's."""
+    if tcfg.polyak_factor > 0:
+        return (tcfg.polyak_factor * torch.clamp(loss - tcfg.polyak_f_star, min=0.0)
+                / torch.clamp(gnorm_sq, min=1e-20))
+    return lr_fn(step)
+
+
+def step_outputs(state, d: int, server_new, opt_new, loss, gnorm_sq, lr, participate) -> tuple:
+    """(new state, metrics) of the server's half of a step; the downlink's
+    half is :func:`add_downlink`'s."""
+    # ---- uplink: exact dense gradient per worker ---------------------------
+    uplink_bits = F32(state["uplink_bits_per_worker"] + F32(CommModel(d=d).dense_bits()))
+    new_state = {
+        "server": server_new,
+        "opt": opt_new,
+        "step": state["step"] + 1,
+        "bits_per_worker": state["bits_per_worker"],
+        "uplink_bits_per_worker": uplink_bits,
+    }
+    metrics = {"loss": loss, "grad_norm": torch.sqrt(gnorm_sq), "lr": lr,
+               "uplink_bits_per_worker": uplink_bits}
+    if participate is not None:
+        metrics["participants"] = participate.sum().float()
+    return new_state, metrics
+
+
+def add_downlink(state, new_state, metrics, workers_new, bits, drift) -> None:
+    """The downlink's round into the step's new state and metrics."""
+    new_state["workers"] = workers_new
+    new_state["bits_per_worker"] = F32(state["bits_per_worker"] + bits)
+    metrics["drift"] = drift
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, downlink, optimizer: Optimizer,
                     lr_fn: Callable):
     """Returns ``train_step(state, batch, draws=None, force_sync=False) ->
@@ -113,60 +182,26 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, downlink, optimizer: 
     fwd_kw = dict(chunk=tcfg.attn_chunk, remat=tcfg.remat, window_override=tcfg.window_override,
                   remat_policy=tcfg.remat_policy, act_spec=tcfg.act_spec)
     plan = participation_plan(tcfg)
-    partial = not plan.is_full
     W = tcfg.n_workers
 
     def train_step(state, batch, draws: Optional[DownlinkDraws] = None, force_sync=False):
         draws = draws if draws is not None else DownlinkDraws()
         server = state["server"]
         # ---- workers: forward/backward on their own replica -------------------
-        if downlink is None:
-            rows = [server] * W
-        elif isinstance(downlink, EF21PDownlink):
-            rows = [state["workers"]] * W
-        else:
-            rows = list(state["workers"])
+        rows = replica_rows(downlink, state, server, W)
         # ---- uplink: exact aggregation over the round's participants -----------
-        # Only the uplink is masked; the downlink still addresses everyone.
-        if partial:
-            participate = plan.mask(draws.part, W, state["step"], server.device)
-            n_part = torch.clamp(participate.sum(), min=1)
-            weights = participate.float() / n_part
-        losses, grads = [], None
-        for i in range(W):
-            loss_i, g = worker_value_and_grad(cfg, spec, fwd_kw, rows[i],
-                                              {k: v[i] for k, v in batch.items()})
-            if partial:
-                g = g * weights[i]
-            grads = g if grads is None else grads.add_(g)
-            losses.append(loss_i)
-        losses = torch.stack(losses)
-        if partial:
+        participate, weights = participation_weights(plan, draws, W, state["step"], server.device)
+        losses, grads = worker_grad_sum(cfg, spec, fwd_kw, rows, batch, 0, weights)
+        if participate is not None:
             loss = torch.sum(weights * losses)
         else:
             grads.mul_(1.0 / W)  # jnp.mean: XLA multiplies by the reciprocal
             loss = torch.mean(losses)
         gnorm_sq = torch.sum(grads * grads)
         # ---- server master update ---------------------------------------------
-        if tcfg.polyak_factor > 0:
-            lr = (tcfg.polyak_factor * torch.clamp(loss - tcfg.polyak_f_star, min=0.0)
-                  / torch.clamp(gnorm_sq, min=1e-20))
-        else:
-            lr = lr_fn(state["step"])
+        lr = server_lr(tcfg, lr_fn, loss, gnorm_sq, state["step"])
         server_new, opt_new = optimizer.update(grads, state["opt"], server, lr)
-        # ---- uplink: exact dense gradient per worker ---------------------------
-        uplink_bits = F32(state["uplink_bits_per_worker"] + F32(CommModel(d=d).dense_bits()))
-        new_state = {
-            "server": server_new,
-            "opt": opt_new,
-            "step": state["step"] + 1,
-            "bits_per_worker": state["bits_per_worker"],
-            "uplink_bits_per_worker": uplink_bits,
-        }
-        metrics = {"loss": loss, "grad_norm": torch.sqrt(gnorm_sq), "lr": lr,
-                   "uplink_bits_per_worker": uplink_bits}
-        if partial:
-            metrics["participants"] = participate.sum().float()
+        new_state, metrics = step_outputs(state, d, server_new, opt_new, loss, gnorm_sq, lr, participate)
         # ---- downlink: compressed broadcast -------------------------------------
         if isinstance(downlink, EF21PDownlink):
             workers_new, bits = downlink.round(draws, sizes, server_new, state["workers"],
@@ -175,9 +210,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, downlink, optimizer: 
             workers_new, bits = downlink.round(draws, sizes, server_new, server,
                                                state["workers"], force_sync)
         if downlink is not None:
-            new_state["workers"] = workers_new
-            new_state["bits_per_worker"] = F32(state["bits_per_worker"] + bits)
-            metrics["drift"] = downlink.worker_drift(server_new, workers_new)
+            add_downlink(state, new_state, metrics, workers_new, bits,
+                         downlink.worker_drift(server_new, workers_new))
         metrics["bits_per_worker"] = new_state["bits_per_worker"]
         return new_state, metrics
 

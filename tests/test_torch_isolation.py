@@ -162,7 +162,9 @@ print("ok")
 
 
 # the LM training path: optim, data, train (both downlinks, measure_wire,
-# the transport, participation) and `python -m repro_torch.train_lm`, with
+# the transport, participation, the sharded step and its check on one gloo
+# rank) and
+# `python -m repro_torch.train_lm`, with
 # `repro`, `benchmarks`, jax and ml_dtypes blocked
 TRAIN_RUN = """
 import os, runpy, sys, tempfile
@@ -198,6 +200,25 @@ try:
 except SystemExit as e:
     assert e.code == 0, e.code
 assert os.path.exists(ckpt)
+# the sharded train step, one gloo rank
+import torch.distributed as dist
+from repro_torch.launch.mesh import Mesh
+from repro_torch.train import sharded as SH
+dist.init_process_group("gloo", init_method="file://" + os.path.join(tempfile.mkdtemp(), "rdv"), rank=0,
+                        world_size=1)
+layout, comm = SH.connect(Mesh(("data", "model"), (1, 1)), 2, sum(sizes))
+tcfg = TrainerConfig(n_workers=2, attn_chunk=16, act_spec=SH.ACT_SPEC)
+opt = make_optimizer("adamw")
+step = SH.make_sharded_train_step(cfg, tcfg, dl, opt, constant_lr(1e-3), layout, comm)
+sp, m = step(SH.init_state(cfg, tcfg, dl, opt, layout, device="cpu"),
+             SyntheticLMData(cfg, 2, 1, 16, device="cpu").batch(0), draws)
+assert np.isfinite(float(m["loss"])) and set(comm.bytes) == {"reduce-scatter", "all-reduce", "all-gather"}
+# ... and held against the single-process step as the 4-rank checks hold it
+from repro_torch.train import sharded_check as SC
+res = SC.run_case(cfg, TrainerConfig(n_workers=2, attn_chunk=16), "marina:perm", layout, comm, SH.Comm(),
+                  batch_rows=1, seq=16, device="cpu", steps=1)
+SC.hold("marina:perm", res, SC.bounds(False), 2)
+dist.destroy_process_group()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("repro", "benchmarks") and sys.modules[m] is not None)
 assert not bad, bad
 print("ok")
@@ -205,7 +226,8 @@ print("ok")
 
 
 # the dry-run (launch/): a full-width count on meta, its record, reanalyze and
-# the roofline report, with `repro`, `benchmarks`, jax and ml_dtypes blocked
+# the roofline report, and the act-sharded train count of one rank, with
+# `repro`, `benchmarks`, jax and ml_dtypes blocked
 LAUNCH_RUN = """
 import os, sys, tempfile
 for mod in ("jax", "ml_dtypes", "repro", "benchmarks"):
@@ -221,6 +243,9 @@ assert reanalyze.reanalyze(out, tempfile.mkdtemp()) == recs
 assert roofline_report.bench(out)[0][0] == "roofline/gemma3-1b/decode_32k/bound_s"
 built = specs.build("gemma3-1b", "train_4k", mesh.make_production_mesh(multi_pod=True))
 assert built.meta["W"] == 32 and built.specs[1]["tokens"][0] == ("pod", "data")
+dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--train-act-model-sharded", "--out", out])
+rec = json.load(open(os.path.join(out, "gemma3-1b__train_4k__16x16__act.json")))
+assert rec["split"] == "per_rank" and rec["roofline"]["collective_s"] > 0, rec["roofline"]
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("repro", "benchmarks") and sys.modules[m] is not None)
 assert not bad, bad
 print("ok")
