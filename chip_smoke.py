@@ -103,7 +103,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     rtol 1e-4 a round, EF21-P's finite and falling; then
     ``repro_torch.transport_bench`` on the card;
 (o) the fleet: ``fleet_run`` of MARINA-P (perm, Polyak) and EF21-P (TopK) at
-    d=1000, population 50,000, cohort 16, T=40, measure_wire, on the
+    d=1000, population 50,000, cohort 16, T=20, measure_wire, on the
     flaky_mobile and two_tier_diurnal mixes (the evaluation cohort: 64
     clients, 256 MB of f32 on the card), card against CPU at one seed:
     participation stats, s2w, wire and join bits equal a round, MARINA-P's
@@ -200,7 +200,8 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
 
 (u) the dry-run (``repro_torch.launch``): (u0) ``python -m
     repro_torch.launch.dryrun --arch A`` for the ten architectures (one
-    process each, all started together), every shape (train_4k, prefill_32k,
+    process each, all started together at (m) at the lowest CPU priority,
+    collected here), every shape (train_4k, prefill_32k,
     decode_32k, long_500k) on the 16x16 mesh description, counted on
     ``meta``: 40 records, each valid (finite counts, a dominant H100
     roofline term, the useful-FLOPs ratio in range); (u1) gemma3-1b's four
@@ -226,7 +227,8 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     printed: a Polyak trajectory follows the last bits of gamma); (v2)
     ``python -m repro_torch.wire_bench --smoke`` exits 0; (v3)
     ``problems.sigma_A`` of (q)'s n = 100 problem, recomputed from its host
-    matrices, equal to ``prob.sigma_A`` bit for bit. The counters are zeroed
+    matrices in a process of its own (started at (m), lowest CPU priority),
+    equal to ``prob.sigma_A`` bit for bit. The counters are zeroed
     before (v1) and read after it (l1_subgrad and block_topk must have
     launched), then zeroed before (v2) and read after it (every kernel but
     the two rotk entries must have launched).
@@ -253,9 +255,35 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     --train-act-model-sharded`` on ``meta``: a per_rank record with its
     collective bytes by kind and a collective term.
 
+(x) the serving step across a process group (``repro_torch.serve.sharded``):
+    (x1) as one NCCL rank (mesh (1, 1), ``serve``), gemma3-1b at full width
+    and depth: a prefill of SERVE_B x SERVE_S tokens and SERVE_STEPS
+    teacher-forced decode steps from a seeded random cache of SERVE_CACHE
+    positions (its local rings wrap), beside ``lm.forward`` /
+    ``lm.decode_step`` on the same parameters: logits and caches bit for bit,
+    greedy sampling equal, the bytes handed to NCCL equal to the count on
+    ``meta`` (none: an axis of one rank runs no collective), ms a step of both
+    paths in turns; the counters are zeroed before (x1) and read after it;
+    (x2) 4 gloo processes on the one card, gemma3-1b at full width on the
+    (2, 2) ``serve``, (1, 4) ``tp`` and (4, 1) ``serve`` meshes (the last at
+    B = 1, the caches' sequence split over "data"), each rank
+    ``serve/sharded_check.run_case`` + ``hold`` (the CPU tests' own code,
+    with ``card_bounds``, a bound for each case and number: logits and
+    caches against the single process on the card, (2, 2) within 1.5 x the
+    single process's own spread on the rank's rows, the (4, 1) prefill bit
+    for bit; the first ``w_out`` product at full width rounded once, where
+    bf16 partials would not be; bytes handed to gloo = counted; greedy over
+    the vocabulary blocks equal to the gathered argmax and to the single
+    process's tokens), each rank's peak memory printed; only gloo's own refusal of a
+    CUDA collective, met by a probe, is logged in place of the run; (x3) gemma3-1b's prefill_32k,
+    decode_32k and long_500k on 16x16 under ``serve`` and ``tp``, one rank
+    counted on ``meta`` (``python -m repro_torch.launch.dryrun``): per_rank
+    records whose counts equal the CPU's (SERVE_COUNTS) exactly, with a
+    collective term.
+
 Prints a ``{"kernels": [...]}`` JSON line (launches: the path of each row
-plus (m)-(o), (q)-(r), (s), (t), (u), (v) and (w1) (``sharded_path``: (w1)'s
-own; ``dryrun_path``: (u)'s own;
+plus (m)-(o), (q)-(r), (s), (t), (u), (v), (w1) and (x1) (``sharded_path``: (w1)'s
+own; ``serve_sharded_path``: (x1)'s own; ``dryrun_path``: (u)'s own;
 ``grid_path`` and ``wire_smoke_path``: (v1)'s and (v2)'s); the rotk_apply row names its dtypes, its numbers are float32's and
 ``by_dtype`` gives each dtype's; the rotk_apply_rows row's are 4 f32 rows of the largest leaf, with
 ``by_dtype`` for bf16, the per-worker path's time and a whole round's; the unpack_bits row's ``serve_path`` gives
@@ -267,12 +295,14 @@ printing no result, where CUDA is unavailable or the port is missing.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import pathlib
 import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -292,6 +322,25 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_CHILDREN: list = []
+
+
+def spawn(args, **kw) -> subprocess.Popen:
+    """``subprocess.Popen(args, **kw)``, killed at exit if it still runs (a
+    failed phase exits before the phase that waits for it)."""
+    proc = subprocess.Popen(args, **kw)
+    _CHILDREN.append(proc)
+    return proc
+
+
+@atexit.register
+def _stop_children() -> None:
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 # ---------------------------------------------------------------------------
@@ -2288,38 +2337,53 @@ MEASURED_ARCH = "gemma3-1b"
 DRYRUN_KERNELS = ("rotk_apply_rows",)
 
 
-def dryrun_phase(card):
-    """(u0): ``python -m repro_torch.launch.dryrun --arch A --out DRYRUN_DIR``
-    for each of the ten architectures, all four shapes on the 16x16 mesh
-    description, counted on ``meta`` (no card), one process an architecture,
-    all started together; every record valid (``dryrun.record_problems``).
-    Returns ({(arch, shape): record}, seconds)."""
+def dryrun_start():
+    """(u0)'s counts, started: ``python -m repro_torch.launch.dryrun --arch A
+    --out DRYRUN_DIR`` for each of the ten architectures, one process an
+    architecture, all at the lowest CPU priority, so that they run on the
+    host's idle cores beside the phases before (u). Returns (the processes,
+    the start time)."""
     import os
 
     from repro_torch import configs
-    from repro_torch.launch import dryrun, specs
 
     if DRYRUN_DIR.exists():
         for f in DRYRUN_DIR.glob("*.json"):
             f.unlink()
     DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
-    t0 = time.perf_counter()
-    procs = {arch: subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                                     "--out", str(DRYRUN_DIR)], env=env, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-             for arch in configs.ALIASES}
+    procs = {}
+    for arch in configs.ALIASES:
+        with open(DRYRUN_DIR / f"{arch}.log", "w") as out:  # a file: nothing reads a pipe until (u)
+            procs[arch] = spawn([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--out",
+                                 str(DRYRUN_DIR)], env=env, stdout=out, stderr=subprocess.STDOUT,
+                                preexec_fn=lambda: os.nice(19))
+    return procs, time.perf_counter()
+
+
+def dryrun_phase(started, card):
+    """(u0): the counts started by :func:`dryrun_start`, all four shapes of
+    each architecture on the 16x16 mesh description, counted on ``meta``
+    (no card); every record valid (``dryrun.record_problems``). Returns
+    ({(arch, shape): record}, the seconds (u) waited for them)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, specs
+
+    procs, t0 = started
+    t_wait = time.perf_counter()
     try:
-        outs = {arch: proc.communicate(timeout=600)[0] for arch, proc in procs.items()}
+        for proc in procs.values():
+            proc.wait(timeout=600)
     finally:
         for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    secs = time.perf_counter() - t0
+    waited = time.perf_counter() - t_wait
     for arch, proc in procs.items():
         if proc.returncode != 0:
-            fail(f"(u0) the dry-run of {arch} exited {proc.returncode}:\n{outs[arch][-3000:]}")
+            fail(f"(u0) the dry-run of {arch} exited {proc.returncode}:\n"
+                 f"{(DRYRUN_DIR / f'{arch}.log').read_text()[-3000:]}")
     recs = {}
     for arch in configs.ALIASES:
         for shape in specs.SHAPES:
@@ -2331,10 +2395,13 @@ def dryrun_phase(card):
             recs[arch, shape] = rec
             t = rec["roofline"]
             log(f"(u0) {arch:26s} {shape:12s} flops {rec['flops_global']:.4e} bytes {rec['bytes_global']:.4e} "
-                f"count {rec['t_count_s']:6.2f} s; per device (256, even): compute {t['compute_s']:.4e} s, "
-                f"memory {t['memory_s']:.4e} s, {t['dominant']}; useful {rec['useful_flops_ratio']:.4f}")
-    log(f"(u0) {len(recs)} dry-run records valid in {secs:.1f} s (H100 constants; no card used)")
-    return recs, secs
+                f"count {rec['t_count_s']:6.2f} s; per device (256, {rec['split']}): compute "
+                f"{t['compute_s']:.4e} s, memory {t['memory_s']:.4e} s, collective "
+                f"{'None' if t['collective_s'] is None else format(t['collective_s'], '.4e')} s, "
+                f"{t['dominant']}; useful {rec['useful_flops_ratio']:.4f}")
+    log(f"(u0) {len(recs)} dry-run records valid (H100 constants; no card used); started {t_wait - t0:.1f} s "
+        f"before (u), which waited {waited:.1f} s more for them")
+    return recs, waited
 
 
 def measured_phase(np, torch, dev, recs, card):
@@ -2440,7 +2507,7 @@ def grid_phase(np, torch, dev, card):
     tmp = tempfile.mkdtemp(prefix="federated_l1_")
     out, cpu_json = os.path.join(tmp, "federated_l1.csv"), os.path.join(tmp, "cpu.json")
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
-    cpu = subprocess.Popen([sys.executable, "-c", GRID_CPU_CELL, cpu_json, json.dumps([d, n, s1, budget])],
+    cpu = spawn([sys.executable, "-c", GRID_CPU_CELL, cpu_json, json.dumps([d, n, s1, budget])],
                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     results = {}
 
@@ -2515,22 +2582,43 @@ def wire_smoke_phase():
     return time.perf_counter() - t0
 
 
-def sigma_phase(sigma100):
+SIGMA_CELL = """
+from repro_torch.core import problems
+A, _ = problems.algorithm3(n=100, d=1000, noise_scale=1.0, seed=0)
+print(repr(float(problems.sigma_A(A))))
+"""
+
+
+def sigma_start():
+    """(v3)'s host work, started at the lowest CPU priority: ``problems.sigma_A``
+    of Algorithm 3's n = 100 matrices in a process of its own. Returns (the
+    process, the start time)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))  # the BLAS threads of this process: sigma_A's last bits follow them
+    return spawn([sys.executable, "-c", SIGMA_CELL], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                 text=True, preexec_fn=lambda: os.nice(19)), time.perf_counter()
+
+
+def sigma_phase(started, sigma100):
     """(v3): ``problems.sigma_A`` of (q)'s n = 100 problem, recomputed from
     its A on the host (Algorithm 3's float64 matrices, before
-    ``generate_problem`` placed them on the card as float32), equal to
-    ``prob.sigma_A`` bit for bit. Returns wall s."""
-    from repro_torch.core import problems
-
-    t0 = time.perf_counter()
-    A, _ = problems.algorithm3(n=100, d=1000, noise_scale=1.0, seed=0)
-    got = problems.sigma_A(A)
-    if got != sigma100:
+    ``generate_problem`` placed them on the card as float32) by
+    :func:`sigma_start`'s process, equal to ``prob.sigma_A`` bit for bit.
+    Returns the seconds (v) waited for it."""
+    proc, t0 = started
+    t_wait = time.perf_counter()
+    out, err = proc.communicate(timeout=600)
+    waited = time.perf_counter() - t_wait
+    if proc.returncode != 0:
+        fail(f"(v3) the sigma_A process exited {proc.returncode}:\n{err[-3000:]}")
+    got = float(out.split()[-1])
+    if got != float(sigma100):
         fail(f"(v3) sigma_A of the n=100 problem's A {got!r} != generate_problem's {sigma100!r}")
-    secs = time.perf_counter() - t0
     log(f"(v3) problems.sigma_A(A) of (q)'s n=100, d=1000, s=1 problem: {got!r}, bit-equal to "
-        f"generate_problem's ({secs:.1f} s on the host)")
-    return secs
+        f"generate_problem's (on the host, started {t_wait - t0:.1f} s before (v3), which waited {waited:.1f} s "
+        "more)")
+    return waited
 
 
 # ---------------------------------------------------------------------------
@@ -2539,7 +2627,7 @@ def sigma_phase(sigma100):
 
 # (w1): the downlinks of the sharded step at demo-100m's full width, one NCCL rank
 SHARDED_SPECS = (("marina:perm", "bfloat16"), ("marina:ind", "float32"), ("ef21p:128:1024", "float32"))
-SHARDED_STEPS = 8
+SHARDED_STEPS = 4
 # kernels that must launch in the sharded steps of (w1)
 SHARDED_KERNELS = ("rotk_apply_rows", "block_topk")
 SHARDED_DRYRUN_DIR = ROOT / "runs" / "dryrun_chip_act"
@@ -2790,7 +2878,7 @@ def gloo_card_phase(card):
         script = os.path.join(tmp, "ranks.py")
         with open(script, "w") as f:
             f.write(GLOO_RANK)
-        runs[shape] = (act, cases, tmp, subprocess.Popen(
+        runs[shape] = (act, cases, tmp, spawn(
             [sys.executable, script, f"file://{tmp}/rdv", shape, "act" if act else "-", json.dumps(cases), tmp],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     try:
@@ -2855,7 +2943,7 @@ def sharded_dryrun_start():
             f.unlink()
     SHARDED_DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
-    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", MEASURED_ARCH,
+    return spawn([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", MEASURED_ARCH,
                              "--shape", "train_4k", "--train-act-model-sharded", "--out",
                              str(SHARDED_DRYRUN_DIR)], env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -2886,6 +2974,351 @@ def sharded_dryrun_phase(proc, card):
         f"(NVLink 450e9 B/s): {t['dominant']}; state bytes a device {rec['state_bytes_per_device']} "
         f"(H100 constants; no card used)")
     return rec
+
+
+# (x): the serving step across a process group, gemma3-1b at full width
+SERVE_ARCH = "gemma3-1b"
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 512, 8
+SERVE_CACHE = SERVE_S + SERVE_STEPS  # the decode runs at positions SERVE_S ...: the 512-slot rings wrap
+SERVE_DRYRUN_DIR = ROOT / "runs" / "dryrun_chip_serve"
+# (x2)'s cases: (mesh, serve layout, batch); all gemma3-1b at full width. On (2, 2) the batch is 2:
+# at B = 4 the reference's cache_specs takes the 4 repetitions of gemma3-1b's scan segment for the
+# batch and splits them over "data", which the port refuses (serve/sharded.cache_split)
+GLOO_SERVE = (("2x2", "serve", 2), ("1x4", "tp", SERVE_B), ("4x1", "serve", 1))
+# (x3): the CPU's per-rank counts of gemma3-1b's serving shapes on 16x16 (python -m
+# repro_torch.launch.dryrun --arch gemma3-1b --shape S --serve-layout L; tests/test_torch_collective_count.py)
+SERVE_COUNTS = {
+    "serve/prefill_32k": {"flops": 55074902507520.0, "bytes": 3264500820492.0,
+                          "coll": {"all-gather": 254974464.0, "reduce-scatter": 0.0, "all-reduce": 15854469120.0}},
+    "serve/decode_32k": {"flops": 6353911808.0, "bytes": 11361931772.0,
+                         "coll": {"all-gather": 254974464.0, "reduce-scatter": 0.0, "all-reduce": 1935360.0}},
+    "serve/long_500k": {"flops": 750985216.0, "bytes": 2284774453.0,
+                        "coll": {"all-gather": 254974464.0, "reduce-scatter": 0.0, "all-reduce": 349248.0}},
+    "tp/prefill_32k": {"flops": 55074902507520.0, "bytes": 3264277249548.0,
+                       "coll": {"all-gather": 92012544.0, "reduce-scatter": 0.0, "all-reduce": 15854469120.0}},
+    "tp/decode_32k": {"flops": 6353911808.0, "bytes": 11138360828.0,
+                      "coll": {"all-gather": 92012544.0, "reduce-scatter": 0.0, "all-reduce": 1935360.0}},
+    "tp/long_500k": {"flops": 750985216.0, "bytes": 2061203509.0,
+                     "coll": {"all-gather": 92012544.0, "reduce-scatter": 0.0, "all-reduce": 349248.0}},
+}
+
+
+def serve_sharded_phase(np, torch, dev, card):
+    """(x1): ``serve/sharded.py``'s prefill and decode as one NCCL rank
+    (mesh (1, 1), ``serve``) at gemma3-1b's full width, beside
+    ``lm.forward`` / ``lm.decode_step``: logits and caches bit for bit, greedy
+    sampling equal, the bytes handed to NCCL equal to the count of the same
+    steps on ``meta``; ms a step of both paths, in turns (host clock after a
+    sync). Returns the seconds it took."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.comm import CountingComm
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import lm
+    from repro_torch.models.params import leaves
+    from repro_torch.serve import sharded as SS
+    from repro_torch.serve import sharded_check as SC
+
+    t0 = time.perf_counter()
+    cfg = configs.get(SERVE_ARCH)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"(x1) the card's process group runs {dist.get_backend()}, not nccl")
+        layout, comm = SS.connect(Mesh(("data", "model"), (1, 1)), "serve")
+        params = lm.lm_init(cfg, device=dev, seed=0)
+        x = SC.inputs(cfg, batch=SERVE_B, prompt=SERVE_S, cache_len=SERVE_CACHE, steps=SERVE_STEPS, seed=1,
+                      device=dev)
+        sp = SS.shard_params(params, layout)
+        prefill = SS.make_prefill_step(cfg, layout, comm)
+        decode = SS.make_decode_step(cfg, layout, comm, SERVE_B, SERVE_CACHE)
+        counter = CountingComm()
+        meta_p = SS.shard_params(lm.lm_init(cfg, device="meta"), layout)
+        with op_cost.counting() as c:
+            SS.make_prefill_step(cfg, layout, counter)(meta_p, {k: v.to("meta") for k, v in x["batch"].items()})
+            SS.make_decode_step(cfg, layout, counter, SERVE_B, SERVE_CACHE)(
+                meta_p, SS.shard_caches(lm.cache_init(cfg, SERVE_B, SERVE_CACHE, device="meta"), cfg, layout),
+                x["tokens"][0].to("meta"), torch.empty((), dtype=torch.int64, device="meta"))
+        counted = {k: float(v) for k, v in c.coll.items() if v}
+
+        def single_prefill():
+            with torch.no_grad():
+                return lm.forward(cfg, params, x["batch"], remat=False)
+
+        times = {"single": [], "sharded": []}
+
+        def timed(name, fn, *args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t)
+            return out
+
+        before = dict(comm.bytes)
+        for order in (("single", "sharded"), ("sharded", "single")):
+            for name in order:
+                out = timed(name, prefill, sp, x["batch"]) if name == "sharded" else timed(name, single_prefill)
+                if name == "sharded":
+                    got = out
+                else:
+                    want = out
+                del out
+            if not bits_equal(torch, got, want):
+                fail(f"(x1) prefill logits differ from lm.forward: max |diff| "
+                     f"{float((got.float() - want.float()).abs().max()):.3e}")
+        pf_ms = {k: v[-1] * 1e3 for k, v in times.items()}
+        del got, want
+        times = {"single": [], "sharded": []}
+        caches, mine = x["caches"], SS.shard_caches(x["caches"], cfg, layout)
+        for i, tok in enumerate(x["tokens"]):
+            pos = torch.tensor(SERVE_S + i, device=dev)
+            for name in (("single", "sharded") if i % 2 == 0 else ("sharded", "single")):
+                if name == "single":
+                    with torch.no_grad():
+                        want, caches = timed(name, lm.decode_step, cfg, params, caches, tok, pos)
+                else:
+                    got, mine = timed(name, decode, sp, mine, tok, pos)
+            if not bits_equal(torch, got, want):
+                fail(f"(x1) decode step {i}: logits differ from lm.decode_step by "
+                     f"{float((got.float() - want.float()).abs().max()):.3e}")
+            if not all(bits_equal(torch, a, b) for a, b in zip(leaves(mine), leaves(caches))):
+                fail(f"(x1) decode step {i}: caches differ from lm.decode_step's")
+        tokens = SS.greedy(got, layout, comm, cfg.vocab_size)
+        if not torch.equal(tokens, want.argmax(-1)):
+            fail("(x1) greedy sampling differs from the argmax of lm.decode_step's logits")
+        moved = {k: float(v - before.get(k, 0)) for k, v in comm.bytes.items() if v - before.get(k, 0)}
+        if moved != counted:
+            fail(f"(x1) bytes handed to NCCL {moved} != counted {counted}")
+        if not torch.isfinite(got.float()).all():
+            fail("(x1) non-finite logits")
+        dec_ms = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+        log(f"(x1) {SERVE_ARCH} at full width ({cfg.param_count():,} parameters) on one NCCL rank, mesh (1, 1) "
+            f"serve: prefill {SERVE_B} x {SERVE_S} and {SERVE_STEPS} teacher-forced decode steps from a "
+            f"{SERVE_CACHE}-position cache: logits and caches bit-equal to lm.forward / lm.decode_step, greedy "
+            f"equal; ms prefill sharded {pf_ms['sharded']:.3f} / single {pf_ms['single']:.3f}, ms a decode step "
+            f"sharded {dec_ms['sharded']:.3f} / single {dec_ms['single']:.3f} (median of {SERVE_STEPS}, in turns, "
+            f"eager); bytes handed to NCCL {moved} = counted {counted} (an axis of one rank runs no collective) "
+            f"({card})")
+        del params, sp, caches, mine, got, want, x
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+# (x2)'s rank: every case of GLOO_SERVE on the one card over gloo, held to
+# serve/sharded_check's bounds
+GLOO_SERVE_RANK = """
+import datetime, json, os, re, sys, time
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+WORLD = 4
+REFUSAL = re.compile(r"unsupported device type|No backend type associated with device type")
+
+
+def probe(dev):
+    # the serving step's collectives on CUDA tensors: gloo's refusal, or None
+    try:
+        dist.all_gather_into_tensor(torch.empty(2 * WORLD, dtype=torch.bfloat16, device=dev),
+                                    torch.ones(2, dtype=torch.bfloat16, device=dev))
+        for dtype, op in ((torch.float32, dist.ReduceOp.SUM), (torch.bfloat16, dist.ReduceOp.SUM),
+                          (torch.float32, dist.ReduceOp.MAX), (torch.int64, dist.ReduceOp.MIN)):
+            dist.all_reduce(torch.ones(2, dtype=dtype, device=dev), op=op)
+    except (RuntimeError, ValueError) as e:
+        if REFUSAL.search(str(e)):
+            return f"{type(e).__name__}: {e}"[:600]
+        raise
+    return None
+
+
+def rank_main(rank, init, cases, kw, out_dir):
+    sys.path.insert(0, os.environ["PORT_SRC"])
+    from repro_torch import configs
+    from repro_torch.launch.comm import Comm
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.layers import set_reference_precision
+    from repro_torch.serve import sharded as SS, sharded_check as SC
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    set_reference_precision()
+    res = {"rank": rank}
+    try:
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=WORLD,
+                                timeout=datetime.timedelta(seconds=300))
+        res["refusal"] = probe(dev)
+        if res["refusal"] is None:
+            res["cases"] = {}
+            cfg = configs.get(kw["arch"])
+            for shape, name, batch in cases:
+                t0 = time.perf_counter()
+                torch.cuda.reset_peak_memory_stats()
+                layout, comm = SS.connect(Mesh(("data", "model"), tuple(int(x) for x in shape.split("x"))), name)
+                r = SC.run_case(cfg, layout, comm, Comm(comm.groups), batch=batch, prompt=kw["prompt"],
+                                cache_len=kw["cache_len"], steps=kw["steps"], start=kw["prompt"], device=dev)
+                try:
+                    SC.hold(f"{shape} {name}", r, SC.card_bounds(f"{shape}/{name}", r))
+                except AssertionError as e:  # every case runs; the parent fails the phase
+                    r["hold"] = str(e)[:600]
+                r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                r["s"] = time.perf_counter() - t0
+                res["cases"][f"{shape}/{name}"] = r
+                torch.cuda.empty_cache()
+        dist.destroy_process_group()
+    except Exception as e:  # every error fails (x2): the parent reports it
+        import traceback
+        res["error"] = f"{type(e).__name__}: {e}"[:600]
+        res["trace"] = traceback.format_exc()[-3000:]
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+if __name__ == "__main__":
+    init, cases, kw, out_dir = sys.argv[1:5]
+    mp.spawn(rank_main, args=(init, json.loads(cases), json.loads(kw), out_dir), nprocs=WORLD, join=True)
+"""
+
+
+def gloo_serve_start():
+    """(x2)'s 4 gloo processes, started: (the process, its directory, the
+    start time)."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="gloo_serve_")
+    script = os.path.join(tmp, "ranks.py")
+    with open(script, "w") as f:
+        f.write(GLOO_SERVE_RANK)
+    env = dict(os.environ, PORT_SRC=str(SRC), PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    kw = dict(arch=SERVE_ARCH, prompt=SERVE_S, cache_len=SERVE_CACHE, steps=SERVE_STEPS)
+    proc = spawn([sys.executable, script, f"file://{tmp}/rdv", json.dumps(GLOO_SERVE), json.dumps(kw),
+                             tmp], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, tmp, t0
+
+
+def gloo_serve_phase(started, card):
+    """(x2): 4 gloo processes on the one card (:func:`gloo_serve_start`),
+    gemma3-1b at full width on each mesh of GLOO_SERVE:
+    ``serve/sharded_check.run_case`` + ``hold`` on every rank (the CPU
+    tests' own code; the full-width bounds). A refusal counts only where
+    gloo itself refuses a CUDA collective (each rank probes them first): it
+    is logged, and nothing runs in its place; any other error fails the
+    phase. Returns (the refusal or None, s)."""
+    import os
+
+    from repro_torch.serve import sharded_check as SC
+
+    proc, tmp, t0 = started
+    try:
+        _, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    ranks = []
+    for r in range(4):
+        path = os.path.join(tmp, f"rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                ranks.append(json.load(f))
+    problems = [] if proc.returncode == 0 and len(ranks) == 4 else [
+        f"the 4 gloo processes exited {proc.returncode} with {len(ranks)} reports:\n{err[-3000:]}"]
+    problems += [f"rank {r['rank']}: {r['error']}\n{r['trace'][-1500:]}" for r in ranks if "error" in r]
+    if problems:
+        fail("(x2) " + "\n".join(problems))
+    refusals = [f"rank {r['rank']}: {r['refusal']}" for r in ranks if r["refusal"] is not None]
+    if refusals:
+        if len(refusals) != 4:
+            fail(f"(x2) gloo refused CUDA tensors on some ranks only: {refusals}")
+        log(f"(x2) gloo refused the serving step's collectives on CUDA tensors ({refusals[0]}); the 4-rank step "
+            "on the card did not run (no CPU run stands in for it)")
+        return refusals[0], time.perf_counter() - t0
+    held = []
+    for shape, name, batch in GLOO_SERVE:
+        cases = [r["cases"][f"{shape}/{name}"] for r in ranks]
+        held += [f"rank {i}: {c['hold']}" for i, c in enumerate(cases) if "hold" in c]
+        c0 = cases[0]
+        numbers = [{k: max(c[k]) if isinstance(c[k], list) else c[k] for k in ("prefill", "decode", "caches")}
+                   for c in cases]
+        bounds = [SC.card_bounds(f"{shape}/{name}", c) for c in cases]
+        log(f"(x2) 4 gloo ranks on the one card, mesh {shape} {name}, {SERVE_ARCH} at full width, batch {batch} x "
+            f"{SERVE_S} + {SERVE_STEPS} decode steps against the single process on the card (max |diff| / max "
+            f"|value|; by rank, each with serve/sharded_check.card_bounds): "
+            + "; ".join(f"rank {i} " + ", ".join(f"{k} {n[k]:.4g} <= {b[k]:.4g}" for k in n)
+                        for i, (n, b) in enumerate(zip(numbers, bounds)))
+            + f" (the single process on a rank's rows alone against the batch: {[c['floor'] for c in cases]}); "
+            f"prefill bit for bit required {c0['prefill_exact']}; the first w_out product's outputs not correctly "
+            f"rounded (rank 0: port / single process / bf16 partials) {c0['rounded_once']}; heads of rank 1 "
+            f"{cases[1]['heads']}; bytes a rank (rank 0) {c0['moved']} = counted; cache bytes a rank "
+            f"{c0['cache_bytes']:,} (cache_specs: {c0['cache_bytes_specs']:,}); parameters a rank "
+            f"{c0['param_numel']:,} = local_numel; greedy tokens equal to the single process's by rank "
+            f"{[c['greedy_single'] for c in cases]}; peak GiB by rank {[round(c['peak_gib'], 2) for c in cases]}; "
+            f"s {[round(c['s'], 1) for c in cases]} ({card})")
+    if held:
+        fail("(x2) outside serve/sharded_check's bounds:\n" + "\n".join(held))
+    return None, time.perf_counter() - t0
+
+
+def serve_dryrun_start():
+    """(x3)'s counts, started in a process of their own: ``python -m
+    repro_torch.launch.dryrun --arch gemma3-1b --shape S --serve-layout L``
+    for the three serving shapes under serve and tp, one directory a layout."""
+    import os
+
+    code = ("import sys\nfrom repro_torch.launch import dryrun\n"
+            "for lay in ('serve', 'tp'):\n"
+            "    for shape in ('prefill_32k', 'decode_32k', 'long_500k'):\n"
+            f"        dryrun.main(['--arch', '{SERVE_ARCH}', '--shape', shape, '--serve-layout', lay, '--out', "
+            f"'{SERVE_DRYRUN_DIR}/' + lay])\n")
+    for lay in ("serve", "tp"):
+        for f in (SERVE_DRYRUN_DIR / lay).glob("*.json") if (SERVE_DRYRUN_DIR / lay).exists() else ():
+            f.unlink()
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    return spawn([sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def serve_dryrun_phase(proc, card):
+    """(x3): the counts started by :func:`serve_dryrun_start`: valid per_rank
+    records with a collective term, equal to the CPU's (SERVE_COUNTS)."""
+    from repro_torch.launch import dryrun
+
+    try:
+        outp = proc.communicate(timeout=600)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        fail(f"(x3) the serving dry-runs exited {proc.returncode}:\n{outp[-3000:]}")
+    for key, want in SERVE_COUNTS.items():
+        lay, shape = key.split("/")
+        rec = json.loads((SERVE_DRYRUN_DIR / lay / f"{SERVE_ARCH}__{shape}__16x16.json").read_text())
+        got = {"flops": rec["flops_per_device"], "bytes": rec["bytes_per_device"],
+               "coll": rec["collective_bytes_per_device"]}
+        t = rec["roofline"]
+        if dryrun.record_problems(rec) or rec["split"] != "per_rank" or t["collective_s"] is None:
+            fail(f"(x3) {key}: {dryrun.record_problems(rec)}, split {rec['split']}, {t}")
+        if got != want:
+            fail(f"(x3) {key}: the card's count {got} != the CPU's {want}")
+        log(f"(x3) {SERVE_ARCH} {shape} on 16x16 under {lay}, one rank on meta ({rec['t_count_s']} s): the CPU's "
+            f"count exactly: {got['flops']:.6e} FLOPs, {got['bytes']:.6e} bytes, collective {got['coll']}; compute "
+            f"{t['compute_s']:.5g} s, memory {t['memory_s']:.5g} s, collective {t['collective_s']:.5g} s: "
+            f"{t['dominant']}; state bytes a device {rec['state_bytes_per_device']} (H100 constants; no card used)")
 
 
 def main() -> int:
@@ -3389,12 +3822,14 @@ def main() -> int:
 
     # --- (m)-(o): tracing, the lossy transport and the client fleet -----------------------
     runtime.reset_launches()
+    u0 = dryrun_start()  # host work only: on the idle cores from here to (u)
+    sigma = sigma_start()  # and (v3)'s
     t_m = time.perf_counter()
     trace_us = tracing_phase(np, torch, dev, prob, T=50)
     t_n = time.perf_counter()
     transport_us = transport_phase(np, torch, dev, prob, prob_cpu, T=120)
     t_o = time.perf_counter()
-    fleet_us = fleet_phase(np, torch, dev, D, T=40, population=50_000, cohort=16)
+    fleet_us = fleet_phase(np, torch, dev, D, T=20, population=50_000, cohort=16)
     part_us = participation_phase(np, torch, dev, prob, prob_cpu, T=40)
     torch.cuda.synchronize()
     slice_launches = dict(runtime.LAUNCHES)
@@ -3524,7 +3959,7 @@ def main() -> int:
 
     # --- (u) the dry-run and the measured roofline share -------------------------------
     t_u0 = time.perf_counter()
-    recs, u0_s = dryrun_phase(card)
+    recs, u0_s = dryrun_phase(u0, card)
     runtime.reset_launches()
     t_u1 = time.perf_counter()
     measured = measured_phase(np, torch, dev, recs, card)
@@ -3559,7 +3994,7 @@ def main() -> int:
         for kname in want:
             if got_launches.get(kname, 0) <= 0:
                 fail(f"{what} never launched {kname}")
-    sigma_s = sigma_phase(sigma100)
+    sigma_s = sigma_phase(sigma, sigma100)
     log(f"(v) launches: (v1) {grid_launches}, (v2) {smoke_launches}; (v1) {grid_s:.1f} s, (v2) {smoke_s:.1f} s, "
         f"(v3) {sigma_s:.1f} s ({card})")
 
@@ -3578,6 +4013,19 @@ def main() -> int:
     log(f"(w) launches of the sharded steps: {w_launches}; (w1) {t_w1 - t_w0:.1f} s, (w2) {w2_s:.1f} s"
         f"{' (gloo refused CUDA tensors)' if gloo_refusal else ''}; (w) took {time.perf_counter() - t_w0:.1f} s "
         f"({card})")
+
+    # --- (x) the serving step across a process group ----------------------------------------
+    t_x0 = time.perf_counter()
+    x3 = serve_dryrun_start()  # on the host's cores beside (x1) and (x2)
+    runtime.reset_launches()
+    x1_s = serve_sharded_phase(np, torch, dev, card)  # alone on the card: its ms are timed
+    torch.cuda.synchronize()
+    x_launches = dict(runtime.LAUNCHES)
+    serve_refusal, x2_s = gloo_serve_phase(gloo_serve_start(), card)
+    serve_dryrun_phase(x3, card)
+    log(f"(x) launches of the sharded serving steps (x1): {x_launches} (no hand kernel is on this path); (x1) "
+        f"{x1_s:.1f} s, (x2) {x2_s:.1f} s{' (gloo refused CUDA tensors)' if serve_refusal else ''}; (x) took "
+        f"{time.perf_counter() - t_x0:.1f} s; the script so far {time.perf_counter() - T_START:.1f} s ({card})")
 
     summary = {"kernels": [
         {"name": "l1_subgrad", "route": "cuda", "source": "src/repro_torch/csrc/l1_subgrad.cu",
@@ -3620,9 +4068,12 @@ def main() -> int:
         row["launches"] += (slice_launches.get(row["name"], 0) + harness_launches.get(row["name"], 0)
                             + serve_launches.get(row["name"], 0) + train_launches.get(row["name"], 0)
                             + u_launches.get(row["name"], 0) + grid_launches.get(row["name"], 0)
-                            + smoke_launches.get(row["name"], 0) + w_launches.get(row["name"], 0))
+                            + smoke_launches.get(row["name"], 0) + w_launches.get(row["name"], 0)
+                            + x_launches.get(row["name"], 0))
         # (w1) the sharded train steps (one NCCL rank): their launches
         row["sharded_path"] = {"launches": w_launches.get(row["name"], 0)}
+        # (x1) the sharded serving steps (one NCCL rank): their launches
+        row["serve_sharded_path"] = {"launches": x_launches.get(row["name"], 0)}
         # the dry-run's measured steps (u1): their launches
         row["dryrun_path"] = {"launches": u_launches.get(row["name"], 0)}
         # (v1) the paper's reduced grid, (v2) wire_bench --smoke: their launches

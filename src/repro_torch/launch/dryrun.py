@@ -10,18 +10,25 @@ Usage:
 
 The reference lowers and compiles a partitioned SPMD program for 256 or 512
 devices and reads per-device totals from its HLO. The port compiles no
-program: it counts the global step once on ``meta`` (:mod:`.op_cost`) and
-splits the count evenly over the mesh's devices (``"split": "even"``; no
-collective term: the reference's program is tensor-parallel over "model",
-the port's is not, ``collective_note``). With ``--train-act-model-sharded``
-a train shape counts one rank of ``train/sharded.py``'s step instead
-(``"split": "per_rank"``, the record ``<arch>__<shape>__<mesh>__act.json``):
-its collectives' result-shape bytes by kind
-(``collective_bytes_per_device``) give the roofline's third term, and
-``state_bytes_per_device`` puts the rank's flat ZeRO-1 state beside the
-reference's per-leaf specs. Its bytes are the eager program's, op by op;
-there is no XLA memory analysis (``argument_bytes`` is the built arguments'
-size) and no saved HLO.
+program; it counts on ``meta`` (:mod:`.op_cost`) either one rank of its own
+sharded program (``"split": "per_rank"``) or the whole step once, split
+evenly over the mesh's devices (``"split": "even"``, no collective term,
+``collective_note`` says why). Per rank:
+
+* the serving shapes (prefill_32k, decode_32k, long_500k) of the dense, vlm
+  and audio families: rank 0 of ``serve/sharded.py``'s step under
+  ``--serve-layout`` (ZeRO-3 gathers over "data", tensor parallelism over
+  "model"); ``state_bytes_per_device`` puts the rank's parameters and
+  caches beside the reference's ``param_specs`` / ``cache_specs``;
+* a train shape with ``--train-act-model-sharded``: one rank of
+  ``train/sharded.py``'s step (the record
+  ``<arch>__<shape>__<mesh>__act.json``); ``state_bytes_per_device`` puts
+  the rank's flat ZeRO-1 state beside the reference's per-leaf specs.
+
+A per-rank record's collectives' result-shape bytes by kind
+(``collective_bytes_per_device``) give the roofline's third term. Its bytes
+are the eager program's, op by op; there is no XLA memory analysis
+(``argument_bytes`` is the built arguments' size) and no saved HLO.
 
 ``--measure`` runs the step on one card (``--device``, the card by
 default; there is no CPU fallback) at the sizes of :data:`REDUCED`, times it
@@ -45,6 +52,7 @@ from .. import configs, obs
 from ..kernels import runtime
 from ..models import lm
 from ..models.params import FlatParams, leaf_sizes, map_tree, stacked
+from ..serve import sharded as SS
 from . import op_cost, roofline
 from . import sharding as sh
 from .mesh import make_hierarchical_mesh, make_production_mesh
@@ -55,11 +63,9 @@ log = obs.get_logger("dryrun")
 
 DEFAULT_OUT = "runs/dryrun_torch"
 COLLECTIVE_KINDS = ("all-gather", "reduce-scatter", "all-reduce")
-# why a record of the even split has no collective term
-EVEN_NOTE = ("collective_s is None: this step is counted once for the whole mesh and split evenly; the "
-             "reference's program moves activations and weights over 'model' (tensor parallelism), which "
-             "the port does not run (train shapes: --train-act-model-sharded counts one rank's step with "
-             "its collectives)")
+# why a record of the even split has no collective term; the build's meta["even_note"] says what is not ported
+EVEN_NOTE = ("collective_s is None: this step is counted once for the whole mesh and split evenly, because the "
+             "port has no program of it across ranks: ")
 WARMUP, REPS = 2, 5
 # the measured step on one card: how each shape is cut to fit it
 REDUCED = {
@@ -158,11 +164,13 @@ def run_one(arch: str, shape: str, *, multi_pod: bool = False, downlink: str = "
         "params_total": cfg.param_count(),
         "params_active": cfg.active_param_count(),
     }
-    if per_rank:
+    if per_rank and kind == "train":
         rec["act_spec"] = list(built.meta["act_spec"])
         rec["state_bytes_per_device"] = state_bytes_per_device(built)
+    elif per_rank:
+        rec["state_bytes_per_device"] = serve_state_bytes(built)
     else:
-        rec["collective_note"] = EVEN_NOTE
+        rec["collective_note"] = EVEN_NOTE + built.meta["even_note"]
     if verbose:
         log.info(f"{arch:26s} {shape:12s} mesh={rec['mesh']:8s} count={t_count:6.1f}s "
                  f"flops={flops:.3e} bytes={nbytes:.3e} dominant={terms['dominant'].replace('_s', '')}")
@@ -198,6 +206,20 @@ def state_bytes_per_device(built) -> dict:
         ref += spec_bytes(wtree, specs["workers"], w.element_size())
     flat = argument_bytes([state[k] for k in ("server", "opt", "workers") if k in state])
     return {"flat_zero1": flat, "param_specs": ref}
+
+
+def serve_state_bytes(built) -> dict:
+    """Per-device bytes of the counted serving rank's parameters (its
+    blocks' fp32 masters and bf16 copy, beside the reference's bf16
+    parameters under the same ``param_specs``) and, for a decode shape, its
+    caches (beside the same caches under the reference's ``cache_specs``,
+    which do not split the kv heads over "model")."""
+    layout = built.meta["layout"]
+    out = {"params": SS.param_bytes(layout, lm.lm_spec(built.meta["cfg"]))}
+    if "caches" in built.meta:
+        out["caches"] = {"port": argument_bytes(built.args[1]),
+                         "cache_specs": SS.cache_bytes(layout, built.meta["caches"])}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -356,7 +378,9 @@ def measure_step(arch: str, shape: str, *, device="cuda", downlink: str = "marin
 
 def record_problems(rec: dict) -> list:
     """What is wrong with a dry-run record (empty: valid): counts finite and
-    positive, a dominant term, the useful-FLOPs ratio in (0, 1.05 x the
+    positive, a dominant term, a collective term exactly where the count is
+    one rank's (``per_rank``; an ``even`` record says why it has none), the
+    useful-FLOPs ratio in (0, 1.05 x the
     embedding allowance] (MODEL_FLOPS charges an untied embedding table 2
     FLOPs a token, but a lookup multiplies nothing: rwkv6-1.6b's 8% of its
     parameters), and a measured step finite with a positive share (the
@@ -373,6 +397,8 @@ def record_problems(rec: dict) -> list:
         out.append(f"roofline {t}")
     if rec.get("split") == "per_rank" and not (t.get("collective_s") or 0) > 0:
         out.append(f"a per-rank count without a collective term: {t}")
+    if rec.get("split") == "even" and (t.get("collective_s") is not None or not rec.get("collective_note")):
+        out.append(f"an even split with a collective term or without the note that says why: {t}")
     ratio, limit = rec["useful_flops_ratio"], 1.05 * n / (n - table)
     if not (ratio is not None and 0 < ratio <= limit):
         out.append(f"useful_flops_ratio {ratio} outside (0, {limit:.4f}]")

@@ -24,11 +24,23 @@ round's (no sync coin), the branch every count and measurement takes.
 P("model", None, None)`` where a worker's batch splits over "model") builds
 one rank's step of ``train/sharded.py`` for the mesh instead: rank 0's state
 (its ZeRO-1 slices and its workers' rows), the global batch, and a
-:class:`~repro_torch.train.sharded.CountingComm` that charges the step's
+:class:`~repro_torch.launch.comm.CountingComm` that charges the step's
 collectives and calls no process group (``meta["split"] = "per_rank"``).
 Where the reference would drop ``act_spec`` (the batch does not split over
 "model") it runs tensor parallelism over "model", which the port does not:
 that, and ``act_spec`` for configs with experts, raise.
+
+The serving shapes (prefill_32k, decode_32k, long_500k) of the dense, vlm
+and audio families build rank 0's step of ``serve/sharded.py`` under
+``serve_layout`` instead (``meta["split"] = "per_rank"``): its
+``shard_params`` blocks, its caches (``shard_caches``), the global batch (the
+step takes its rows) and a ``CountingComm`` that charges the ZeRO-3 gathers
+over "data", the partial sums over "model" and the rest of the step's
+collectives. The moe, ssm and hybrid families, whose sharded serving step is
+not ported, and caches that ``cache_specs`` splits over another dim than the
+batch or the sequence keep the whole step, which the dry-run splits evenly
+(``"even"``); ``meta["even_note"]`` names what is not ported, for these and
+for the train step without ``train_act_model_sharded``.
 """
 from __future__ import annotations
 
@@ -44,10 +56,12 @@ from ..models.config import ModelConfig
 from ..models.params import Leaf, leaf_sizes, map_tree, stacked
 from ..optim import make_optimizer
 from ..optim.schedules import cosine_warmup
+from ..serve import sharded as SS
 from ..train import TrainerConfig, init_state, make_downlink, make_train_step
 from ..train import sharded as SH
 from ..train.downlink import DownlinkDraws, MarinaPDownlink
 from . import sharding as sh
+from .comm import CountingComm
 from .mesh import n_workers as mesh_n_workers
 
 SHAPES = {
@@ -149,10 +163,13 @@ def build(arch_id: str, shape_id: str, mesh, *, downlink_spec: str = "marina:per
                                  "'model', which the port does not")
             tcfg = dataclasses.replace(tcfg, act_spec=SH.ACT_SPEC)
             layout = SH.Layout(mesh, 0, W, sum(leaf_sizes(lm.lm_spec(cfg))))
-            comm = SH.CountingComm()
+            comm = CountingComm()
             step = SH.make_sharded_train_step(cfg, tcfg, downlink, optimizer, train_lr(), layout, comm)
             state = SH.shard_state(state, layout)
             meta.update(split="per_rank", act_spec=SH.ACT_SPEC, layout=layout, comm=comm)
+        else:
+            meta["even_note"] = ("the train step's tensor parallelism over 'model' (the reference's worker "
+                                 "layout; the count without --train-act-model-sharded)")
         batch = {k: empty(s.shape, s.dtype) for k, s in data_batch_specs(cfg, W, bpw, info["seq"]).items()}
         tree = lm.lm_spec(cfg)
         draws = compressed_draws(downlink, leaf_sizes(tree))
@@ -173,28 +190,53 @@ def build(arch_id: str, shape_id: str, mesh, *, downlink_spec: str = "marina:per
 
     params = lm.lm_init(cfg, device=META)
     p_specs = sh.param_specs(lm.lm_spec(cfg), mesh, serve_layout)
-    if info["kind"] == "prefill":
-        B, S = info["global_batch"], info["seq"]
-
-        def prefill_step(params, batch):
-            with torch.no_grad():
-                return lm.forward(cfg, params, batch, chunk=attn_chunk, remat=remat)
-
-        batch = serve_batch(cfg, B, S)
-        return Built(prefill_step, (params, batch), (p_specs, sh.serve_batch_spec(batch, mesh, B)),
-                     dict(cfg=cfg, **info))
-
-    # ---- decode ---------------------------------------------------------------
     B, S = info["global_batch"], info["seq"]
     window = long_ctx_window(cfg) if shape_id == "long_500k" else None
+    meta = dict(cfg=cfg, window=window, split="even", **info)
+    refusal = serving_refusal(cfg, mesh, B, S, window, info["kind"])
+    if refusal is None:  # rank 0 of the sharded serving step
+        meta.update(split="per_rank", layout=SS.ServeLayout(mesh, 0, serve_layout), comm=CountingComm())
+        params = SS.shard_params(params, meta["layout"])
+    else:
+        meta["even_note"] = refusal
+    if info["kind"] == "prefill":
+        if meta["split"] == "per_rank":
+            prefill_step = SS.make_prefill_step(cfg, meta["layout"], meta["comm"], chunk=attn_chunk)
+        else:
+            def prefill_step(params, batch):
+                with torch.no_grad():
+                    return lm.forward(cfg, params, batch, chunk=attn_chunk, remat=remat)
+
+        batch = serve_batch(cfg, B, S)
+        return Built(prefill_step, (params, batch), (p_specs, sh.serve_batch_spec(batch, mesh, B)), meta)
+
+    # ---- decode ---------------------------------------------------------------
     caches = lm.cache_init(cfg, B, S, window_override=window, device=META)
-
-    def serve_step(params, caches, token, pos):
-        with torch.no_grad():
-            return lm.decode_step(cfg, params, caches, token, pos, window_override=window)
-
     token = decode_token(cfg, B)
-    pos = empty((), torch.int32)
     specs = (p_specs, sh.cache_specs(caches, mesh, B), sh.serve_batch_spec(token, mesh, B), sh.Spec())
-    return Built(serve_step, (params, caches, token, pos), specs, dict(cfg=cfg, window=window, **info))
+    if meta["split"] == "per_rank":
+        serve_step = SS.make_decode_step(cfg, meta["layout"], meta["comm"], B, S, window_override=window)
+        meta["caches"] = caches  # the whole model's: the per-device bytes under cache_specs
+        caches = SS.shard_caches(caches, cfg, meta["layout"])
+    else:
+        def serve_step(params, caches, token, pos):
+            with torch.no_grad():
+                return lm.decode_step(cfg, params, caches, token, pos, window_override=window)
 
+    return Built(serve_step, (params, caches, token, empty((), torch.int32)), specs, meta)
+
+
+def serving_refusal(cfg: ModelConfig, mesh, batch: int, seq: int, window, kind: str) -> Optional[str]:
+    """None where the dry-run counts one rank of the sharded serving step
+    (``serve/sharded.py``) for ``cfg`` on ``mesh`` (the ported families on a
+    (data axes, "model") mesh, with caches that ``cache_specs`` splits over
+    the batch or the sequence), else what is not ported (the message of
+    :class:`~repro_torch.serve.sharded.NotPorted`)."""
+    try:
+        SS.check_ported(cfg)
+        layout = SS.ServeLayout(mesh, 0)
+        if kind == "decode":
+            SS.cache_layout(cfg, layout, batch, seq, window_override=window)
+    except SS.NotPorted as e:
+        return str(e)
+    return None

@@ -18,9 +18,22 @@ Conventions, as in the reference:
 Decode takes ``pos`` as an int or a 0-d integer tensor on the activations'
 device; with a tensor the step has no host synchronisation, so the serving
 engine can capture it in a CUDA graph.
+
+Tensor parallelism: the dense layers take an optional shard context ``tp``
+(``serve/sharded.py``'s :class:`~repro_torch.serve.sharded.ServeShard`: one
+rank of a ("data", "model") mesh holding its blocks of the weights and
+caches). With ``tp=None`` (the default) nothing changes. With a context, each
+weight is read through ``tp.weight`` (gathered over "data" where the layout
+splits it there: ZeRO-3), column-parallel products give the rank's columns,
+row-parallel ones (``wo``, ``w_out``) a partial that ``tp.row_mm`` sums over
+"model" in fp32 and rounds once, attention runs on the rank's q heads
+(:class:`Heads`; all of them where the "model" split cuts through a head),
+and a decode over a cache whose sequence is split over "data" combines the
+ranks' partial softmaxes (:func:`split_decode_attention`).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -60,11 +73,24 @@ def rmsnorm_spec(d):
     return {"scale": full((d,), 1.0)}
 
 
-def rmsnorm(params, x, eps=1e-5):
+def rmsnorm(params, x, eps=1e-5, tp=None):
     xf = x.to(F32)
     var = (xf * xf).mean(-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * params["scale"]
+    scale = params["scale"] if tp is None else tp.weight(params, "scale", F32)
+    out = xf * torch.rsqrt(var + eps) * scale
     return out.to(x.dtype)
+
+
+def _weight(p, name: str, dtype, tp, whole: bool = False) -> torch.Tensor:
+    """:func:`.params.weight`, or on a rank of a sharded model the rank's
+    block gathered over "data" (and over "model" too if ``whole``)."""
+    return weight(p, name, dtype) if tp is None else tp.weight(p, name, dtype, whole)
+
+
+def _row_mm(x, p, name: str, tp) -> torch.Tensor:
+    """``x @ p[name]``; on a rank whose ``p[name]`` rows are split over
+    "model", the partial product summed over "model" (``tp.row_mm``)."""
+    return mm(x, weight(p, name, x.dtype)) if tp is None else tp.row_mm(x, p, name)
 
 
 # ---------------------------------------------------------------------------
@@ -106,14 +132,14 @@ def mlp_spec(d_model: int, d_ff: int, kind: str):
     return p
 
 
-def mlp_apply(params, x, kind: str):
+def mlp_apply(params, x, kind: str, tp=None):
     dt = x.dtype
-    h = mm(x, weight(params, "w_in", dt))
+    h = mm(x, _weight(params, "w_in", dt, tp))
     if kind == "swiglu":
-        g = mm(x, weight(params, "w_gate", dt))
+        g = mm(x, _weight(params, "w_gate", dt, tp))
         h = F.silu(g.to(F32)).to(dt) * h
     elif kind == "geglu":
-        g = mm(x, weight(params, "w_gate", dt))
+        g = mm(x, _weight(params, "w_gate", dt, tp))
         h = F.gelu(g.to(F32), approximate="tanh").to(dt) * h
     elif kind == "relu2":
         h = torch.square(torch.relu(h.to(F32))).to(dt)
@@ -121,7 +147,7 @@ def mlp_apply(params, x, kind: str):
         h = F.gelu(h.to(F32), approximate="tanh").to(dt)
     else:
         raise ValueError(kind)
-    return mm(h, weight(params, "w_out", dt))
+    return _row_mm(h, params, "w_out", tp)
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +258,23 @@ def decode_attention(q, k_cache, v_cache, valid_mask):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def split_decode_attention(q, k_cache, v_cache, valid_mask, tp):
+    """:func:`decode_attention` over a cache whose slots are split over the
+    mesh's "data" axis: every rank scores its own slots (``valid_mask``
+    [S_local], its slice of the global mask), and the softmax is combined
+    from the all-reduced max, then the all-reduced sum and weighted values."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd).to(F32)
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.to(F32)) * hd**-0.5
+    s = torch.where(valid_mask[None, None, None, :], s, NEG_INF)
+    m = tp.all_reduce(s.amax(-1), "data", "max")
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    part = torch.cat([p.sum(-1)[..., None], torch.einsum("bkgs,bskh->bkgh", p, v_cache.to(F32))], -1)
+    part = tp.all_reduce(part, "data")
+    return (part[..., 1:] / part[..., :1]).reshape(B, 1, H, hd).to(q.dtype)
+
+
 def ring_valid(pos, slot, L: int, window: Optional[int]):
     """Validity of the L slots of a ring buffer after writing position
     ``pos`` at ``slot = pos % L``: slot j holds absolute position
@@ -258,12 +301,48 @@ def attention_spec(cfg: ModelConfig):
     }
 
 
-def _qkv(cfg: ModelConfig, params, x, positions):
+@dataclasses.dataclass(frozen=True)
+class Heads:
+    """The attention heads a rank computes: q heads ``q0 ... q0 + nq - 1``
+    and kv heads ``kv0 ... kv0 + nkv - 1`` (global indices); ``q_whole`` /
+    ``kv_whole``: wq / (wk, wv) are gathered over "model" first, because
+    their "model" split cuts through a head."""
+
+    q0: int
+    nq: int
+    kv0: int
+    nkv: int
+    q_whole: bool = False
+    kv_whole: bool = False
+
+
+def _heads(cfg: ModelConfig, tp) -> Heads:
+    return Heads(0, cfg.num_heads, 0, cfg.num_kv_heads) if tp is None else tp.heads
+
+
+def _kv_for(cfg: ModelConfig, hs: Heads, k, v):
+    """The kv heads that q heads ``hs.q0 ...`` attend with, out of the
+    rank's ``hs.kv0 ...``, laid out for :func:`chunked_attention` /
+    :func:`decode_attention`'s grouping (global group index h // G): whole
+    groups or one group as a slice, else one kv head a q head."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    first, last = hs.q0 // G, (hs.q0 + hs.nq - 1) // G
+    if first == last or (hs.nq % G == 0 and hs.q0 % G == 0):
+        lo, n = first - hs.kv0, last - first + 1
+        if lo == 0 and n == k.shape[2]:
+            return k, v
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = torch.arange(hs.q0, hs.q0 + hs.nq, device=k.device) // G - hs.kv0
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _qkv(cfg: ModelConfig, params, x, positions, tp=None):
     B, S, _ = x.shape
     dt = x.dtype
-    q = mm(x, weight(params, "wq", dt)).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = mm(x, weight(params, "wk", dt)).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = mm(x, weight(params, "wv", dt)).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    hs = _heads(cfg, tp)
+    q = mm(x, _weight(params, "wq", dt, tp, hs.q_whole)).reshape(B, S, hs.nq, cfg.head_dim)
+    k = mm(x, _weight(params, "wk", dt, tp, hs.kv_whole)).reshape(B, S, hs.nkv, cfg.head_dim)
+    v = mm(x, _weight(params, "wv", dt, tp, hs.kv_whole)).reshape(B, S, hs.nkv, cfg.head_dim)
     if cfg.use_rope:
         angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, positions, cfg.rope_theta, angles)
@@ -271,29 +350,45 @@ def _qkv(cfg: ModelConfig, params, x, positions):
     return q, k, v
 
 
-def attention_apply(cfg: ModelConfig, params, x, *, window=None, chunk=512):
+def attention_apply(cfg: ModelConfig, params, x, *, window=None, chunk=512, tp=None):
     """Prefill self-attention. x: [B, S, D]."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _qkv(cfg, params, x, positions)
-    out = chunked_attention(q, k, v, window=window, chunk=chunk)
-    return mm(out.reshape(B, S, cfg.q_dim), weight(params, "wo", x.dtype))
+    q, k, v = _qkv(cfg, params, x, positions, tp)
+    hs = _heads(cfg, tp)
+    out = chunked_attention(q, *_kv_for(cfg, hs, k, v), window=window, chunk=chunk)
+    return _row_mm(out.reshape(B, S, hs.nq * cfg.head_dim), params, "wo", tp)
 
 
-def attention_decode(cfg: ModelConfig, params, x, cache, pos, *, window=None):
+def attention_decode(cfg: ModelConfig, params, x, cache, pos, *, window=None, tp=None):
     """One-token decode (``layers.py:286``). x: [B, 1, D]; cache {k, v: [B, L,
     KV, hd]}, a ring buffer of length L (the window for local layers, the
-    whole sequence for global ones). Returns (y, new cache)."""
+    whole sequence for global ones). Returns (y, new cache). On a rank
+    whose cache holds a slice of the ring (``tp.seq_split``: its L slots
+    of ``data_size`` x L), the rank that owns slot ``pos % (data_size x
+    L)`` writes the new k/v, and the attention is
+    :func:`split_decode_attention`."""
     B = x.shape[0]
     L = cache["k"].shape[1]
     pos = _pos_tensor(pos, x.device)
-    q, k, v = _qkv(cfg, params, x, pos.expand(B, 1))
-    slot = torch.remainder(pos, L).reshape(1)
-    k_cache = cache["k"].index_copy(1, slot, k.to(cache["k"].dtype))
-    v_cache = cache["v"].index_copy(1, slot, v.to(cache["v"].dtype))
-    valid = ring_valid(pos, slot, L, window)
-    out = decode_attention(q, k_cache, v_cache, valid)
-    y = mm(out.reshape(B, 1, cfg.q_dim), weight(params, "wo", x.dtype))
+    q, k, v = _qkv(cfg, params, x, pos.expand(B, 1), tp)
+    hs = _heads(cfg, tp)
+    if tp is not None and tp.seq_split:
+        lo = tp.data_index * L
+        slot = torch.remainder(pos, tp.data_size * L).reshape(1)
+        mine = (slot >= lo) & (slot < lo + L)
+        at = torch.clamp(slot - lo, 0, L - 1)
+        k_cache, v_cache = (c.index_copy(1, at, torch.where(mine, new.to(c.dtype), c.index_select(1, at)))
+                            for c, new in ((cache["k"], k), (cache["v"], v)))
+        valid = ring_valid(pos, slot, tp.data_size * L, window)[lo:lo + L]
+        out = split_decode_attention(q, *_kv_for(cfg, hs, k_cache, v_cache), valid, tp)
+    else:
+        slot = torch.remainder(pos, L).reshape(1)
+        k_cache = cache["k"].index_copy(1, slot, k.to(cache["k"].dtype))
+        v_cache = cache["v"].index_copy(1, slot, v.to(cache["v"].dtype))
+        valid = ring_valid(pos, slot, L, window)
+        out = decode_attention(q, *_kv_for(cfg, hs, k_cache, v_cache), valid)
+    y = _row_mm(out.reshape(B, 1, hs.nq * cfg.head_dim), params, "wo", tp)
     return y, {"k": k_cache, "v": v_cache}
 
 

@@ -15,7 +15,15 @@ the training view ``params.grad_tree`` that autograd differentiates.
 ``forward``'s ``remat`` / ``remat_policy`` checkpoint activations (see
 :mod:`.transformer`); ``act_spec``, a sharding constraint of the reference's
 mesh, is refused here: ``train/sharded.py`` realizes it by splitting each
-worker's rows over the mesh's "model" axis.
+worker's rows over the mesh's "model" axis, and ``serve/sharded.py``'s
+prefill (the reference's ``act_spec = P(dp, None, None)``) by taking the
+rank's rows of the batch over "data".
+
+``tp``: the shard context of a rank of a sharded model (:mod:`.layers`).
+The embedding table's rows are split over "model": the rank looks up the
+tokens of its rows, writes zeros for the others, and the ranks' lookups are
+summed over "model" (exact: every other rank adds zero). The logits stay
+split over the vocabulary: the rank gets its block ``[..., V / M]``.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ from ..kernels.runtime import resolve_device
 from . import layers as L
 from . import transformer as T
 from .config import ModelConfig
-from .params import FlatParams, Leaf, einsum_low, leaves_with_path, materialize, mm, tree_of, weight
+from .params import FlatParams, Leaf, einsum_low, leaves_with_path, materialize, mm, tree_of
 
 # ---------------------------------------------------------------------------
 # init
@@ -82,22 +90,33 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    emb = weight(tree_of(params), "embed", L.COMPUTE_DTYPE)
+def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    p = tree_of(params)
+    emb = L._weight(p, "embed", L.COMPUTE_DTYPE, tp)
+    rows = None if tp is None else tp.model_block(p, "embed", -2)
+    if rows is not None:  # the rank's rows of the table
+        inside = (tokens >= rows[0]) & (tokens < rows[0] + rows[1])
+        tokens = torch.where(inside, tokens - rows[0], 0)
     if cfg.num_codebooks:
         # tokens [B, K, S] -> sum_k E_k[tok_k], one bf16 rounding per add
-        return sum(emb[k][tokens[:, k]] for k in range(cfg.num_codebooks))
-    return emb[tokens]
+        parts = [emb[k][tokens[:, k]] for k in range(cfg.num_codebooks)]
+    else:
+        parts = [emb[tokens]]
+    if rows is not None:
+        ins = inside.unbind(1) if cfg.num_codebooks else [inside]
+        parts = tp.all_reduce(torch.stack([torch.where(i[..., None], e, 0) for i, e in zip(ins, parts)]),
+                              "model").unbind(0)
+    return sum(parts) if cfg.num_codebooks else parts[0]
 
 
-def logits_from_hidden(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+def logits_from_hidden(cfg: ModelConfig, params, h: torch.Tensor, tp=None) -> torch.Tensor:
     p = tree_of(params)
     if cfg.tie_embeddings:
-        w = weight(p, "embed", h.dtype)
+        w = L._weight(p, "embed", h.dtype, tp)
         if cfg.num_codebooks:
             return einsum_low("bsd,kvd->bksv", h, w)
         return mm(h, w.T)
-    w = weight(p, "unembed", h.dtype)
+    w = L._weight(p, "unembed", h.dtype, tp)
     if cfg.num_codebooks:
         return einsum_low("bsd,kdv->bksv", h, w)
     return mm(h, w)
@@ -110,7 +129,7 @@ def logits_from_hidden(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tenso
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
             window_override: Optional[int] = None, chunk: int = 512, remat: bool = True,
-            act_spec=None, remat_policy: Optional[str] = None):
+            act_spec=None, remat_policy: Optional[str] = None, tp=None):
     """Logits [B, S, V] (text / vlm over the text positions) or [B, K, S, V].
     ``remat``: recompute each block's activations in the backward pass
     (``remat_policy`` None / "full": all of them; "dots": all but the
@@ -118,17 +137,19 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     if act_spec is not None:
         raise ValueError("act_spec pins activations onto a device mesh; lm.forward runs one device's "
                          "rows: the sharded train step (train/sharded.make_sharded_train_step) realizes "
-                         "it by splitting each worker's rows over the mesh's 'model' axis")
+                         "it by splitting each worker's rows over the mesh's 'model' axis, the sharded "
+                         "serving step (serve/sharded.make_prefill_step) by taking each rank's rows of "
+                         "the batch over 'data'")
     p = tree_of(params)
-    x = embed_tokens(cfg, p, batch["tokens"])
+    x = embed_tokens(cfg, p, batch["tokens"], tp)
     if cfg.num_patches:
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)  # [B, P + S, D]
     x = T.stack_apply(cfg, p["stack"], x, window_override=window_override, chunk=chunk,
-                      remat=remat, remat_policy=remat_policy)
-    x = L.rmsnorm(p["ln_f"], x, cfg.rms_eps)
+                      remat=remat, remat_policy=remat_policy, tp=tp)
+    x = L.rmsnorm(p["ln_f"], x, cfg.rms_eps, tp)
     if cfg.num_patches:
         x = x[:, cfg.num_patches:]
-    return logits_from_hidden(cfg, p, x)
+    return logits_from_hidden(cfg, p, x, tp)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -161,15 +182,16 @@ def cache_init(cfg: ModelConfig, batch: int, cache_len: int, *, window_override=
 
 
 def decode_step(cfg: ModelConfig, params, caches, token: torch.Tensor, pos, *,
-                window_override: Optional[int] = None):
+                window_override: Optional[int] = None, tp=None):
     """One-token decode: (logits [B, V] or [B, K, V], new caches).
     token: [B, 1] or [B, K, 1]; pos: an int or a 0-d integer tensor on the
     token's device (no host sync: the step can be captured in a CUDA graph)."""
     p = tree_of(params)
-    x = embed_tokens(cfg, p, token)  # [B, 1, D]
-    x, new_caches = T.stack_decode(cfg, p["stack"], caches, x, pos, window_override=window_override)
-    x = L.rmsnorm(p["ln_f"], x, cfg.rms_eps)
-    logits = logits_from_hidden(cfg, p, x)
+    x = embed_tokens(cfg, p, token, tp)  # [B, 1, D]
+    x, new_caches = T.stack_decode(cfg, p["stack"], caches, x, pos, window_override=window_override,
+                                   tp=tp)
+    x = L.rmsnorm(p["ln_f"], x, cfg.rms_eps, tp)
+    logits = logits_from_hidden(cfg, p, x, tp)
     if cfg.num_codebooks:
         return logits[:, :, 0, :], new_caches
     return logits[:, 0, :], new_caches

@@ -111,9 +111,12 @@ def shape_tree(tree):
 
 class ParamDict(dict):
     """A dict node of a parameter tree. ``low`` is its bf16 twin (the same
-    keys, views into ``flat_low``), or None."""
+    keys, views into ``flat_low``), or None; ``specs`` maps the names of its
+    leaves to their partition specs on a rank of a sharded model
+    (``serve/sharded.py``), or is None."""
 
     low: Optional["ParamDict"] = None
+    specs: Optional[dict] = None
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
@@ -141,6 +144,18 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`mm` before its rounding: the fp32 product of two bf16
+    operands (fp32 accumulation), a partial that a row-parallel product sums
+    over ranks before rounding once. On the CPU an fp32 product of the bf16
+    values, as :func:`mm`; elsewhere a bf16 GEMM with an fp32 result
+    (``out_dtype``). b: 2-D."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.float(), b.float())
+    out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
 def einsum_low(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.einsum`` of two bf16 operands with a bf16 result, as :func:`mm`."""
     if a.dtype == LOW_DTYPE and a.device.type == "cpu":
@@ -157,6 +172,8 @@ def index_tree(tree, i: int):
         out = ParamDict({k: index_tree(v, i) for k, v in tree.items()})
         if getattr(tree, "low", None) is not None:
             out.low = index_tree(tree.low, i)
+        if getattr(tree, "specs", None) is not None:  # a repetition's leaf drops the stacked dim
+            out.specs = {k: s[1:] for k, s in tree.specs.items()}
         if isinstance(tree, ParamDict):
             tree._reps[i] = out
         return out

@@ -15,6 +15,9 @@ parameter tree and so the ravel order and the checkpoint keys: a periodic
 pattern becomes a scan segment whose parameters are stacked ``[count, ...]``
 leaves, everything else is unrolled. The reference scans a segment with
 ``lax.scan``; here it is a plain loop over the repetitions.
+
+``tp``: the optional shard context of a rank of a sharded model
+(:mod:`.layers`), passed on to the attention / MLP blocks' layers.
 """
 from __future__ import annotations
 
@@ -107,20 +110,21 @@ def _attn_window(cfg: ModelConfig, kind: str, window_override) -> Optional[int]:
     return window_override  # the serving-time sliding-window variant for dense archs
 
 
-def block_apply(cfg, kind, params, shared_params, x, *, window_override=None, chunk=512):
+def block_apply(cfg, kind, params, shared_params, x, *, window_override=None, chunk=512, tp=None):
     """Prefill forward of one block. x: [B, S, D]."""
     if kind == "shared":
         params, kind = shared_params, "attn"
     if kind in ("attn", "attn_local", "moe"):
         w = _attn_window(cfg, kind, window_override)
-        h = L.rmsnorm(params["ln1"], x, cfg.rms_eps)
+        kw = {} if tp is None else {"tp": tp}
+        h = L.rmsnorm(params["ln1"], x, cfg.rms_eps, tp)
         attn = L.mla_apply if cfg.mla else L.attention_apply
-        x = x + attn(cfg, params["attn"], h, window=w, chunk=chunk)
-        h = L.rmsnorm(params["ln2"], x, cfg.rms_eps)
+        x = x + attn(cfg, params["attn"], h, window=w, chunk=chunk, **kw)
+        h = L.rmsnorm(params["ln2"], x, cfg.rms_eps, tp)
         if kind == "moe":
             h = MOE.moe_apply(cfg, params["moe"], h)
         else:
-            h = L.mlp_apply(params["mlp"], h, cfg.mlp_kind)
+            h = L.mlp_apply(params["mlp"], h, cfg.mlp_kind, tp)
         return x + h
     if kind == "mamba":
         return x + SSM.mamba_apply(cfg, params["mamba"], L.rmsnorm(params["ln"], x, cfg.rms_eps))
@@ -148,20 +152,21 @@ def block_cache_init(cfg, kind, batch, cache_len, *, window_override=None,
     raise ValueError(kind)
 
 
-def block_decode(cfg, kind, params, shared_params, x, cache, pos, *, window_override=None):
+def block_decode(cfg, kind, params, shared_params, x, cache, pos, *, window_override=None, tp=None):
     if kind == "shared":
         params, kind = shared_params, "attn"
     if kind in ("attn", "attn_local", "moe"):
         w = _attn_window(cfg, kind, window_override)
-        h = L.rmsnorm(params["ln1"], x, cfg.rms_eps)
+        kw = {} if tp is None else {"tp": tp}
+        h = L.rmsnorm(params["ln1"], x, cfg.rms_eps, tp)
         decode = L.mla_decode if cfg.mla else L.attention_decode
-        h, cache = decode(cfg, params["attn"], h, cache, pos, window=w)
+        h, cache = decode(cfg, params["attn"], h, cache, pos, window=w, **kw)
         x = x + h
-        h = L.rmsnorm(params["ln2"], x, cfg.rms_eps)
+        h = L.rmsnorm(params["ln2"], x, cfg.rms_eps, tp)
         if kind == "moe":
             h = MOE.moe_apply(cfg, params["moe"], h)
         else:
-            h = L.mlp_apply(params["mlp"], h, cfg.mlp_kind)
+            h = L.mlp_apply(params["mlp"], h, cfg.mlp_kind, tp)
         return x + h, cache
     if kind == "mamba":
         h, new = SSM.mamba_decode(cfg, params["mamba"], L.rmsnorm(params["ln"], x, cfg.rms_eps),
@@ -245,7 +250,7 @@ def _make_checkpoint(remat: bool, remat_policy: Optional[str]):
 
 
 def stack_apply(cfg: ModelConfig, params, x, *, window_override=None, chunk=512, remat=True,
-                remat_policy=None):
+                remat_policy=None, tp=None):
     shared = params.get("shared_blk")
     ckpt = _make_checkpoint(remat, remat_policy)
     segs = plan_stack(cfg.block_pattern)
@@ -257,7 +262,7 @@ def stack_apply(cfg: ModelConfig, params, x, *, window_override=None, chunk=512,
                 for j, bk in enumerate(seg.block_kinds):
                     p = rep_params if seg.kind == "unroll" else rep_params[f"b{j}"]
                     h = block_apply(cfg, bk, p, shared, h, window_override=window_override,
-                                    chunk=chunk)
+                                    chunk=chunk, tp=tp)
                 return h
 
             x = ckpt(body, x)
@@ -283,7 +288,7 @@ def stack_cache_init(cfg: ModelConfig, batch: int, cache_len: int, *, window_ove
     return caches
 
 
-def stack_decode(cfg: ModelConfig, params, caches, x, pos, *, window_override=None):
+def stack_decode(cfg: ModelConfig, params, caches, x, pos, *, window_override=None, tp=None):
     """One decode step through every layer; returns (x, new caches), the new
     caches in the layout of ``caches``."""
     shared = params.get("shared_blk")
@@ -292,11 +297,11 @@ def stack_decode(cfg: ModelConfig, params, caches, x, pos, *, window_override=No
     for kind, blk, si, rep, slot in _layers(cfg, params):
         if rep is None:
             x, new[si] = block_decode(cfg, kind, blk, shared, x, caches[si], pos,
-                                      window_override=window_override)
+                                      window_override=window_override, tp=tp)
         else:
             cache = map_tree(lambda t: t[rep], caches[si][slot])
             x, new[si][rep][slot] = block_decode(cfg, kind, blk, shared, x, cache, pos,
-                                                 window_override=window_override)
+                                                 window_override=window_override, tp=tp)
     for si, seg in enumerate(plan_stack(cfg.block_pattern)):
         if seg.kind == "scan":
             # [{slot: cache}] per repetition -> {slot: cache of stacked leaves}

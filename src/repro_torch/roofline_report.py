@@ -32,13 +32,16 @@ def _fmt(x, spec=".3e"):
 
 
 def markdown_table(recs):
-    """One row a record: the H100 roofline terms of its global count split
-    evenly over the mesh, MODEL_FLOPS and the useful ratio, the arguments'
-    bytes; then, where measured on a card, ms, peak memory, the bound of
-    the same reduced step, roofline_share, mfu and the card."""
-    hdr = ("| arch | shape | compute_s | memory_s | dominant | MODEL_FLOPS | useful ratio | "
+    """One row a record: how its per-device count was taken (``split``:
+    ``per_rank``, one rank of the port's sharded step with its collectives;
+    ``even``, the whole step's count over the mesh's devices, with no
+    collective term), the H100 roofline terms of that count, MODEL_FLOPS and
+    the useful ratio, the arguments' bytes; then, where measured on a card,
+    ms, peak memory, the bound of the same reduced step, roofline_share, mfu
+    and the card."""
+    hdr = ("| arch | shape | split | compute_s | memory_s | collective_s | dominant | MODEL_FLOPS | useful ratio | "
            "argument bytes | measured ms | peak GiB | bound ms | roofline share | mfu | card |\n"
-           "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|\n")
+           "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|\n")
     lines = []
     for r in sorted(recs, key=lambda r: (r["arch"], r["shape"])):
         t, m = r["roofline"], r.get("measured")
@@ -48,7 +51,8 @@ def markdown_table(recs):
                     f"{m['roofline']['bound_s'] * 1e3:.3f}", f"{m['roofline_share']:.4f}",
                     _fmt(m["mfu"], ".4f"), m["card"]]
         lines.append(
-            f"| {r['arch']} | {r['shape']} | {t['compute_s']:.3e} | {t['memory_s']:.3e} | "
+            f"| {r['arch']} | {r['shape']} | {r.get('split', 'even')} | {t['compute_s']:.3e} | {t['memory_s']:.3e} | "
+            f"{_fmt(t['collective_s'])} | "
             f"{t['dominant'].replace('_s', '')} | {r['model_flops']:.3e} | "
             f"{_fmt(r['useful_flops_ratio'], '.3f')} | {r['argument_bytes']:.3e} | " + " | ".join(meas) + " |")
     return hdr + "\n".join(lines)

@@ -44,11 +44,11 @@ collectives and the slicing):
    row counted once: by the first model rank of its data index).
 
 At one rank the step is ``make_train_step``'s bit for bit. The collectives
-go through a communicator: :class:`Comm` calls the process group and tallies
-the result-shape bytes it hands over; :class:`CountingComm` charges the same
-bytes and calls nothing, so the dry-run counts one rank of a 256-rank mesh on
-``meta`` with no group. Both charge an open op count
-(:func:`repro_torch.launch.op_cost.counting`).
+go through a communicator over every rank (``launch/comm.py``): :class:`Comm`
+calls the process group and tallies the result-shape bytes it hands over;
+:class:`CountingComm` charges the same bytes and calls nothing, so the
+dry-run counts one rank of a 256-rank mesh on ``meta`` with no group. Both
+charge an open op count (:func:`repro_torch.launch.op_cost.counting`).
 
 Refused (not ported): tensor parallelism over "model" (M > 1 without
 ``act_spec``: the reference then shards the replicas' inner dims), and
@@ -57,7 +57,6 @@ tokens of a call, ``models/moe.py``, so a split batch drops other tokens).
 """
 from __future__ import annotations
 
-import collections
 import dataclasses
 from typing import Callable, Optional
 
@@ -65,7 +64,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..kernels import runtime
+from ..launch.comm import Comm, CountingComm, device_type  # noqa: F401 (re-exported)
 from ..launch.mesh import Mesh
 from ..launch.sharding import Spec
 from ..models import lm
@@ -157,53 +156,11 @@ class Layout:
         return out
 
 
-# ---------------------------------------------------------------------------
-# communicators
-# ---------------------------------------------------------------------------
-
-
-class Comm:
-    """The step's collectives over the default process group (every rank of
-    the mesh). ``bytes`` tallies, by kind, the result-shape bytes of every
-    tensor handed to the group (``all-gather``: the gathered tensor;
-    ``reduce-scatter``: the rank's slice; ``all-reduce``: the tensor)."""
-
-    def __init__(self):
-        self.bytes: collections.Counter = collections.Counter()
-
-    def _call(self, kind: str, out: torch.Tensor, call: Callable) -> torch.Tensor:
-        nbytes = out.numel() * out.element_size()
-        self.bytes[kind] += nbytes
-        with runtime.collective_cost(kind, nbytes):
-            call()
-        return out
-
-    def reduce_scatter(self, out: torch.Tensor, inp: torch.Tensor) -> torch.Tensor:
-        """``out`` = this rank's slice of the sum over ranks of ``inp``."""
-        return self._call("reduce-scatter", out, lambda: dist.reduce_scatter_tensor(out, inp))
-
-    def all_gather(self, out: torch.Tensor, inp: torch.Tensor) -> torch.Tensor:
-        """``out`` = every rank's ``inp``, in rank order."""
-        return self._call("all-gather", out, lambda: dist.all_gather_into_tensor(out, inp))
-
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` = the sum over ranks of ``t``, in place."""
-        return self._call("all-reduce", t, lambda: dist.all_reduce(t))
-
-
-class CountingComm(Comm):
-    """Charges and tallies what :class:`Comm` would and calls nothing: the
-    outputs are left as allocated (the dry-run's ``meta`` tensors)."""
-
-    def _call(self, kind, out, call):
-        return super()._call(kind, out, lambda: None)
-
-
 def connect(mesh: Mesh, n_workers: int, d: int) -> tuple:
     """(this rank's :class:`Layout`, a :class:`Comm` over the default process
     group), which must have ``mesh.size`` ranks: the mesh's ``DeviceMesh``
     is built to check it, and gives this rank's coordinates."""
-    dm = mesh.device_mesh("cuda" if str(dist.get_backend()).lower() == "nccl" else "cpu")
+    dm = mesh.device_mesh(device_type())
     layout = Layout(mesh, dist.get_rank(), n_workers, d)
     if tuple(dm.get_coordinate()) != layout.coords:
         raise RuntimeError(f"rank {layout.rank}: DeviceMesh coordinate {dm.get_coordinate()} "

@@ -1,10 +1,12 @@
-"""The roofline's collective term: the sharded train step's collectives
-counted (``train/sharded.CountingComm`` into ``op_cost.OpCount.coll``),
-priced by ``launch/roofline.roofline_terms`` over ``LINK_BW``, and carried by
-the dry-run's ``per_rank`` records (``--train-act-model-sharded``), beside
-the ``even`` records that keep ``collective_s: None`` and say why. The
-bytes the real communicator hands to gloo are held equal to this count in
-tests/test_torch_train_sharded.py."""
+"""The roofline's collective term: the sharded train and serving steps'
+collectives counted (``launch/comm.CountingComm`` into
+``op_cost.OpCount.coll``), priced by ``launch/roofline.roofline_terms`` over
+``LINK_BW``, and carried by the dry-run's ``per_rank`` records (a train shape
+with ``--train-act-model-sharded``; the serving shapes of the dense, vlm and
+audio families), beside the ``even`` records that keep ``collective_s:
+None`` and say why. The bytes the real communicator hands to gloo are held
+equal to this count in tests/test_torch_train_sharded.py and
+tests/test_torch_serve_sharded.py."""
 import json
 
 import pytest
@@ -12,10 +14,12 @@ import torch
 
 from repro_torch import configs
 from repro_torch.kernels import runtime
+from repro_torch import roofline_report
 from repro_torch.launch import dryrun, op_cost, reanalyze, roofline, sharding, specs
 from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.models import lm
 from repro_torch.models import params as P
+from repro_torch.serve import sharded as SS
 from repro_torch.train import sharded as SH
 
 MESH = Mesh(("data", "model"), (2, 2))
@@ -23,10 +27,15 @@ MESH = Mesh(("data", "model"), (2, 2))
 
 @pytest.fixture
 def smoke(monkeypatch):
-    """``configs.get`` gives the smoke configs and train_4k is 256 sequences
-    of 128 tokens (on MESH: W = 2 workers of 128 rows, 64 a model rank)."""
+    """``configs.get`` gives the smoke configs, train_4k is 256 sequences
+    of 128 tokens (on MESH: W = 2 workers of 128 rows, 64 a model rank),
+    the serving shapes 4 sequences of 64 (decode_32k: 32; long_500k: 1 of
+    256)."""
     monkeypatch.setattr(specs.configs, "get", configs.get_smoke)
     monkeypatch.setitem(specs.SHAPES, "train_4k", dict(kind="train", seq=128, global_batch=256))
+    monkeypatch.setitem(specs.SHAPES, "prefill_32k", dict(kind="prefill", seq=64, global_batch=4))
+    monkeypatch.setitem(specs.SHAPES, "decode_32k", dict(kind="decode", seq=64, global_batch=32))
+    monkeypatch.setitem(specs.SHAPES, "long_500k", dict(kind="decode", seq=256, global_batch=1))
 
 
 def test_counting_comm_charges_the_count_and_calls_nothing():
@@ -150,3 +159,98 @@ def test_full_width_act_sharded_dry_run(tmp_path):
     c = -(-d // 256)
     assert rec["collective_bytes_per_device"] == {"all-gather": 2 * 4 * 256 * c, "reduce-scatter": 4 * c,
                                                   "all-reduce": 4 * 17 + 4}
+
+
+# ---------------------------------------------------------------------------
+# the sharded serving step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "musicgen-large", "starcoder2-7b"])
+def test_per_rank_serve_flops_against_the_even_count(smoke, monkeypatch, arch, shape):
+    """Rank 0's dot FLOPs times the mesh's devices are the even count's
+    plus what the ranks compute more than once: on MESH (M = 2), gemma3's
+    one kv head is cut, so wk and wv are gathered and their products
+    computed M times (2 x 2 T D kv_dim a layer, T tokens, one more time);
+    musicgen (4 kv heads) and starcoder2 (2) split whole heads: no gap."""
+    per_rank = specs.build(arch, shape, MESH)
+    monkeypatch.setattr(specs, "serving_refusal", lambda *a: "counted whole for the comparison")
+    even = specs.build(arch, shape, MESH)
+    assert per_rank.meta["split"] == "per_rank" and even.meta["split"] == "even"
+    cr, ce = (dryrun.count(b.meta["kind"], b.fn, *b.args) for b in (per_rank, even))
+    cfg = configs.get_smoke(arch)
+    info = specs.SHAPES[shape]
+    T = info["global_batch"] * (info["seq"] if info["kind"] == "prefill" else 1)  # rows: B % D == 0
+    M = MESH.shape["model"]
+    heads = SS.attention_heads(cfg, per_rank.meta["layout"])
+    gap = (M - 1) * 2 * 2 * T * cfg.d_model * cfg.kv_dim * cfg.num_layers if heads.kv_whole else 0
+    assert (arch == "gemma3-1b") == (gap > 0)
+    assert cr.total_flops * MESH.size == ce.total_flops + gap
+    assert not ce.coll and set(cr.coll) == {"all-gather", "all-reduce"}
+
+
+def test_serve_dry_run_records(smoke, tmp_path):
+    """On 16x16, the ported families' serving shapes give per_rank records
+    with a collective term and the rank's parameter (and cache) bytes;
+    rwkv6 (ssm) keeps the even split and says why, as does gemma3's smoke
+    long_500k, whose 16-slot local ring cache_specs splits on the head dim."""
+    for arch in ("minitron-4b", "rwkv6-1.6b"):
+        for shape in ("prefill_32k", "decode_32k", "long_500k"):
+            dryrun.main(["--arch", arch, "--shape", shape, "--serve-layout", "tp", "--out", str(tmp_path)])
+    dryrun.main(["--arch", "gemma3-1b", "--shape", "long_500k", "--out", str(tmp_path / "gemma3")])
+    rec = json.loads((tmp_path / "gemma3" / "gemma3-1b__long_500k__16x16.json").read_text())
+    assert rec["split"] == "even" and "cache_specs splits a cache of shape" in rec["collective_note"]
+    assert "family" not in rec["collective_note"]
+    for shape in ("prefill_32k", "decode_32k", "long_500k"):
+        rec = json.loads((tmp_path / f"minitron-4b__{shape}__16x16.json").read_text())
+        assert dryrun.record_problems(rec) == [] and rec["split"] == "per_rank"
+        assert rec["serve_layout"] == "tp" and rec["roofline"]["collective_s"] > 0
+        assert rec["collective_total_per_device"] == sum(rec["collective_bytes_per_device"].values())
+        sb = rec["state_bytes_per_device"]
+        assert sb["params"]["port"] == 3 * sb["params"]["param_specs"] > 0
+        assert ("caches" in sb) == (shape != "prefill_32k")
+        even = json.loads((tmp_path / f"rwkv6-1.6b__{shape}__16x16.json").read_text())
+        assert even["split"] == "even" and even["roofline"]["collective_s"] is None
+        assert "(ssm): serving across a process group is not ported for the ssm family" in even["collective_note"]
+        assert "moe" not in even["collective_note"] and "cache_specs" not in even["collective_note"]
+        assert dryrun.record_problems(even) == []
+    recs = reanalyze.reanalyze(str(tmp_path), str(tmp_path / "again"))
+    assert sorted({r["split"] for r in recs}) == ["even", "per_rank"]
+    for r in recs:
+        assert json.loads((tmp_path / "again" / f"{r['arch']}__{r['shape']}__16x16.json").read_text()) == \
+            json.loads((tmp_path / f"{r['arch']}__{r['shape']}__16x16.json").read_text())
+    table = roofline_report.markdown_table(recs)
+    assert "| split |" in table and "per_rank" in table and "collective_s" in table
+
+
+def test_even_records_name_their_own_reason(smoke):
+    """Each even record's note names what is not ported for its own step
+    (from ``specs.build``'s ``even_note``), and nothing else."""
+    train = dryrun.run_one("gemma3-1b", "train_4k", verbose=False)
+    moe = dryrun.run_one("deepseek-v2-236b", "decode_32k", verbose=False)
+    assert train["split"] == moe["split"] == "even"
+    assert train["collective_note"] == dryrun.EVEN_NOTE + specs.build("gemma3-1b", "train_4k", MESH).meta["even_note"]
+    assert "the train step's tensor parallelism over 'model'" in train["collective_note"]
+    assert "serving" not in train["collective_note"]
+    assert f"not ported for the moe family ({SS.NOT_PORTED['moe']})" in moe["collective_note"]
+    assert "tensor parallelism" not in moe["collective_note"] and "ssm" not in moe["collective_note"]
+
+
+def test_full_width_serve_counts():
+    """gemma3-1b's decode_32k on 16x16, one rank counted on meta under
+    serve and tp: the weights gathered over "data" (serve only) and over
+    "model" where the heads are cut, the partial sums of B / 16 = 8 rows.
+    chip_smoke.py (x3) holds the card's count to the same numbers."""
+    for layout, coll in (("serve", {"all-gather": 254974464.0, "reduce-scatter": 0.0, "all-reduce": 1935360.0}),
+                         ("tp", {"all-gather": 92012544.0, "reduce-scatter": 0.0, "all-reduce": 1935360.0})):
+        rec = dryrun.run_one("gemma3-1b", "decode_32k", serve_layout=layout, verbose=False)
+        assert rec["split"] == "per_rank" and rec["collective_bytes_per_device"] == coll
+        assert dryrun.record_problems(rec) == []
+    # 8 rows x 1152 values in fp32, two row-parallel sums a layer, and the embedding's bf16 sum
+    assert coll["all-reduce"] == 8 * 1152 * (4 * 2 * 26 + 2)
+    # 2x16x16: the data axes ("pod", "data") flattened, 4 rows a rank, the same gathered weights
+    rec = dryrun.run_one("gemma3-1b", "decode_32k", multi_pod=True, verbose=False)
+    assert rec["split"] == "per_rank" and rec["chips"] == 512 and dryrun.record_problems(rec) == []
+    assert rec["collective_bytes_per_device"] == {"all-gather": 254974464.0, "reduce-scatter": 0.0,
+                                                  "all-reduce": 1935360.0 / 2}

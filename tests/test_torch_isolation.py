@@ -218,6 +218,13 @@ from repro_torch.train import sharded_check as SC
 res = SC.run_case(cfg, TrainerConfig(n_workers=2, attn_chunk=16), "marina:perm", layout, comm, SH.Comm(),
                   batch_rows=1, seq=16, device="cpu", steps=1)
 SC.hold("marina:perm", res, SC.bounds(False), 2)
+# the sharded serving step, one gloo rank, held as the 4-rank checks hold it
+from repro_torch.serve import sharded as SS, sharded_check as SSC
+slayout, scomm = SS.connect(Mesh(("data", "model"), (1, 1)), "serve")
+res = SSC.run_case(cfg, slayout, scomm, SS.Comm(scomm.groups), batch=2, prompt=8, cache_len=16, steps=2, start=9,
+                   chunk=8)
+SSC.hold("serve", res, SSC.SMOKE_BOUNDS)
+assert res["prefill"] == 0 and res["decode"] == [0.0, 0.0] and res["moved"] == {"prefill": {}, "decode": {}}, res
 dist.destroy_process_group()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("repro", "benchmarks") and sys.modules[m] is not None)
 assert not bad, bad
@@ -239,6 +246,7 @@ out = tempfile.mkdtemp()
 dryrun.main(["--arch", "gemma3-1b", "--shape", "decode_32k", "--out", out])
 recs = roofline_report.load(out)
 assert len(recs) == 1 and dryrun.record_problems(recs[0]) == [], recs
+assert recs[0]["split"] == "per_rank" and recs[0]["roofline"]["collective_s"] > 0, recs
 assert reanalyze.reanalyze(out, tempfile.mkdtemp()) == recs
 assert roofline_report.bench(out)[0][0] == "roofline/gemma3-1b/decode_32k/bound_s"
 built = specs.build("gemma3-1b", "train_4k", mesh.make_production_mesh(multi_pod=True))
