@@ -103,7 +103,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     rtol 1e-4 a round, EF21-P's finite and falling; then
     ``repro_torch.transport_bench`` on the card;
 (o) the fleet: ``fleet_run`` of MARINA-P (perm, Polyak) and EF21-P (TopK) at
-    d=1000, population 50,000, cohort 16, T=20, measure_wire, on the
+    d=1000, population 50,000, cohort 16, T=6, measure_wire, on the
     flaky_mobile and two_tier_diurnal mixes (the evaluation cohort: 64
     clients, 256 MB of f32 on the card), card against CPU at one seed:
     participation stats, s2w, wire and join bits equal a round, MARINA-P's
@@ -177,7 +177,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     ten smoke configs, 2 workers, 3 marina:perm steps on the card against the
     CPU port from the same weights, batches and draws (losses within
     TRAIN_DEV_LOSS_ATOL); (t2) demo-100m at full width (``train_lm.model_100m``,
-    119,550,720 parameters), 4 workers x batch 2 x seq 512, AdamW, 8 steps
+    119,550,720 parameters), 4 workers x batch 2 x seq 512, AdamW, 6 steps
     under each of marina:perm / ind / same, ef21p:128:1024 and none, and
     marina:perm with bf16 replicas: finite losses, RotK's exact mean after
     every no-sync round, one rotk_apply_rows launch a leaf in each compressed
@@ -234,7 +234,13 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     the two rotk entries must have launched).
 
 (w) the LM train step across a process group (``repro_torch.train.sharded``):
-    (w1) as one NCCL rank (mesh (1, 1)), demo-100m at full width (TRAIN_W x
+    (w0) first, before the counters are zeroed, ``rotk_apply_rows``' block
+    map (the perm downlink on a rank's blocks under tensor parallelism over
+    "model") against its plain version bit for bit in f32, fp16 and bf16, at
+    every block of demo-100m's leaves on a (1, 4) mesh and at edge leaves,
+    each also equal to the same columns of the whole leaf's launch, then
+    timed at demo-100m's largest many-run block beside the contiguous
+    launch; (w1) as one NCCL rank (mesh (1, 1)), demo-100m at full width (TRAIN_W x
     TRAIN_B x TRAIN_S), AdamW, SHARDED_STEPS steps under marina:perm (bf16
     replicas), marina:ind and ef21p:128:1024, beside ``make_train_step``
     from the same state, batches and draws: state and metrics bit for bit
@@ -245,14 +251,22 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     block_topk once a leaf in each EF21-P step; (w2) 4 gloo processes on the
     one card on a (4, 1) mesh (demo-100m's marina:perm with bf16 replicas at
     full width, the smoke gemma-2b's marina:ind and ef21p) and a (2, 2) mesh
-    with act_spec (the smoke gemma-2b, W = 4 x 2 x 64, all three), within
-    ``train/sharded_check``'s bounds of the single-process step (the CPU
-    tests' own), rows at an offset launching rotk_apply_rows; only gloo's
-    own refusal of the collectives on CUDA tensors, met by a probe before
-    the steps, is logged in place of the run, and any other error on either
-    mesh fails it; (w3) ``python -m
-    repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
-    --train-act-model-sharded`` on ``meta``: a per_rank record with its
+    with act_spec (the smoke gemma-2b, W = 4 x 2 x 64, all three), and, in
+    the first group's processes after its (4, 1) cases, with tensor
+    parallelism over "model" (demo-100m at full width, W = 2 x TP_B x TP_S,
+    3 steps: (1, 4) marina:perm with bf16 replicas, (2, 2) marina:ind;
+    gemma3-1b at full width cut to 2 layers, one EF21-P step on (1, 4), rank
+    0 alone holding the single process), within ``train/sharded_check``'s
+    bounds of the single-process step (the CPU tests' own; under tensor
+    parallelism ACT_BOUNDS or 1.5x the single process's own floor from the
+    same run), rows at an offset or a rank's blocks launching
+    rotk_apply_rows in a compressed perm round, each case's peak memory a
+    rank; only gloo's own refusal of the collectives on CUDA tensors, met by
+    a probe before the steps, is logged in place of the run, and any other
+    error in either group fails it; (w3) ``python -m
+    repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k`` (the
+    default record: the tensor-parallel step) and the same with
+    ``--train-act-model-sharded``, on ``meta``: per_rank records with their
     collective bytes by kind and a collective term.
 
 (x) the serving step across a process group (``repro_torch.serve.sharded``):
@@ -286,7 +300,8 @@ plus (m)-(o), (q)-(r), (s), (t), (u), (v), (w1) and (x1) (``sharded_path``: (w1)
 own; ``serve_sharded_path``: (x1)'s own; ``dryrun_path``: (u)'s own;
 ``grid_path`` and ``wire_smoke_path``: (v1)'s and (v2)'s); the rotk_apply row names its dtypes, its numbers are float32's and
 ``by_dtype`` gives each dtype's; the rotk_apply_rows row's are 4 f32 rows of the largest leaf, with
-``by_dtype`` for bf16, the per-worker path's time and a whole round's; the unpack_bits row's ``serve_path`` gives
+``by_dtype`` for bf16, the per-worker path's time and a whole round's, and ``block_map`` (w0)'s checks and
+times with (w2)'s tensor-parallel perm launches by rank; the unpack_bits row's ``serve_path`` gives
 its (s) launches and its times at (s3)'s streams; every row's ``train_path``
 its (t) launches, and block_topk's and rotk_apply's their times at the
 largest leaf), then the card's name and power
@@ -1796,7 +1811,7 @@ def serve_suite_phase(np, torch, dev, card):
 # ---------------------------------------------------------------------------
 
 TRAIN_SPECS = ("marina:perm", "marina:ind", "marina:same", "ef21p:128:1024", "none")
-TRAIN_W, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2, 512, 8
+TRAIN_W, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2, 512, 6
 TRAIN_PARAMS = 119_550_720  # examples/train_lm.py::model_100m, by the reference's count_params
 # (t1) the card's train steps against the CPU port's from the same weights,
 # batches and draws: the first step's loss differs only by the forward's
@@ -2627,19 +2642,143 @@ def sigma_phase(started, sigma100):
 
 # (w1): the downlinks of the sharded step at demo-100m's full width, one NCCL rank
 SHARDED_SPECS = (("marina:perm", "bfloat16"), ("marina:ind", "float32"), ("ef21p:128:1024", "float32"))
-SHARDED_STEPS = 4
+SHARDED_STEPS = 3
 # kernels that must launch in the sharded steps of (w1)
 SHARDED_KERNELS = ("rotk_apply_rows", "block_topk")
 SHARDED_DRYRUN_DIR = ROOT / "runs" / "dryrun_chip_act"
-# (w2): 4 gloo ranks on the one card, each mesh one process group of its own:
-# (mesh, act_spec, cases (name, arch, downlink, replica dtype, B, S, attn_chunk)).
-# The (4, 1) mesh runs demo-100m at full width, so ranks 1-3 apply rotations
-# (r + off) mod W through rotk_apply_rows' vector kernel at the real leaves.
+# (w2): 4 gloo ranks on the one card, in two process groups of their own (run at once):
+# (group, cases (name, arch, downlink, replica dtype, B, S, attn_chunk, mesh, mode, steps, W)),
+# mode "data" (the workers over "data"), "act" (act_spec over "model") or "tp" (tensor
+# parallelism over "model", the reference's worker layout). The first group's (4, 1) case runs
+# demo-100m at full width, so ranks 1-3 apply rotations (r + off) mod W through
+# rotk_apply_rows' vector kernel at the real leaves; its tensor-parallel cases run demo-100m at
+# full width on (1, 4) and (2, 2) (rotk_apply_rows through its block map on every rank) and
+# gemma3-1b at full width, 2 of its 26 layers, one EF21-P step on (1, 4) (its one kv head cut
+# over "model": wk and wv gathered, their gradients reduce-scattered), after the rest, one at a
+# time, with W = 2 workers: a rank holds the single process's state and two of its steps (the
+# step and the floor) beside its own, which at W = 4 passed 19 GiB a rank at demo-100m.
 GLOO_SMOKE = (("marina:ind", "gemma-2b", "marina:ind", "float32", 2, 64, 32),
               ("ef21p:16:64", "gemma-2b", "ef21p:16:64", "float32", 2, 64, 32))
-GLOO_RUNS = (("4x1", False, (("marina:perm/bf16", "demo-100m", "marina:perm", "bfloat16", TRAIN_B, TRAIN_S, 128),)
-                            + GLOO_SMOKE),
-             ("2x2", True, (("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32),) + GLOO_SMOKE))
+TP_B, TP_S = 2, 128  # the tensor-parallel cases' rows a worker and sequence (demo-100m's width and depth)
+GLOO_RUNS = (
+    ("data+tp", tuple(c + ((4, 1), "data", 3, 4) for c in (
+        ("marina:perm/bf16", "demo-100m", "marina:perm", "bfloat16", TRAIN_B, TRAIN_S, 128),) + GLOO_SMOKE)
+     + (("marina:perm/bf16", "demo-100m", "marina:perm", "bfloat16", TP_B, TP_S, 128, (1, 4), "tp", 3, 2),
+        ("marina:ind", "demo-100m", "marina:ind", "float32", TP_B, TP_S, 128, (2, 2), "tp", 3, 2),
+        ("ef21p:128:1024", "gemma3-1b/2", "ef21p:128:1024", "float32", 1, 128, 128, (1, 4), "tp", 1, 2))),
+    ("act", tuple(c + ((2, 2), "act", 3, 4) for c in (
+        ("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32),) + GLOO_SMOKE)))
+
+
+# (w0): rotk_apply_rows' block map (the perm downlink on a rank's blocks under tensor
+# parallelism over "model"): demo-100m's leaves cut on BLOCK_MESH's model axis, and edge
+# leaves (shape, split dim, M): runs of 3 and 13 values and of 33 (off the 16-byte grid,
+# long enough for the vector path in every dtype), a row split, a single run
+BLOCK_MESH = (1, 4)
+BLOCK_EDGES = (((3, 10, 12), -1, 4), ((2, 40, 52), -1, 4), ((192, 96, 132), -1, 4), ((6, 16, 35), -2, 4),
+               ((1, 2048, 300), -2, 2))
+
+
+def rotk_block_phase(np, torch, dev, timed, card):
+    """(w0): ``rotk_apply_rows`` with a block map (``block = (chunk, stride,
+    offset)``: one model index's block of a leaf) against its plain version,
+    bit for bit, in f32, fp16 and bf16: each model index's block of every
+    leaf of demo-100m on BLOCK_MESH and of BLOCK_EDGES, 4 rows, rotations -3
+    and 5; the result also equal to the same columns of the whole leaf's
+    contiguous launch; and, on the edge leaves, one row, a broadcast row
+    (stride 0) and the block at offsets 1 and 3 of wider buffers (no common
+    16-byte alignment). Then its time at demo-100m's largest block (4 rows,
+    n 4) beside the plain version and the contiguous launch of as many
+    values. Returns (max abs error, cases, {dtype: (ms, plain ms, bound ms,
+    contiguous ms)})."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import lm
+    from repro_torch.models import params as P
+    from repro_torch.train import sharded as SH
+    from repro_torch.train_lm import model_100m
+
+    t0 = time.perf_counter()
+    cfg = model_100m()
+    mesh = Mesh(("data", "model"), BLOCK_MESH)
+    M = BLOCK_MESH[1]
+    shapes = [leaf.shape for leaf in P.leaves(lm.lm_spec(cfg))]
+    leaves = []  # (what, leaf shape, LeafBlock) of every model index
+    for m in range(M):
+        for shape, b in zip(shapes, SH.model_blocks(cfg, mesh, m)):
+            if b.chunk != b.stride:
+                leaves.append((f"demo-100m {shape} m={m}", shape, b._replace(lo=0)))
+    for shape, dim, Me in BLOCK_EDGES:
+        for m in range(Me):
+            leaves.append((f"edge {shape} dim {dim} M={Me} m={m}", shape, SH.leaf_block(shape, dim, Me, m)))
+    gen = torch.Generator(dev).manual_seed(53)
+    err, cases, n = 0.0, 0, 4
+
+    def check(tag, got, want):
+        nonlocal err, cases
+        torch.cuda.synchronize()
+        err = max(err, float_err(torch, got, want))
+        if not bits_equal(torch, got, want):
+            iv = torch.int16 if got.element_size() == 2 else torch.int32
+            bad = (got.reshape(-1).view(iv) != want.reshape(-1).view(iv)).nonzero()[:4].tolist()
+            fail(f"(w0) rotk_apply_rows block map {tag}: kernel != plain at flat {bad}")
+        cases += 1
+
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        for what, shape, b in leaves:
+            s = b.size // b.chunk * b.stride
+            Wf = torch.randn(4, s, generator=gen, device=dev).to(dtype)
+            Df = (torch.randn(s, generator=gen, device=dev) * 1e-2).to(dtype)
+            w, delta = b.cut(Wf).contiguous(), b.cut(Df).contiguous()
+            for r in (-3, 5):
+                rot = torch.tensor([r], dtype=torch.int32, device=dev)
+                tag = f"{what} {dtype} map {b.map} r={r}"
+                got = ops.rotk_apply_rows(w, delta, rot, n=n, block=b.map)
+                check(tag, got, ref.rotk_apply_rows_ref(w, delta, rot, n=n, block=b.map))
+                check(tag + " vs the whole leaf", got, b.cut(ops.rotk_apply_rows(Wf, Df, rot, n=n)))
+                if not what.startswith("edge"):
+                    continue
+                check(tag + " one row", ops.rotk_apply_rows(w[:1], delta, rot, n=n, block=b.map),
+                      ref.rotk_apply_rows_ref(w[:1], delta, rot, n=n, block=b.map))
+                wb = w[0].expand(4, -1)  # one row broadcast, as the downlink's messages pass it
+                check(tag + " broadcast row", ops.rotk_apply_rows(wb, delta, rot, n=n, block=b.map),
+                      ref.rotk_apply_rows_ref(wb, delta, rot, n=n, block=b.map))
+                for c in (1, 3):  # the block off the 16-byte grid, delta at another offset
+                    Wc = torch.full((4, b.size + 4), 7.0, dtype=dtype, device=dev)
+                    Wc[:, c:c + b.size] = w
+                    out = torch.full_like(Wc, 5.0)
+                    got_c = ops.rotk_apply_rows(Wc[:, c:c + b.size], delta, rot, n=n, block=b.map,
+                                                out=out[:, c:c + b.size])
+                    check(f"{tag} at offset {c}", got_c, ref.rotk_apply_rows_ref(w, delta, rot, n=n, block=b.map))
+                    if not (bool((out[:, :c] == 5).all()) and bool((out[:, c + b.size:] == 5).all())):
+                        fail(f"(w0) rotk_apply_rows block map {tag} at offset {c}: wrote outside out")
+            del Wf, Df, w, delta
+    # the time at demo-100m's largest block of many runs (the unembedding's columns): 4 rows (a (1, 4)
+    # rank's replicas), n 4
+    what, shape, b = max((x for x in leaves if x[0].startswith("demo")),
+                         key=lambda x: (x[2].size > x[2].chunk, x[2].size))
+    rot = torch.tensor([5], dtype=torch.int32, device=dev)
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        w = torch.randn(4, b.size, generator=gen, device=dev).to(dtype)
+        delta = (torch.randn(b.size, generator=gen, device=dev) * 1e-2).to(dtype)
+        out = torch.empty_like(w)
+        bound = ((2 * 4 + 1) * b.size * w.element_size() + 4) / HBM_BYTES_PER_S * 1e3
+        times[str(dtype).split(".")[-1]] = (
+            timed(lambda: ops.rotk_apply_rows(w, delta, rot, n=n, out=out, block=b.map)),
+            timed(lambda: ref.rotk_apply_rows_ref(w, delta, rot, n=n, block=b.map), reps=5), bound,
+            timed(lambda: ops.rotk_apply_rows(w, delta, rot, n=n, out=out)))
+        del w, delta, out
+    log(f"(w0) rotk_apply_rows block map: {cases} cases bit-equal to the plain version and to the whole leaf's "
+        f"launch (f32, fp16, bf16; demo-100m's {sum(1 for x in leaves if x[0].startswith('demo'))} blocks on "
+        f"mesh {BLOCK_MESH} and {len(BLOCK_EDGES)} edge leaves), max |err| {err:.3e}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for dt, (ms_, plain_, bound_, contig_) in times.items():
+        log(f"(w0) rotk_apply_rows block map {dt} at demo-100m {shape} block {b.map} ({b.size:,} values, 4 rows, "
+            f"n 4): {ms_:.5f} ms, plain {plain_:.5f}, bound {bound_:.5f} by bytes (share {bound_ / ms_:.3f}), "
+            f"contiguous launch {contig_:.5f} ({card})")
+    return err, cases, times
+
 
 def _states_equal(torch, a, b) -> list:
     """Keys of two train states (or metrics) that differ in a bit, with the
@@ -2807,14 +2946,24 @@ def probe(dev):
     return None
 
 
-def rank_main(rank, init, shape, act, cases, out_dir):
-    sys.path.insert(0, os.environ["PORT_SRC"])
+def config(arch):
+    import dataclasses
     from repro_torch import configs
+    from repro_torch.train_lm import model_100m
+
+    if arch == "demo-100m":
+        return model_100m()
+    if arch == "gemma3-1b/2":  # full width, 2 of its 26 layers
+        return dataclasses.replace(configs.get("gemma3-1b"), num_layers=2, block_pattern=("attn_local", "attn"))
+    return configs.get_smoke(arch)
+
+
+def rank_main(rank, init, cases, out_dir):
+    sys.path.insert(0, os.environ["PORT_SRC"])
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import lm, params as P
     from repro_torch.train import TrainerConfig
     from repro_torch.train import sharded as SH, sharded_check as SC
-    from repro_torch.train_lm import model_100m
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2825,17 +2974,23 @@ def rank_main(rank, init, shape, act, cases, out_dir):
         res["refusal"] = probe(dev)
         if res["refusal"] is None:
             res["cases"] = {}
-            for name, arch, spec, dtype, rows, seq, chunk in cases:
-                cfg = model_100m() if arch == "demo-100m" else configs.get_smoke(arch)
-                layout, comm = SH.connect(Mesh(("data", "model"), shape), 4, sum(P.leaf_sizes(lm.lm_spec(cfg))))
-                tcfg = TrainerConfig(n_workers=4, attn_chunk=chunk, weight_dtype=getattr(torch, dtype),
-                                     act_spec=SH.ACT_SPEC if act else None)
+            for name, arch, spec, dtype, rows, seq, chunk, shape, mode, steps, W in cases:
+                cfg = config(arch)
+                torch.cuda.reset_peak_memory_stats()
+                layout, comm = SH.connect(Mesh(("data", "model"), tuple(shape)), W,
+                                          sum(P.leaf_sizes(lm.lm_spec(cfg))), cfg=cfg if mode == "tp" else None)
+                tcfg = TrainerConfig(n_workers=W, attn_chunk=chunk, weight_dtype=getattr(torch, dtype),
+                                     act_spec=SH.ACT_SPEC if mode == "act" else None)
+                # a one-step case at gemma3-1b's width: rank 0 alone holds the single process's state
                 r = SC.run_case(cfg, tcfg, spec, layout, comm, SH.Comm(), batch_rows=rows, seq=seq,
-                                device=dev)
-                SC.hold(name, r, SC.bounds(act), 4)
-                res["cases"][name] = dict(r, d=layout.d, off=layout.off)
+                                device=dev, steps=steps, check_rank=0 if steps == 1 else None)
+                SC.hold(name, r, SC.bounds(mode != "data"), W)
+                res["cases"][f"{name} {arch} {tuple(shape)}"] = dict(
+                    r, d=layout.d, d_local=layout.d_local, off=layout.off, mode=mode,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                del comm, layout
                 torch.cuda.empty_cache()
-            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            res["peak_gib"] = max(c["peak_gib"] for c in res["cases"].values())
         dist.destroy_process_group()
     except Exception as e:  # every error fails (w2): the parent reports it
         import traceback
@@ -2846,23 +3001,25 @@ def rank_main(rank, init, shape, act, cases, out_dir):
 
 
 if __name__ == "__main__":
-    init, shape, act, cases, out_dir = sys.argv[1:6]
-    mp.spawn(rank_main, args=(init, tuple(int(x) for x in shape.split("x")), act == "act", json.loads(cases),
-                              out_dir), nprocs=WORLD, join=True)
+    init, cases, out_dir = sys.argv[1:4]
+    mp.spawn(rank_main, args=(init, json.loads(cases), out_dir), nprocs=WORLD, join=True)
 """
 
 
 def gloo_card_phase(card):
-    """(w2): 4 gloo processes on the one card for each mesh of GLOO_RUNS
-    (both meshes' 8 processes at once): 3 teacher-forced steps a case
-    against the single-process step on the card, within
-    ``train/sharded_check``'s bounds (the CPU tests' own), the bytes handed
-    to gloo equal to the dry-run's count each step, and every rank holding
-    rows at an offset launching rotk_apply_rows. A refusal counts only where
-    gloo itself refuses the step's collectives on CUDA tensors (each rank
-    probes them first): it is logged, and nothing runs in its place. Any
-    other error, on either mesh, fails the phase. Returns (the refusal or
-    None, s)."""
+    """(w2): 4 gloo processes on the one card for each process group of
+    GLOO_RUNS (both groups' 8 processes at once), each case on its own mesh:
+    ``steps`` teacher-forced steps against the single-process step on the
+    card, within ``train/sharded_check``'s bounds (the CPU tests' own; under
+    tensor parallelism the loss within FLOOR_FACTOR x the run's own floor),
+    the bytes handed to gloo equal to the dry-run's count each step, every
+    rank holding rows at an offset, or blocks, launching rotk_apply_rows in
+    a perm case, and each case's peak memory a rank. A refusal counts only
+    where gloo itself refuses the step's collectives on CUDA tensors (each
+    rank probes them first): it is logged, and nothing runs in its place.
+    Any other error, in either group, fails the phase. Returns (the refusal
+    or None, s, {case: the ranks' rotk_apply_rows launches} of the
+    tensor-parallel perm cases)."""
     import os
     import tempfile
 
@@ -2873,23 +3030,23 @@ def gloo_card_phase(card):
     # 8 processes share the card: the allocator's expandable segments keep each one's reserve near its use
     env = dict(os.environ, PORT_SRC=str(SRC), PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    for shape, act, cases in GLOO_RUNS:
+    for group, cases in GLOO_RUNS:
         tmp = tempfile.mkdtemp(prefix="gloo_card_")
         script = os.path.join(tmp, "ranks.py")
         with open(script, "w") as f:
             f.write(GLOO_RANK)
-        runs[shape] = (act, cases, tmp, spawn(
-            [sys.executable, script, f"file://{tmp}/rdv", shape, "act" if act else "-", json.dumps(cases), tmp],
+        runs[group] = (cases, tmp, spawn(
+            [sys.executable, script, f"file://{tmp}/rdv", json.dumps(cases), tmp],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     try:
-        outs = {shape: run[3].communicate(timeout=600) for shape, run in runs.items()}
+        outs = {group: run[2].communicate(timeout=900) for group, run in runs.items()}
     finally:
         for *_, proc in runs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
     problems, refusals, results = [], [], {}
-    for shape, (act, cases, tmp, proc) in runs.items():
+    for group, (cases, tmp, proc) in runs.items():
         ranks = []
         for r in range(4):
             path = os.path.join(tmp, f"rank{r}.json")
@@ -2897,14 +3054,14 @@ def gloo_card_phase(card):
                 with open(path) as f:
                     ranks.append(json.load(f))
         if proc.returncode != 0 or len(ranks) != 4:
-            problems.append(f"mesh {shape}: the 4 gloo processes exited {proc.returncode} with {len(ranks)} "
-                            f"reports:\n{outs[shape][1][-3000:]}")
+            problems.append(f"group {group}: the 4 gloo processes exited {proc.returncode} with {len(ranks)} "
+                            f"reports:\n{outs[group][1][-3000:]}")
         for r in ranks:
             if "error" in r:
-                problems.append(f"mesh {shape} rank {r['rank']}: {r['error']}\n{r['trace'][-1500:]}")
+                problems.append(f"group {group} rank {r['rank']}: {r['error']}\n{r['trace'][-1500:]}")
             elif r["refusal"] is not None:
-                refusals.append(f"mesh {shape} rank {r['rank']}: {r['refusal']}")
-        results[shape] = ranks
+                refusals.append(f"group {group} rank {r['rank']}: {r['refusal']}")
+        results[group] = ranks
     if problems:
         fail("(w2) " + "\n".join(problems))
     if refusals:
@@ -2912,30 +3069,42 @@ def gloo_card_phase(card):
             fail(f"(w2) gloo refused CUDA tensors on some ranks only: {refusals}")
         log(f"(w2) gloo refused the step's collectives on CUDA tensors ({refusals[0]}); the 4-rank step on the "
             "card did not run (no CPU run stands in for it)")
-        return refusals[0], time.perf_counter() - t0
-    for shape, act, cases in GLOO_RUNS:
-        ranks = results[shape]
-        for name, arch, spec, *_ in cases:
+        return refusals[0], time.perf_counter() - t0, {}
+    tp_launches = {}
+    for group, cases in GLOO_RUNS:
+        ranks = results[group]
+        for name, arch, spec, dtype, rows, seq, chunk, shape, mode, steps, W in cases:
+            key = f"{name} {arch} {tuple(shape)}"
             for r in ranks:
-                c = r["cases"][name]
-                if spec == "marina:perm" and c["off"] > 0 and c["launches"].get("rotk_apply_rows", 0) <= 0:
-                    fail(f"(w2) mesh {shape} {name} rank {r['rank']} (rows from worker {c['off']}): "
-                         "rotk_apply_rows never launched")
-            worst = [max(r["cases"][name]["worst"][j] for r in ranks) for j in range(6)]
-            c0 = ranks[0]["cases"][name]
-            log(f"(w2) 4 gloo ranks on the one card, mesh {shape}{' + act_spec' if act else ''}, {name} {arch} "
-                f"d={c0['d']:,}: within {'the act_spec' if act else 'the data-axis'} bounds of the single-process "
-                f"step: " + ", ".join(f"{k} {v:.3g}" for k, v in zip(WORST_KEYS, worst))
-                + f"; bytes a rank a step {c0['moved']} = counted; launches by rank "
-                f"{[r['cases'][name]['launches'] for r in ranks]} ({card})")
-        log(f"(w2) mesh {shape}: peak GiB allocated by rank {[round(r['peak_gib'], 2) for r in ranks]} ({card})")
-    return None, time.perf_counter() - t0
+                c = r["cases"][key]
+                moved_rows = c["off"] > 0 or mode == "tp"  # rows at an offset, or a rank's blocks
+                if (spec == "marina:perm" and moved_rows and c["compressed"]
+                        and c["launches"].get("rotk_apply_rows", 0) <= 0):
+                    fail(f"(w2) {key} rank {r['rank']} (rows from worker {c['off']}, mode {mode}): "
+                         f"rotk_apply_rows never launched in {c['compressed']} compressed rounds")
+            if mode == "tp" and spec == "marina:perm":
+                tp_launches[key] = [r["cases"][key]["launches"].get("rotk_apply_rows", 0) for r in ranks]
+            worst = [max(r["cases"][key]["worst"][j] for r in ranks) for j in range(6)]
+            c0 = ranks[0]["cases"][key]
+            floor = ("; the single process's own floor " + ", ".join(
+                f"{k} {max(r['cases'][key]['floor'][j] for r in ranks):.3g}" for j, k in enumerate(WORST_KEYS))
+                if mode == "tp" else "")
+            bounds = {"data": "data-axis", "act": "act_spec", "tp": "act_spec (or 1.5x the floor)"}[mode]
+            log(f"(w2) 4 gloo ranks on the one card, mesh {tuple(shape)} {mode}, {name} {arch} d={c0['d']:,} "
+                f"(d_local {c0['d_local']:,}), W = {W}, {steps} step(s) of {rows} x {seq} a worker: within the "
+                f"{bounds} bounds of the single-process step: "
+                + ", ".join(f"{k} {v:.3g}" for k, v in zip(WORST_KEYS, worst)) + floor
+                + f"; {c0['compressed']} compressed round(s); bytes a rank a step {c0['moved']} = counted; "
+                f"launches by rank {[r['cases'][key]['launches'] for r in ranks]}; peak GiB a rank "
+                f"{[round(r['cases'][key]['peak_gib'], 2) for r in ranks]} ({card})")
+    return None, time.perf_counter() - t0, tp_launches
 
 
 def sharded_dryrun_start():
-    """(w3)'s count, started in a process of its own: ``python -m
-    repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
-    --train-act-model-sharded`` into SHARDED_DRYRUN_DIR."""
+    """(w3)'s counts, started in a process of their own: ``python -m
+    repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k`` (the
+    default record: tensor parallelism over "model"), then the same with
+    ``--train-act-model-sharded``, into SHARDED_DRYRUN_DIR."""
     import os
 
     if SHARDED_DRYRUN_DIR.exists():
@@ -2943,15 +3112,16 @@ def sharded_dryrun_start():
             f.unlink()
     SHARDED_DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
-    return spawn([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", MEASURED_ARCH,
-                             "--shape", "train_4k", "--train-act-model-sharded", "--out",
-                             str(SHARDED_DRYRUN_DIR)], env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    count = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", MEASURED_ARCH, "--shape", "train_4k",
+             "--out", str(SHARDED_DRYRUN_DIR)]
+    return spawn(["bash", "-c", 'set -e; "$@"; "$@" --train-act-model-sharded', "counts"] + count, env=env,
+                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def sharded_dryrun_phase(proc, card):
-    """(w3): the count started by :func:`sharded_dryrun_start`: a valid
-    per_rank record with a collective term. Returns the record."""
+    """(w3): the counts started by :func:`sharded_dryrun_start`: valid
+    per_rank records with a collective term, the default one tensor
+    parallel. Returns the records."""
     from repro_torch.launch import dryrun
 
     try:
@@ -2961,19 +3131,23 @@ def sharded_dryrun_phase(proc, card):
             proc.kill()
             proc.wait()
     if proc.returncode != 0:
-        fail(f"(w3) the act-sharded dry-run exited {proc.returncode}:\n{outp[-3000:]}")
-    rec = json.loads((SHARDED_DRYRUN_DIR / f"{MEASURED_ARCH}__train_4k__16x16__act.json").read_text())
-    problems = dryrun.record_problems(rec)
-    t = rec["roofline"]
-    if problems or rec["split"] != "per_rank" or t["collective_s"] is None:
-        fail(f"(w3) {MEASURED_ARCH} train_4k act-sharded record: {problems}, split {rec['split']}, {t}")
-    log(f"(w3) {MEASURED_ARCH} train_4k on 16x16 with act_spec, one rank counted on meta "
-        f"({rec['t_count_s']} s): {rec['flops_per_device']:.4e} FLOPs, {rec['bytes_per_device']:.4e} bytes, "
-        f"collective bytes {rec['collective_bytes_per_device']} ({rec['collective_total_per_device']:.4e}); "
-        f"compute {t['compute_s']:.4e} s, memory {t['memory_s']:.4e} s, collective {t['collective_s']:.4e} s "
-        f"(NVLink 450e9 B/s): {t['dominant']}; state bytes a device {rec['state_bytes_per_device']} "
-        f"(H100 constants; no card used)")
-    return rec
+        fail(f"(w3) the train_4k dry-runs exited {proc.returncode}:\n{outp[-3000:]}")
+    recs = {}
+    for tag, what in (("", "tensor parallelism over 'model' (the default)"), ("__act", "act_spec")):
+        rec = json.loads((SHARDED_DRYRUN_DIR / f"{MEASURED_ARCH}__train_4k__16x16{tag}.json").read_text())
+        problems = dryrun.record_problems(rec)
+        t = rec["roofline"]
+        if problems or rec["split"] != "per_rank" or t["collective_s"] is None or rec["tensor_parallel"] != (not tag):
+            fail(f"(w3) {MEASURED_ARCH} train_4k {what} record: {problems}, split {rec['split']}, "
+                 f"tensor_parallel {rec.get('tensor_parallel')}, {t}")
+        log(f"(w3) {MEASURED_ARCH} train_4k on 16x16 with {what}, one rank counted on meta "
+            f"({rec['t_count_s']} s): {rec['flops_per_device']:.4e} FLOPs, {rec['bytes_per_device']:.4e} bytes, "
+            f"collective bytes {rec['collective_bytes_per_device']} ({rec['collective_total_per_device']:.4e}); "
+            f"compute {t['compute_s']:.4e} s, memory {t['memory_s']:.4e} s, collective {t['collective_s']:.4e} s "
+            f"(NVLink 450e9 B/s): {t['dominant']}; state bytes a device {rec['state_bytes_per_device']} "
+            f"(H100 constants; no card used)")
+        recs[tag or "tp"] = rec
+    return recs
 
 
 # (x): the serving step across a process group, gemma3-1b at full width
@@ -3829,7 +4003,7 @@ def main() -> int:
     t_n = time.perf_counter()
     transport_us = transport_phase(np, torch, dev, prob, prob_cpu, T=120)
     t_o = time.perf_counter()
-    fleet_us = fleet_phase(np, torch, dev, D, T=20, population=50_000, cohort=16)
+    fleet_us = fleet_phase(np, torch, dev, D, T=6, population=50_000, cohort=16)
     part_us = participation_phase(np, torch, dev, prob, prob_cpu, T=40)
     torch.cuda.synchronize()
     slice_launches = dict(runtime.LAUNCHES)
@@ -4000,6 +4174,8 @@ def main() -> int:
 
     # --- (w) the LM train step across a process group ---------------------------------
     t_w0 = time.perf_counter()
+    # (w0) the block map against its plain version, before the counts are zeroed: not the path's launches
+    block_err, block_cases, block_ms = rotk_block_phase(np, torch, dev, timed, card)
     runtime.reset_launches()
     w_launches = sharded_phase(np, torch, dev, card)
     torch.cuda.synchronize()
@@ -4008,7 +4184,7 @@ def main() -> int:
             fail(f"(w1) the sharded train steps never launched {kname}")
     t_w1 = time.perf_counter()
     w3 = sharded_dryrun_start()  # on the host's cores beside (w2)
-    gloo_refusal, w2_s = gloo_card_phase(card)
+    gloo_refusal, w2_s, tp_launches = gloo_card_phase(card)
     sharded_dryrun_phase(w3, card)
     log(f"(w) launches of the sharded steps: {w_launches}; (w1) {t_w1 - t_w0:.1f} s, (w2) {w2_s:.1f} s"
         f"{' (gloo refused CUDA tensors)' if gloo_refusal else ''}; (w) took {time.perf_counter() - t_w0:.1f} s "
@@ -4112,6 +4288,14 @@ def main() -> int:
         if row["name"] == "rotk_apply_rows":
             # the row's numbers: 4 f32 rows of the largest leaf (the perm downlink's call);
             # bf16 replicas beside them, the per-worker path it replaced, and a whole round
+            row["max_abs_err"] = max(row["max_abs_err"], block_err)
+            # (w0) the block map (the perm downlink on a rank's blocks under tensor parallelism over
+            # "model"): its checks and times; its launches are the tensor-parallel perm cases' of (w2),
+            # each of its 4 gloo processes counting its own
+            row["block_map"] = {"cases": block_cases, "max_abs_err": block_err, "w2_launches_by_rank": tp_launches,
+                                "by_dtype": {dt: {"rows": 4, "n": 4, "ms": ms_, "plain_ms": plain_, "bound_ms": bound_,
+                                                  "contiguous_ms": contig_}
+                                             for dt, (ms_, plain_, bound_, contig_) in block_ms.items()}}
             row["dtypes"] = ["float32", "float16", "bfloat16"]
             row["by_dtype"] = {}
             w_rows = w_launches.get("rotk_apply_rows", 0)  # (w1)'s perm runs bf16 replicas

@@ -46,6 +46,16 @@
 //   * rows: a pass loads its delta vectors once, rounds delta * n to T once
 //     (kept packed, 16 bytes a vector, to spare registers), and walks the R
 //     rows, loading and storing each row's vectors.
+// Block map (rotk_apply_rows_map): the R rows hold one rank's block of a leaf
+// split over a mesh axis, and block element t is leaf coordinate
+//   j = offset + (t / chunk) * stride + t % chunk
+// (a column block of an [.., a, b] leaf: chunk = b/M, stride = b, offset = m b/M;
+// a row block of [reps, a, b]: chunk = (a/M) b, stride = a b, offset = m (a/M) b).
+// The kept rule reads j, so the residue cannot be carried across a run's end:
+// each vector computes its own from its column (one 64-bit division), a vector
+// inside one run takes the lane mask as above, and a vector across a run's end
+// (runs need not start on a 16-byte boundary) tests its lanes one by one. The
+// contiguous map (chunk = stride = s, offset = 0) is the plain launch above.
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,13 +141,26 @@ __device__ __forceinline__ unsigned add_mod(unsigned a, unsigned b, unsigned n) 
   return s >= n ? s - n : s;
 }
 
+// Block element t -> leaf coordinate offset + (t / chunk) * stride + t % chunk.
+struct BlockMap {
+  long long chunk, stride, offset;
+};
+
+// the leaf coordinate of block column t, mod n (Map false: t itself)
+template <bool Map>
+__device__ __forceinline__ unsigned leaf_mod(long long t, const BlockMap& bm, int n) {
+  if constexpr (Map) return mod64(bm.offset + (t / bm.chunk) * bm.stride + t % bm.chunk, n);
+  else return mod64(t, n);
+}
+
 // Column j of rows i < R: out = w + Q_{worker0 + i}(delta), one value at a time.
-template <typename V>
+template <typename V, bool Map>
 __device__ __forceinline__ void rotk_column(const typename V::U* __restrict__ w, long long w_stride,
                                             const typename V::U* __restrict__ delta,
                                             typename V::U* __restrict__ out, long long out_stride,
-                                            long long j, int rows, int n, int worker0, int r) {
-  const int jm = (int)mod64(j, n);
+                                            long long j, int rows, int n, int worker0, int r,
+                                            const BlockMap& bm) {
+  const int jm = (int)leaf_mod<Map>(j, bm, n);
   const float p = scaled<V>(delta[j], (float)n);
   for (int i = 0; i < rows; ++i) {
     const float q = jm == kept_residue(worker0, i, r, n) ? p : 0.0f;
@@ -148,32 +171,32 @@ __device__ __forceinline__ void rotk_column(const typename V::U* __restrict__ w,
 // Rows i < R of out = w + Q_{worker0 + i}(delta) over columns [0, s), one value
 // a thread: short leaves, and layouts with no common 16-byte alignment. Row i
 // of w starts at w + i * w_stride (w_stride may be 0), of out at out + i * out_stride.
-template <typename V>
+template <typename V, bool Map>
 __global__ void __launch_bounds__(kOneThreads)
 rotk_one_kernel(const typename V::U* __restrict__ w, long long w_stride,
                 const typename V::U* __restrict__ delta, const int* __restrict__ rotation,
                 typename V::U* __restrict__ out, long long out_stride, long long s, int rows, int n,
-                int worker0) {
+                int worker0, BlockMap bm) {
   const int r = __ldg(rotation);
   const int keep0 = kept_residue(worker0, 0, r, n);
   for (long long j = (long long)blockIdx.x * kOneThreads + threadIdx.x; j < s;
        j += (long long)gridDim.x * kOneThreads) {
     if (rows == 1)  // one replica: delta is read where it is kept only
-      out[j] = apply<V>(w[j], (int)mod64(j, n) == keep0 ? scaled<V>(delta[j], (float)n) : 0.0f);
+      out[j] = apply<V>(w[j], (int)leaf_mod<Map>(j, bm, n) == keep0 ? scaled<V>(delta[j], (float)n) : 0.0f);
     else
-      rotk_column<V>(w, w_stride, delta, out, out_stride, j, rows, n, worker0, r);
+      rotk_column<V, Map>(w, w_stride, delta, out, out_stride, j, rows, n, worker0, r, bm);
   }
 }
 
 // The same in 16-byte vectors of VEC values from column `head` on, where w,
 // delta and out share an alignment; the head and the columns after the last
 // whole vector go one by one.
-template <typename V>
+template <typename V, bool Map>
 __global__ void __launch_bounds__(kThreads)
 rotk_vec_kernel(const typename V::U* __restrict__ w, long long w_stride,
                 const typename V::U* __restrict__ delta, const int* __restrict__ rotation,
                 typename V::U* __restrict__ out, long long out_stride, long long s, int rows,
-                int n, int worker0, int head) {
+                int n, int worker0, int head, BlockMap bm) {
   using U = typename V::U;
   constexpr int VEC = 16 / sizeof(U);
   const int r = __ldg(rotation);
@@ -184,8 +207,8 @@ rotk_vec_kernel(const typename V::U* __restrict__ w, long long w_stride,
   if (blockIdx.x == 0) {  // the head and the tail, one column a thread
     const int t = threadIdx.x;
     if (t < head + (s - body_end))
-      rotk_column<V>(w, w_stride, delta, out, out_stride, t < head ? t : body_end + (t - head), rows, n,
-                     worker0, r);
+      rotk_column<V, Map>(w, w_stride, delta, out, out_stride, t < head ? t : body_end + (t - head), rows,
+                          n, worker0, r, bm);
   }
 
   // a thread's vectors: v0 + u * stride_u in a pass, passes stride_u * kUnroll apart
@@ -202,7 +225,7 @@ rotk_vec_kernel(const typename V::U* __restrict__ w, long long w_stride,
   for (long long base = v0; base < nvec; base += stride_u * kUnroll) {
     long long col[kUnroll];
     unsigned res[kUnroll];
-    bool ok[kUnroll];
+    bool ok[kUnroll], cross[kUnroll];
     uint4 dv[kUnroll], wv[kUnroll];
     unsigned rr = res_pass;
 #pragma unroll
@@ -211,6 +234,12 @@ rotk_vec_kernel(const typename V::U* __restrict__ w, long long w_stride,
       ok[u] = v < nvec;
       col[u] = head + v * VEC;
       res[u] = rr;
+      cross[u] = false;
+      if constexpr (Map) {  // the residue restarts at every run: computed, not carried
+        const long long in_run = col[u] % bm.chunk;
+        res[u] = mod64(bm.offset + (col[u] / bm.chunk) * bm.stride + in_run, n);
+        cross[u] = in_run + VEC > bm.chunk;
+      }
       rr = add_mod(rr, step_u, un);
       dv[u] = wv[u] = make_uint4(0u, 0u, 0u, 0u);
       if (ok[u]) {
@@ -232,7 +261,12 @@ rotk_vec_kernel(const typename V::U* __restrict__ w, long long w_stride,
         if (!ok[u]) continue;
         int off = keep - (int)res[u];  // the first kept lane, if < VEC
         if (off < 0) off += n;
-        const unsigned mask = off < VEC ? (period << off) & full : 0u;
+        unsigned mask = off < VEC ? (period << off) & full : 0u;
+        if (Map && cross[u]) {  // a vector across a run's end: lane by lane
+          mask = 0u;
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) mask |= ((int)leaf_mod<Map>(col[u] + k, bm, n) == keep ? 1u : 0u) << k;
+        }
         U o[VEC];
 #pragma unroll
         for (int k = 0; k < VEC; ++k)
@@ -260,22 +294,23 @@ int sm_count() {
 
 // blocks of the vector (Vec) or one-value kernel of V that an SM holds at once
 // (the first call for each kernel asks the runtime)
-template <typename V, bool Vec>
+template <typename V, bool Vec, bool Map>
 long long resident_blocks() {
   static int resident = 0;
   if (resident == 0) {
     if constexpr (Vec)
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, rotk_vec_kernel<V>, kThreads, 0);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, rotk_vec_kernel<V, Map>, kThreads, 0);
     else
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, rotk_one_kernel<V>, kOneThreads, 0);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, rotk_one_kernel<V, Map>, kOneThreads, 0);
     if (resident < 1) resident = 1;
   }
   return resident;
 }
 
-template <typename V>
+template <typename V, bool Map>
 void launch(const void* w, long long w_stride, const void* delta, const void* rotation, void* out,
-            long long out_stride, int rows, long long s, int n, int worker0, cudaStream_t stream) {
+            long long out_stride, int rows, long long s, int n, int worker0, const BlockMap& bm,
+            cudaStream_t stream) {
   using U = typename V::U;
   constexpr int VEC = 16 / sizeof(U);
   // vectors need one offset mod VEC values for delta, every row of w and of out
@@ -293,28 +328,40 @@ void launch(const void* w, long long w_stride, const void* delta, const void* ro
   const long long nvec = (s - head) / VEC;
   if (aligned && nvec >= sms * kThreads) {  // a full block of vectors an SM at least
     const long long need = (nvec + kThreads * kUnroll - 1) / (kThreads * kUnroll);
-    const long long cap = sms * resident_blocks<V, true>();
-    rotk_vec_kernel<V><<<(int)(need < cap ? need : cap), kThreads, 0, stream>>>(
-        wp, w_stride, dp, rp, op, out_stride, s, rows, n, worker0, (int)head);
+    const long long cap = sms * resident_blocks<V, true, Map>();
+    rotk_vec_kernel<V, Map><<<(int)(need < cap ? need : cap), kThreads, 0, stream>>>(
+        wp, w_stride, dp, rp, op, out_stride, s, rows, n, worker0, (int)head, bm);
   } else {
     const long long need = (s + kOneThreads - 1) / kOneThreads;
-    const long long cap = sms * resident_blocks<V, false>();
-    rotk_one_kernel<V><<<(int)(need < cap ? need : cap), kOneThreads, 0, stream>>>(
-        wp, w_stride, dp, rp, op, out_stride, s, rows, n, worker0);
+    const long long cap = sms * resident_blocks<V, false, Map>();
+    rotk_one_kernel<V, Map><<<(int)(need < cap ? need : cap), kOneThreads, 0, stream>>>(
+        wp, w_stride, dp, rp, op, out_stride, s, rows, n, worker0, bm);
   }
 }
 
+template <bool Map>
+void launch_dtype(const void* w, long long w_stride, const void* delta, const void* rotation, void* out,
+                  long long out_stride, int dtype, int rows, long long s, int n, int worker0,
+                  const BlockMap& bm, cudaStream_t st) {
+  if (dtype == 0)
+    launch<F32, Map>(w, w_stride, delta, rotation, out, out_stride, rows, s, n, worker0, bm, st);
+  else if (dtype == 1)
+    launch<F16, Map>(w, w_stride, delta, rotation, out, out_stride, rows, s, n, worker0, bm, st);
+  else
+    launch<BF16, Map>(w, w_stride, delta, rotation, out, out_stride, rows, s, n, worker0, bm, st);
+}
+
 int dispatch(const void* w, long long w_stride, const void* delta, const void* rotation, void* out,
-             long long out_stride, int dtype, int rows, long long s, int n, int worker0, void* stream) {
+             long long out_stride, int dtype, int rows, long long s, int n, int worker0, void* stream,
+             BlockMap bm = BlockMap{0, 0, 0}) {
   if (s < 0 || rows < 0 || n < 1 || dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   if (s == 0 || rows == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    launch<F32>(w, w_stride, delta, rotation, out, out_stride, rows, s, n, worker0, st);
-  else if (dtype == 1)
-    launch<F16>(w, w_stride, delta, rotation, out, out_stride, rows, s, n, worker0, st);
+  const bool contiguous = bm.chunk == 0 || (bm.chunk == s && bm.stride == s && bm.offset == 0);
+  if (contiguous)
+    launch_dtype<false>(w, w_stride, delta, rotation, out, out_stride, dtype, rows, s, n, worker0, bm, st);
   else
-    launch<BF16>(w, w_stride, delta, rotation, out, out_stride, rows, s, n, worker0, st);
+    launch_dtype<true>(w, w_stride, delta, rotation, out, out_stride, dtype, rows, s, n, worker0, bm, st);
   return (int)cudaGetLastError();
 }
 
@@ -338,4 +385,18 @@ extern "C" int rotk_apply_rows(const void* w, long long w_stride, const void* de
                                int rows, long long s, int n, void* stream) {
   if (rows > n) return (int)cudaErrorInvalidValue;
   return dispatch(w, w_stride, delta, rotation, out, out_stride, dtype, rows, s, n, 0, stream);
+}
+
+// rotk_apply_rows over one rank's block of a leaf: block column t is leaf
+// coordinate offset + (t / chunk) * stride + t % chunk, and the kept rule
+// reads that coordinate. 1 <= chunk <= stride, offset + chunk <= stride, s a
+// multiple of chunk; chunk = stride = s with offset 0 is rotk_apply_rows.
+extern "C" int rotk_apply_rows_map(const void* w, long long w_stride, const void* delta,
+                                   const void* rotation, void* out, long long out_stride, int dtype,
+                                   int rows, long long s, int n, long long chunk, long long stride,
+                                   long long offset, void* stream) {
+  if (rows > n || chunk < 1 || stride < chunk || offset < 0 || offset + chunk > stride || s % chunk)
+    return (int)cudaErrorInvalidValue;
+  return dispatch(w, w_stride, delta, rotation, out, out_stride, dtype, rows, s, n, 0, stream,
+                  BlockMap{chunk, stride, offset});
 }

@@ -121,7 +121,7 @@ def _check_rotk(what: str, w: torch.Tensor, delta: torch.Tensor, rotation: torch
 
 
 def rotk_apply_rows(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *, n: int,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None, block: Optional[tuple] = None) -> torch.Tensor:
     """Row i of the result is ``rotk_apply(w[i], delta, rotation, n=n,
     worker=i)``: the R <= n replicas of one leaf updated in one launch, delta
     read once (see :func:`.ref.rotk_apply_rows_ref`). w: [R, s] with unit
@@ -129,7 +129,12 @@ def rotk_apply_rows(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor
     contiguous, w's dtype (f32, f16 or bf16); rotation: one int32 on the same
     device. ``out``: an [R, s] view with unit column stride, overlapping
     neither input, written in place and returned (the caller's slice of a
-    larger tensor: no temporary, no copy); a new tensor if None."""
+    larger tensor: no temporary, no copy); a new tensor if None. ``block``:
+    (chunk, stride, offset) where the s columns are one rank's block of a leaf
+    split over a mesh axis: column t is leaf coordinate ``offset + (t //
+    chunk) * stride + t % chunk``, which the kept rule reads (1 <= chunk <=
+    stride, offset + chunk <= stride, s a multiple of chunk); None, or
+    (s, s, 0), is the leaf itself."""
     if w.dim() != 2 or delta.dim() != 1 or delta.shape[0] != w.shape[1]:
         raise ValueError(f"rotk_apply_rows: w must be [R, s] and delta [s], got {tuple(w.shape)} "
                          f"and {tuple(delta.shape)}")
@@ -145,14 +150,20 @@ def rotk_apply_rows(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor
                              f"{tuple(out.shape)} {out.dtype} on {out.device}")
         if s > 1 and out.stride(1) != 1:
             raise ValueError("rotk_apply_rows: out needs unit column stride")
+    if block is not None:
+        chunk, stride, offset = (int(v) for v in block)
+        if not (1 <= chunk <= stride and 0 <= offset and offset + chunk <= stride and s % chunk == 0):
+            raise ValueError(f"rotk_apply_rows: block (chunk, stride, offset) = {tuple(block)} does not map "
+                             f"{s} columns into a leaf")
+        block = None if (chunk, stride, offset) == (s, s, 0) else (chunk, stride, offset)
     if R == 0 or s == 0:
         return torch.empty_like(w) if out is None else out
     rows_read = 1 if w.stride(0) == 0 else R  # (2R + 1) values a column; a broadcast row once
     with runtime.kernel_cost("rotk_apply_rows", (rows_read + R + 1) * s * w.element_size()):
         if not runtime.on_cuda(w, delta, rotation):
-            res = ref.rotk_apply_rows_ref(w, delta, rotation, n=n)
+            res = ref.rotk_apply_rows_ref(w, delta, rotation, n=n, block=block)
             return res if out is None else out.copy_(res)
-        return _permk.rotk_apply_rows(w, delta, rotation, n=n, out=out)
+        return _permk.rotk_apply_rows(w, delta, rotation, n=n, out=out, block=block)
 
 
 def l1_subgrad(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:

@@ -258,12 +258,24 @@ def _to16(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.where(h >= 2**15, h - 2**16, h).to(torch.int16).view(dtype)
 
 
+def block_coords(s: int, block, device) -> torch.Tensor:
+    """The leaf coordinates of a block's ``s`` columns under ``block`` =
+    (chunk, stride, offset): ``offset + (t // chunk) * stride + t % chunk``
+    (None: ``t``)."""
+    t = torch.arange(s, device=device)
+    if block is None:
+        return t
+    chunk, stride, offset = block
+    return offset + torch.div(t, chunk, rounding_mode="floor") * stride + t % chunk
+
+
 def _rotk_ref(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, n: int,
-              workers) -> torch.Tensor:
+              workers, block=None) -> torch.Tensor:
     """w + Q(delta) with the kept residue (workers + r) mod n of the int32
-    sum: ``workers`` an int for a [d] w, an int32 tensor [R] for w [R, d]."""
+    sum: ``workers`` an int for a [d] w, an int32 tensor [R] for w [R, d];
+    column t at leaf coordinate :func:`block_coords`."""
     r = rotation.reshape(()).to(torch.int32)
-    keep = torch.arange(w.shape[-1], device=w.device) % n == torch.remainder(r + workers, n)[..., None]
+    keep = block_coords(w.shape[-1], block, w.device) % n == torch.remainder(r + workers, n)[..., None]
     if w.dtype == torch.float32:
         return w + torch.where(keep, delta * float(n), 0.0)
     q = _to16(delta.float() * float(n), w.dtype).float()
@@ -284,11 +296,15 @@ def rotk_apply_ref(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor,
 
 
 def rotk_apply_rows_ref(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, *,
-                        n: int) -> torch.Tensor:
+                        n: int, block=None) -> torch.Tensor:
     """[R, s]: row i is :func:`rotk_apply_ref` of w[i] with worker i, as the
     reference downlink's vmap over the workers computes it (w [R, s], which
-    may be one row broadcast; delta [s])."""
-    return _rotk_ref(w, delta, rotation, n, torch.arange(w.shape[0], dtype=torch.int32, device=w.device))
+    may be one row broadcast; delta [s]). ``block`` = (chunk, stride,
+    offset): the s columns are a rank's block of a leaf, column t its
+    coordinate ``offset + (t // chunk) * stride + t % chunk``, which the kept
+    rule reads (the same values as the whole leaf's row at those columns)."""
+    return _rotk_ref(w, delta, rotation, n, torch.arange(w.shape[0], dtype=torch.int32, device=w.device),
+                     block)
 
 
 def mask_streams_ref(x: torch.Tensor, workers: torch.Tensor, keep_prob: float, seed: int, mag: int):

@@ -12,6 +12,29 @@ tensor), the reference's proxy for the bytes a collective moves
 open op count (:func:`repro_torch.kernels.runtime.collective_cost`).
 :class:`CountingComm` charges and tallies the same bytes and calls nothing,
 so the dry-run counts one rank of a 256-rank mesh on ``meta`` with no group.
+
+Collectives with a backward, for tensor parallelism over one mesh axis under
+autograd (Megatron's pair and a gather). A replicated activation holds its
+whole gradient on every rank of the axis; what a rank computes on its own
+block (its heads, its columns) gives a partial gradient, which these sum
+where it meets a replicated tensor again:
+
+* :func:`enter`: identity forward, all-reduce (sum) backward; on a
+  replicated activation before the rank's column-parallel products;
+* :func:`exit`: all-reduce (sum) forward, identity backward; after a
+  row-parallel partial product, and after the embedding's row lookup;
+* :func:`gather`: all-gather along a dim forward, reduce-scatter (sum)
+  backward; a weight gathered whole where the split cuts through a head,
+  whose use on every rank gives a partial gradient.
+
+Each goes through the communicator in both directions, so :class:`Comm`
+hands the backward's collective to the group too and :class:`CountingComm`
+counts it (under activation recomputation the forward's are issued again in
+the backward, on every rank in the same order). Outside autograd (no input
+requires grad) each is its plain collective, in place where that is.
+``torch.distributed.nn.functional.all_reduce`` is not one of them: it sums
+the gradients in its backward, which would multiply a replicated
+activation's gradient by the axis' size.
 """
 from __future__ import annotations
 
@@ -75,6 +98,79 @@ class CountingComm(Comm):
 
     def _call(self, kind, out, call):
         return super()._call(kind, out, lambda: None)
+
+
+# ---------------------------------------------------------------------------
+# collectives with a backward
+# ---------------------------------------------------------------------------
+
+
+def _grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        ctx.comm, ctx.axis = comm, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g.clone(), ctx.axis), None, None
+
+
+class _Exit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        return comm.all_reduce(x.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _all_gather_dim(comm, t: torch.Tensor, dim: int, size: int, axis) -> torch.Tensor:
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
+    comm.all_gather(out, x, axis)
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, axis, dim, size):
+        ctx.comm, ctx.axis, ctx.dim, ctx.size, ctx.dtype = comm, axis, dim, size, t.dtype
+        return _all_gather_dim(comm, t, dim, size, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the ranks' partial gradients of the whole tensor summed in fp32 (or wider), each rank its block
+        x = g.movedim(ctx.dim, 0).to(torch.promote_types(g.dtype, torch.float32)).contiguous()
+        out = x.new_empty((x.shape[0] // ctx.size,) + tuple(x.shape[1:]))
+        ctx.comm.reduce_scatter(out, x, ctx.axis)
+        out = out.to(ctx.dtype)
+        return (out.movedim(0, ctx.dim) if ctx.dim else out), None, None, None, None
+
+
+def enter(comm: Comm, x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` forward; its gradient all-reduced (sum) over ``axis`` backward."""
+    return _Enter.apply(x, comm, axis) if _grad(x) else x
+
+
+def exit(comm: Comm, x: torch.Tensor, axis) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis`` forward (in place outside
+    autograd); the gradient as it is backward."""
+    return _Exit.apply(x, comm, axis) if _grad(x) else comm.all_reduce(x, axis)
+
+
+def gather(comm: Comm, t: torch.Tensor, dim: int, size: int, axis) -> torch.Tensor:
+    """The ``size`` ranks' blocks of ``t`` along ``dim``, in rank order (one
+    all-gather); backward, the rank's block of the gradient summed over the
+    axis (one reduce-scatter in fp32 at least, rounded once to ``t``'s dtype)."""
+    if _grad(t):
+        return _Gather.apply(t, comm, axis, dim, size)
+    return _all_gather_dim(comm, t, dim, size, axis)
 
 
 def mesh_groups(device_mesh) -> Dict[str, object]:

@@ -20,10 +20,14 @@ evenly over the mesh's devices (``"split": "even"``, no collective term,
   ``--serve-layout`` (ZeRO-3 gathers over "data", tensor parallelism over
   "model"); ``state_bytes_per_device`` puts the rank's parameters and
   caches beside the reference's ``param_specs`` / ``cache_specs``;
-* a train shape with ``--train-act-model-sharded``: one rank of
-  ``train/sharded.py``'s step (the record
-  ``<arch>__<shape>__<mesh>__act.json``); ``state_bytes_per_device`` puts
-  the rank's flat ZeRO-1 state beside the reference's per-leaf specs.
+* a train shape of the dense, vlm and audio families on a ("data",
+  "model") mesh: one rank of ``train/sharded.py``'s step, by default with
+  tensor parallelism over "model" (the reference's ``worker`` layout), with
+  ``--train-act-model-sharded`` under ``act_spec`` instead (the record
+  ``<arch>__<shape>__<mesh>__act.json``, any family without experts);
+  ``state_bytes_per_device`` puts the rank's flat state (its blocks, or
+  its whole rows, and its ZeRO-1 slices) beside the reference's per-leaf
+  specs.
 
 A per-rank record's collectives' result-shape bytes by kind
 (``collective_bytes_per_device``) give the roofline's third term. Its bytes
@@ -165,7 +169,9 @@ def run_one(arch: str, shape: str, *, multi_pod: bool = False, downlink: str = "
         "params_active": cfg.active_param_count(),
     }
     if per_rank and kind == "train":
-        rec["act_spec"] = list(built.meta["act_spec"])
+        act = built.meta["act_spec"]
+        rec["act_spec"] = list(act) if act is not None else None
+        rec["tensor_parallel"] = built.meta["layout"].tp
         rec["state_bytes_per_device"] = state_bytes_per_device(built)
     elif per_rank:
         rec["state_bytes_per_device"] = serve_state_bytes(built)

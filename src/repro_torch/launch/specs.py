@@ -20,15 +20,23 @@ holds them. The train step's randomness is an argument
 (``train/downlink.DownlinkDraws``): the abstract draws are a compressed
 round's (no sync coin), the branch every count and measurement takes.
 
-``train_act_model_sharded=True`` (the reference's ``act_spec =
-P("model", None, None)`` where a worker's batch splits over "model") builds
-one rank's step of ``train/sharded.py`` for the mesh instead: rank 0's state
-(its ZeRO-1 slices and its workers' rows), the global batch, and a
+The train shape builds one rank's step of ``train/sharded.py`` for the mesh
+(``meta["split"] = "per_rank"``): rank 0's state, the global batch, and a
 :class:`~repro_torch.launch.comm.CountingComm` that charges the step's
-collectives and calls no process group (``meta["split"] = "per_rank"``).
-Where the reference would drop ``act_spec`` (the batch does not split over
-"model") it runs tensor parallelism over "model", which the port does not:
-that, and ``act_spec`` for configs with experts, raise.
+collectives (the layers' forward, backward and recomputed ones included)
+and calls no process group. By default it is the reference's default
+program, the ``worker`` layout as tensor parallelism over "model" (rank 0's
+blocks of every leaf: its replicas' rows of them, the ZeRO-1 slices of its
+model-local master over "data") for the dense, vlm and audio families on a
+("data", "model") mesh; the moe, ssm and hybrid families, and the
+multi-pod and hierarchical meshes, keep the whole step split evenly
+(:func:`train_refusal` names why). ``train_act_model_sharded=True`` (the
+reference's ``act_spec = P("model", None, None)`` where a worker's batch
+splits over "model") builds the ``act_spec`` step instead: whole replicas,
+each worker's rows split over "model"; where the reference would drop
+``act_spec`` (the batch does not split over "model") it runs the tensor
+parallel program, the default build, so that request, and ``act_spec`` for
+configs with experts, raise.
 
 The serving shapes (prefill_32k, decode_32k, long_500k) of the dense, vlm
 and audio families build rank 0's step of ``serve/sharded.py`` under
@@ -40,7 +48,7 @@ collectives. The moe, ssm and hybrid families, whose sharded serving step is
 not ported, and caches that ``cache_specs`` splits over another dim than the
 batch or the sequence keep the whole step, which the dry-run splits evenly
 (``"even"``); ``meta["even_note"]`` names what is not ported, for these and
-for the train step without ``train_act_model_sharded``.
+for the train step of a family or mesh that :func:`train_refusal` names.
 """
 from __future__ import annotations
 
@@ -156,20 +164,27 @@ def build(arch_id: str, shape_id: str, mesh, *, downlink_spec: str = "marina:per
             remat_policy=remat_policy)
         state = init_state(cfg, tcfg, downlink, optimizer, device=META)
         meta = dict(cfg=cfg, W=W, bpw=bpw, split="even", **info)
+        d = sum(leaf_sizes(lm.lm_spec(cfg)))
         if train_act_model_sharded:
             if bpw % mesh.shape["model"]:
                 raise ValueError(f"{bpw} rows a worker do not split over 'model' = {mesh.shape['model']}: "
                                  "the reference drops act_spec there and runs tensor parallelism over "
-                                 "'model', which the port does not")
+                                 "'model' (the count without --train-act-model-sharded)")
             tcfg = dataclasses.replace(tcfg, act_spec=SH.ACT_SPEC)
-            layout = SH.Layout(mesh, 0, W, sum(leaf_sizes(lm.lm_spec(cfg))))
+            layout = SH.Layout(mesh, 0, W, d)
+        else:
+            refusal = train_refusal(cfg, mesh)
+            layout = None
+            if refusal is None:
+                M = mesh.shape["model"]
+                layout = SH.Layout(mesh, 0, W, d, SH.model_blocks(cfg, mesh, 0) if M > 1 else None)
+            else:
+                meta["even_note"] = refusal
+        if layout is not None:
             comm = CountingComm()
             step = SH.make_sharded_train_step(cfg, tcfg, downlink, optimizer, train_lr(), layout, comm)
             state = SH.shard_state(state, layout)
-            meta.update(split="per_rank", act_spec=SH.ACT_SPEC, layout=layout, comm=comm)
-        else:
-            meta["even_note"] = ("the train step's tensor parallelism over 'model' (the reference's worker "
-                                 "layout; the count without --train-act-model-sharded)")
+            meta.update(split="per_rank", act_spec=tcfg.act_spec, layout=layout, comm=comm)
         batch = {k: empty(s.shape, s.dtype) for k, s in data_batch_specs(cfg, W, bpw, info["seq"]).items()}
         tree = lm.lm_spec(cfg)
         draws = compressed_draws(downlink, leaf_sizes(tree))
@@ -224,6 +239,26 @@ def build(arch_id: str, shape_id: str, mesh, *, downlink_spec: str = "marina:per
                 return lm.decode_step(cfg, params, caches, token, pos, window_override=window)
 
     return Built(serve_step, (params, caches, token, empty((), torch.int32)), specs, meta)
+
+
+def train_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
+    """None where the dry-run counts one rank of the sharded train step with
+    tensor parallelism over "model" for ``cfg`` on ``mesh`` (a ("data",
+    "model") mesh, the dense, vlm and audio families, every product's weight
+    split), else what is not ported (``train/sharded.check_tensor_parallel``'s
+    message)."""
+    if tuple(mesh.axis_names) != ("data", "model"):
+        return (f"the train step across a process group runs on a ('data', 'model') mesh, not "
+                f"{tuple(mesh.axis_names)} (the multi-pod and hierarchical meshes' train programs are not ported)")
+    if mesh.shape["model"] == 1:
+        return None
+    W = mesh_n_workers(mesh)
+    layout = SH.Layout(mesh, 0, W, sum(leaf_sizes(lm.lm_spec(cfg))), SH.model_blocks(cfg, mesh, 0))
+    try:
+        SH.check_tensor_parallel(cfg, layout)
+    except SS.NotPorted as e:
+        return str(e)
+    return None
 
 
 def serving_refusal(cfg: ModelConfig, mesh, batch: int, seq: int, window, kind: str) -> Optional[str]:

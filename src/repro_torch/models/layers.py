@@ -29,7 +29,10 @@ row-parallel ones (``wo``, ``w_out``) a partial that ``tp.row_mm`` sums over
 "model" in fp32 and rounds once, attention runs on the rank's q heads
 (:class:`Heads`; all of them where the "model" split cuts through a head),
 and a decode over a cache whose sequence is split over "data" combines the
-ranks' partial softmaxes (:func:`split_decode_attention`).
+ranks' partial softmaxes (:func:`split_decode_attention`). Under autograd
+(the sharded train step) the context's collectives carry the gradients:
+``x`` enters "model" before the column-parallel products, whose partial
+gradients of ``x`` sum there in fp32.
 """
 from __future__ import annotations
 
@@ -87,6 +90,13 @@ def _weight(p, name: str, dtype, tp, whole: bool = False) -> torch.Tensor:
     return weight(p, name, dtype) if tp is None else tp.weight(p, name, dtype, whole)
 
 
+def _col_mm(x, ws, tp) -> list:
+    """``[x @ w for w in ws]``; on a rank of a sharded model its
+    column-parallel products (``tp.col_mm``: under autograd, ``x``'s
+    gradient summed over "model")."""
+    return [mm(x, w) for w in ws] if tp is None else tp.col_mm(x, ws)
+
+
 def _row_mm(x, p, name: str, tp) -> torch.Tensor:
     """``x @ p[name]``; on a rank whose ``p[name]`` rows are split over
     "model", the partial product summed over "model" (``tp.row_mm``)."""
@@ -134,13 +144,12 @@ def mlp_spec(d_model: int, d_ff: int, kind: str):
 
 def mlp_apply(params, x, kind: str, tp=None):
     dt = x.dtype
-    h = mm(x, _weight(params, "w_in", dt, tp))
+    names = ("w_in", "w_gate") if kind in ("swiglu", "geglu") else ("w_in",)
+    h, *g = _col_mm(x, [_weight(params, n, dt, tp) for n in names], tp)
     if kind == "swiglu":
-        g = mm(x, _weight(params, "w_gate", dt, tp))
-        h = F.silu(g.to(F32)).to(dt) * h
+        h = F.silu(g[0].to(F32)).to(dt) * h
     elif kind == "geglu":
-        g = mm(x, _weight(params, "w_gate", dt, tp))
-        h = F.gelu(g.to(F32), approximate="tanh").to(dt) * h
+        h = F.gelu(g[0].to(F32), approximate="tanh").to(dt) * h
     elif kind == "relu2":
         h = torch.square(torch.relu(h.to(F32))).to(dt)
     elif kind == "gelu":
@@ -340,9 +349,10 @@ def _qkv(cfg: ModelConfig, params, x, positions, tp=None):
     B, S, _ = x.shape
     dt = x.dtype
     hs = _heads(cfg, tp)
-    q = mm(x, _weight(params, "wq", dt, tp, hs.q_whole)).reshape(B, S, hs.nq, cfg.head_dim)
-    k = mm(x, _weight(params, "wk", dt, tp, hs.kv_whole)).reshape(B, S, hs.nkv, cfg.head_dim)
-    v = mm(x, _weight(params, "wv", dt, tp, hs.kv_whole)).reshape(B, S, hs.nkv, cfg.head_dim)
+    q, k, v = _col_mm(x, [_weight(params, "wq", dt, tp, hs.q_whole), _weight(params, "wk", dt, tp, hs.kv_whole),
+                          _weight(params, "wv", dt, tp, hs.kv_whole)], tp)
+    q = q.reshape(B, S, hs.nq, cfg.head_dim)
+    k, v = (t.reshape(B, S, hs.nkv, cfg.head_dim) for t in (k, v))
     if cfg.use_rope:
         angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, positions, cfg.rope_theta, angles)

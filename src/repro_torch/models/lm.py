@@ -23,7 +23,10 @@ rank's rows of the batch over "data".
 The embedding table's rows are split over "model": the rank looks up the
 tokens of its rows, writes zeros for the others, and the ranks' lookups are
 summed over "model" (exact: every other rank adds zero). The logits stay
-split over the vocabulary: the rank gets its block ``[..., V / M]``.
+split over the vocabulary: the rank gets its block ``[..., V / M]``, and
+``loss_fn`` takes the vocabulary-parallel :func:`cross_entropy_tp` there.
+Under autograd (``train/sharded.py``'s tensor parallelism) the context's
+collectives carry the gradients (``launch/comm.py``).
 """
 from __future__ import annotations
 
@@ -111,15 +114,13 @@ def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor, tp=None) -> tor
 
 def logits_from_hidden(cfg: ModelConfig, params, h: torch.Tensor, tp=None) -> torch.Tensor:
     p = tree_of(params)
-    if cfg.tie_embeddings:
-        w = L._weight(p, "embed", h.dtype, tp)
-        if cfg.num_codebooks:
-            return einsum_low("bsd,kvd->bksv", h, w)
-        return mm(h, w.T)
-    w = L._weight(p, "unembed", h.dtype, tp)
+    tied = cfg.tie_embeddings
+    w = L._weight(p, "embed" if tied else "unembed", h.dtype, tp)
     if cfg.num_codebooks:
-        return einsum_low("bsd,kdv->bksv", h, w)
-    return mm(h, w)
+        if tp is not None and torch.is_grad_enabled():  # training: each codebook's product on its own
+            return torch.stack(L._col_mm(h, [w[k].T if tied else w[k] for k in range(cfg.num_codebooks)], tp), 1)
+        return einsum_low("bsd,kvd->bksv" if tied else "bsd,kdv->bksv", h, w)
+    return L._col_mm(h, [w.T if tied else w], tp)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +141,15 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
                          "it by splitting each worker's rows over the mesh's 'model' axis, the sharded "
                          "serving step (serve/sharded.make_prefill_step) by taking each rank's rows of "
                          "the batch over 'data'")
+    x = hidden(cfg, params, batch, window_override=window_override, chunk=chunk, remat=remat,
+               remat_policy=remat_policy, tp=tp)
+    return logits_from_hidden(cfg, tree_of(params), x, tp)
+
+
+def hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *, window_override=None,
+           chunk: int = 512, remat: bool = True, remat_policy=None, tp=None) -> torch.Tensor:
+    """The final normed hidden states [B, S, D] that :func:`forward`'s
+    logits are computed from (text positions only)."""
     p = tree_of(params)
     x = embed_tokens(cfg, p, batch["tokens"], tp)
     if cfg.num_patches:
@@ -147,9 +157,7 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     x = T.stack_apply(cfg, p["stack"], x, window_override=window_override, chunk=chunk,
                       remat=remat, remat_policy=remat_policy, tp=tp)
     x = L.rmsnorm(p["ln_f"], x, cfg.rms_eps, tp)
-    if cfg.num_patches:
-        x = x[:, cfg.num_patches:]
-    return logits_from_hidden(cfg, p, x, tp)
+    return x[:, cfg.num_patches:] if cfg.num_patches else x
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -160,12 +168,38 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(lse - ll)
 
 
+def cross_entropy_tp(logits: torch.Tensor, labels: torch.Tensor, tp) -> torch.Tensor:
+    """:func:`cross_entropy` of logits split over the vocabulary: the rank's
+    block [..., S, V / M] (vocabulary ids ``m V / M ...``) of rank m of
+    "model". The max over the vocabulary is all-reduced (max) as a detached
+    shift; the sum of exp(logit - max) and the target's logit (the rank
+    that holds it adds it, the others zero) are summed over "model" in fp32
+    (``comm.exit``: every rank holds the loss, and its gradient of its own
+    block)."""
+    lf = logits.float()
+    n = lf.shape[-1]
+    lo = tp.model_index * n
+    m = tp.comm.all_reduce(lf.detach().amax(-1), "model", "max")
+    s = tp.all_reduce(torch.exp(lf - m[..., None]).sum(-1), "model")
+    idx = labels.long() - lo
+    inside = (idx >= 0) & (idx < n)
+    ll = torch.gather(lf, -1, torch.where(inside, idx, 0).unsqueeze(-1)).squeeze(-1)
+    ll = tp.all_reduce(torch.where(inside, ll, 0.0), "model")
+    return torch.mean(torch.log(s) + m - ll)
+
+
 def loss_fn(cfg: ModelConfig, params, batch, **fwd_kw) -> torch.Tensor:
+    """Mean next-token CE of ``forward``'s logits; where they are the rank's
+    vocabulary block (a ``tp`` context with M > 1), :func:`cross_entropy_tp`."""
     logits = forward(cfg, params, batch, **fwd_kw)
     tokens = batch["tokens"]
+    ce = cross_entropy
+    if logits.shape[-1] != cfg.vocab_size:
+        tp = fwd_kw["tp"]
+        ce = lambda lg, lb: cross_entropy_tp(lg, lb, tp)  # noqa: E731
     if cfg.num_codebooks:
-        return cross_entropy(logits[..., :-1, :], tokens[..., 1:])
-    return cross_entropy(logits[:, :-1], tokens[:, 1:])
+        return ce(logits[..., :-1, :], tokens[..., 1:])
+    return ce(logits[:, :-1], tokens[:, 1:])
 
 
 # ---------------------------------------------------------------------------

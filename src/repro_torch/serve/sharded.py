@@ -53,12 +53,13 @@ import torch
 import torch.distributed as dist
 
 from ..launch import sharding as sh
+from ..launch import comm as C
 from ..launch.comm import Comm, device_type, mesh_groups
 from ..launch.mesh import Mesh
 from ..models import layers as L
 from ..models import lm
 from ..models.config import ModelConfig
-from ..models.params import FlatParams, Leaf, leaves, mm, mm_f32, weight
+from ..models.params import FlatParams, Leaf, grad_tree, leaves, mm, mm_f32, weight
 
 PORTED_FAMILIES = ("dense", "vlm", "audio")
 # what each family that is refused would need
@@ -71,12 +72,12 @@ class NotPorted(ValueError):
     says what is missing."""
 
 
-def check_ported(cfg: ModelConfig) -> None:
+def check_ported(cfg: ModelConfig, what: str = "serving across a process group") -> None:
     """Raise :class:`NotPorted` unless ``cfg``'s family is one the sharded
-    serving step ports."""
+    steps port (``what``: the step named in the message)."""
     if (cfg.family not in PORTED_FAMILIES or cfg.mla is not None or cfg.moe is not None
             or not set(cfg.block_pattern) <= {"attn", "attn_local"}):
-        raise NotPorted(f"{cfg.arch_id} ({cfg.family}): serving across a process group is not ported for the "
+        raise NotPorted(f"{cfg.arch_id} ({cfg.family}): {what} is not ported for the "
                         f"{cfg.family} family ({NOT_PORTED.get(cfg.family, 'blocks other than attention')}); "
                         f"it is for {', '.join(PORTED_FAMILIES)}")
 
@@ -149,13 +150,11 @@ class ServeLayout:
 def gather_dim(comm: Comm, layout: ServeLayout, t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
     """The blocks of ``t`` along ``dim`` of every rank of ``axis``, in
     order: one all-gather (of the tensor with ``dim`` moved first), laid out
-    contiguous; ``t`` itself on an axis of one rank."""
+    contiguous, with a reduce-scatter backward under autograd
+    (``launch/comm.gather``); ``t`` itself on an axis of one rank."""
     if layout.size(axis) == 1:
         return t
-    x = t.movedim(dim, 0).contiguous()
-    out = x.new_empty((layout.size(axis) * x.shape[0],) + tuple(x.shape[1:]))
-    comm.all_gather(out, x, axis)
-    return out.movedim(0, dim).contiguous() if dim else out
+    return C.gather(comm, t, dim, layout.size(axis), axis)
 
 
 def _map_spec(fn, tree, specs):
@@ -190,10 +189,55 @@ def attention_heads(cfg: ModelConfig, layout: ServeLayout) -> L.Heads:
     return L.Heads(q0, nq, kv0, nkv, qw, kvw)
 
 
+class _ColMm(torch.autograd.Function):
+    """``mm(x, w)`` of an fp32 ``xf`` that holds bf16 values: the rank's
+    column-parallel product, whose gradient dy @ wᵀ it returns in fp32,
+    unrounded, so that the rank's products' partials and then the ranks'
+    are summed before the one rounding to bf16 (:meth:`ServeShard.col_mm`)."""
+
+    @staticmethod
+    def forward(ctx, xf, w):
+        x = xf.to(w.dtype)
+        ctx.save_for_backward(x, w)
+        return mm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dw = mm(x.reshape(-1, x.shape[-1]).t(), dy.reshape(-1, dy.shape[-1]))
+        return mm_f32(dy, w.t()), dw
+
+
+class _RowMm(torch.autograd.Function):
+    """``mm_f32(x, w)``: the rank's fp32 row-parallel partial product, whose
+    gradients are the single product's (dy rounded to bf16 as the single
+    product's is; dx and dw rounded once)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, dyf):
+        x, w = ctx.saved_tensors
+        dy = dyf.to(x.dtype)
+        return mm(dy, w.t()), mm(x.reshape(-1, x.shape[-1]).t(), dy.reshape(-1, dy.shape[-1]))
+
+
 class ServeShard:
     """The shard context the layers take (``tp``) on one rank: the layout,
     the communicator, the rank's heads, and whether its caches hold a slice
-    of every ring's slots (``seq_split``)."""
+    of every ring's slots (``seq_split``).
+
+    The same context serves training (``train/sharded.py``'s tensor
+    parallelism over "model", under the ``tp`` layout): under autograd its
+    collectives are ``launch/comm``'s (``enter`` before the column-parallel
+    products, ``exit`` after a row-parallel partial and the embedding's
+    lookup, ``gather`` with a reduce-scatter backward), and
+    :meth:`grad_tree` gives the rank's blocks as a tree to differentiate.
+    Outside autograd (the serving steps run under ``torch.no_grad()``) each
+    is the plain collective, as before."""
 
     def __init__(self, cfg: ModelConfig, layout: ServeLayout, comm: Comm, *, seq_split: bool = False):
         check_ported(cfg)
@@ -201,6 +245,16 @@ class ServeShard:
         self.data_index, self.model_index = layout.coords
         self.data_size, self.model_size = layout.data_size, layout.model_size
         self.heads = attention_heads(cfg, layout)
+        self.specs = layout.param_specs(lm.lm_spec(cfg))
+        self.local_spec = local_spec(lm.lm_spec(cfg), self.specs, layout)
+
+    def grad_tree(self, flat: torch.Tensor):
+        """The rank's blocks (:func:`shard_params`'s tree, ravel order) as
+        views of ``flat`` [d_local] (a leaf that requires grad), their dict
+        nodes carrying their leaves' specs."""
+        tree = grad_tree(self.local_spec, flat)
+        _attach_specs(tree, self.specs)
+        return tree
 
     def weight(self, p, name: str, dtype, whole: bool = False) -> torch.Tensor:
         """``p[name]`` in ``dtype`` (the bf16 copy), gathered over "data"
@@ -222,6 +276,19 @@ class ServeShard:
         n = p[name].shape[dim]
         return self.model_index * n, n
 
+    def col_mm(self, x: torch.Tensor, ws) -> list:
+        """``[x @ w for w in ws]``, the rank's column-parallel products of a
+        replicated ``x``. Under autograd ``x`` enters "model" once
+        (``comm.enter``) in fp32, and each product gives its gradient in fp32
+        (``_ColMm``): the partials of all the products and all the ranks are
+        summed before x's gradient rounds to bf16 once, as the single
+        product's does (at one rank, where the single process rounds each
+        product's, this is ``train/sharded_check``'s floor)."""
+        if not C._grad(x, *ws):
+            return [mm(x, w) for w in ws]
+        xf = C.enter(self.comm, x.float(), "model")
+        return [_ColMm.apply(xf, w) for w in ws]
+
     def row_mm(self, x: torch.Tensor, p, name: str) -> torch.Tensor:
         """``x @ p[name]``: where the weight's rows are split over "model",
         the rank's fp32 partial over its rows (of ``x``'s columns, taking
@@ -233,9 +300,14 @@ class ServeShard:
             return mm(x, w)
         if x.shape[-1] != blk[1]:
             x = x[..., blk[0]:blk[0] + blk[1]]
-        return self.all_reduce(mm_f32(x, w), "model").to(x.dtype)
+        part = _RowMm.apply(x, w) if C._grad(x, w) else mm_f32(x, w)
+        return self.all_reduce(part, "model").to(x.dtype)
 
     def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
+        """The ``op`` of ``t`` over ``axis``; a sum under autograd is
+        ``comm.exit`` (the gradient passes as it is)."""
+        if op == "sum":
+            return C.exit(self.comm, t, axis)
         return self.comm.all_reduce(t, axis, op)
 
 
@@ -270,9 +342,8 @@ class ShardedParams(FlatParams):
         _attach_specs(self.tree, self.specs)
 
 
-def shard_params(params: FlatParams, layout: ServeLayout) -> ShardedParams:
-    """This rank's blocks of ``params`` under ``layout``'s parameter specs."""
-    specs = layout.param_specs(params.spec)
+def local_spec(spec_tree, specs, layout: ServeLayout):
+    """The tree of the rank's block shapes of ``spec_tree``'s leaves under ``specs``."""
 
     def local(leaf, spec):
         shape = list(leaf.shape)
@@ -281,7 +352,13 @@ def shard_params(params: FlatParams, layout: ServeLayout) -> ShardedParams:
                 shape[dim] //= layout.size(layout.axis(entry))
         return Leaf(tuple(shape), leaf.init, leaf.scale)
 
-    out = ShardedParams(_map_spec(local, params.spec, specs), specs, params.spec, params.device)
+    return _map_spec(local, spec_tree, specs)
+
+
+def shard_params(params: FlatParams, layout: ServeLayout) -> ShardedParams:
+    """This rank's blocks of ``params`` under ``layout``'s parameter specs."""
+    specs = layout.param_specs(params.spec)
+    out = ShardedParams(local_spec(params.spec, specs, layout), specs, params.spec, params.device)
     with torch.no_grad():
         _map_spec(lambda pair, spec: pair[1].copy_(layout.block(pair[0], spec)),
                   _zip(params.tree, out.tree), specs)

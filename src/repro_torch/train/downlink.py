@@ -78,6 +78,28 @@ def _segments(sizes: Sequence[int]):
         o += s
 
 
+class LeafBlock(NamedTuple):
+    """One rank's block of a leaf split over a mesh axis, in the rank's flat
+    vector of blocks: at ``lo``, ``size`` values, block element t being leaf
+    coordinate ``offset + (t // chunk) * stride + t % chunk`` (a leaf the
+    axis does not split: chunk = stride = its size, offset 0)."""
+
+    lo: int
+    size: int
+    chunk: int
+    stride: int
+    offset: int
+
+    @property
+    def map(self) -> tuple:
+        return self.chunk, self.stride, self.offset
+
+    def cut(self, t: torch.Tensor) -> torch.Tensor:
+        """The block's values of ``t`` [..., leaf size], as [..., size]."""
+        lead = t.shape[:-1]
+        return t.reshape(*lead, -1, self.stride)[..., self.offset:self.offset + self.chunk].reshape(*lead, -1)
+
+
 def _dense_buf(flat: torch.Tensor, mag, device_encode) -> bytes:
     """The full model (fp32) serialized for a sync broadcast."""
     flat = flat.float().contiguous()
@@ -160,17 +182,23 @@ class MarinaPDownlink:
                            workers, 0, force_sync)
 
     def round_rows(self, draws: DownlinkDraws, sizes, server_new, delta, workers, off: int,
-                   force_sync=False):
+                   force_sync=False, blocks: Optional[Sequence[LeafBlock]] = None):
         """:meth:`round` for replicas ``off ... off + R - 1`` of the W
         (``workers``: [R, d], one rank's rows of the sharded train step),
         from the round's fp32 delta x^{t+1} - x^t [d] (None in a sync
         round). Row i is worker ``off + i``: perm passes the rotation
         ``(r + off) mod W`` to ``rotk_apply_rows``, ind takes mask rows
         ``off ... off + R - 1``; the values equal rows ``off ...`` of
-        :meth:`round`'s bit for bit."""
-        return self._round(draws, sizes, server_new, lambda o, s: delta[o:o + s], workers, off, force_sync)
+        :meth:`round`'s bit for bit. ``blocks`` (one :class:`LeafBlock` a
+        leaf of ``sizes``): the rows, ``server_new`` and ``delta`` hold only
+        the rank's blocks of the leaves [d_local] (tensor parallelism over
+        "model"); perm's kept rule reads each block column's leaf coordinate
+        (``rotk_apply_rows``' block map), ind / same cut the leaf's mask to
+        the block, and the values equal those columns of :meth:`round`'s."""
+        return self._round(draws, sizes, server_new, lambda o, s: delta[o:o + s], workers, off, force_sync,
+                           blocks)
 
-    def _round(self, draws, sizes, server_new, leaf_delta, workers, off, force_sync):
+    def _round(self, draws, sizes, server_new, leaf_delta, workers, off, force_sync, blocks=None):
         n = self.n_workers
         sync = draws.coin or force_sync
         if sync:
@@ -185,15 +213,20 @@ class MarinaPDownlink:
             rot = (None if self.mode != "perm" else draws.rot if off == 0
                    else torch.remainder(draws.rot + off, n).to(torch.int32))
             for li, o, s in _segments(sizes):
+                blk = None if blocks is None else blocks[li]
+                if blk is not None:
+                    o, s = blk.lo, blk.size
                 delta = leaf_delta(o, s).to(workers.dtype)
                 if self.mode == "perm":  # all R replicas of the leaf in one launch
                     ops.rotk_apply_rows(workers[:, o:o + s], delta, rot[li:li + 1], n=n,
-                                        out=new[:, o:o + s])
+                                        out=new[:, o:o + s], block=None if blk is None else blk.map)
                 else:
                     mask = draws.masks[li] if self.mode == "same" else draws.masks[li][off:off + R]
+                    if blk is not None:
+                        mask = blk.cut(mask)
                     q = torch.where(mask, delta * scale, 0)
                     torch.add(workers[:, o:o + s], q, out=new[:, o:o + s])
-        d = sum(sizes)
+        d = sum(sizes)  # the whole model's, with blocks too
         cm = CommModel(d=d)  # single source of truth for the bit formulas
         return new, F32(cm.dense_bits() if sync else cm.sparse_bits(self.frac * d))
 

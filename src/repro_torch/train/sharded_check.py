@@ -16,6 +16,21 @@ worker's rows are M blocks whose bf16 forward rounds elsewhere, so the
 bounds are the ones held against the reference (tests/test_torch_train_step.py)
 where the run needs them (measured there: loss 4.8e-7, g 6.6e-3, grad_norm
 2.9e-4, the master 2.0 lr with 6.4e-4 of its coordinates past 0.1 lr).
+Under tensor parallelism over "model" (the rank's blocks, M > 1, no
+``act_spec``) the forward's row-parallel products sum fp32 partials in
+another order than the single product, which moves some bf16 outputs by an
+ulp, and the backward sums the column-parallel products' partial gradients
+of x in fp32 before one rounding, where the single process rounds each
+product's. Each number is held to the ``act_spec`` bound or, where wider,
+:data:`FLOOR_FACTOR` times the single process's own floor measured in the
+same run: the distance of the single process from itself with the
+tensor-parallel step's summation order in one process (:class:`OneRank`:
+the row-parallel products' M fp32 partials summed before one rounding, x's
+gradient summed in fp32 and rounded once), and for the loss the larger of
+that and :func:`loss_floor` (the distance one rounding of the logits
+makes). Measured with the smoke gemma-2b on 4 CPU
+ranks at (1, 4) and (2, 2): loss 1.4e-5-4.3e-5 (floor 8.8e-5-1.9e-4), g
+6.5e-3, grad_norm 8.3e-4, the master 2.0 lr with 1.5e-3 past 0.1 lr.
 MARINA-P's replicas are held to W times the master's bound (a kept
 coordinate adds W times the master's delta) plus one bf16 ulp of their
 largest value; EF21-P's shift bit for bit to the downlink of the ranks' own
@@ -31,10 +46,12 @@ import torch
 from ..data import SyntheticLMData
 from ..kernels import runtime
 from ..launch import op_cost
+from ..launch.mesh import Mesh
 from ..launch.specs import compressed_draws
 from ..models import lm
 from ..models import params as P
 from ..optim import constant_lr, make_optimizer
+from ..serve import sharded as SS
 from . import downlink as D
 from . import sharded as SH
 from . import trainer
@@ -46,8 +63,63 @@ B1 = 0.9  # AdamW's first-moment decay (make_optimizer's default)
 WORST_KEYS = ("loss", "g", "server_lr", "bulk", "rows_lr", "norms")
 
 
-def bounds(act: bool) -> tuple:
-    return ACT_BOUNDS if act else DATA_BOUNDS
+FLOOR_FACTOR = 1.5  # tensor parallelism's bounds: at most this times the run's own floor
+
+
+class OneRank(SS.ServeShard):
+    """The tensor-parallel step's arithmetic in one process, the floor of
+    :func:`hold`: the shard context on a (1, 1) mesh (its column-parallel
+    products sum x's gradient in fp32 before one rounding, as the ranks'
+    ``enter`` does), whose row-parallel products sum ``parts`` fp32 partials
+    over blocks of their rows before one rounding, as ``parts`` ranks'
+    ``exit`` does. The values are the single process's, summed in another
+    order."""
+
+    def __init__(self, cfg, parts: int):
+        super().__init__(cfg, SS.ServeLayout(Mesh(("data", "model"), (1, 1)), 0, "tp"), SH.CountingComm())
+        self.parts = parts
+
+    def row_mm(self, x, p, name):
+        w = self.weight(p, name, x.dtype)
+        k = w.shape[-2] // self.parts
+        out = None
+        for i in range(self.parts):
+            xi, wi = x[..., i * k:(i + 1) * k], w[i * k:(i + 1) * k]
+            part = SS._RowMm.apply(xi, wi) if torch.is_grad_enabled() else P.mm_f32(xi, wi)
+            out = part if out is None else out + part
+        return out.to(x.dtype)
+
+
+def bounds(split: bool) -> tuple:
+    """ACT_BOUNDS where a step splits over "model" (``act_spec``, or tensor
+    parallelism, which :func:`hold` also holds to its floor), else DATA_BOUNDS."""
+    return ACT_BOUNDS if split else DATA_BOUNDS
+
+
+def loss_floor(cfg, rows, batch, *, chunk: int, window_override=None) -> float:
+    """The single process's own loss floor: the largest |loss - the loss of
+    the same logits before their bf16 rounding| over the workers, worker i
+    at ``rows[i]`` [d] on ``batch``'s row i: the distance one rounding of
+    the logits makes."""
+    spec = lm.lm_spec(cfg)
+    kw = dict(chunk=chunk, remat=False, window_override=window_override)
+    worst = 0.0
+    with torch.no_grad():
+        for i, row in enumerate(rows):
+            shard = {k: v[i] for k, v in batch.items()}
+            tree = P.grad_tree(spec, row)
+            h = lm.hidden(cfg, tree, shard, **kw)
+            w = P.weight(tree, "embed" if cfg.tie_embeddings else "unembed", h.dtype).float()
+            w = w.transpose(-1, -2) if cfg.tie_embeddings else w
+            exact = torch.einsum("bsd,kdv->bksv", h.float(), w) if cfg.num_codebooks else h.float() @ w
+            tokens = shard["tokens"]
+            for lg in (lm.logits_from_hidden(cfg, tree, h), exact):
+                lb = (lg[..., :-1, :], tokens[..., 1:]) if cfg.num_codebooks else (lg[:, :-1], tokens[:, 1:])
+                if lg is exact:
+                    worst = max(worst, abs(float(lm.cross_entropy(*lb)) - rounded))
+                else:
+                    rounded = float(lm.cross_entropy(*lb))
+    return worst
 
 
 def _g_of(opt_new, opt_old):
@@ -90,7 +162,7 @@ def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Comm, *, batch_rows: int,
-             seq: int, device, steps: int = 3, forced: bool = False) -> dict:
+             seq: int, device, steps: int = 3, forced: bool = False, check_rank=None) -> dict:
     """``steps`` teacher-forced steps of the sharded step under downlink
     ``spec`` (``tcfg`` as the sharded step takes it; the single-process step
     runs it without ``act_spec``) on a [W, batch_rows, seq] synthetic batch
@@ -101,11 +173,24 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
     1 where ``forced``. Returns {"worst": the largest distances
     (:data:`WORST_KEYS`), "moved": the last step's bytes by kind, "wmax":
     the replicas' largest |value|, "launches": the sharded steps' kernel
-    launches}."""
+    launches, "compressed": the steps that were no sync, "floor": under
+    tensor parallelism the single process's own floor, each distance's
+    largest over the steps (:data:`WORST_KEYS`; see :func:`hold`), else
+    None}. ``check_rank``: only that rank runs the single-process steps and
+    holds the whole state (the others free theirs once sharded, and report
+    zeros), for a model whose whole state a card holds once, not on every
+    rank; one step only (the next would start from the single process's)."""
+    if check_rank is not None and steps != 1:
+        raise ValueError(f"check_rank {check_rank} with {steps} steps: one step only (the ranks teacher-force "
+                         "each step from the whole state)")
+    mine = check_rank is None or layout.rank == check_rank
     W = layout.n_workers
     sizes = P.leaf_sizes(lm.lm_spec(cfg))
     dl, opt = D.make_downlink(spec, W), make_optimizer("adamw", weight_decay=0.01)
-    single = trainer.make_train_step(cfg, dataclasses.replace(tcfg, act_spec=None), dl, opt, constant_lr(LR))
+    whole = dataclasses.replace(tcfg, act_spec=None)
+    single = trainer.make_train_step(cfg, whole, dl, opt, constant_lr(LR))
+    if layout.tp:  # the single process with the tensor-parallel arithmetic at one rank: the floor
+        exact = trainer.make_train_step(cfg, whole, dl, opt, constant_lr(LR), tp=OneRank(cfg, layout.model_size))
     step = SH.make_sharded_train_step(cfg, tcfg, dl, opt, constant_lr(LR), layout, comm)
     counter = SH.CountingComm()
     metastep = SH.make_sharded_train_step(cfg, tcfg, dl, opt, constant_lr(LR), layout, counter)
@@ -115,21 +200,26 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
     data = SyntheticLMData(cfg, W, batch_rows, seq, device=str(device))
     gen, pgen = torch.Generator().manual_seed(11), torch.Generator().manual_seed(11)
     dgen = torch.Generator(device).manual_seed(11)
-    worst, moved, launches = [0.0] * len(WORST_KEYS), {}, {}
+    worst, moved, launches, compressed = [0.0] * len(WORST_KEYS), {}, {}, 0
+    floor = [0.0] * len(WORST_KEYS)
     for i in range(steps):
         batch = data.batch(i)
         draws = D.draw_round(dl, sizes, gen, dgen)
         if not plan.is_full:
             draws = draws._replace(part=plan.draw(W, pgen, device))
         force = forced and i == 1
+        compressed += not (draws.coin or force)
         sp = SH.shard_state(state, layout)
+        if not mine:
+            state = None
         back = SH.gather_state(sp, layout, aux)
-        pairs = [(back["server"], state["server"]), (back["opt"]["m"], state["opt"]["m"]),
-                 (back["opt"]["v"], state["opt"]["v"])]
-        if "workers" in state:
-            pairs.append((back["workers"], state["workers"]))
-        if not all(_bit_equal(a, b) for a, b in pairs):
-            raise AssertionError(f"{spec} step {i}: gather_state(shard_state(state)) != state")
+        if mine:
+            pairs = [(back["server"], state["server"]), (back["opt"]["m"], state["opt"]["m"]),
+                     (back["opt"]["v"], state["opt"]["v"])]
+            if "workers" in state:
+                pairs.append((back["workers"], state["workers"]))
+            if not all(_bit_equal(a, b) for a, b in pairs):
+                raise AssertionError(f"{spec} step {i}: gather_state(shard_state(state)) != state")
         del back
         before, l0 = dict(comm.bytes), runtime.LAUNCHES.copy()
         sp, m2 = step(sp, batch, draws, force)
@@ -148,7 +238,17 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
         if not moved == counted == dict(c.coll):
             raise AssertionError(f"{spec} step {i}: bytes handed to the group {moved} != counted {counted} "
                                  f"(op count {dict(c.coll)})")
+        if not mine:
+            SH.gather_state(sp, layout, aux)  # the others' part of the check's gather
+            continue
         new, m1 = single(state, batch, draws, force)
+        if layout.tp:
+            nf, mf = exact(state, batch, draws, force)
+            got_f = compare(nf, new, mf, m1, state, new.get("workers"))
+            got_f[0] = max(got_f[0], loss_floor(cfg, trainer.replica_rows(dl, state, state["server"], W), batch,
+                                                chunk=tcfg.attn_chunk, window_override=tcfg.window_override))
+            floor = [max(a, b) for a, b in zip(floor, got_f)]
+            del nf, mf
         full = SH.gather_state(sp, layout, aux)
         rows = new.get("workers")
         if isinstance(dl, D.EF21PDownlink):
@@ -161,21 +261,31 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
         del full, rows
     if sp["server"].shape != (layout.shard_len,):
         raise AssertionError(f"a rank's master slice {tuple(sp['server'].shape)}, not ({layout.shard_len},)")
-    if "workers" in sp and sp["workers"].dim() == 2 and sp["workers"].shape != (layout.local, layout.d):
-        raise AssertionError(f"a rank's replicas {tuple(sp['workers'].shape)}, not ({layout.local}, {layout.d})")
-    wmax = float(state["workers"].float().abs().max()) if "workers" in state else 0.0
-    return {"worst": worst, "moved": moved, "wmax": wmax, "launches": launches}
+    if "workers" in sp and sp["workers"].dim() == 2 and sp["workers"].shape != (layout.local, layout.d_local):
+        raise AssertionError(f"a rank's replicas {tuple(sp['workers'].shape)}, not ({layout.local}, "
+                             f"{layout.d_local})")
+    wmax = float(state["workers"].float().abs().max()) if mine and "workers" in state else 0.0
+    return {"worst": worst, "moved": moved, "wmax": wmax, "launches": launches,
+            "floor": floor if layout.tp else None, "compressed": compressed}
 
 
 def hold(name: str, res: dict, bnds: tuple, n_workers: int) -> None:
     """Raises unless :func:`run_case`'s result ``res`` for the case ``name``
     (a downlink spec, with "bf16" in it for bf16 replicas) is within
     ``bnds``: the master's, and MARINA-P's replicas within W times the
-    master's bound plus one bf16 ulp of their largest value."""
+    master's bound plus one bf16 ulp of their largest value; under tensor
+    parallelism (a ``floor`` in ``res``) each number within
+    :data:`FLOOR_FACTOR` times the single process's own floor where that is
+    wider."""
     loss_b, g_b, gnorm_b, server_b, bulk_b = bnds
+    if res.get("floor") is not None:
+        f = dict(zip(WORST_KEYS, res["floor"]))
+        loss_b, g_b, gnorm_b, server_b, bulk_b = (max(b, FLOOR_FACTOR * f[k]) for b, k in zip(
+            (loss_b, g_b, gnorm_b, server_b, bulk_b), ("loss", "g", "norms", "server_lr", "bulk")))
     loss, g_rel, server, bulk, rows, gnorm = res["worst"]
     ulp = 2**-8 * res["wmax"] / LR if "bf16" in name else 0.0
     rows_b = (n_workers if name.startswith("marina") else 1) * server_b + ulp
     if not (loss <= loss_b and g_rel <= g_b and gnorm <= gnorm_b and server <= server_b and bulk <= bulk_b
             and rows <= rows_b):
-        raise AssertionError(f"{name}: {dict(zip(WORST_KEYS, res['worst']))} outside {bnds} (rows {rows_b})")
+        raise AssertionError(f"{name}: {dict(zip(WORST_KEYS, res['worst']))} outside "
+                             f"{(loss_b, g_b, gnorm_b, server_b, bulk_b)} (rows {rows_b}; floor {res.get('floor')})")

@@ -94,11 +94,15 @@ def init_state(cfg: ModelConfig, tcfg: TrainerConfig, downlink, optimizer: Optim
 
 def worker_value_and_grad(cfg: ModelConfig, spec, fwd_kw: dict, row: torch.Tensor, shard):
     """One worker's (loss, fp32 flat gradient) at its replica ``row`` [d]:
-    the loss differentiated through ``params.grad_tree`` of a fresh leaf.
-    The step looks this name up at each call (the dry-run's count replaces
-    it to charge W identical workers one worker's count each)."""
+    the loss differentiated through ``params.grad_tree`` of a fresh leaf
+    (with a shard context ``fwd_kw["tp"]``, ``row`` is the rank's blocks
+    [d_local] and the tree is ``tp.grad_tree``'s). The step looks this name
+    up at each call (the dry-run's count replaces it to charge W identical
+    workers one worker's count each)."""
     leaf = row.detach().requires_grad_(True)
-    loss = lm.loss_fn(cfg, P.grad_tree(spec, leaf), shard, **fwd_kw)
+    tp = fwd_kw.get("tp")
+    tree = P.grad_tree(spec, leaf) if tp is None else tp.grad_tree(leaf)
+    loss = lm.loss_fn(cfg, tree, shard, **fwd_kw)
     loss.backward()
     return loss.detach(), leaf.grad.float()
 
@@ -173,14 +177,19 @@ def add_downlink(state, new_state, metrics, workers_new, bits, drift) -> None:
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, downlink, optimizer: Optimizer,
-                    lr_fn: Callable):
+                    lr_fn: Callable, tp=None):
     """Returns ``train_step(state, batch, draws=None, force_sync=False) ->
-    (state, metrics)``. batch leaves have a leading worker axis [W, B, ...]."""
+    (state, metrics)``. batch leaves have a leading worker axis [W, B, ...].
+    ``tp``: a shard context of one rank for the layers (``serve/sharded.
+    ServeShard`` on a (1, 1) mesh: the tensor-parallel step's arithmetic at
+    one rank, ``train/sharded_check``'s floor); None: the plain layers."""
     spec = lm.lm_spec(cfg)
     sizes = P.leaf_sizes(spec)
     d = sum(sizes)
     fwd_kw = dict(chunk=tcfg.attn_chunk, remat=tcfg.remat, window_override=tcfg.window_override,
                   remat_policy=tcfg.remat_policy, act_spec=tcfg.act_spec)
+    if tp is not None:
+        fwd_kw["tp"] = tp
     plan = participation_plan(tcfg)
     W = tcfg.n_workers
 

@@ -1,13 +1,19 @@
 """The roofline's collective term: the sharded train and serving steps'
 collectives counted (``launch/comm.CountingComm`` into
 ``op_cost.OpCount.coll``), priced by ``launch/roofline.roofline_terms`` over
-``LINK_BW``, and carried by the dry-run's ``per_rank`` records (a train shape
-with ``--train-act-model-sharded``; the serving shapes of the dense, vlm and
+``LINK_BW``, and carried by the dry-run's ``per_rank`` records (a train shape, with
+tensor parallelism over "model" by default or with
+``--train-act-model-sharded``; the serving shapes of the dense, vlm and
 audio families), beside the ``even`` records that keep ``collective_s:
-None`` and say why. The bytes the real communicator hands to gloo are held
+None`` and say why. The tensor-parallel train count is held equal to the
+bytes 4 gloo ranks hand over in the same step here. The bytes the real communicator hands to gloo are held
 equal to this count in tests/test_torch_train_sharded.py and
 tests/test_torch_serve_sharded.py."""
 import json
+import os
+import subprocess
+import sys
+import textwrap
 
 import pytest
 import torch
@@ -23,6 +29,7 @@ from repro_torch.serve import sharded as SS
 from repro_torch.train import sharded as SH
 
 MESH = Mesh(("data", "model"), (2, 2))
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
 @pytest.fixture
@@ -63,13 +70,14 @@ def test_roofline_prices_collectives_over_nvlink():
     assert roofline.roofline_terms(1.0, 2.0)["collective_s"] is None
 
 
-def test_per_rank_count_of_the_act_sharded_step(smoke):
+def test_per_rank_count_of_the_act_sharded_step(smoke, monkeypatch):
     """One rank of MESH: the dot FLOPs times the mesh's devices are the even
     split's global count, and the collectives are the step's: a
     reduce-scatter of the rank's slice, the W + 1 scalars and the drift, the
     gathers of x^{t+1} and of the delta (a compressed perm round)."""
-    even = specs.build("gemma3-1b", "train_4k", MESH)
     act = specs.build("gemma3-1b", "train_4k", MESH, train_act_model_sharded=True)
+    monkeypatch.setattr(specs, "train_refusal", lambda *a: "counted whole for the comparison")
+    even = specs.build("gemma3-1b", "train_4k", MESH)
     assert even.meta["split"] == "even" and act.meta["split"] == "per_rank"
     assert act.meta["act_spec"] == ("model", None, None)
     ce, ca = (dryrun.count("train", b.fn, *b.args) for b in (even, act))
@@ -85,30 +93,39 @@ def test_per_rank_count_of_the_act_sharded_step(smoke):
 
 
 def test_dry_run_records_of_both_splits(smoke, tmp_path):
-    """run_one: the per_rank record carries the collective bytes by kind, a
-    collective term and both layouts' state bytes; the even record keeps
-    collective_s None and says why; reanalyze gives both back; the file of
-    the act-sharded count is tagged ``__act``."""
+    """run_one: the per_rank records (the default train count, tensor
+    parallelism over "model", and the act-sharded one) carry the collective
+    bytes by kind, a collective term and both layouts' state bytes; the even
+    record of a family whose train step across ranks is not ported (rwkv6,
+    ssm) keeps collective_s None and says why; reanalyze gives all three
+    back; the file of the act-sharded count is tagged ``__act``."""
     dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--out", str(tmp_path)])
     dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--train-act-model-sharded",
                  "--out", str(tmp_path)])
-    even = json.loads((tmp_path / "gemma3-1b__train_4k__16x16.json").read_text())
+    dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "train_4k", "--out", str(tmp_path)])
+    tp = json.loads((tmp_path / "gemma3-1b__train_4k__16x16.json").read_text())
     act = json.loads((tmp_path / "gemma3-1b__train_4k__16x16__act.json").read_text())
-    assert dryrun.record_problems(even) == [] and dryrun.record_problems(act) == []
+    even = json.loads((tmp_path / "rwkv6-1.6b__train_4k__16x16.json").read_text())
+    for rec in (tp, act, even):
+        assert dryrun.record_problems(rec) == []
     assert even["split"] == "even" and even["roofline"]["collective_s"] is None
     assert "tensor parallelism" in even["collective_note"] and even["collective_bytes_per_device"] is None
-    assert act["split"] == "per_rank" and act["act_spec"] == ["model", None, None]
-    coll = act["collective_bytes_per_device"]
-    assert set(coll) == {"all-gather", "reduce-scatter", "all-reduce"} and min(coll.values()) > 0
-    assert act["collective_total_per_device"] == sum(coll.values())
-    assert act["roofline"]["collective_s"] == pytest.approx(sum(coll.values()) / roofline.LINK_BW)
-    assert act["flops_per_device"] * 256 == even["flops_global"]
-    sb = act["state_bytes_per_device"]
-    assert sb["flat_zero1"] > 0 and sb["param_specs"] > 0
+    assert act["split"] == "per_rank" and act["act_spec"] == ["model", None, None] and not act["tensor_parallel"]
+    assert tp["split"] == "per_rank" and tp["act_spec"] is None and tp["tensor_parallel"]
+    for rec in (tp, act):
+        coll = rec["collective_bytes_per_device"]
+        assert set(coll) == {"all-gather", "reduce-scatter", "all-reduce"} and min(coll.values()) > 0
+        assert rec["collective_total_per_device"] == sum(coll.values())
+        assert rec["roofline"]["collective_s"] == pytest.approx(sum(coll.values()) / roofline.LINK_BW)
+        sb = rec["state_bytes_per_device"]
+        assert sb["flat_zero1"] > 0 and sb["param_specs"] > 0
+    # tensor parallelism computes the cut heads on every rank: more FLOPs in all than the act-sharded step
+    assert tp["flops_per_device"] > act["flops_per_device"]
     out = tmp_path / "again"
     recs = reanalyze.reanalyze(str(tmp_path), str(out))
-    assert sorted(r["split"] for r in recs) == ["even", "per_rank"]
-    for name in ("gemma3-1b__train_4k__16x16.json", "gemma3-1b__train_4k__16x16__act.json"):
+    assert sorted(r["split"] for r in recs) == ["even", "per_rank", "per_rank"]
+    for name in ("gemma3-1b__train_4k__16x16.json", "gemma3-1b__train_4k__16x16__act.json",
+                 "rwkv6-1.6b__train_4k__16x16.json"):
         assert json.loads((out / name).read_text()) == json.loads((tmp_path / name).read_text())
 
 
@@ -227,11 +244,12 @@ def test_serve_dry_run_records(smoke, tmp_path):
 def test_even_records_name_their_own_reason(smoke):
     """Each even record's note names what is not ported for its own step
     (from ``specs.build``'s ``even_note``), and nothing else."""
-    train = dryrun.run_one("gemma3-1b", "train_4k", verbose=False)
+    train = dryrun.run_one("rwkv6-1.6b", "train_4k", verbose=False)
     moe = dryrun.run_one("deepseek-v2-236b", "decode_32k", verbose=False)
     assert train["split"] == moe["split"] == "even"
-    assert train["collective_note"] == dryrun.EVEN_NOTE + specs.build("gemma3-1b", "train_4k", MESH).meta["even_note"]
+    assert train["collective_note"] == dryrun.EVEN_NOTE + specs.build("rwkv6-1.6b", "train_4k", MESH).meta["even_note"]
     assert "the train step's tensor parallelism over 'model'" in train["collective_note"]
+    assert f"not ported for the ssm family ({SS.NOT_PORTED['ssm']})" in train["collective_note"]
     assert "serving" not in train["collective_note"]
     assert f"not ported for the moe family ({SS.NOT_PORTED['moe']})" in moe["collective_note"]
     assert "tensor parallelism" not in moe["collective_note"] and "ssm" not in moe["collective_note"]
@@ -254,3 +272,74 @@ def test_full_width_serve_counts():
     assert rec["split"] == "per_rank" and rec["chips"] == 512 and dryrun.record_problems(rec) == []
     assert rec["collective_bytes_per_device"] == {"all-gather": 254974464.0, "reduce-scatter": 0.0,
                                                   "all-reduce": 1935360.0 / 2}
+
+
+# ---------------------------------------------------------------------------
+# the train step's tensor parallelism over "model"
+# ---------------------------------------------------------------------------
+
+_TP_RANKS = textwrap.dedent(
+    """
+    import json, sys
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+
+    def worker(rank, init, out):
+        torch.set_num_threads(1)
+        from repro_torch import configs
+        from repro_torch.data import SyntheticLMData
+        from repro_torch.launch import dryrun, specs
+        from repro_torch.launch.mesh import Mesh
+        from repro_torch.train import downlink as D, sharded as SH
+
+        specs.configs.get = configs.get_smoke
+        specs.SHAPES["train_4k"] = dict(kind="train", seq=64, global_batch=8)
+        mesh = Mesh(("data", "model"), (2, 2))
+        built = specs.build("gemma3-1b", "train_4k", mesh)  # rank 0's step, counted on meta
+        counted = dryrun.count("train", built.fn, *built.args).coll
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=4)
+        cfg = built.meta["cfg"]
+        W, bpw = built.meta["W"], built.meta["bpw"]
+        _, dl, tcfg, opt = specs.train_parts(cfg, W)
+        layout, comm = SH.connect(mesh, W, built.meta["layout"].d, cfg=cfg)
+        step = SH.make_sharded_train_step(cfg, tcfg, dl, opt, specs.train_lr(), layout, comm)
+        state = SH.init_state(cfg, tcfg, dl, opt, layout, seed=0, device="cpu")
+        rot = torch.randint(0, W, (len(built.args[2].rot),), generator=torch.Generator().manual_seed(1),
+                            dtype=torch.int32)
+        step(state, SyntheticLMData(cfg, W, bpw, 64, device="cpu").batch(0), D.DownlinkDraws(rot=rot))
+        res = {"rank": rank, "moved": dict(comm.bytes), "counted": {k: float(v) for k, v in counted.items()},
+               "tp": layout.tp, "d_local": layout.d_local}
+        gathered = [None] * 4
+        dist.all_gather_object(gathered, res)
+        if rank == 0:
+            json.dump(gathered, open(out, "w"))
+        dist.destroy_process_group()
+
+
+    if __name__ == "__main__":
+        mp.spawn(worker, args=tuple(sys.argv[1:]), nprocs=4, join=True)
+    """
+)
+
+
+def test_tensor_parallel_train_count_equals_the_bytes_handed_to_gloo(tmp_path):
+    """The default train count of the dry-run on (2, 2) (rank 0 of the
+    tensor-parallel step of gemma3-1b's smoke config, counted on meta:
+    forward, backward and recomputed collectives) equals, kind by kind, the
+    bytes each of 4 gloo ranks hands to its groups in a compressed perm
+    step at the same shapes."""
+    script = tmp_path / "ranks.py"
+    script.write_text(_TP_RANKS)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    out = tmp_path / "out.json"
+    res = subprocess.run([sys.executable, str(script), f"file://{tmp_path / 'rdv'}", str(out)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-6000:]
+    ranks = json.loads(out.read_text())
+    for r in ranks:
+        print(f"rank {r['rank']}: handed {r['moved']}, counted {r['counted']}")
+        assert r["tp"] and r["moved"] == r["counted"]
+        assert set(r["moved"]) == {"all-gather", "reduce-scatter", "all-reduce"} and min(r["moved"].values()) > 0

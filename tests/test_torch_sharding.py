@@ -185,8 +185,13 @@ def test_train_state_specs_follow_the_reference_state():
     wref = jax.tree.map(lambda l: jax.ShapeDtypeStruct((W,) + l.shape, l.dtype), ref_tree)
     assert _port_leaves(state_specs["workers"]) == _ref_leaves(JSH.param_specs(wref, SINGLE, "worker"))
     assert batch_spec["tokens"] == ("data", None, None) and draws_spec == ()
-    state, batch, draws = built.args
-    assert state["workers"].shape == (16, configs.get("gemma3-1b").param_count())
+    state, batch, draws = built.args  # rank 0's: its worker's row of its blocks (tensor parallelism)
+    lay = built.meta["layout"]
+    wspecs = [sh.Spec(*s[1:]) for _, s in sh.spec_leaves(state_specs["workers"])]
+    tree_leaves = [leaf for _, leaf in leaves_with_path(lm.lm_spec(configs.get("gemma3-1b")))]
+    d_local = sum(sh.local_numel(leaf.shape, s, SINGLE) for leaf, s in zip(tree_leaves, wspecs))
+    assert lay.tp and lay.d_local == d_local and state["workers"].shape == (1, d_local)
+    assert state["server"].shape == (-(-d_local // 16),)
     assert state["workers"].device.type == "meta" and batch["tokens"].shape == (16, 16, 4096)
 
 

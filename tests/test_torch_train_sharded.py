@@ -170,16 +170,19 @@ def test_layout_slices_and_refusals():
 
 @pytest.mark.parametrize("arch,act,match", [
     ("deepseek-v2-236b", True, "experts"), ("llama4-maverick-400b-a17b", True, "experts"),
-    ("gemma-2b", False, "tensor parallelism"), ("gemma-2b", ("data", None, None), "realizes")])
+    ("rwkv6-1.6b", False, "not ported for the ssm family"), ("zamba2-1.2b", False, "not ported for the hybrid family"),
+    ("gemma-2b", ("data", None, None), "realizes")])
 def test_refusals_of_what_is_not_ported(arch, act, match):
     """act_spec with experts (MoE capacity spans all of a call's tokens) and
-    'model' > 1 without act_spec (tensor parallelism) are refused, as is any
-    other act_spec; lm.forward keeps refusing act_spec and names the sharded
+    tensor parallelism over 'model' (M > 1 without act_spec, the rank's
+    blocks) for the ssm and hybrid families are refused, as is any other
+    act_spec; lm.forward keeps refusing act_spec and names the sharded
     step."""
     cfg = configs.get_smoke(arch)
     d = sum(P.leaf_sizes(lm.lm_spec(cfg)))
     tcfg = TrainerConfig(n_workers=2, attn_chunk=32, act_spec=SH.ACT_SPEC if act is True else act or None)
-    layout = SH.Layout(Mesh(("data", "model"), (2, 2)), 0, 2, d)
+    mesh = Mesh(("data", "model"), (2, 2))
+    layout = SH.Layout(mesh, 0, 2, d, SH.model_blocks(cfg, mesh, 0) if act is False else None)
     with pytest.raises(ValueError, match=match):
         SH.make_sharded_train_step(cfg, tcfg, make_downlink("marina:perm", 2), make_optimizer("adamw"),
                                    constant_lr(LR), layout, SH.CountingComm())
@@ -221,7 +224,7 @@ _RANKS = textwrap.dedent(
         dist.init_process_group("gloo", init_method=init, rank=rank, world_size=WORLD)
         cfg = configs.get_smoke("gemma-2b")
         d, W = sum(P.leaf_sizes(lm.lm_spec(cfg))), 4
-        layout, comm = SH.connect(Mesh(("data", "model"), shape), W, d)
+        layout, comm = SH.connect(Mesh(("data", "model"), shape), W, d, cfg=None if act else cfg)
         aux = SH.Comm()  # the checks' gathers, apart from the step's tally
         cases = pickle.load(open(cases_path, "rb"))
         report = {}
@@ -334,11 +337,11 @@ _REFERENCE = textwrap.dedent(
     from repro.optim.schedules import constant_lr
     from repro.train import TrainerConfig, init_state, make_downlink, make_train_step
 
-    spec, out = sys.argv[1:]
+    spec, act, out = sys.argv[1:]
     cfg = configs.get_smoke("gemma-2b")
     mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
     W = 4
-    tcfg = TrainerConfig(n_workers=W, attn_chunk=32, act_spec=P("model", None, None))
+    tcfg = TrainerConfig(n_workers=W, attn_chunk=32, act_spec=P("model", None, None) if act == "act" else None)
     dl, opt = make_downlink(spec, W), make_optimizer("adamw")
     state = init_state(cfg, tcfg, dl, opt, jax.random.PRNGKey(0))
     specs = {"server": sh.param_specs(state["server"], mesh, "server"),
@@ -397,8 +400,13 @@ _DRAWS_OF = textwrap.dedent(
 )
 
 
-@pytest.mark.parametrize("spec", ["marina:perm", "marina:ind", "ef21p:16:64"])
-def test_four_ranks_against_the_reference_sharded_step(tmp_path, spec):
+@pytest.mark.parametrize("spec,act", [pytest.param(s, True, id=s) for s in ("marina:perm", "marina:ind", "ef21p:16:64")]
+                         + [pytest.param(s, False, id=f"{s}-worker") for s in ("marina:perm", "marina:ind",
+                                                                               "ef21p:16:64")])
+def test_four_ranks_against_the_reference_sharded_step(tmp_path, spec, act):
+    """``act``: the reference's act_spec program against the port's; else its
+    default, the ``worker`` layout through XLA (act_spec None) against the
+    port's tensor parallelism over "model"."""
     pytest.importorskip("jax")
     from repro_torch import convert
 
@@ -406,12 +414,12 @@ def test_four_ranks_against_the_reference_sharded_step(tmp_path, spec):
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_force_host_platform_device_count=4")
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
     ref_path = tmp_path / "reference.pkl"
-    res = subprocess.run([sys.executable, "-c", _REFERENCE, spec, str(ref_path)], env=env,
+    res = subprocess.run([sys.executable, "-c", _REFERENCE, spec, "act" if act else "-", str(ref_path)], env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-6000:]
     with open(ref_path, "rb") as f:
         ref = pickle.load(f)
-    port = _run_ranks(tmp_path, "2x2", True, [], reference=ref)["reference"]
+    port = _run_ranks(tmp_path, "2x2", act, [], reference=ref)["reference"]
     cfg = configs.get_smoke("gemma-2b")
     tcfg = TrainerConfig(n_workers=4, attn_chunk=32)
     old = convert.train_state_from_numpy(cfg, tcfg, ref["state"], "cpu")
