@@ -103,7 +103,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     rtol 1e-4 a round, EF21-P's finite and falling; then
     ``repro_torch.transport_bench`` on the card;
 (o) the fleet: ``fleet_run`` of MARINA-P (perm, Polyak) and EF21-P (TopK) at
-    d=1000, population 50,000, cohort 16, T=6, measure_wire, on the
+    d=1000, population 50,000, cohort 16, T=4, measure_wire, on the
     flaky_mobile and two_tier_diurnal mixes (the evaluation cohort: 64
     clients, 256 MB of f32 on the card), card against CPU at one seed:
     participation stats, s2w, wire and join bits equal a round, MARINA-P's
@@ -269,7 +269,9 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     ``--train-act-model-sharded``, on ``meta``: per_rank records with their
     collective bytes by kind and a collective term.
 
-(x) the serving step across a process group (``repro_torch.serve.sharded``):
+(x) the serving step across a process group (``repro_torch.serve.sharded``),
+    run after (u): (x1) alone on the card, then (x2)'s processes beside (v),
+    all of it before (w):
     (x1) as one NCCL rank (mesh (1, 1), ``serve``), gemma3-1b at full width
     and depth: a prefill of SERVE_B x SERVE_S tokens and SERVE_STEPS
     teacher-forced decode steps from a seeded random cache of SERVE_CACHE
@@ -277,10 +279,18 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     ``lm.decode_step`` on the same parameters: logits and caches bit for bit,
     greedy sampling equal, the bytes handed to NCCL equal to the count on
     ``meta`` (none: an axis of one rank runs no collective), ms a step of both
-    paths in turns; the counters are zeroed before (x1) and read after it;
+    paths in turns; then the moe family, MOE_ARCH (deepseek-v2-236b at full
+    width, its first 2 blocks: MLA, the dense FFN, 160 experts top-6 and 2
+    shared), MOE_B x MOE_S and MOE_STEPS decode steps: the single process on
+    ``lm_init`` first (its dropped copies printed; (x2)'s single-process
+    sides written to files), the whole model freed, then the rank's blocks
+    from the seed (``init_params``) bit for bit, peak memory printed; the
+    counters are zeroed before (x1) and read after it;
     (x2) 4 gloo processes on the one card, gemma3-1b at full width on the
     (2, 2) ``serve``, (1, 4) ``tp`` and (4, 1) ``serve`` meshes (the last at
-    B = 1, the caches' sequence split over "data"), each rank
+    B = 1, the caches' sequence split over "data"), then MOE_ARCH on (1, 4)
+    ``tp`` at B = 4 and (2, 2) ``serve`` at B = 2 (every rank its blocks
+    alone; the routed experts bit for bit the single process's rows), each rank
     ``serve/sharded_check.run_case`` + ``hold`` (the CPU tests' own code,
     with ``card_bounds``, a bound for each case and number: logits and
     caches against the single process on the card, (2, 2) within 1.5 x the
@@ -290,7 +300,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     the vocabulary blocks equal to the gathered argmax and to the single
     process's tokens), each rank's peak memory printed; only gloo's own refusal of a
     CUDA collective, met by a probe, is logged in place of the run; (x3) gemma3-1b's prefill_32k,
-    decode_32k and long_500k on 16x16 under ``serve`` and ``tp``, one rank
+    decode_32k and long_500k and deepseek-v2-236b's decode_32k on 16x16 under ``serve`` and ``tp``, one rank
     counted on ``meta`` (``python -m repro_torch.launch.dryrun``): per_rank
     records whose counts equal the CPU's (SERVE_COUNTS) exactly, with a
     collective term.
@@ -313,8 +323,10 @@ from __future__ import annotations
 import atexit
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 T_START = time.perf_counter()
@@ -3152,29 +3164,58 @@ def sharded_dryrun_phase(proc, card):
 
 # (x): the serving step across a process group, gemma3-1b at full width
 SERVE_ARCH = "gemma3-1b"
-SERVE_B, SERVE_S, SERVE_STEPS = 4, 512, 8
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 512, 4
 SERVE_CACHE = SERVE_S + SERVE_STEPS  # the decode runs at positions SERVE_S ...: the 512-slot rings wrap
 SERVE_DRYRUN_DIR = ROOT / "runs" / "dryrun_chip_serve"
-# (x2)'s cases: (mesh, serve layout, batch); all gemma3-1b at full width. On (2, 2) the batch is 2:
-# at B = 4 the reference's cache_specs takes the 4 repetitions of gemma3-1b's scan segment for the
-# batch and splits them over "data", which the port refuses (serve/sharded.cache_split)
-GLOO_SERVE = (("2x2", "serve", 2), ("1x4", "tp", SERVE_B), ("4x1", "serve", 1))
-# (x3): the CPU's per-rank counts of gemma3-1b's serving shapes on 16x16 (python -m
-# repro_torch.launch.dryrun --arch gemma3-1b --shape S --serve-layout L; tests/test_torch_collective_count.py)
+# (x1) and (x2) for the moe family: deepseek-v2-236b at full width cut to its first 2 blocks (layer
+# 0: MLA and the dense 12,288 FFN; layer 1: MLA, 160 experts top-6 and 2 shared experts)
+MOE_ARCH = "deepseek-v2-236b/2"
+MOE_PARAMS = 5_519_108_096
+MOE_B, MOE_S, MOE_STEPS = 4, 512, 3
+MOE_CACHE = MOE_S + MOE_STEPS
+# (x2)'s cases: (mesh, serve layout, batch, arch); gemma3-1b at full width (prompt SERVE_S, SERVE_STEPS
+# decode steps), then the moe cut (prompt MOE_S, MOE_STEPS decode steps; every rank builds its
+# blocks from the seed and reads the single process's outputs from (x1)'s files). gemma3-1b's (2, 2)
+# batch is 2: at B = 4 the reference's cache_specs takes the 4 repetitions of gemma3-1b's scan
+# segment for the batch and splits them over "data", which the port refuses (serve/sharded.cache_split)
+GLOO_SERVE = (("2x2", "serve", 2, SERVE_ARCH), ("1x4", "tp", SERVE_B, SERVE_ARCH), ("4x1", "serve", 1, SERVE_ARCH),
+              ("1x4", "tp", MOE_B, MOE_ARCH), ("2x2", "serve", 2, MOE_ARCH))
+# (x3): the CPU's per-rank counts of gemma3-1b's serving shapes and deepseek-v2-236b's decode_32k on
+# 16x16 (python -m repro_torch.launch.dryrun --arch A --shape S --serve-layout L;
+# tests/test_torch_collective_count.py), by "layout/arch/shape"
 SERVE_COUNTS = {
-    "serve/prefill_32k": {"flops": 55074902507520.0, "bytes": 3264500820492.0,
-                          "coll": {"all-gather": 254974464.0, "reduce-scatter": 0.0, "all-reduce": 15854469120.0}},
-    "serve/decode_32k": {"flops": 6353911808.0, "bytes": 11361931772.0,
-                         "coll": {"all-gather": 254974464.0, "reduce-scatter": 0.0, "all-reduce": 1935360.0}},
-    "serve/long_500k": {"flops": 750985216.0, "bytes": 2284774453.0,
-                        "coll": {"all-gather": 254974464.0, "reduce-scatter": 0.0, "all-reduce": 349248.0}},
-    "tp/prefill_32k": {"flops": 55074902507520.0, "bytes": 3264277249548.0,
-                       "coll": {"all-gather": 92012544.0, "reduce-scatter": 0.0, "all-reduce": 15854469120.0}},
-    "tp/decode_32k": {"flops": 6353911808.0, "bytes": 11138360828.0,
-                      "coll": {"all-gather": 92012544.0, "reduce-scatter": 0.0, "all-reduce": 1935360.0}},
-    "tp/long_500k": {"flops": 750985216.0, "bytes": 2061203509.0,
-                     "coll": {"all-gather": 92012544.0, "reduce-scatter": 0.0, "all-reduce": 349248.0}},
+    "serve/gemma3-1b/prefill_32k": {
+        "flops": 55074902507520.0, "bytes": 3264500820492.0,
+        "coll": {"all-gather": 254974464.0, "reduce-scatter": 0.0, "all-reduce": 15854469120.0}},
+    "serve/gemma3-1b/decode_32k": {
+        "flops": 6353911808.0, "bytes": 11361931772.0,
+        "coll": {"all-gather": 254974464.0, "reduce-scatter": 0.0, "all-reduce": 1935360.0}},
+    "serve/gemma3-1b/long_500k": {
+        "flops": 750985216.0, "bytes": 2284774453.0,
+        "coll": {"all-gather": 254974464.0, "reduce-scatter": 0.0, "all-reduce": 349248.0}},
+    "tp/gemma3-1b/prefill_32k": {
+        "flops": 55074902507520.0, "bytes": 3264277249548.0,
+        "coll": {"all-gather": 92012544.0, "reduce-scatter": 0.0, "all-reduce": 15854469120.0}},
+    "tp/gemma3-1b/decode_32k": {
+        "flops": 6353911808.0, "bytes": 11138360828.0,
+        "coll": {"all-gather": 92012544.0, "reduce-scatter": 0.0, "all-reduce": 1935360.0}},
+    "tp/gemma3-1b/long_500k": {
+        "flops": 750985216.0, "bytes": 2061203509.0,
+        "coll": {"all-gather": 92012544.0, "reduce-scatter": 0.0, "all-reduce": 349248.0}},
+    "serve/deepseek-v2-236b/decode_32k": {
+        "flops": 461533347840.0, "bytes": 342772284544.0,
+        "coll": {"all-gather": 30522972160.0, "reduce-scatter": 0.0, "all-reduce": 48742400.0}},
+    "tp/deepseek-v2-236b/decode_32k": {
+        "flops": 461533347840.0, "bytes": 281873529984.0,
+        "coll": {"all-gather": 451164160.0, "reduce-scatter": 0.0, "all-reduce": 48742400.0}},
 }
+
+
+def moe_config(configs):
+    """deepseek-v2-236b at full width, its first 2 blocks (MOE_ARCH)."""
+    import dataclasses
+
+    return dataclasses.replace(configs.get("deepseek-v2-236b"), num_layers=2, block_pattern=("attn", "moe"))
 
 
 def serve_sharded_phase(np, torch, dev, card):
@@ -3290,6 +3331,159 @@ def serve_sharded_phase(np, torch, dev, card):
     return time.perf_counter() - t0
 
 
+def moe_serve_phase(np, torch, dev, card, out_dir):
+    """(x1) for the moe family: MOE_ARCH (5,519,108,096 parameters) as one
+    NCCL rank (mesh (1, 1), ``serve``). The single process first on
+    ``lm_init(seed=0)``: prefill MOE_B x MOE_S and MOE_STEPS decode steps,
+    the routed copies dropped at each MoE call, and (x2)'s single-process
+    sides (``sharded_check.single_case``) written to ``out_dir``; then the
+    whole model is freed and the rank's blocks drawn from the seed
+    (``init_params``), and the sharded steps run in turns with the single
+    process on those blocks (the whole model at (1, 1)): logits and caches
+    of both bit for bit the first run's, greedy equal, the bytes handed to
+    NCCL equal to the count on ``meta``. Returns ({case: file}, the seconds
+    it took)."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.comm import CountingComm
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.params import leaves
+    from repro_torch.serve import sharded as SS
+    from repro_torch.serve import sharded_check as SC
+
+    t0 = time.perf_counter()
+    cfg = moe_config(configs)
+    if cfg.param_count() != MOE_PARAMS:
+        fail(f"(x1) {MOE_ARCH} has {cfg.param_count():,} parameters, not {MOE_PARAMS:,}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    group = MOE._group_by_expert
+    try:
+        layout, comm = SS.connect(Mesh(("data", "model"), (1, 1)), "serve")
+        x = SC.inputs(cfg, batch=MOE_B, prompt=MOE_S, cache_len=MOE_CACHE, steps=MOE_STEPS, seed=1, device=dev)
+        params = lm.lm_init(cfg, device=dev, seed=0)
+        drops = []
+
+        def recording(expert_ids, num_experts, capacity, before=None):
+            slot, keep = group(expert_ids, num_experts, capacity, before)
+            drops.append((capacity, int((~keep).sum()), keep.numel()))
+            return slot, keep
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.no_grad():
+                out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t) * 1e3
+
+        MOE._group_by_expert = recording
+        want_pf, first_ms = timed(lambda: lm.forward(cfg, params, x["batch"], remat=False))
+        caches, want_dec = x["caches"], []
+        for i, tok in enumerate(x["tokens"]):
+            pos = torch.tensor(MOE_S + i, device=dev)
+            (logits, caches), _ = timed(lambda: lm.decode_step(cfg, params, caches, tok, pos))
+            want_dec.append(logits)
+        MOE._group_by_expert = group
+        pf_drops, dec_drops = drops[0], drops[1:]
+        files = {}
+        for shape, name, batch, arch in GLOO_SERVE:
+            if arch != MOE_ARCH:
+                continue
+            mesh = Mesh(("data", "model"), tuple(int(v) for v in shape.split("x")))
+            want = SC.single_case(cfg, params, batch=batch, prompt=MOE_S, cache_len=MOE_CACHE, steps=MOE_STEPS,
+                                  start=MOE_S, split=SS.ServeLayout(mesh, 0, name).rows_split(batch), device=dev)
+            files[f"{shape}/{name}"] = os.path.join(out_dir, f"{shape}_{name}.pt")
+            torch.save(SC._map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t, want), files[f"{shape}/{name}"])
+            del want
+        single_peak = torch.cuda.max_memory_allocated() / 2**30
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sp = SS.init_params(cfg, layout, seed=0, device=dev)
+        prefill = SS.make_prefill_step(cfg, layout, comm)
+        decode = SS.make_decode_step(cfg, layout, comm, MOE_B, MOE_CACHE)
+        counter = CountingComm()
+        meta_p = SS.shard_params(lm.lm_init(cfg, device="meta"), layout)
+        with op_cost.counting() as c:
+            SS.make_prefill_step(cfg, layout, counter)(meta_p, {k: v.to("meta") for k, v in x["batch"].items()})
+            SS.make_decode_step(cfg, layout, counter, MOE_B, MOE_CACHE)(
+                meta_p, SS.shard_caches(lm.cache_init(cfg, MOE_B, MOE_CACHE, device="meta"), cfg, layout),
+                x["tokens"][0].to("meta"), torch.empty((), dtype=torch.int64, device="meta"))
+        counted = {k: float(v) for k, v in c.coll.items() if v}
+        before = dict(comm.bytes)
+        ms = {"sharded": [], "single": []}
+        for order in (("sharded", "single"), ("single", "sharded")):
+            for name in order:
+                if name == "sharded":
+                    got, t = timed(lambda: prefill(sp, x["batch"]))
+                else:
+                    got, t = timed(lambda: lm.forward(cfg, sp, x["batch"], remat=False))
+                ms[name].append(t)
+                if not bits_equal(torch, got, want_pf):
+                    fail(f"(x1) {MOE_ARCH} prefill ({name}, the rank's blocks) differs from lm.forward on lm_init: "
+                         f"max |diff| {float((got.float() - want_pf.float()).abs().max()):.3e}")
+                del got
+        pf_ms = {k: v[-1] for k, v in ms.items()}
+        ms = {"sharded": [], "single": []}
+        lc = {"sharded": SS.shard_caches(x["caches"], cfg, layout), "single": x["caches"]}
+        for i, tok in enumerate(x["tokens"]):
+            pos = torch.tensor(MOE_S + i, device=dev)
+            for name in (("sharded", "single") if i % 2 == 0 else ("single", "sharded")):
+                if name == "sharded":
+                    (got, lc[name]), t = timed(lambda: decode(sp, lc[name], tok, pos))
+                else:
+                    (got, lc[name]), t = timed(lambda: lm.decode_step(cfg, sp, lc[name], tok, pos))
+                ms[name].append(t)
+                if not bits_equal(torch, got, want_dec[i]):
+                    fail(f"(x1) {MOE_ARCH} decode step {i} ({name}): logits differ from lm.decode_step's by "
+                         f"{float((got.float() - want_dec[i].float()).abs().max()):.3e}")
+        for name, mine in lc.items():
+            if not all(bits_equal(torch, a, b) for a, b in zip(leaves(mine), leaves(caches))):
+                fail(f"(x1) {MOE_ARCH} ({name}): caches differ from lm.decode_step's")
+        tokens = SS.greedy(got, layout, comm, cfg.vocab_size)
+        if not torch.equal(tokens, want_dec[-1].argmax(-1)) or not torch.isfinite(got.float()).all():
+            fail(f"(x1) {MOE_ARCH}: greedy sampling differs from lm.decode_step's argmax, or logits not finite")
+        moved = {k: float(v - before.get(k, 0)) for k, v in comm.bytes.items() if v - before.get(k, 0)}
+        if moved != counted:
+            fail(f"(x1) {MOE_ARCH}: bytes handed to NCCL {moved} != counted {counted}")
+        caps = (MOE.capacity(cfg.moe, MOE_B * MOE_S), MOE.capacity(cfg.moe, MOE_B))  # 96 and 1 at full width
+        if pf_drops[0] != caps[0] or any(cap != caps[1] for cap, _, _ in dec_drops):
+            fail(f"(x1) {MOE_ARCH}: capacities {pf_drops}, {dec_drops}: want {caps[0]} for the prefill's "
+                 f"{MOE_B * MOE_S} tokens, {caps[1]} for a decode step's {MOE_B}")
+        sharded_peak = torch.cuda.max_memory_allocated() / 2**30
+        dec_ms = {k: float(np.median(v)) for k, v in ms.items()}
+        log(f"(x1) {MOE_ARCH} at full width ({cfg.param_count():,} parameters: MLA on both layers, the dense "
+            f"{cfg.d_ff} FFN, then {cfg.moe.num_experts} experts top-{cfg.moe.top_k} + {cfg.moe.num_shared} shared) "
+            f"on one NCCL rank, mesh (1, 1) serve: prefill {MOE_B} x {MOE_S} and {MOE_STEPS} teacher-forced decode "
+            f"steps from a {MOE_CACHE}-position cache, the single process on lm_init first, then the rank's blocks "
+            f"from the seed (init_params) after the whole model was freed: logits and caches of the sharded steps "
+            f"and of lm.forward / lm.decode_step on those blocks bit-equal to the first run's, greedy equal; routed "
+            f"copies (capacity, dropped, of copies): prefill {pf_drops}, decode {dec_drops}; ms prefill sharded "
+            f"{pf_ms['sharded']:.3f} / single {pf_ms['single']:.3f} (the first single run {first_ms:.3f}), ms a "
+            f"decode step sharded {dec_ms['sharded']:.3f} / single {dec_ms['single']:.3f} (median of {MOE_STEPS}, "
+            f"in turns, eager); bytes handed to NCCL {moved} = counted {counted}; peak GiB single process "
+            f"{single_peak:.2f}, rank {sharded_peak:.2f} ({card})")
+        del sp, lc, got, want_pf, want_dec, caches, x
+        torch.cuda.synchronize()
+    finally:
+        MOE._group_by_expert = group
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return files, time.perf_counter() - t0
+
+
 # (x2)'s rank: every case of GLOO_SERVE on the one card over gloo, held to
 # serve/sharded_check's bounds
 GLOO_SERVE_RANK = """
@@ -3317,9 +3511,17 @@ def probe(dev):
     return None
 
 
-def rank_main(rank, init, cases, kw, out_dir):
-    sys.path.insert(0, os.environ["PORT_SRC"])
+def config(arch):
+    import dataclasses
     from repro_torch import configs
+
+    if arch == "deepseek-v2-236b/2":  # full width, its first 2 blocks (chip_smoke.moe_config)
+        return dataclasses.replace(configs.get("deepseek-v2-236b"), num_layers=2, block_pattern=("attn", "moe"))
+    return configs.get(arch)
+
+
+def rank_main(rank, init, cases, out_dir):
+    sys.path.insert(0, os.environ["PORT_SRC"])
     from repro_torch.launch.comm import Comm
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.layers import set_reference_precision
@@ -3335,20 +3537,25 @@ def rank_main(rank, init, cases, kw, out_dir):
         res["refusal"] = probe(dev)
         if res["refusal"] is None:
             res["cases"] = {}
-            cfg = configs.get(kw["arch"])
-            for shape, name, batch in cases:
+            for case in cases:
+                shape, name, batch = case["shape"], case["name"], case["batch"]
                 t0 = time.perf_counter()
                 torch.cuda.reset_peak_memory_stats()
                 layout, comm = SS.connect(Mesh(("data", "model"), tuple(int(x) for x in shape.split("x"))), name)
-                r = SC.run_case(cfg, layout, comm, Comm(comm.groups), batch=batch, prompt=kw["prompt"],
-                                cache_len=kw["cache_len"], steps=kw["steps"], start=kw["prompt"], device=dev)
+                # the single process's side: this rank's own run, or (a model no rank holds whole) a file
+                want = torch.load(case["want"], map_location=dev) if case["want"] else None
+                r = SC.run_case(config(case["arch"]), layout, comm, Comm(comm.groups), batch=batch,
+                                prompt=case["prompt"], cache_len=case["cache_len"], steps=case["steps"],
+                                start=case["prompt"], device=dev, want=want)
+                del want
                 try:
-                    SC.hold(f"{shape} {name}", r, SC.card_bounds(f"{shape}/{name}", r))
+                    SC.hold(f"{shape} {name} {case['arch']}", r, SC.card_bounds(f"{shape}/{name}", r))
                 except AssertionError as e:  # every case runs; the parent fails the phase
                     r["hold"] = str(e)[:600]
                 r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
                 r["s"] = time.perf_counter() - t0
-                res["cases"][f"{shape}/{name}"] = r
+                res["cases"][f"{shape}/{name}/{case['arch']}"] = r
+                del comm, layout
                 torch.cuda.empty_cache()
         dist.destroy_process_group()
     except Exception as e:  # every error fails (x2): the parent reports it
@@ -3360,14 +3567,15 @@ def rank_main(rank, init, cases, kw, out_dir):
 
 
 if __name__ == "__main__":
-    init, cases, kw, out_dir = sys.argv[1:5]
-    mp.spawn(rank_main, args=(init, json.loads(cases), json.loads(kw), out_dir), nprocs=WORLD, join=True)
+    init, cases, out_dir = sys.argv[1:4]
+    mp.spawn(rank_main, args=(init, json.loads(cases), out_dir), nprocs=WORLD, join=True)
 """
 
 
-def gloo_serve_start():
-    """(x2)'s 4 gloo processes, started: (the process, its directory, the
-    start time)."""
+def gloo_serve_start(moe_files):
+    """(x2)'s 4 gloo processes, started (``moe_files``: the moe cases'
+    single-process sides from :func:`moe_serve_phase`): (the process, its
+    directory, the start time)."""
     import os
     import tempfile
 
@@ -3378,9 +3586,13 @@ def gloo_serve_start():
         f.write(GLOO_SERVE_RANK)
     env = dict(os.environ, PORT_SRC=str(SRC), PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    kw = dict(arch=SERVE_ARCH, prompt=SERVE_S, cache_len=SERVE_CACHE, steps=SERVE_STEPS)
-    proc = spawn([sys.executable, script, f"file://{tmp}/rdv", json.dumps(GLOO_SERVE), json.dumps(kw),
-                             tmp], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    moe = dict(prompt=MOE_S, cache_len=MOE_CACHE, steps=MOE_STEPS)
+    dense = dict(prompt=SERVE_S, cache_len=SERVE_CACHE, steps=SERVE_STEPS, want=None)
+    cases = [dict(shape=shape, name=name, batch=batch, arch=arch,
+                  **(dict(moe, want=moe_files[f"{shape}/{name}"]) if arch == MOE_ARCH else dense))
+             for shape, name, batch, arch in GLOO_SERVE]
+    proc = spawn([sys.executable, script, f"file://{tmp}/rdv", json.dumps(cases), tmp], env=env,
+                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return proc, tmp, t0
 
 
@@ -3422,25 +3634,37 @@ def gloo_serve_phase(started, card):
             "on the card did not run (no CPU run stands in for it)")
         return refusals[0], time.perf_counter() - t0
     held = []
-    for shape, name, batch in GLOO_SERVE:
-        cases = [r["cases"][f"{shape}/{name}"] for r in ranks]
+    for shape, name, batch, arch in GLOO_SERVE:
+        cases = [r["cases"][f"{shape}/{name}/{arch}"] for r in ranks]
         held += [f"rank {i}: {c['hold']}" for i, c in enumerate(cases) if "hold" in c]
         c0 = cases[0]
         numbers = [{k: max(c[k]) if isinstance(c[k], list) else c[k] for k in ("prefill", "decode", "caches")}
                    for c in cases]
         bounds = [SC.card_bounds(f"{shape}/{name}", c) for c in cases]
-        log(f"(x2) 4 gloo ranks on the one card, mesh {shape} {name}, {SERVE_ARCH} at full width, batch {batch} x "
-            f"{SERVE_S} + {SERVE_STEPS} decode steps against the single process on the card (max |diff| / max "
+        prompt, steps = (MOE_S, MOE_STEPS) if arch == MOE_ARCH else (SERVE_S, SERVE_STEPS)
+        routed = "" if not c0["moe"] else (
+            f"; the routed experts (first MoE layer, its own activations) bit-equal to the single process's rows by "
+            f"rank {[c['routed']['equal'] for c in cases]} (distance {[c['routed']['dist'] for c in cases]}; the "
+            f"rank's router picks the single process's experts {[c['routed']['routes_equal'] for c in cases]}, its "
+            f"gates bit for bit {[c['routed']['gates_equal'] for c in cases]}), experts by rank "
+            f"{[c['routed']['experts'] for c in cases]}, "
+            f"capacity {c0['routed']['capacity']}, {c0['routed']['dropped']} of {c0['routed']['copies']} copies "
+            f"dropped, a capacity from a data rank's own tokens ({c0['routed'].get('local_capacity')}) would drop "
+            f"other copies: {c0['routed']['local_drops_differ']}")
+        log(f"(x2) 4 gloo ranks on the one card, mesh {shape} {name}, {arch} at full width, batch {batch} x "
+            f"{prompt} + {steps} decode steps against the single process on the card (max |diff| / max "
             f"|value|; by rank, each with serve/sharded_check.card_bounds): "
             + "; ".join(f"rank {i} " + ", ".join(f"{k} {n[k]:.4g} <= {b[k]:.4g}" for k in n)
                         for i, (n, b) in enumerate(zip(numbers, bounds)))
-            + f" (the single process on a rank's rows alone against the batch: {[c['floor'] for c in cases]}); "
+            + f" (the floor, the single process on a part of the batch alone against the batch: "
+            f"{[c['floor'] for c in cases]}){routed}; "
             f"prefill bit for bit required {c0['prefill_exact']}; the first w_out product's outputs not correctly "
             f"rounded (rank 0: port / single process / bf16 partials) {c0['rounded_once']}; heads of rank 1 "
             f"{cases[1]['heads']}; bytes a rank (rank 0) {c0['moved']} = counted; cache bytes a rank "
             f"{c0['cache_bytes']:,} (cache_specs: {c0['cache_bytes_specs']:,}); parameters a rank "
             f"{c0['param_numel']:,} = local_numel; greedy tokens equal to the single process's by rank "
-            f"{[c['greedy_single'] for c in cases]}; peak GiB by rank {[round(c['peak_gib'], 2) for c in cases]}; "
+            f"{[c['greedy_single'] for c in cases]} (the picked tokens' single-process logits below its largest by "
+            f"{[round(c['greedy_margin'], 5) for c in cases]} of the largest |logit|); peak GiB by rank {[round(c['peak_gib'], 2) for c in cases]}; "
             f"s {[round(c['s'], 1) for c in cases]} ({card})")
     if held:
         fail("(x2) outside serve/sharded_check's bounds:\n" + "\n".join(held))
@@ -3449,14 +3673,16 @@ def gloo_serve_phase(started, card):
 
 def serve_dryrun_start():
     """(x3)'s counts, started in a process of their own: ``python -m
-    repro_torch.launch.dryrun --arch gemma3-1b --shape S --serve-layout L``
-    for the three serving shapes under serve and tp, one directory a layout."""
+    repro_torch.launch.dryrun --arch A --shape S --serve-layout L`` for
+    SERVE_COUNTS' architectures and shapes under serve and tp, one
+    directory a layout."""
     import os
 
     code = ("import sys\nfrom repro_torch.launch import dryrun\n"
             "for lay in ('serve', 'tp'):\n"
-            "    for shape in ('prefill_32k', 'decode_32k', 'long_500k'):\n"
-            f"        dryrun.main(['--arch', '{SERVE_ARCH}', '--shape', shape, '--serve-layout', lay, '--out', "
+            "    for arch, shape in " + repr([tuple(k.split("/")[1:]) for k in SERVE_COUNTS if k.startswith("serve/")])
+            + ":\n"
+            f"        dryrun.main(['--arch', arch, '--shape', shape, '--serve-layout', lay, '--out', "
             f"'{SERVE_DRYRUN_DIR}/' + lay])\n")
     for lay in ("serve", "tp"):
         for f in (SERVE_DRYRUN_DIR / lay).glob("*.json") if (SERVE_DRYRUN_DIR / lay).exists() else ():
@@ -3480,8 +3706,8 @@ def serve_dryrun_phase(proc, card):
     if proc.returncode != 0:
         fail(f"(x3) the serving dry-runs exited {proc.returncode}:\n{outp[-3000:]}")
     for key, want in SERVE_COUNTS.items():
-        lay, shape = key.split("/")
-        rec = json.loads((SERVE_DRYRUN_DIR / lay / f"{SERVE_ARCH}__{shape}__16x16.json").read_text())
+        lay, arch, shape = key.split("/")
+        rec = json.loads((SERVE_DRYRUN_DIR / lay / f"{arch}__{shape}__16x16.json").read_text())
         got = {"flops": rec["flops_per_device"], "bytes": rec["bytes_per_device"],
                "coll": rec["collective_bytes_per_device"]}
         t = rec["roofline"]
@@ -3489,7 +3715,7 @@ def serve_dryrun_phase(proc, card):
             fail(f"(x3) {key}: {dryrun.record_problems(rec)}, split {rec['split']}, {t}")
         if got != want:
             fail(f"(x3) {key}: the card's count {got} != the CPU's {want}")
-        log(f"(x3) {SERVE_ARCH} {shape} on 16x16 under {lay}, one rank on meta ({rec['t_count_s']} s): the CPU's "
+        log(f"(x3) {arch} {shape} on 16x16 under {lay}, one rank on meta ({rec['t_count_s']} s): the CPU's "
             f"count exactly: {got['flops']:.6e} FLOPs, {got['bytes']:.6e} bytes, collective {got['coll']}; compute "
             f"{t['compute_s']:.5g} s, memory {t['memory_s']:.5g} s, collective {t['collective_s']:.5g} s: "
             f"{t['dominant']}; state bytes a device {rec['state_bytes_per_device']} (H100 constants; no card used)")
@@ -4003,7 +4229,7 @@ def main() -> int:
     t_n = time.perf_counter()
     transport_us = transport_phase(np, torch, dev, prob, prob_cpu, T=120)
     t_o = time.perf_counter()
-    fleet_us = fleet_phase(np, torch, dev, D, T=6, population=50_000, cohort=16)
+    fleet_us = fleet_phase(np, torch, dev, D, T=4, population=50_000, cohort=16)
     part_us = participation_phase(np, torch, dev, prob, prob_cpu, T=40)
     torch.cuda.synchronize()
     slice_launches = dict(runtime.LAUNCHES)
@@ -4154,6 +4380,17 @@ def main() -> int:
     log(f"(u) launches on the measured path: {u_launches}; (u0) {u0_s:.1f} s, (u1) {t_u2 - t_u1:.1f} s, "
         f"(u2) {time.perf_counter() - t_u2:.1f} s; (u) took {time.perf_counter() - t_u0:.1f} s ({card})")
 
+    # --- (x) the serving step across a process group (its 4 gloo processes run beside (v)) ------
+    t_x0 = time.perf_counter()
+    x3 = serve_dryrun_start()  # on the host's cores beside (x1) and (x2)
+    runtime.reset_launches()
+    x1_s = serve_sharded_phase(np, torch, dev, card)  # alone on the card: its ms are timed
+    moe_dir = tempfile.mkdtemp(prefix="moe_serve_")
+    moe_files, x1_moe_s = moe_serve_phase(np, torch, dev, card, moe_dir)
+    torch.cuda.synchronize()
+    x_launches = dict(runtime.LAUNCHES)
+    x2 = gloo_serve_start(moe_files)  # (v) holds little of the card; its launches are its own process's
+
     # --- (v) the paper's grid, the wire smoke and sigma_A ----------------------------------
     runtime.reset_launches()
     grid_s = grid_phase(np, torch, dev, card)
@@ -4170,7 +4407,16 @@ def main() -> int:
                 fail(f"{what} never launched {kname}")
     sigma_s = sigma_phase(sigma, sigma100)
     log(f"(v) launches: (v1) {grid_launches}, (v2) {smoke_launches}; (v1) {grid_s:.1f} s, (v2) {smoke_s:.1f} s, "
-        f"(v3) {sigma_s:.1f} s ({card})")
+        f"(v3) {sigma_s:.1f} s, beside (x2)'s 4 processes ({card})")
+
+    serve_refusal, x2_s = gloo_serve_phase(x2, card)
+    shutil.rmtree(moe_dir, ignore_errors=True)
+    serve_dryrun_phase(x3, card)
+    log(f"(x) launches of the sharded serving steps (x1): {x_launches} (no hand kernel is on this path); (x1) "
+        f"{x1_s:.1f} s, (x1) {MOE_ARCH} {x1_moe_s:.1f} s, (x2) {x2_s:.1f} s"
+        f"{' (gloo refused CUDA tensors)' if serve_refusal else ''}; (x) took "
+        f"{time.perf_counter() - t_x0:.1f} s, (v) beside (x2) included; the script so far "
+        f"{time.perf_counter() - T_START:.1f} s ({card})")
 
     # --- (w) the LM train step across a process group ---------------------------------
     t_w0 = time.perf_counter()
@@ -4189,19 +4435,6 @@ def main() -> int:
     log(f"(w) launches of the sharded steps: {w_launches}; (w1) {t_w1 - t_w0:.1f} s, (w2) {w2_s:.1f} s"
         f"{' (gloo refused CUDA tensors)' if gloo_refusal else ''}; (w) took {time.perf_counter() - t_w0:.1f} s "
         f"({card})")
-
-    # --- (x) the serving step across a process group ----------------------------------------
-    t_x0 = time.perf_counter()
-    x3 = serve_dryrun_start()  # on the host's cores beside (x1) and (x2)
-    runtime.reset_launches()
-    x1_s = serve_sharded_phase(np, torch, dev, card)  # alone on the card: its ms are timed
-    torch.cuda.synchronize()
-    x_launches = dict(runtime.LAUNCHES)
-    serve_refusal, x2_s = gloo_serve_phase(gloo_serve_start(), card)
-    serve_dryrun_phase(x3, card)
-    log(f"(x) launches of the sharded serving steps (x1): {x_launches} (no hand kernel is on this path); (x1) "
-        f"{x1_s:.1f} s, (x2) {x2_s:.1f} s{' (gloo refused CUDA tensors)' if serve_refusal else ''}; (x) took "
-        f"{time.perf_counter() - t_x0:.1f} s; the script so far {time.perf_counter() - T_START:.1f} s ({card})")
 
     summary = {"kernels": [
         {"name": "l1_subgrad", "route": "cuda", "source": "src/repro_torch/csrc/l1_subgrad.cu",

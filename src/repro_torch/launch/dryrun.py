@@ -15,10 +15,10 @@ sharded program (``"split": "per_rank"``) or the whole step once, split
 evenly over the mesh's devices (``"split": "even"``, no collective term,
 ``collective_note`` says why). Per rank:
 
-* the serving shapes (prefill_32k, decode_32k, long_500k) of the dense, vlm
-  and audio families: rank 0 of ``serve/sharded.py``'s step under
+* the serving shapes (prefill_32k, decode_32k, long_500k) of the dense, vlm,
+  audio and moe families: rank 0 of ``serve/sharded.py``'s step under
   ``--serve-layout`` (ZeRO-3 gathers over "data", tensor parallelism over
-  "model"); ``state_bytes_per_device`` puts the rank's parameters and
+  "model", the routed experts over "model" on E); ``state_bytes_per_device`` puts the rank's parameters and
   caches beside the reference's ``param_specs`` / ``cache_specs``;
 * a train shape of the dense, vlm and audio families on a ("data",
   "model") mesh: one rank of ``train/sharded.py``'s step, by default with

@@ -29,7 +29,9 @@ row-parallel ones (``wo``, ``w_out``) a partial that ``tp.row_mm`` sums over
 "model" in fp32 and rounds once, attention runs on the rank's q heads
 (:class:`Heads`; all of them where the "model" split cuts through a head),
 and a decode over a cache whose sequence is split over "data" combines the
-ranks' partial softmaxes (:func:`split_decode_attention`). Under autograd
+ranks' partial softmaxes (:func:`split_decode_attention`). MLA runs on the
+rank's q heads too, with its latent (``w_dkv``, ``w_krope``) read whole and
+its cache, the latent, whole on every "model" rank. Under autograd
 (the sharded train step) the context's collectives carry the gradients:
 ``x`` enters "model" before the column-parallel products, whose partial
 gradients of ``x`` sum there in fp32.
@@ -267,6 +269,16 @@ def decode_attention(q, k_cache, v_cache, valid_mask):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def _split_softmax(s, mix, tp):
+    """``mix(softmax(s))`` where each rank of "data" holds a slice of the
+    last axis of ``s`` (its slots; ``mix(p)``: the weighted values of its
+    slots): the max all-reduced, then the sum and ``mix(p)``."""
+    m = tp.all_reduce(s.amax(-1), "data", "max")
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    part = tp.all_reduce(torch.cat([p.sum(-1)[..., None], mix(p)], -1), "data")
+    return part[..., 1:] / part[..., :1]
+
+
 def split_decode_attention(q, k_cache, v_cache, valid_mask, tp):
     """:func:`decode_attention` over a cache whose slots are split over the
     mesh's "data" axis: every rank scores its own slots (``valid_mask``
@@ -277,11 +289,8 @@ def split_decode_attention(q, k_cache, v_cache, valid_mask, tp):
     qg = q.reshape(B, KV, H // KV, hd).to(F32)
     s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.to(F32)) * hd**-0.5
     s = torch.where(valid_mask[None, None, None, :], s, NEG_INF)
-    m = tp.all_reduce(s.amax(-1), "data", "max")
-    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
-    part = torch.cat([p.sum(-1)[..., None], torch.einsum("bkgs,bskh->bkgh", p, v_cache.to(F32))], -1)
-    part = tp.all_reduce(part, "data")
-    return (part[..., 1:] / part[..., :1]).reshape(B, 1, H, hd).to(q.dtype)
+    out = _split_softmax(s, lambda p: torch.einsum("bkgs,bskh->bkgh", p, v_cache.to(F32)), tp)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
 def ring_valid(pos, slot, L: int, window: Optional[int]):
@@ -429,66 +438,91 @@ def mla_spec(cfg: ModelConfig):
     }
 
 
-def _mla_q(cfg, params, x, positions):
+def _mla_whole(cfg: ModelConfig, hs: Heads) -> bool:
+    """Whether a rank computes every MLA head, reading ``wq`` / ``w_uk`` /
+    ``w_uv`` whole (gathered over "model" where split there)."""
+    return hs.nq == cfg.num_heads
+
+
+def _mla_proj(cfg, params, x, positions, tp=None):
+    """(q_nope, q_rope) of the rank's q heads [B, S, nq, *], and the latent
+    (c, k_rope) [B, S, r], [B, S, rd] of every position: ``w_dkv`` and
+    ``w_krope`` are read whole, since ``kv_norm`` runs over all of r and
+    every head reads c and k_rope (the single process's own products)."""
     m = cfg.mla
     B, S, _ = x.shape
-    q = mm(x, weight(params, "wq", x.dtype)).reshape(B, S, cfg.num_heads,
-                                                     m.nope_head_dim + m.rope_head_dim)
+    dt = x.dtype
+    hs = _heads(cfg, tp)
+    q, c, k_rope = _col_mm(x, [_weight(params, "wq", dt, tp, _mla_whole(cfg, hs)),
+                               _weight(params, "w_dkv", dt, tp, True), _weight(params, "w_krope", dt, tp, True)], tp)
+    q = q.reshape(B, S, hs.nq, m.nope_head_dim + m.rope_head_dim)
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
-    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c = rmsnorm(params["kv_norm"], c, cfg.rms_eps, tp)
+    return q_nope, q_rope, c, apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
 
 
-def _mla_latent(cfg, params, x, positions):
-    c = rmsnorm(params["kv_norm"], mm(x, weight(params, "w_dkv", x.dtype)), cfg.rms_eps)
-    k_rope = mm(x, weight(params, "w_krope", x.dtype))[:, :, None, :]  # [B,S,1,rd]
-    return c, apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
-
-
-def mla_apply(cfg: ModelConfig, params, x, *, window=None, chunk=512):
+def mla_apply(cfg: ModelConfig, params, x, *, window=None, chunk=512, tp=None):
     """Prefill MLA: per-head K/V rebuilt from the latent, then the chunked
-    attention with a concatenated [nope | rope] key."""
+    attention with a concatenated [nope | rope] key; on the rank's q heads
+    (:class:`Heads`), ``wo`` row-parallel."""
     m = cfg.mla
-    H = cfg.num_heads
     B, S, _ = x.shape
+    dt = x.dtype
+    hs = _heads(cfg, tp)
     positions = torch.arange(S, device=x.device).expand(B, S)
-    q_nope, q_rope = _mla_q(cfg, params, x, positions)
-    c, k_rope = _mla_latent(cfg, params, x, positions)
-    k_nope = mm(c, weight(params, "w_uk", x.dtype)).reshape(B, S, H, m.nope_head_dim)
-    v = mm(c, weight(params, "w_uv", x.dtype)).reshape(B, S, H, m.v_head_dim)
+    q_nope, q_rope, c, k_rope = _mla_proj(cfg, params, x, positions, tp)
+    H, whole = hs.nq, _mla_whole(cfg, hs)
+    k_nope = mm(c, _weight(params, "w_uk", dt, tp, whole)).reshape(B, S, H, m.nope_head_dim)
+    v = mm(c, _weight(params, "w_uv", dt, tp, whole)).reshape(B, S, H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.rope_head_dim)], dim=-1)
     out = chunked_attention(q, k, v, window=window, chunk=chunk)
-    return mm(out.reshape(B, S, H * m.v_head_dim), weight(params, "wo", x.dtype))
+    return _row_mm(out.reshape(B, S, H * m.v_head_dim), params, "wo", tp)
 
 
-def mla_decode(cfg: ModelConfig, params, x, cache, pos, *, window=None):
+def mla_decode(cfg: ModelConfig, params, x, cache, pos, *, window=None, tp=None):
     """Absorbed-matmul decode (``layers.py:371``): attention runs in the
     kv_lora latent space; the cache holds [c | k_rope] per token and
-    W_uk / W_uv are absorbed into the query / output projections."""
+    W_uk / W_uv are absorbed into the query / output projections. On a rank:
+    its q heads, the whole latent cache (or, under ``tp.seq_split``, its
+    slice of the ring's slots, written by the rank that owns ``pos``'s slot,
+    with the partial softmaxes combined over "data" as in
+    :func:`split_decode_attention`), ``wo`` row-parallel."""
     m = cfg.mla
-    H = cfg.num_heads
     B = x.shape[0]
     L = cache["c"].shape[1]
     dt = x.dtype
+    hs = _heads(cfg, tp)
     pos = _pos_tensor(pos, x.device)
     positions = pos.expand(B, 1)
-    q_nope, q_rope = _mla_q(cfg, params, x, positions)  # [B,1,H,*]
-    c, k_rope = _mla_latent(cfg, params, x, positions)  # [B,1,r], [B,1,rd]
-    slot = torch.remainder(pos, L).reshape(1)
-    c_cache = cache["c"].index_copy(1, slot, c.to(cache["c"].dtype))
-    kr_cache = cache["k_rope"].index_copy(1, slot, k_rope.to(cache["k_rope"].dtype))
-    w_uk = weight(params, "w_uk", dt).reshape(m.kv_lora_rank, H, m.nope_head_dim)
-    q_eff = einsum_low("bhd,rhd->bhr", q_nope[:, 0], w_uk)  # [B,H,r]
+    q_nope, q_rope, c, k_rope = _mla_proj(cfg, params, x, positions, tp)  # [B,1,nq,*], [B,1,r], [B,1,rd]
+    split = tp is not None and tp.seq_split
+    if split:
+        lo = tp.data_index * L
+        slot = torch.remainder(pos, tp.data_size * L).reshape(1)
+        mine = (slot >= lo) & (slot < lo + L)
+        at = torch.clamp(slot - lo, 0, L - 1)
+        c_cache, kr_cache = (cc.index_copy(1, at, torch.where(mine, new.to(cc.dtype), cc.index_select(1, at)))
+                             for cc, new in ((cache["c"], c), (cache["k_rope"], k_rope)))
+        valid = ring_valid(pos, slot, tp.data_size * L, window)[lo:lo + L]
+    else:
+        slot = torch.remainder(pos, L).reshape(1)
+        c_cache = cache["c"].index_copy(1, slot, c.to(cache["c"].dtype))
+        kr_cache = cache["k_rope"].index_copy(1, slot, k_rope.to(cache["k_rope"].dtype))
+        valid = ring_valid(pos, slot, L, window)
+    whole = _mla_whole(cfg, hs)
+    w_uk = _weight(params, "w_uk", dt, tp, whole).reshape(m.kv_lora_rank, hs.nq, m.nope_head_dim)
+    q_eff = einsum_low("bhd,rhd->bhr", q_nope[:, 0], w_uk)  # [B,nq,r]
     s = torch.einsum("bhr,bsr->bhs", q_eff.to(F32), c_cache.to(F32))
     s = s + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].to(F32), kr_cache.to(F32))
     s = s * (m.nope_head_dim + m.rope_head_dim) ** -0.5
-    valid = ring_valid(pos, slot, L, window)
     s = torch.where(valid[None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    lat = torch.einsum("bhs,bsr->bhr", p, c_cache.to(F32))  # [B,H,r]
-    w_uv = weight(params, "w_uv", dt).reshape(m.kv_lora_rank, H, m.v_head_dim)
+    mix = lambda p: torch.einsum("bhs,bsr->bhr", p, c_cache.to(F32))  # noqa: E731  [B,nq,r]
+    lat = _split_softmax(s, mix, tp) if split else mix(torch.softmax(s, dim=-1))
+    w_uv = _weight(params, "w_uv", dt, tp, whole).reshape(m.kv_lora_rank, hs.nq, m.v_head_dim)
     out = einsum_low("bhr,rhd->bhd", lat.to(dt), w_uv)
-    y = mm(out.reshape(B, 1, H * m.v_head_dim), weight(params, "wo", dt))
+    y = _row_mm(out.reshape(B, 1, hs.nq * m.v_head_dim), params, "wo", tp)
     return y, {"c": c_cache, "k_rope": kr_cache}
 
 

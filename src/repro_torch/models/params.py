@@ -281,12 +281,19 @@ def materialize(spec, generator: torch.Generator, device) -> FlatParams:
     every leaf from ``generator`` (on that device), in ravel order."""
     params = FlatParams(spec, device)
     for (_, leaf), view in zip(leaves_with_path(params.spec), leaves(params.tree)):
-        if leaf.init == "normal":
-            view.normal_(generator=generator).mul_(leaf.scale)
-        elif leaf.init == "uniform":
-            view.uniform_(generator=generator)
-        elif leaf.init == "full":
-            view.fill_(leaf.scale)
-        else:
-            raise ValueError(leaf.init)
+        draw(view, leaf, generator)
     return params.refresh()
+
+
+def draw(t: torch.Tensor, leaf: Leaf, generator: torch.Generator) -> torch.Tensor:
+    """Fill ``t`` (contiguous, ``leaf``'s shape) with ``leaf``'s initialiser
+    from ``generator``: the draw :func:`materialize` makes for that leaf."""
+    if leaf.init == "normal":
+        t.normal_(generator=generator).mul_(leaf.scale)
+    elif leaf.init == "uniform":
+        t.uniform_(generator=generator)
+    elif leaf.init == "full":
+        t.fill_(leaf.scale)
+    else:
+        raise ValueError(leaf.init)
+    return t

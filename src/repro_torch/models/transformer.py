@@ -17,7 +17,8 @@ leaves, everything else is unrolled. The reference scans a segment with
 ``lax.scan``; here it is a plain loop over the repetitions.
 
 ``tp``: the optional shard context of a rank of a sharded model
-(:mod:`.layers`), passed on to the attention / MLP blocks' layers.
+(:mod:`.layers`), passed on to the attention (GQA or MLA), MLP and MoE
+blocks' layers.
 """
 from __future__ import annotations
 
@@ -122,7 +123,7 @@ def block_apply(cfg, kind, params, shared_params, x, *, window_override=None, ch
         x = x + attn(cfg, params["attn"], h, window=w, chunk=chunk, **kw)
         h = L.rmsnorm(params["ln2"], x, cfg.rms_eps, tp)
         if kind == "moe":
-            h = MOE.moe_apply(cfg, params["moe"], h)
+            h = MOE.moe_apply(cfg, params["moe"], h, tp=tp)
         else:
             h = L.mlp_apply(params["mlp"], h, cfg.mlp_kind, tp)
         return x + h
@@ -164,7 +165,7 @@ def block_decode(cfg, kind, params, shared_params, x, cache, pos, *, window_over
         x = x + h
         h = L.rmsnorm(params["ln2"], x, cfg.rms_eps, tp)
         if kind == "moe":
-            h = MOE.moe_apply(cfg, params["moe"], h)
+            h = MOE.moe_apply(cfg, params["moe"], h, tp=tp)
         else:
             h = L.mlp_apply(params["mlp"], h, cfg.mlp_kind, tp)
         return x + h, cache

@@ -22,7 +22,8 @@ r % M); its data index runs over the mesh's data axes ("data", or ("pod",
   places them, the rank's batch rows or, where the batch does not split
   (long_500k at B = 1), its slice of every ring's slots (``seq_split``); over
   "model", the kv heads the rank attends with: its share where
-  num_kv_heads % M == 0, else all of them.
+  num_kv_heads % M == 0, else all of them. MLA's caches hold the latent
+  ([.., B, L, r] and [.., B, L, rd]), whole on every "model" rank.
 
 The step (:func:`make_prefill_step`, :func:`make_decode_step`) is
 ``lm.forward`` / ``lm.decode_step`` with the rank's :class:`ServeShard` as
@@ -33,16 +34,23 @@ nothing) and dropped after it; ``wq`` / ``wk`` / ``wv`` / ``w_in`` /
 a row-parallel partial summed over "model" in fp32 and rounded to bf16 once,
 as ``params.mm`` rounds the single product; attention on the rank's q heads,
 with ``wq`` / ``wk`` / ``wv`` gathered over "model" where the split cuts
-through a head; the embedding's rows over "model"; the logits' vocabulary
-block as the result. An axis of one rank runs no collective (at M = 1 a
-product is whole and rounds once, as ``params.mm`` does; at D = 1 a weight is
-read where it lies), so at one rank the step is ``lm.forward`` /
-``lm.decode_step`` bit for bit, the same kernels on the same operands. Every
-collective goes through a :class:`~repro_torch.launch.comm.Comm` (a
-``CountingComm`` on ``meta``).
+through a head (MLA: ``wq`` / ``w_uk`` / ``w_uv`` on the rank's heads where
+M divides H, else whole; its latent's ``w_dkv`` / ``w_krope`` whole); the
+routed experts over "model" on E at the call's global capacity, summed
+exactly over "model" (``models/moe.py``); the embedding's rows over "model";
+the logits' vocabulary block as the result. An axis of one rank runs no
+collective (at M = 1 a product is whole and rounds once, as ``params.mm``
+does; at D = 1 a weight is read where it lies), so at one rank the step is
+``lm.forward`` / ``lm.decode_step`` bit for bit, the same kernels on the
+same operands. Every collective goes through a
+:class:`~repro_torch.launch.comm.Comm` (a ``CountingComm`` on ``meta``).
 
-Ported: the dense, vlm and audio families. Refused: moe (experts over
-"model" on E; deepseek-v2's MLA), ssm (rwkv6) and hybrid (zamba2).
+Ported: the dense, vlm, audio and moe families. Refused: ssm (rwkv6) and
+hybrid (zamba2).
+
+:func:`init_params` draws the rank's blocks of ``lm.lm_init(seed=...)``
+leaf by leaf, so a rank of a model that no card holds whole needs only its
+blocks and one whole leaf at a time.
 """
 from __future__ import annotations
 
@@ -59,11 +67,13 @@ from ..launch.mesh import Mesh
 from ..models import layers as L
 from ..models import lm
 from ..models.config import ModelConfig
-from ..models.params import FlatParams, Leaf, grad_tree, leaves, mm, mm_f32, weight
+from ..kernels.runtime import resolve_device
+from ..models.params import (FlatParams, Leaf, draw, grad_tree, leaves, leaves_with_path, mm, mm_f32,
+                             shape_tree, weight)
 
-PORTED_FAMILIES = ("dense", "vlm", "audio")
+PORTED_FAMILIES = ("dense", "vlm", "audio", "moe")
 # what each family that is refused would need
-NOT_PORTED = {"moe": "experts over 'model' on E, and deepseek-v2's MLA", "ssm": "rwkv6's recurrent blocks",
+NOT_PORTED = {"ssm": "rwkv6's recurrent blocks",
               "hybrid": "zamba2's state-space blocks beside its shared attention"}
 
 
@@ -75,8 +85,7 @@ class NotPorted(ValueError):
 def check_ported(cfg: ModelConfig, what: str = "serving across a process group") -> None:
     """Raise :class:`NotPorted` unless ``cfg``'s family is one the sharded
     steps port (``what``: the step named in the message)."""
-    if (cfg.family not in PORTED_FAMILIES or cfg.mla is not None or cfg.moe is not None
-            or not set(cfg.block_pattern) <= {"attn", "attn_local"}):
+    if cfg.family not in PORTED_FAMILIES or not set(cfg.block_pattern) <= {"attn", "attn_local", "moe"}:
         raise NotPorted(f"{cfg.arch_id} ({cfg.family}): {what} is not ported for the "
                         f"{cfg.family} family ({NOT_PORTED.get(cfg.family, 'blocks other than attention')}); "
                         f"it is for {', '.join(PORTED_FAMILIES)}")
@@ -140,6 +149,12 @@ class ServeLayout:
                 t = t.narrow(dim, self.index(ax) * n, n)
         return t
 
+    def rows_split(self, batch: int) -> int:
+        """How many data ranks a global batch of ``batch`` rows splits over
+        (``serve_batch_spec``): all of them, or 1 (every rank all rows)."""
+        D = self.data_size
+        return D if batch % D == 0 and batch >= D else 1
+
     def local_batch(self, batch: dict) -> dict:
         """This rank's rows of a global serving batch (``serve_batch_spec``)."""
         B = next(iter(batch.values())).shape[0]
@@ -171,9 +186,19 @@ def attention_heads(cfg: ModelConfig, layout: ServeLayout) -> L.Heads:
     same): its share where its "model" block of wq (wk) columns is a whole
     number of heads; all of them, the weight gathered over "model", where the
     block cuts through a head; all of them where the layout does not split
-    the weight."""
-    specs = layout.param_specs({"wq": Leaf((cfg.d_model, cfg.q_dim)), "wk": Leaf((cfg.d_model, cfg.kv_dim))})
+    the weight. MLA (no kv heads: ``nkv`` 0, the cache holds the latent):
+    the rank's H / M q heads where M divides H and the layout splits ``wq``
+    (then ``w_uk``, ``w_uv`` and ``wo``'s rows split by whole heads too),
+    else all H, ``wq`` / ``w_uk`` / ``w_uv`` read whole."""
     M, m = layout.model_size, layout.coords[1]
+    if cfg.mla is not None:
+        qd = cfg.num_heads * (cfg.mla.nope_head_dim + cfg.mla.rope_head_dim)
+        split = layout.param_specs({"wq": Leaf((cfg.d_model, qd))})["wq"][-1] == "model" and M > 1
+        if split and cfg.num_heads % M == 0:
+            n = cfg.num_heads // M
+            return L.Heads(m * n, n, 0, 0)
+        return L.Heads(0, cfg.num_heads, 0, 0, split, False)
+    specs = layout.param_specs({"wq": Leaf((cfg.d_model, cfg.q_dim)), "wk": Leaf((cfg.d_model, cfg.kv_dim))})
 
     def one(name, n):
         if specs[name][-1] != "model" or M == 1:
@@ -239,9 +264,12 @@ class ServeShard:
     Outside autograd (the serving steps run under ``torch.no_grad()``) each
     is the plain collective, as before."""
 
-    def __init__(self, cfg: ModelConfig, layout: ServeLayout, comm: Comm, *, seq_split: bool = False):
+    def __init__(self, cfg: ModelConfig, layout: ServeLayout, comm: Comm, *, seq_split: bool = False,
+                 rows: int = 1):
         check_ported(cfg)
         self.layout, self.comm, self.seq_split = layout, comm, seq_split
+        # how many data ranks the call's batch rows split over (the MoE capacity's global token count)
+        self.rows = rows
         self.data_index, self.model_index = layout.coords
         self.data_size, self.model_size = layout.data_size, layout.model_size
         self.heads = attention_heads(cfg, layout)
@@ -302,6 +330,14 @@ class ServeShard:
             x = x[..., blk[0]:blk[0] + blk[1]]
         part = _RowMm.apply(x, w) if C._grad(x, w) else mm_f32(x, w)
         return self.all_reduce(part, "model").to(x.dtype)
+
+    def copies_before(self, counts: torch.Tensor) -> torch.Tensor:
+        """[E]: each expert's routed copies on the data ranks before this one
+        (the global copy order is token-major, and a data rank holds a
+        contiguous range of the tokens), from this rank's [E] ``counts``: one
+        all-gather of them over "data" in int32."""
+        every = gather_dim(self.comm, self.layout, counts.to(torch.int32)[None].contiguous(), 0, "data")
+        return every[:self.data_index].sum(0)
 
     def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
         """The ``op`` of ``t`` over ``axis``; a sum under autograd is
@@ -390,6 +426,22 @@ def gather_params(local: ShardedParams, layout: ServeLayout, comm: Comm) -> Flat
     return out.refresh()
 
 
+@torch.no_grad()
+def init_params(cfg: ModelConfig, layout: ServeLayout, *, seed: int = 0, device="cuda") -> ShardedParams:
+    """This rank's blocks of ``lm.lm_init(cfg, device=device, seed=seed)``
+    (:func:`shard_params` of it, bit for bit) without the whole model: each
+    leaf drawn whole from the same generator in ravel order, as
+    ``params.materialize`` draws it, one leaf at a time, and its block kept."""
+    dev = resolve_device(device)
+    spec = shape_tree(lm.lm_spec(cfg))
+    specs = layout.param_specs(spec)
+    out = ShardedParams(local_spec(spec, specs, layout), specs, spec, dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    for (_, leaf), view, (_, s) in zip(leaves_with_path(spec), leaves(out.tree), sh.spec_leaves(specs)):
+        view.copy_(layout.block(draw(torch.empty(leaf.shape, device=dev), leaf, gen), s))
+    return out.refresh()
+
+
 def param_numel(layout: ServeLayout, spec_tree) -> int:
     """Values a device holds under the layout's specs (``local_numel``)."""
     specs = sh.spec_leaves(layout.param_specs(spec_tree))
@@ -409,19 +461,27 @@ def cache_layout(cfg: ModelConfig, layout: ServeLayout, batch: int, cache_len: i
                        layout)
 
 
+def _inner(caches) -> int:
+    """The dims of a model's caches past the sequence: 2 for k / v caches
+    [.., B, L, KV, hd], 1 for MLA's latent caches [.., B, L, r]."""
+    return 1 if leaves_with_path(caches)[0][0][-1] in ("c", "k_rope") else 2
+
+
 def cache_split(caches, layout: ServeLayout) -> tuple:
-    """(``cache_specs`` of a tree of caches [.., B, L, KV, hd], ``seq_split``:
-    whether they split the rings' slots over "data", else the batch or
-    nothing). Raises where they split another dim over more than one rank
-    (the head dim, where a ring is shorter than a head; a scan segment's
-    repetitions, where their count equals B and ``cache_specs`` takes it for
-    the batch), or the layers differently."""
-    specs = sh.cache_specs(caches, layout.mesh, leaves(caches)[0].shape[-4])
+    """(``cache_specs`` of a tree of caches [.., B, L, KV, hd] (MLA: [.., B,
+    L, r]), ``seq_split``: whether they split the rings' slots over "data",
+    else the batch or nothing). Raises where they split another dim over
+    more than one rank (the head dim, where a ring is shorter than a head; a
+    scan segment's repetitions, where their count equals B and
+    ``cache_specs`` takes it for the batch), or the layers differently."""
+    inner = _inner(caches)
+    specs = sh.cache_specs(caches, layout.mesh, leaves(caches)[0].shape[-2 - inner])
     kinds = set()
 
     def one(t, spec):
         split = [i for i, e in enumerate(spec) if e is not None and layout.size(layout.axis(e)) > 1]
-        where = {(t.dim() - 4,): "batch", (t.dim() - 3,): "seq", (): None}.get(tuple(split), "other")
+        b = t.dim() - 2 - inner
+        where = {(b,): "batch", (b + 1,): "seq", (): None}.get(tuple(split), "other")
         if where == "other":
             raise NotPorted(f"cache_specs splits a cache of shape {tuple(t.shape)} as {spec}: only its batch "
                              "or its sequence over the data axes is ported")
@@ -436,13 +496,13 @@ def cache_split(caches, layout: ServeLayout) -> tuple:
 def shard_caches(caches, cfg: ModelConfig, layout: ServeLayout):
     """This rank's blocks (copies) of the model's caches (``lm.cache_init``'s
     tree): over "data" as ``cache_specs`` places them, over "model" the
-    rank's kv heads."""
+    rank's kv heads (MLA's latent caches: whole)."""
     specs, _ = cache_split(caches, layout)
     hs = attention_heads(cfg, layout)
 
     def one(t, spec):
         t = layout.block(t, spec)
-        if hs.nkv != t.shape[-2]:
+        if cfg.mla is None and hs.nkv != t.shape[-2]:
             t = t.narrow(t.dim() - 2, hs.kv0, hs.nkv)
         return t.clone()
 
@@ -452,7 +512,7 @@ def shard_caches(caches, cfg: ModelConfig, layout: ServeLayout):
 def cache_bytes(layout: ServeLayout, caches) -> int:
     """Bytes a device holds of a model's caches (``lm.cache_init``'s tree)
     under the reference's ``cache_specs``."""
-    B = leaves(caches)[0].shape[-4]
+    B = leaves(caches)[0].shape[-2 - _inner(caches)]
     specs = sh.spec_leaves(sh.cache_specs(caches, layout.mesh, B))
     return sum(sh.local_numel(t.shape, s, layout.mesh) * t.element_size()
                for t, (_, s) in zip(leaves(caches), specs))
@@ -471,6 +531,7 @@ def make_prefill_step(cfg: ModelConfig, layout: ServeLayout, comm: Comm, *, chun
     tp = ServeShard(cfg, layout, comm)
 
     def prefill(params, batch):
+        tp.rows = layout.rows_split(next(iter(batch.values())).shape[0])
         with torch.no_grad():
             return lm.forward(cfg, params, layout.local_batch(batch), chunk=chunk,
                               window_override=window_override, remat=False, tp=tp)
@@ -486,7 +547,7 @@ def make_decode_step(cfg: ModelConfig, layout: ServeLayout, comm: Comm, batch: i
     0-d tensor; the logits are the rank's block ``[B_local, (K,) V / M]``."""
     check_ported(cfg)
     _, seq_split = cache_layout(cfg, layout, batch, cache_len, window_override=window_override)
-    tp = ServeShard(cfg, layout, comm, seq_split=seq_split)
+    tp = ServeShard(cfg, layout, comm, seq_split=seq_split, rows=layout.rows_split(batch))
 
     def decode(params, caches, token, pos):
         with torch.no_grad():

@@ -75,7 +75,8 @@ dry-run counts one rank of a 256-rank mesh on ``meta`` with no group. Both
 charge an open op count (:func:`repro_torch.launch.op_cost.counting`).
 
 Refused (not ported): tensor parallelism for the moe, ssm and hybrid
-families (``serve/sharded.NOT_PORTED`` names what each lacks) and for a
+families (:data:`NOT_PORTED` names what each lacks: moe's serving step is
+ported, its training is not) and for a
 weight "model" does not split, and ``act_spec`` for configs with experts
 (MoE capacity is computed over all tokens of a call, ``models/moe.py``, so a
 split batch drops other tokens).
@@ -362,13 +363,22 @@ def init_state(cfg: ModelConfig, tcfg, downlink, optimizer: Optimizer, layout: L
 # ---------------------------------------------------------------------------
 
 
+# what each family the train step's tensor parallelism refuses would need, beyond its serving step's
+TRAIN_NOT_PORTED = {"moe": "the experts' gradients over E, and the router's"}
+NOT_PORTED = dict(SS.NOT_PORTED, **TRAIN_NOT_PORTED)
+
+
 def check_tensor_parallel(cfg: ModelConfig, layout: Layout) -> None:
     """Raise ``serve/sharded.NotPorted`` unless the port runs ``cfg``'s train
     step with tensor parallelism over ``layout``'s "model" axis: the dense,
     vlm and audio families, with every weight of a column- or row-parallel
     product split (a product "model" does not split would run whole on every
     rank, and its gradients are not carried)."""
-    SS.check_ported(cfg, "the train step's tensor parallelism over 'model' (the reference's worker layout)")
+    what = "the train step's tensor parallelism over 'model' (the reference's worker layout)"
+    if cfg.family in TRAIN_NOT_PORTED:  # a family whose serving step across ranks is ported
+        raise SS.NotPorted(f"{cfg.arch_id} ({cfg.family}): {what} is not ported for the {cfg.family} family "
+                           f"({TRAIN_NOT_PORTED[cfg.family]})")
+    SS.check_ported(cfg, what)
     tree = lm.lm_spec(cfg)
     for (path, leaf), b in zip(P.leaves_with_path(tree), layout.blocks):
         name = path[-1]

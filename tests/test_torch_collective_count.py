@@ -230,7 +230,9 @@ def test_serve_dry_run_records(smoke, tmp_path):
         even = json.loads((tmp_path / f"rwkv6-1.6b__{shape}__16x16.json").read_text())
         assert even["split"] == "even" and even["roofline"]["collective_s"] is None
         assert "(ssm): serving across a process group is not ported for the ssm family" in even["collective_note"]
-        assert "moe" not in even["collective_note"] and "cache_specs" not in even["collective_note"]
+        # its own reason only: not another refused family's, nor a cache split's; moe is among the ported
+        assert "hybrid" not in even["collective_note"] and "cache_specs" not in even["collective_note"]
+        assert even["collective_note"].endswith("it is for dense, vlm, audio, moe")
         assert dryrun.record_problems(even) == []
     recs = reanalyze.reanalyze(str(tmp_path), str(tmp_path / "again"))
     assert sorted({r["split"] for r in recs}) == ["even", "per_rank"]
@@ -243,16 +245,21 @@ def test_serve_dry_run_records(smoke, tmp_path):
 
 def test_even_records_name_their_own_reason(smoke):
     """Each even record's note names what is not ported for its own step
-    (from ``specs.build``'s ``even_note``), and nothing else."""
+    (from ``specs.build``'s ``even_note``), and nothing else: zamba2's
+    serving step (hybrid), rwkv6's train step (ssm) and deepseek-v2's
+    (moe: its serving step is ported, its training is not)."""
     train = dryrun.run_one("rwkv6-1.6b", "train_4k", verbose=False)
-    moe = dryrun.run_one("deepseek-v2-236b", "decode_32k", verbose=False)
-    assert train["split"] == moe["split"] == "even"
+    hybrid = dryrun.run_one("zamba2-1.2b", "decode_32k", verbose=False)
+    moe = dryrun.run_one("deepseek-v2-236b", "train_4k", verbose=False)
+    assert train["split"] == hybrid["split"] == moe["split"] == "even"
     assert train["collective_note"] == dryrun.EVEN_NOTE + specs.build("rwkv6-1.6b", "train_4k", MESH).meta["even_note"]
     assert "the train step's tensor parallelism over 'model'" in train["collective_note"]
     assert f"not ported for the ssm family ({SS.NOT_PORTED['ssm']})" in train["collective_note"]
     assert "serving" not in train["collective_note"]
-    assert f"not ported for the moe family ({SS.NOT_PORTED['moe']})" in moe["collective_note"]
-    assert "tensor parallelism" not in moe["collective_note"] and "ssm" not in moe["collective_note"]
+    assert f"not ported for the hybrid family ({SS.NOT_PORTED['hybrid']})" in hybrid["collective_note"]
+    assert "tensor parallelism" not in hybrid["collective_note"] and "ssm" not in hybrid["collective_note"]
+    assert f"not ported for the moe family ({SH.TRAIN_NOT_PORTED['moe']})" in moe["collective_note"]
+    assert "the train step's tensor parallelism over 'model'" in moe["collective_note"]
 
 
 def test_full_width_serve_counts():
@@ -272,6 +279,122 @@ def test_full_width_serve_counts():
     assert rec["split"] == "per_rank" and rec["chips"] == 512 and dryrun.record_problems(rec) == []
     assert rec["collective_bytes_per_device"] == {"all-gather": 254974464.0, "reduce-scatter": 0.0,
                                                   "all-reduce": 1935360.0 / 2}
+
+
+def test_full_width_moe_serve_counts():
+    """deepseek-v2-236b's decode_32k on 16x16, rank 0 counted on meta under
+    serve and tp: 8 rows a data rank, 10 of the 160 experts a model rank.
+    chip_smoke.py (x3) holds the card's count to the same numbers."""
+    cfg = configs.get("deepseek-v2-236b")
+    D, E, K, r, rd = cfg.d_model, cfg.moe.num_experts, cfg.moe.top_k, cfg.mla.kv_lora_rank, cfg.mla.rope_head_dim
+    n, moe_layers = 8, cfg.num_layers - 1
+    # a layer: MLA's wo partial (fp32), then the dense MLP's (layer 0) or the routed copies' K·N·D (bf16) and
+    # the shared experts' partial (fp32); and the embedding's bf16 sum
+    all_reduce = n * D * 4 * 2 + moe_layers * (n * D * 4 + K * n * D * 2 + n * D * 4) + n * D * 2
+    # read whole on every model rank: the router (bf16 [D, E]) and the latent's w_dkv / w_krope; and the
+    # ranks' [E] int32 counts of routed copies gathered over "data"
+    whole = moe_layers * (D * E * 2 + 16 * E * 4) + cfg.num_layers * D * (r + rd) * 2
+    for layout, coll in (("serve", {"all-gather": 30522972160.0, "reduce-scatter": 0.0, "all-reduce": 48742400.0}),
+                         ("tp", {"all-gather": 451164160.0, "reduce-scatter": 0.0, "all-reduce": 48742400.0})):
+        rec = dryrun.run_one("deepseek-v2-236b", "decode_32k", serve_layout=layout, verbose=False)
+        assert rec["split"] == "per_rank" and rec["collective_bytes_per_device"] == coll
+        assert dryrun.record_problems(rec) == [] and rec["roofline"]["collective_s"] > 0
+    assert coll["all-reduce"] == all_reduce and coll["all-gather"] == whole
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "llama4-maverick-400b-a17b"])
+def test_moe_serve_records_are_per_rank(arch, shape):
+    """The moe family's serving records at full width on 16x16 are rank 0's
+    count (experts over "model" on E, 160 / 16 and 128 / 16 a rank), with a
+    collective term and no problem; long_500k's B = 1 splits the caches'
+    sequence over "data" (prefill_32k, ~30 s a record here, is held the
+    same way by chip_smoke.py (u0))."""
+    rec = dryrun.run_one(arch, shape, verbose=False)
+    assert rec["split"] == "per_rank" and dryrun.record_problems(rec) == []
+    assert rec["roofline"]["collective_s"] > 0 and rec["collective_total_per_device"] > 0
+    assert "caches" in rec["state_bytes_per_device"]
+
+
+_MOE_SERVE_RANKS = textwrap.dedent(
+    """
+    import json, sys
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+
+    def worker(rank, init, out):
+        torch.set_num_threads(1)
+        from repro_torch import configs
+        from repro_torch.launch import dryrun, specs
+        from repro_torch.launch.mesh import Mesh
+        from repro_torch.models import lm
+        from repro_torch.serve import sharded as SS
+
+        specs.configs.get = configs.get_smoke
+        specs.SHAPES["prefill_32k"] = dict(kind="prefill", seq=16, global_batch=4)
+        specs.SHAPES["decode_32k"] = dict(kind="decode", seq=32, global_batch=4)
+        mesh = Mesh(("data", "model"), (2, 2))
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=4)
+        res = {"rank": rank}
+        for arch in ("deepseek-v2-236b", "llama4-maverick-400b-a17b"):
+            cfg = configs.get_smoke(arch)
+            layout, comm = SS.connect(mesh, "serve")
+            params = SS.init_params(cfg, layout, seed=0, device="cpu")
+            g = torch.Generator().manual_seed(1)
+            for shape in ("prefill_32k", "decode_32k"):
+                built = specs.build(arch, shape, mesh)  # rank 0's step, counted on meta
+                counted = dryrun.count(built.meta["kind"], built.fn, *built.args).coll
+                info = specs.SHAPES[shape]
+                B, S = info["global_batch"], info["seq"]
+                before = dict(comm.bytes)
+                if shape == "prefill_32k":
+                    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g, dtype=torch.int32)}
+                    SS.make_prefill_step(cfg, layout, comm, chunk=8)(params, batch)
+                else:
+                    caches = SS.shard_caches(lm.cache_init(cfg, B, S, device="cpu"), cfg, layout)
+                    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g, dtype=torch.int32)
+                    SS.make_decode_step(cfg, layout, comm, B, S)(params, caches, tok, torch.tensor(S - 1))
+                moved = {k: float(v - before.get(k, 0)) for k, v in comm.bytes.items()}
+                res[f"{arch}/{shape}"] = {"moved": moved, "counted": {k: float(v) for k, v in counted.items()},
+                                          "split": built.meta["split"]}
+        gathered = [None] * 4
+        dist.all_gather_object(gathered, res)
+        if rank == 0:
+            json.dump(gathered, open(out, "w"))
+        dist.destroy_process_group()
+
+
+    if __name__ == "__main__":
+        mp.spawn(worker, args=tuple(sys.argv[1:]), nprocs=4, join=True)
+    """
+)
+
+
+def test_moe_serve_count_equals_the_bytes_handed_to_gloo(tmp_path):
+    """The dry-run's serving count of the moe smoke configs on (2, 2) under
+    serve (rank 0 of the sharded prefill and decode, counted on meta:
+    ZeRO-3 gathers, the router and latent read whole, the copies' counts
+    over "data", the routed outputs and row-parallel partials over "model")
+    equals, kind by kind, the bytes each of 4 gloo ranks hands to its
+    groups in the same steps."""
+    script = tmp_path / "ranks.py"
+    script.write_text(_MOE_SERVE_RANKS)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    out = tmp_path / "out.json"
+    res = subprocess.run([sys.executable, str(script), f"file://{tmp_path / 'rdv'}", str(out)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-6000:]
+    ranks = json.loads(out.read_text())
+    for r in ranks:
+        for name, step in r.items():
+            if name == "rank":
+                continue
+            print(f"rank {r['rank']} {name}: handed {step['moved']}, counted {step['counted']}")
+            assert step["split"] == "per_rank" and step["moved"] == step["counted"], (r["rank"], name)
+            assert step["moved"]["all-gather"] > 0 and step["moved"]["all-reduce"] > 0
 
 
 # ---------------------------------------------------------------------------

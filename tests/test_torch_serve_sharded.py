@@ -4,8 +4,9 @@ against the reference's own sharded prefill and decode.
 
 * One rank (a gloo group of one, mesh (1, 1)): the sharded prefill and
   decode equal ``lm.forward`` / ``lm.decode_step`` bit for bit (logits and
-  caches) for the five ported smoke families under each serve layout, and
-  ``gather_params(shard_params(p))`` is ``p``.
+  caches) for the five dense / vlm / audio smoke families and the two moe
+  smoke configs under each serve layout, and ``gather_params(shard_params(p))``
+  is ``p`` (the moe configs' 4-rank cases: tests/test_torch_serve_moe.py).
 * Four gloo ranks (a subprocess, ``torch.multiprocessing.spawn``), one
   spawn for all cases: (2, 2) ``serve`` (ZeRO-3 gathers over "data", tensor
   parallelism over "model"), (1, 4) ``tp``, (2, 2) ``tp_attn_rep``, and
@@ -37,7 +38,11 @@ against the reference's own sharded prefill and decode.
   partitioned program serves to tell the two arithmetics apart: at every
   step the port is nearer the one-device program (measured at most 0.0039
   from it) than the partitioned program is (at least 0.0105), which a port
-  that rounds its partials as XLA does would not be.
+  that rounds its partials as XLA does would not be. The moe smoke configs
+  (and deepseek-v2's at capacity_factor 1.0, where copies drop): the port
+  within 0.0157 of the one-device program; the partitioned program up to
+  0.65 (deepseek-v2) and 2.04 (llama4) from it on a data rank's prefill,
+  where its bf16 partials flip a route.
 """
 import os
 import pickle
@@ -63,7 +68,8 @@ from repro_torch.serve import sharded_check as SC
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 PORTED = ["gemma3-1b", "minitron-4b", "starcoder2-7b", "pixtral-12b", "musicgen-large"]
-REFUSED = ["deepseek-v2-236b", "llama4-maverick-400b-a17b", "rwkv6-1.6b", "zamba2-1.2b"]
+MOE = ["deepseek-v2-236b", "llama4-maverick-400b-a17b"]  # 4-rank cases: tests/test_torch_serve_moe.py
+REFUSED = ["rwkv6-1.6b", "zamba2-1.2b"]
 REF_ATOL = 0.024  # tests/test_torch_lm.py: the port against the reference, forward logits
 
 
@@ -85,7 +91,7 @@ def _bits(a, b) -> bool:
 
 
 @pytest.mark.parametrize("layout_name", ["serve", "tp", "tp_attn_rep"])
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", PORTED + MOE)
 def test_one_rank_equals_forward_and_decode_bit_for_bit(one_rank, arch, layout_name):
     cfg = configs.get_smoke(arch)
     layout, comm = SS.connect(one_rank, layout_name)
@@ -119,7 +125,7 @@ def test_refuses_the_families_not_ported(arch):
 
 
 @pytest.mark.parametrize("layout_name", ["serve", "tp", "tp_attn_rep"])
-@pytest.mark.parametrize("arch", ["gemma3-1b", "starcoder2-7b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "starcoder2-7b", "musicgen-large"] + MOE)
 def test_rank_parameters_are_local_numel_of_the_specs(arch, layout_name):
     """Full width on ``meta``: every rank of the 16x16 mesh we look at holds
     ``sharding.local_numel`` of each leaf under its spec, and no more."""
@@ -233,7 +239,8 @@ _RANKS = textwrap.dedent(
 
         out = {}
         for arch, r in ref.items():
-            cfg = configs.get_smoke(arch)
+            name, _, cf = arch.partition("@")
+            cfg = configs.get_smoke(name) if not cf else SC.with_capacity(configs.get_smoke(name), float(cf))
             layout, comm = SS.connect(Mesh(("data", "model"), (2, 2)), "serve")
             sp = SS.shard_params(convert.lm_params_from_numpy(cfg, r["params"], "cpu"), layout)
             batch = {k: torch.from_numpy(v) for k, v in r["batch"].items()}
@@ -341,11 +348,12 @@ def test_counted_bytes_equal_the_bytes_handed_to_gloo(four_ranks):
 # the reference's own sharded program
 # ---------------------------------------------------------------------------
 
-REF_ARCHS = ("gemma3-1b", "pixtral-12b")
+# "arch@f": the smoke config with the experts' capacity_factor f (copies drop)
+REF_ARCHS = ("gemma3-1b", "pixtral-12b", "deepseek-v2-236b", "llama4-maverick-400b-a17b", "deepseek-v2-236b@1.0")
 
 _REFERENCE = textwrap.dedent(
     """
-    import os, pickle, sys
+    import dataclasses, os, pickle, sys
     # XLA keeps a fused chain of bf16 ops in fp32 unless told not to; the port
     # (and the reference run op by op) rounds after every op
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4 --xla_allow_excess_precision=false"
@@ -365,7 +373,10 @@ _REFERENCE = textwrap.dedent(
     B, S, L, START, STEPS = 2, 24, 40, 30, 3
     out = {}
     for arch in archs:
-        cfg = configs.get_smoke(arch)
+        name, _, cf = arch.partition("@")
+        cfg = configs.get_smoke(name)
+        if cf:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=float(cf)))
         params = jax.jit(lambda k: lm.lm_init(cfg, k))(jax.random.PRNGKey(0))
         rng = np.random.default_rng(7)
         tok = (B, cfg.num_codebooks, S) if cfg.num_codebooks else (B, S)

@@ -207,8 +207,9 @@ def test_downlink_on_blocks_is_the_whole_downlinks_block(mode):
                                         ("llama4-maverick-400b-a17b", "not ported for the moe family")])
 def test_tensor_parallel_refusals(arch, match):
     """moe, ssm and hybrid are refused with a message that names what each
-    lacks (``serve/sharded.NOT_PORTED``); so is a layout without the rank's
-    blocks, and act_spec on one with them."""
+    lacks (``train/sharded.NOT_PORTED``: moe's serving step across ranks is
+    ported, its training is not); so is a layout without the rank's blocks,
+    and act_spec on one with them."""
     cfg = configs.get_smoke(arch)
     d = sum(P.leaf_sizes(lm.lm_spec(cfg)))
     mesh = Mesh(("data", "model"), (2, 2))
@@ -217,7 +218,7 @@ def test_tensor_parallel_refusals(arch, match):
     with pytest.raises(SS.NotPorted, match=match) as e:
         SH.make_sharded_train_step(cfg, tcfg, make_downlink("marina:perm", 2), make_optimizer("adamw"),
                                    constant_lr(SC.LR), layout, SH.CountingComm())
-    assert "train step's tensor parallelism" in str(e.value) and SS.NOT_PORTED[cfg.family] in str(e.value)
+    assert "train step's tensor parallelism" in str(e.value) and SH.NOT_PORTED[cfg.family] in str(e.value)
     dense = configs.get_smoke("gemma-2b")
     dd = sum(P.leaf_sizes(lm.lm_spec(dense)))
     for lay, tc, what in ((SH.Layout(mesh, 0, 2, dd), tcfg, "holds the rank's blocks"),
