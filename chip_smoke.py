@@ -103,7 +103,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     rtol 1e-4 a round, EF21-P's finite and falling; then
     ``repro_torch.transport_bench`` on the card;
 (o) the fleet: ``fleet_run`` of MARINA-P (perm, Polyak) and EF21-P (TopK) at
-    d=1000, population 50,000, cohort 16, T=4, measure_wire, on the
+    d=1000, population 50,000, cohort 16, T=3, measure_wire, on the
     flaky_mobile and two_tier_diurnal mixes (the evaluation cohort: 64
     clients, 256 MB of f32 on the card), card against CPU at one seed:
     participation stats, s2w, wire and join bits equal a round, MARINA-P's
@@ -233,8 +233,9 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     launched), then zeroed before (v2) and read after it (every kernel but
     the two rotk entries must have launched).
 
-(w) the LM train step across a process group (``repro_torch.train.sharded``):
-    (w0) first, before the counters are zeroed, ``rotk_apply_rows``' block
+(w) the LM train step across a process group (``repro_torch.train.sharded``),
+    (w1) beside (x2)'s processes, the rest after them:
+    (w0) after (w1)'s counters are read and (x2) has ended, ``rotk_apply_rows``' block
     map (the perm downlink on a rank's blocks under tensor parallelism over
     "model") against its plain version bit for bit in f32, fp16 and bf16, at
     every block of demo-100m's leaves on a (1, 4) mesh and at edge leaves,
@@ -270,8 +271,8 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     collective bytes by kind and a collective term.
 
 (x) the serving step across a process group (``repro_torch.serve.sharded``),
-    run after (u): (x1) alone on the card, then (x2)'s processes beside (v),
-    all of it before (w):
+    run after (u): (x1) alone on the card, then (x2)'s processes beside (v)
+    and (w1), all of it before the rest of (w):
     (x1) as one NCCL rank (mesh (1, 1), ``serve``), gemma3-1b at full width
     and depth: a prefill of SERVE_B x SERVE_S tokens and SERVE_STEPS
     teacher-forced decode steps from a seeded random cache of SERVE_CACHE
@@ -284,13 +285,18 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     shared), MOE_B x MOE_S and MOE_STEPS decode steps: the single process on
     ``lm_init`` first (its dropped copies printed; (x2)'s single-process
     sides written to files), the whole model freed, then the rank's blocks
-    from the seed (``init_params``) bit for bit, peak memory printed; the
-    counters are zeroed before (x1) and read after it;
+    from the seed (``init_params``) bit for bit, peak memory printed; then
+    the ssm and hybrid families, rwkv6-1.6b and zamba2-1.2b at full width and
+    depth as gemma3-1b (RECURRENT_ARCHS, peak memory printed); the counters
+    are zeroed before (x1) and read after it;
     (x2) 4 gloo processes on the one card, gemma3-1b at full width on the
     (2, 2) ``serve``, (1, 4) ``tp`` and (4, 1) ``serve`` meshes (the last at
     B = 1, the caches' sequence split over "data"), then MOE_ARCH on (1, 4)
     ``tp`` at B = 4 and (2, 2) ``serve`` at B = 2 (every rank its blocks
-    alone; the routed experts bit for bit the single process's rows), each rank
+    alone; the routed experts bit for bit the single process's rows), then
+    rwkv6-1.6b and zamba2-1.2b at full width, their first RECURRENT_DEPTH
+    layers, on the same two meshes (the floor includes the sharded
+    arithmetic in one process, ``sharded_check.OneRank``), each rank
     ``serve/sharded_check.run_case`` + ``hold`` (the CPU tests' own code,
     with ``card_bounds``, a bound for each case and number: logits and
     caches against the single process on the card, (2, 2) within 1.5 x the
@@ -300,7 +306,8 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     the vocabulary blocks equal to the gathered argmax and to the single
     process's tokens), each rank's peak memory printed; only gloo's own refusal of a
     CUDA collective, met by a probe, is logged in place of the run; (x3) gemma3-1b's prefill_32k,
-    decode_32k and long_500k and deepseek-v2-236b's decode_32k on 16x16 under ``serve`` and ``tp``, one rank
+    decode_32k and long_500k and the decode_32k of deepseek-v2-236b, rwkv6-1.6b and zamba2-1.2b on 16x16
+    under ``serve`` and ``tp``, one rank
     counted on ``meta`` (``python -m repro_torch.launch.dryrun``): per_rank
     records whose counts equal the CPU's (SERVE_COUNTS) exactly, with a
     collective term.
@@ -1823,7 +1830,7 @@ def serve_suite_phase(np, torch, dev, card):
 # ---------------------------------------------------------------------------
 
 TRAIN_SPECS = ("marina:perm", "marina:ind", "marina:same", "ef21p:128:1024", "none")
-TRAIN_W, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2, 512, 6
+TRAIN_W, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2, 512, 4
 TRAIN_PARAMS = 119_550_720  # examples/train_lm.py::model_100m, by the reference's count_params
 # (t1) the card's train steps against the CPU port's from the same weights,
 # batches and draws: the first step's loss differs only by the forward's
@@ -3164,22 +3171,31 @@ def sharded_dryrun_phase(proc, card):
 
 # (x): the serving step across a process group, gemma3-1b at full width
 SERVE_ARCH = "gemma3-1b"
-SERVE_B, SERVE_S, SERVE_STEPS = 4, 512, 4
-SERVE_CACHE = SERVE_S + SERVE_STEPS  # the decode runs at positions SERVE_S ...: the 512-slot rings wrap
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 512, 2
+# the decode runs at positions SERVE_S ...: the 512-slot rings wrap; 516 slots split over (x2)'s 4 data ranks
+# at B = 1 (a length they do not divide makes cache_specs split the head dim)
+SERVE_CACHE = SERVE_S + 4
 SERVE_DRYRUN_DIR = ROOT / "runs" / "dryrun_chip_serve"
 # (x1) and (x2) for the moe family: deepseek-v2-236b at full width cut to its first 2 blocks (layer
 # 0: MLA and the dense 12,288 FFN; layer 1: MLA, 160 experts top-6 and 2 shared experts)
 MOE_ARCH = "deepseek-v2-236b/2"
 MOE_PARAMS = 5_519_108_096
-MOE_B, MOE_S, MOE_STEPS = 4, 512, 3
+MOE_B, MOE_S, MOE_STEPS = 4, 512, 2
 MOE_CACHE = MOE_S + MOE_STEPS
+# (x1) and (x2) for the ssm and hybrid families: rwkv6-1.6b and zamba2-1.2b at full width, (x1) at full depth
+# (the prompt of SERVE_S is a multiple of rwkv's chunk of 32 and of zamba2's Mamba2 chunk of 256), (x2) cut
+# to their first 6 layers (rwkv6: a scan segment of 6; zamba2: 5 Mamba2 blocks, then its shared attention)
+RECURRENT_ARCHS = {"rwkv6-1.6b": 1_583_894_016, "zamba2-1.2b": 1_016_954_880}
+RECURRENT_DEPTH = 6
 # (x2)'s cases: (mesh, serve layout, batch, arch); gemma3-1b at full width (prompt SERVE_S, SERVE_STEPS
 # decode steps), then the moe cut (prompt MOE_S, MOE_STEPS decode steps; every rank builds its
 # blocks from the seed and reads the single process's outputs from (x1)'s files). gemma3-1b's (2, 2)
 # batch is 2: at B = 4 the reference's cache_specs takes the 4 repetitions of gemma3-1b's scan
 # segment for the batch and splits them over "data", which the port refuses (serve/sharded.cache_split)
 GLOO_SERVE = (("2x2", "serve", 2, SERVE_ARCH), ("1x4", "tp", SERVE_B, SERVE_ARCH), ("4x1", "serve", 1, SERVE_ARCH),
-              ("1x4", "tp", MOE_B, MOE_ARCH), ("2x2", "serve", 2, MOE_ARCH))
+              ("1x4", "tp", MOE_B, MOE_ARCH), ("2x2", "serve", 2, MOE_ARCH)) + tuple(
+    (shape, name, batch, f"{arch}/{RECURRENT_DEPTH}") for arch in RECURRENT_ARCHS
+    for shape, name, batch in (("1x4", "tp", SERVE_B), ("2x2", "serve", 2)))
 # (x3): the CPU's per-rank counts of gemma3-1b's serving shapes and deepseek-v2-236b's decode_32k on
 # 16x16 (python -m repro_torch.launch.dryrun --arch A --shape S --serve-layout L;
 # tests/test_torch_collective_count.py), by "layout/arch/shape"
@@ -3208,6 +3224,18 @@ SERVE_COUNTS = {
     "tp/deepseek-v2-236b/decode_32k": {
         "flops": 461533347840.0, "bytes": 281873529984.0,
         "coll": {"all-gather": 451164160.0, "reduce-scatter": 0.0, "all-reduce": 48742400.0}},
+    "serve/rwkv6-1.6b/decode_32k": {
+        "flops": 1452326912.0, "bytes": 528156132.0,
+        "coll": {"all-gather": 200636416.0, "reduce-scatter": 0.0, "all-reduce": 3178496.0}},
+    "tp/rwkv6-1.6b/decode_32k": {
+        "flops": 1452326912.0, "bytes": 370718180.0,
+        "coll": {"all-gather": 835584.0, "reduce-scatter": 0.0, "all-reduce": 3178496.0}},
+    "serve/zamba2-1.2b/decode_32k": {
+        "flops": 2100559872.0, "bytes": 11172262652.0,
+        "coll": {"all-gather": 175509504.0, "reduce-scatter": 0.0, "all-reduce": 2917376.0}},
+    "tp/zamba2-1.2b/decode_32k": {
+        "flops": 2100559872.0, "bytes": 11050128124.0,
+        "coll": {"all-gather": 5373952.0, "reduce-scatter": 0.0, "all-reduce": 2917376.0}},
 }
 
 
@@ -3218,13 +3246,14 @@ def moe_config(configs):
     return dataclasses.replace(configs.get("deepseek-v2-236b"), num_layers=2, block_pattern=("attn", "moe"))
 
 
-def serve_sharded_phase(np, torch, dev, card):
+def serve_sharded_phase(np, torch, dev, card, arch=SERVE_ARCH):
     """(x1): ``serve/sharded.py``'s prefill and decode as one NCCL rank
-    (mesh (1, 1), ``serve``) at gemma3-1b's full width, beside
-    ``lm.forward`` / ``lm.decode_step``: logits and caches bit for bit, greedy
-    sampling equal, the bytes handed to NCCL equal to the count of the same
-    steps on ``meta``; ms a step of both paths, in turns (host clock after a
-    sync). Returns the seconds it took."""
+    (mesh (1, 1), ``serve``) at ``arch``'s full width and depth (gemma3-1b,
+    rwkv6-1.6b, zamba2-1.2b), beside ``lm.forward`` / ``lm.decode_step``:
+    logits and caches bit for bit, greedy sampling equal, the bytes handed
+    to NCCL equal to the count of the same steps on ``meta``; ms a step of
+    both paths, in turns (host clock after a sync), and the peak memory.
+    Returns the seconds it took."""
     import socket
 
     import torch.distributed as dist
@@ -3239,7 +3268,11 @@ def serve_sharded_phase(np, torch, dev, card):
     from repro_torch.serve import sharded_check as SC
 
     t0 = time.perf_counter()
-    cfg = configs.get(SERVE_ARCH)
+    cfg = configs.get(arch)
+    if arch in RECURRENT_ARCHS and cfg.param_count() != RECURRENT_ARCHS[arch]:
+        fail(f"(x1) {arch} has {cfg.param_count():,} parameters, not {RECURRENT_ARCHS[arch]:,}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -3316,12 +3349,13 @@ def serve_sharded_phase(np, torch, dev, card):
         if not torch.isfinite(got.float()).all():
             fail("(x1) non-finite logits")
         dec_ms = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
-        log(f"(x1) {SERVE_ARCH} at full width ({cfg.param_count():,} parameters) on one NCCL rank, mesh (1, 1) "
-            f"serve: prefill {SERVE_B} x {SERVE_S} and {SERVE_STEPS} teacher-forced decode steps from a "
+        log(f"(x1) {arch} at full width and depth ({cfg.param_count():,} parameters) on one NCCL rank, mesh "
+            f"(1, 1) serve: prefill {SERVE_B} x {SERVE_S} and {SERVE_STEPS} teacher-forced decode steps from a "
             f"{SERVE_CACHE}-position cache: logits and caches bit-equal to lm.forward / lm.decode_step, greedy "
             f"equal; ms prefill sharded {pf_ms['sharded']:.3f} / single {pf_ms['single']:.3f}, ms a decode step "
             f"sharded {dec_ms['sharded']:.3f} / single {dec_ms['single']:.3f} (median of {SERVE_STEPS}, in turns, "
-            f"eager); bytes handed to NCCL {moved} = counted {counted} (an axis of one rank runs no collective) "
+            f"eager); bytes handed to NCCL {moved} = counted {counted} (an axis of one rank runs no collective); "
+            f"peak GiB {torch.cuda.max_memory_allocated() / 2**30:.2f} (the model whole and the rank's copy of it) "
             f"({card})")
         del params, sp, caches, mine, got, want, x
         torch.cuda.synchronize()
@@ -3517,7 +3551,11 @@ def config(arch):
 
     if arch == "deepseek-v2-236b/2":  # full width, its first 2 blocks (chip_smoke.moe_config)
         return dataclasses.replace(configs.get("deepseek-v2-236b"), num_layers=2, block_pattern=("attn", "moe"))
-    return configs.get(arch)
+    name, _, depth = arch.partition("/")
+    cfg = configs.get(name)
+    if depth:  # full width, its first layers (chip_smoke.RECURRENT_DEPTH)
+        cfg = dataclasses.replace(cfg, num_layers=int(depth), block_pattern=cfg.block_pattern[:int(depth)])
+    return cfg
 
 
 def rank_main(rank, init, cases, out_dir):
@@ -3660,7 +3698,8 @@ def gloo_serve_phase(started, card):
             f"{[c['floor'] for c in cases]}){routed}; "
             f"prefill bit for bit required {c0['prefill_exact']}; the first w_out product's outputs not correctly "
             f"rounded (rank 0: port / single process / bf16 partials) {c0['rounded_once']}; heads of rank 1 "
-            f"{cases[1]['heads']}; bytes a rank (rank 0) {c0['moved']} = counted; cache bytes a rank "
+            f"{cases[1]['heads']}, recurrent heads {cases[1].get('ssm_heads')}; bytes a rank (rank 0) "
+            f"{c0['moved']} = counted; cache bytes a rank "
             f"{c0['cache_bytes']:,} (cache_specs: {c0['cache_bytes_specs']:,}); parameters a rank "
             f"{c0['param_numel']:,} = local_numel; greedy tokens equal to the single process's by rank "
             f"{[c['greedy_single'] for c in cases]} (the picked tokens' single-process logits below its largest by "
@@ -4229,7 +4268,7 @@ def main() -> int:
     t_n = time.perf_counter()
     transport_us = transport_phase(np, torch, dev, prob, prob_cpu, T=120)
     t_o = time.perf_counter()
-    fleet_us = fleet_phase(np, torch, dev, D, T=4, population=50_000, cohort=16)
+    fleet_us = fleet_phase(np, torch, dev, D, T=3, population=50_000, cohort=16)
     part_us = participation_phase(np, torch, dev, prob, prob_cpu, T=40)
     torch.cuda.synchronize()
     slice_launches = dict(runtime.LAUNCHES)
@@ -4385,6 +4424,7 @@ def main() -> int:
     x3 = serve_dryrun_start()  # on the host's cores beside (x1) and (x2)
     runtime.reset_launches()
     x1_s = serve_sharded_phase(np, torch, dev, card)  # alone on the card: its ms are timed
+    x1_rec_s = {arch: serve_sharded_phase(np, torch, dev, card, arch) for arch in RECURRENT_ARCHS}
     moe_dir = tempfile.mkdtemp(prefix="moe_serve_")
     moe_files, x1_moe_s = moe_serve_phase(np, torch, dev, card, moe_dir)
     torch.cuda.synchronize()
@@ -4409,32 +4449,37 @@ def main() -> int:
     log(f"(v) launches: (v1) {grid_launches}, (v2) {smoke_launches}; (v1) {grid_s:.1f} s, (v2) {smoke_s:.1f} s, "
         f"(v3) {sigma_s:.1f} s, beside (x2)'s 4 processes ({card})")
 
-    serve_refusal, x2_s = gloo_serve_phase(x2, card)
-    shutil.rmtree(moe_dir, ignore_errors=True)
-    serve_dryrun_phase(x3, card)
-    log(f"(x) launches of the sharded serving steps (x1): {x_launches} (no hand kernel is on this path); (x1) "
-        f"{x1_s:.1f} s, (x1) {MOE_ARCH} {x1_moe_s:.1f} s, (x2) {x2_s:.1f} s"
-        f"{' (gloo refused CUDA tensors)' if serve_refusal else ''}; (x) took "
-        f"{time.perf_counter() - t_x0:.1f} s, (v) beside (x2) included; the script so far "
-        f"{time.perf_counter() - T_START:.1f} s ({card})")
-
-    # --- (w) the LM train step across a process group ---------------------------------
+    # --- (w1) the LM train step across a process group as one NCCL rank, also beside (x2)'s processes
+    # (their launches are their own processes'; its ms a step are taken in turns with the single process)
     t_w0 = time.perf_counter()
-    # (w0) the block map against its plain version, before the counts are zeroed: not the path's launches
-    block_err, block_cases, block_ms = rotk_block_phase(np, torch, dev, timed, card)
     runtime.reset_launches()
     w_launches = sharded_phase(np, torch, dev, card)
     torch.cuda.synchronize()
     for kname in SHARDED_KERNELS:
         if w_launches.get(kname, 0) <= 0:
             fail(f"(w1) the sharded train steps never launched {kname}")
+    w1_s = time.perf_counter() - t_w0
+
+    serve_refusal, x2_s = gloo_serve_phase(x2, card)
+    shutil.rmtree(moe_dir, ignore_errors=True)
+    serve_dryrun_phase(x3, card)
+    log(f"(x) launches of the sharded serving steps (x1): {x_launches} (no hand kernel is on this path); (x1) "
+        f"{x1_s:.1f} s, (x1) {MOE_ARCH} {x1_moe_s:.1f} s, (x1) "
+        + ", ".join(f"{a} {t:.1f} s" for a, t in x1_rec_s.items()) + f", (x2) {x2_s:.1f} s"
+        f"{' (gloo refused CUDA tensors)' if serve_refusal else ''}; (x) took "
+        f"{time.perf_counter() - t_x0:.1f} s, (v) and (w1) beside (x2) included; the script so far "
+        f"{time.perf_counter() - T_START:.1f} s ({card})")
+
+    # --- (w) the rest: (w0) once the card is free of (x2)'s processes (its kernel times), then (w2), (w3) ------
     t_w1 = time.perf_counter()
+    # (w0) the block map against its plain version, after (w1)'s counts were read: not the path's launches
+    block_err, block_cases, block_ms = rotk_block_phase(np, torch, dev, timed, card)
     w3 = sharded_dryrun_start()  # on the host's cores beside (w2)
     gloo_refusal, w2_s, tp_launches = gloo_card_phase(card)
     sharded_dryrun_phase(w3, card)
-    log(f"(w) launches of the sharded steps: {w_launches}; (w1) {t_w1 - t_w0:.1f} s, (w2) {w2_s:.1f} s"
-        f"{' (gloo refused CUDA tensors)' if gloo_refusal else ''}; (w) took {time.perf_counter() - t_w0:.1f} s "
-        f"({card})")
+    log(f"(w) launches of the sharded steps: {w_launches}; (w1) {w1_s:.1f} s (beside (x2)), (w2) {w2_s:.1f} s"
+        f"{' (gloo refused CUDA tensors)' if gloo_refusal else ''}; (w0), (w2) and (w3) took "
+        f"{time.perf_counter() - t_w1:.1f} s ({card})")
 
     summary = {"kernels": [
         {"name": "l1_subgrad", "route": "cuda", "source": "src/repro_torch/csrc/l1_subgrad.cu",

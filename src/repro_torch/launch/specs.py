@@ -38,17 +38,19 @@ each worker's rows split over "model"; where the reference would drop
 parallel program, the default build, so that request, and ``act_spec`` for
 configs with experts, raise.
 
-The serving shapes (prefill_32k, decode_32k, long_500k) of the dense, vlm,
-audio and moe families build rank 0's step of ``serve/sharded.py`` under
+The serving shapes (prefill_32k, decode_32k, long_500k) of every family
+(dense, vlm, audio, moe, ssm, hybrid) build rank 0's step of ``serve/sharded.py`` under
 ``serve_layout`` instead (``meta["split"] = "per_rank"``): its
 ``shard_params`` blocks, its caches (``shard_caches``), the global batch (the
 step takes its rows) and a ``CountingComm`` that charges the ZeRO-3 gathers
 over "data", the partial sums over "model" (the routed experts' K·N·D
-outputs among them) and the rest of the step's collectives. The ssm and
-hybrid families, whose sharded serving step is not ported, and caches that ``cache_specs`` splits over another dim than the
-batch or the sequence keep the whole step, which the dry-run splits evenly
-(``"even"``); ``meta["even_note"]`` names what is not ported, for these and
-for the train step of a family or mesh that :func:`train_refusal` names.
+outputs, Mamba2's gathered ``in_proj`` product and RWKV-6's gathered gates
+among them) and the rest of the step's collectives. Caches that
+``cache_specs`` splits over another dim than the batch or the sequence (the
+recurrent states of rwkv6 and zamba2 at long_500k's B = 1) keep the whole
+step, which the dry-run splits evenly (``"even"``); ``meta["even_note"]``
+names what is not ported, for these and for the train step of a family or
+mesh that :func:`train_refusal` names.
 """
 from __future__ import annotations
 

@@ -11,15 +11,82 @@ Numerical notes (the reference's): Mamba2 decay exponents are <= 0 inside
 the chunk quadratic; RWKV6 per-channel decays are clamped to log w in
 [-2, -1e-6] and the intra-chunk factors are stabilised around the chunk's
 midpoint cumulative decay (chunk = 32).
+
+``tp``: the shard context of a rank of a sharded model (:mod:`.layers`),
+which runs the recurrence on its heads (:class:`Heads`, ``tp.ssm_heads``;
+no head reads another). With ``tp=None`` nothing changes. With a context
+every weight is read through ``tp.weight`` (gathered over "data" where the
+layout splits it there), and:
+
+* RWKV-6: ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` column-parallel on the
+  rank's heads; ``w_lora_a`` column-parallel over its lora columns, whose
+  ``tanh`` is gathered over "model" (exact: elementwise) before the product
+  with the rank's column block of ``w_lora_b``; ``w0`` and ``u`` narrowed to
+  the rank's heads; the per-head ``out_norm`` local; ``w_out`` row-parallel
+  (fp32 partials summed over "model", rounded once). Channel mix: ``cm_k``
+  column-parallel, ``cm_v`` row-parallel, the sigmoid gate of the ``cm_r``
+  column block gathered over "model" (exact) before the product. The state
+  cache holds the rank's heads; ``x_last`` / ``cm_x_last`` are whole.
+* Mamba2: the spec cuts ``in_proj``'s columns ``[z | x | B | C | dt]``
+  across the segments, so its column-parallel product is gathered over
+  "model" (one all-gather of [B, S, 2 d_inner + 2N + H]) and the rank takes
+  its heads' ``z``, ``x`` and ``dt`` columns and ``B``, ``C`` whole; the
+  depthwise conv runs on those channels, ``conv_w`` read whole; the SSD on
+  the rank's heads; the gated RMSNorm over all of d_inner takes the row's
+  sum of squares summed over "model" (one fp32 all-reduce of [B, S, 1]);
+  ``out_proj`` row-parallel. The ssm cache holds the rank's heads; the conv
+  window is whole (every rank has the whole product).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
 
 from .config import MambaConfig, ModelConfig, RWKVConfig
-from .layers import F32, rmsnorm, rmsnorm_spec
-from .params import Leaf, dense, full, mm, weight
+from .layers import F32, _col_mm, _row_mm, _weight, rmsnorm, rmsnorm_spec
+from .params import Leaf, dense, full
+
+
+@dataclasses.dataclass(frozen=True)
+class Heads:
+    """The recurrent heads (RWKV-6's D / head_dim, Mamba2's d_inner /
+    head_dim) a rank computes: ``h0 ... h0 + n - 1``; ``whole``: its "model"
+    block of the head-split weights cuts through a head, so it computes all
+    of them with those weights gathered over "model" first."""
+
+    h0: int
+    n: int
+    whole: bool = False
+
+
+def _heads(tp, H: int) -> Heads:
+    return Heads(0, H) if tp is None else tp.ssm_heads
+
+
+def _head_cols(t: torch.Tensor, hs: Heads, width: int, H: int) -> torch.Tensor:
+    """The columns (last dim) of heads ``hs`` of a tensor laid out as H
+    blocks of ``width``; ``t`` itself where they are all of them."""
+    return t if hs.n == H else t.narrow(-1, hs.h0 * width, hs.n * width)
+
+
+def _raw(params, name: str, tp, whole: bool = False) -> torch.Tensor:
+    """``params[name]`` as the single process reads it, in its own dtype (no
+    cast: the reference adds or multiplies the leaf as it is); on a rank,
+    gathered over "data" where the layout splits it there (and over "model"
+    too if ``whole``)."""
+    return params[name] if tp is None else tp.weight(params, name, params[name].dtype, whole)
+
+
+def _gathered(t: torch.Tensor, params, name: str, tp) -> torch.Tensor:
+    """``t`` [..., cols], the rank's column block of a product with
+    ``params[name]``, gathered over "model" where that weight's columns are
+    split there (the whole product); ``t`` itself elsewhere."""
+    if tp is None or tp.model_block(params, name, -1) is None:
+        return t
+    return tp.gather(t, t.dim() - 1, "model")
+
 
 # ===========================================================================
 # Mamba2 (SSD)
@@ -44,52 +111,95 @@ def mamba_spec(cfg: ModelConfig):
     }
 
 
-def _causal_conv(xBC, params):
+def _conv_channels(t: torch.Tensor, cfg: ModelConfig, hs: Heads) -> torch.Tensor:
+    """The channels of heads ``hs`` of a tensor over ``[x | B | C]`` (last
+    dim): their x channels, then B and C whole; ``t`` itself for all heads."""
+    m = cfg.mamba
+    d_inner = m.expand * cfg.d_model
+    if hs.n * m.head_dim == d_inner:
+        return t
+    return torch.cat([t[..., hs.h0 * m.head_dim:(hs.h0 + hs.n) * m.head_dim], t[..., d_inner:]], -1)
+
+
+def _conv_weights(cfg, params, dtype, tp, hs: Heads):
+    """(conv_w [W, C'], conv_b [C']) of the channels of heads ``hs``
+    (:func:`_conv_channels`); conv_w read whole."""
+    w = _weight(params, "conv_w", dtype, tp, True)
+    return _conv_channels(w, cfg, hs), _conv_channels(_weight(params, "conv_b", dtype, tp), cfg, hs)
+
+
+def _causal_conv(xBC, w, b):
     """Depthwise causal conv along the sequence, in the activations' dtype
     with a rounding per product and per add (the reference's Python sum).
-    xBC: [B, S, C]; conv_w: [W, C]."""
-    w = weight(params, "conv_w", xBC.dtype)
+    xBC: [B, S, C]; w: [W, C]; b: [C]."""
     W = w.shape[0]
     S = xBC.shape[1]
     pads = F.pad(xBC, (0, 0, W - 1, 0))
     out = sum(pads[:, i:i + S, :] * w[i] for i in range(W))
-    return out + weight(params, "conv_b", xBC.dtype)
+    return out + b
 
 
-def _mamba_project(cfg, params, x):
+def _mamba_project(cfg, params, x, tp=None):
+    """(z, xBC, dt_raw) of the rank's heads ([B, S, n hd], [B, S, n hd +
+    2N], [B, S, n]), the whole ``[x | B | C]`` [B, S, d_inner + 2N], and the
+    heads."""
     m = cfg.mamba
     d_inner = m.expand * cfg.d_model
-    nheads = d_inner // m.head_dim
-    zxbcdt = mm(x, weight(params, "in_proj", x.dtype))
-    z = zxbcdt[..., :d_inner]
+    H = d_inner // m.head_dim
+    hs = _heads(tp, H)
+    zxbcdt = _gathered(_col_mm(x, [_weight(params, "in_proj", x.dtype, tp)], tp)[0], params, "in_proj", tp)
+    z = _head_cols(zxbcdt[..., :d_inner], hs, m.head_dim, H)
     xBC = zxbcdt[..., d_inner:2 * d_inner + 2 * m.state_dim]
-    dt_raw = zxbcdt[..., 2 * d_inner + 2 * m.state_dim:]
-    return z, xBC, dt_raw, d_inner, nheads
+    dt_raw = _head_cols(zxbcdt[..., 2 * d_inner + 2 * m.state_dim:], hs, 1, H)
+    return z, _conv_channels(xBC, cfg, hs), dt_raw, xBC, hs
 
 
-def _mamba_post(cfg, params, xin, y, z):
-    """y + D skip, gated norm, out projection."""
+def _mamba_decay(cfg, params, tp, hs: Heads):
+    """(dt_bias, A = -exp(A_log)) of heads ``hs``."""
+    H = cfg.mamba.expand * cfg.d_model // cfg.mamba.head_dim
+    dt_bias = _head_cols(_raw(params, "dt_bias", tp), hs, 1, H)
+    return dt_bias, -torch.exp(_head_cols(_raw(params, "A_log", tp), hs, 1, H))
+
+
+def _gated_norm(cfg, params, y, tp):
+    """The RMSNorm of ``y`` [B, S, n hd] over all of d_inner; on a rank of
+    some of the heads, the row's sum of squares summed over "model" in fp32
+    and the scale's columns of its heads."""
+    m = cfg.mamba
+    d_inner = m.expand * cfg.d_model
+    if tp is None or y.shape[-1] == d_inner:
+        return rmsnorm(params["out_norm"], y, cfg.rms_eps, tp)
+    xf = y.to(F32)
+    var = tp.all_reduce((xf * xf).sum(-1, keepdim=True), "model") / d_inner
+    scale = tp.weight(params["out_norm"], "scale", F32).narrow(-1, tp.ssm_heads.h0 * m.head_dim, y.shape[-1])
+    return (xf * torch.rsqrt(var + cfg.rms_eps) * scale).to(y.dtype)
+
+
+def _mamba_post(cfg, params, xin, y, z, hs: Heads, tp=None):
+    """y + D skip, gated norm, out projection (row-parallel on a rank)."""
     B_, S, H, hd = y.shape
     xh = xin.reshape(B_, S, H, hd)
-    y = y + weight(params, "D", y.dtype)[None, None, :, None] * xh
+    D = _head_cols(_weight(params, "D", y.dtype, tp), hs, 1, cfg.mamba.expand * cfg.d_model // hd)
+    y = y + D[None, None, :, None] * xh
     y = y.reshape(B_, S, H * hd)
-    y = rmsnorm(params["out_norm"], y, cfg.rms_eps)
+    y = _gated_norm(cfg, params, y, tp)
     y = y * F.silu(z.to(F32)).to(y.dtype)
-    return mm(y, weight(params, "out_proj", y.dtype))
+    return _row_mm(y, params, "out_proj", tp)
 
 
-def mamba_apply(cfg: ModelConfig, params, x):
+def mamba_apply(cfg: ModelConfig, params, x, tp=None):
     """Prefill SSD (``ssm.py:88``). x: [B, S, D] -> [B, S, D]; S must be a
-    multiple of the chunk."""
+    multiple of the chunk. On a rank (``tp``): its heads."""
     m = cfg.mamba
     B_, S, _ = x.shape
-    z, xBC, dt_raw, d_inner, H = _mamba_project(cfg, params, x)
-    xBC = F.silu(_causal_conv(xBC, params).to(F32)).to(x.dtype)
-    xs = xBC[..., :d_inner]
-    Bm = xBC[..., d_inner:d_inner + m.state_dim].to(F32)  # [B,S,N]
-    Cm = xBC[..., d_inner + m.state_dim:].to(F32)  # [B,S,N]
-    dt = F.softplus(dt_raw.to(F32) + params["dt_bias"])  # [B,S,H]
-    A = -torch.exp(params["A_log"])  # [H]
+    z, xBC, dt_raw, _, hs = _mamba_project(cfg, params, x, tp)
+    H, nd = hs.n, hs.n * m.head_dim
+    xBC = F.silu(_causal_conv(xBC, *_conv_weights(cfg, params, x.dtype, tp, hs)).to(F32)).to(x.dtype)
+    xs = xBC[..., :nd]
+    Bm = xBC[..., nd:nd + m.state_dim].to(F32)  # [B,S,N]
+    Cm = xBC[..., nd + m.state_dim:].to(F32)  # [B,S,N]
+    dt_bias, A = _mamba_decay(cfg, params, tp, hs)
+    dt = F.softplus(dt_raw.to(F32) + dt_bias)  # [B,S,H]
     loga = dt * A[None, None, :]  # log decay, <= 0
     xh = xs.reshape(B_, S, H, m.head_dim).to(F32)
     xdt = xh * dt[..., None]
@@ -124,7 +234,7 @@ def mamba_apply(cfg: ModelConfig, params, x):
     y_inter = torch.stack(y_inter, 1)  # [B,nc,Q,H,hd]
 
     y = (y_intra + y_inter).reshape(B_, S, H, m.head_dim).to(x.dtype)
-    return _mamba_post(cfg, params, xs, y, z)
+    return _mamba_post(cfg, params, xs, y, z, hs, tp)
 
 
 def mamba_cache_init(cfg: ModelConfig, batch: int, dtype=F32, device=None):
@@ -138,28 +248,31 @@ def mamba_cache_init(cfg: ModelConfig, batch: int, dtype=F32, device=None):
     }
 
 
-def mamba_decode(cfg: ModelConfig, params, x, cache, pos):
-    """One-token recurrence (``ssm.py:158``). x: [B, 1, D]."""
+def mamba_decode(cfg: ModelConfig, params, x, cache, pos, tp=None):
+    """One-token recurrence (``ssm.py:158``). x: [B, 1, D]. On a rank
+    (``tp``): its heads and their ssm cache, the whole conv window."""
     m = cfg.mamba
     B_ = x.shape[0]
-    z, xBC, dt_raw, d_inner, H = _mamba_project(cfg, params, x)
+    z, _, dt_raw, xBC, hs = _mamba_project(cfg, params, x, tp)
+    H, nd = hs.n, hs.n * m.head_dim
     hist = torch.cat([cache["conv"], xBC.to(cache["conv"].dtype)], dim=1)
     # a dot over the conv window in the cache dtype: fp32 products and sum,
     # one rounding (XLA computes a bf16 dot in fp32)
-    w = weight(params, "conv_w", hist.dtype)
-    conv_out = torch.einsum("bwc,wc->bc", hist.to(F32), w.to(F32)).to(hist.dtype)
-    conv_out = conv_out + weight(params, "conv_b", hist.dtype)
+    w, b = _conv_weights(cfg, params, hist.dtype, tp, hs)
+    conv_out = torch.einsum("bwc,wc->bc", _conv_channels(hist, cfg, hs).to(F32), w.to(F32)).to(hist.dtype)
+    conv_out = conv_out + b
     xBC1 = F.silu(conv_out.to(F32))[:, None, :].to(x.dtype)
     new_conv = hist[:, 1:, :]
-    xs = xBC1[..., :d_inner]
-    Bm = xBC1[..., d_inner:d_inner + m.state_dim].to(F32)[:, 0]
-    Cm = xBC1[..., d_inner + m.state_dim:].to(F32)[:, 0]
-    dt = F.softplus(dt_raw.to(F32) + params["dt_bias"])[:, 0]  # [B,H]
-    a = torch.exp(dt * (-torch.exp(params["A_log"]))[None, :])  # [B,H]
+    xs = xBC1[..., :nd]
+    Bm = xBC1[..., nd:nd + m.state_dim].to(F32)[:, 0]
+    Cm = xBC1[..., nd + m.state_dim:].to(F32)[:, 0]
+    dt_bias, A = _mamba_decay(cfg, params, tp, hs)
+    dt = F.softplus(dt_raw.to(F32) + dt_bias)[:, 0]  # [B,H]
+    a = torch.exp(dt * A[None, :])  # [B,H]
     xh = xs.reshape(B_, 1, H, m.head_dim).to(F32)[:, 0]  # [B,H,hd]
     S_new = a[:, :, None, None] * cache["ssm"] + torch.einsum("bn,bhd,bh->bhnd", Bm, xh, dt)
     y = torch.einsum("bn,bhnd->bhd", Cm, S_new)[:, None]  # [B,1,H,hd]
-    out = _mamba_post(cfg, params, xs, y.to(x.dtype), z)
+    out = _mamba_post(cfg, params, xs, y.to(x.dtype), z, hs, tp)
     return out, {"ssm": S_new, "conv": new_conv}
 
 
@@ -200,42 +313,57 @@ def _shift(x, last=None):
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
-def _rwkv_proj(cfg, params, x, x_prev):
+def _rwkv_proj(cfg, params, x, x_prev, tp=None):
+    """(r, k, v, log w [B, S, n, hd], g [B, S, n hd]) of the rank's heads."""
     r = cfg.rwkv
-    H = cfg.d_model // r.head_dim
+    hs = _heads(tp, cfg.d_model // r.head_dim)
+    H = hs.n
     B_, S, _ = x.shape
     dt = x.dtype
-    mu = weight(params, "mu", dt)
+    mu = _weight(params, "mu", dt, tp)
 
     def mix(i):
         return x + mu[i] * (x_prev - x)
 
-    rv = mm(mix(0), weight(params, "w_r", dt)).reshape(B_, S, H, r.head_dim)
-    kv = mm(mix(1), weight(params, "w_k", dt)).reshape(B_, S, H, r.head_dim)
-    vv = mm(mix(2), weight(params, "w_v", dt)).reshape(B_, S, H, r.head_dim)
-    logw = params["w0"] + torch.tanh(mm(mix(3), weight(params, "w_lora_a", dt)).to(F32)) @ params["w_lora_b"]
+    def proj(i, name, whole=hs.whole):
+        return _col_mm(mix(i), [_weight(params, name, dt, tp, whole)], tp)[0]
+
+    rv = proj(0, "w_r").reshape(B_, S, H, r.head_dim)
+    kv = proj(1, "w_k").reshape(B_, S, H, r.head_dim)
+    vv = proj(2, "w_v").reshape(B_, S, H, r.head_dim)
+    lora = _gathered(torch.tanh(proj(3, "w_lora_a", False).to(F32)), params, "w_lora_a", tp)
+    w0 = _head_cols(_raw(params, "w0", tp), hs, r.head_dim, cfg.d_model // r.head_dim)
+    logw = w0 + lora @ _raw(params, "w_lora_b", tp, hs.whole)
     logw = -torch.exp(logw)  # < 0
     logw = torch.clamp(logw, RWKV_LOGW_MIN, RWKV_LOGW_MAX).reshape(B_, S, H, r.head_dim)
-    gv = F.silu(mm(mix(4), weight(params, "w_g", dt)).to(F32)).to(dt)
+    gv = F.silu(proj(4, "w_g").to(F32)).to(dt)
     return rv, kv, vv, logw, gv
 
 
-def _rwkv_out(cfg, params, wkv, g, x_dtype):
+def _rwkv_u(cfg, params, tp) -> torch.Tensor:
+    """The bonus ``u`` of the rank's heads, [n, hd] fp32."""
+    r = cfg.rwkv
+    H = cfg.d_model // r.head_dim
+    hs = _heads(tp, H)
+    return _head_cols(_raw(params, "u", tp), hs, r.head_dim, H).reshape(hs.n, r.head_dim)
+
+
+def _rwkv_out(cfg, params, wkv, g, x_dtype, tp=None):
     B_, S, H, hd = wkv.shape
-    y = rmsnorm(params["out_norm"], wkv.to(F32)).to(x_dtype)
+    y = rmsnorm(params["out_norm"], wkv.to(F32), tp=tp).to(x_dtype)
     y = y.reshape(B_, S, H * hd) * g.reshape(B_, S, H * hd)
-    return mm(y, weight(params, "w_out", x_dtype))
+    return _row_mm(y, params, "w_out", tp)
 
 
-def rwkv_timemix_apply(cfg: ModelConfig, params, x, x_last=None):
+def rwkv_timemix_apply(cfg: ModelConfig, params, x, x_last=None, tp=None):
     """Chunked RWKV6 time mix (``ssm.py:251``). x: [B, S, D], S a multiple
-    of 32."""
+    of 32. On a rank (``tp``): its heads."""
     r = cfg.rwkv
     B_, S, D = x.shape
-    H = D // r.head_dim
-    rv, kv, vv, logw, g = _rwkv_proj(cfg, params, x, _shift(x, x_last))
+    rv, kv, vv, logw, g = _rwkv_proj(cfg, params, x, _shift(x, x_last), tp)
+    H = rv.shape[2]
     rv, kv, vv = (t.to(F32) for t in (rv, kv, vv))
-    u = params["u"].reshape(H, r.head_dim)
+    u = _rwkv_u(cfg, params, tp)
 
     Q = RWKV_CHUNK
     if S % Q:
@@ -269,36 +397,35 @@ def rwkv_timemix_apply(cfg: ModelConfig, params, x, x_last=None):
         y_inter.append(torch.einsum("bqhk,bhkv->bqhv", r_in[:, c], S_prev))
         S_prev = cdec[:, c][:, :, :, None] * S_prev + add[:, c]
     y = (y_intra + torch.stack(y_inter, 1)).reshape(B_, S, H, r.head_dim)
-    return _rwkv_out(cfg, params, y, g, x.dtype)
+    return _rwkv_out(cfg, params, y, g, x.dtype, tp)
 
 
-def rwkv_timemix_decode(cfg: ModelConfig, params, x, cache, pos):
+def rwkv_timemix_decode(cfg: ModelConfig, params, x, cache, pos, tp=None):
     """One-token RWKV6 step (``ssm.py:300``). cache: {state: [B,H,k,v],
-    x_last: [B,D]}."""
-    r = cfg.rwkv
-    H = cfg.d_model // r.head_dim
-    rv, kv, vv, logw, g = _rwkv_proj(cfg, params, x, cache["x_last"][:, None, :].to(x.dtype))
+    x_last: [B,D]}; on a rank (``tp``) the state of its heads."""
+    rv, kv, vv, logw, g = _rwkv_proj(cfg, params, x, cache["x_last"][:, None, :].to(x.dtype), tp)
     rv, kv, vv = (t.to(F32)[:, 0] for t in (rv, kv, vv))  # [B,H,hd]
     w = torch.exp(logw.to(F32))[:, 0]
-    u = params["u"].reshape(H, r.head_dim)
+    u = _rwkv_u(cfg, params, tp)
     S_prev = cache["state"]
     y = (torch.einsum("bhk,bhkv->bhv", rv, S_prev)
          + torch.einsum("bhk,hk,bhk,bhv->bhv", rv, u, kv, vv))
     S_new = w[..., None] * S_prev + torch.einsum("bhk,bhv->bhkv", kv, vv)
-    out = _rwkv_out(cfg, params, y[:, None], g, x.dtype)
+    out = _rwkv_out(cfg, params, y[:, None], g, x.dtype, tp)
     return out, {"state": S_new, "x_last": x[:, 0].to(cache["x_last"].dtype)}
 
 
-def rwkv_chanmix_apply(cfg: ModelConfig, params, x, x_last=None):
-    """RWKV channel mix (``ssm.py:319``)."""
+def rwkv_chanmix_apply(cfg: ModelConfig, params, x, x_last=None, tp=None):
+    """RWKV channel mix (``ssm.py:319``). On a rank (``tp``): ``cm_k``
+    column-parallel, ``cm_v`` row-parallel, the gate gathered over "model"."""
     dt = x.dtype
     xs = _shift(x, x_last)
-    mu = weight(params, "cm_mu", dt)
+    mu = _weight(params, "cm_mu", dt, tp)
     xk = x + mu[0] * (xs - x)
     xr = x + mu[1] * (xs - x)
-    h = torch.square(torch.relu(mm(xk, weight(params, "cm_k", dt)).to(F32))).to(dt)
-    rgate = torch.sigmoid(mm(xr, weight(params, "cm_r", dt)).to(F32)).to(dt)
-    return rgate * mm(h, weight(params, "cm_v", dt))
+    h = torch.square(torch.relu(_col_mm(xk, [_weight(params, "cm_k", dt, tp)], tp)[0].to(F32))).to(dt)
+    rgate = torch.sigmoid(_col_mm(xr, [_weight(params, "cm_r", dt, tp)], tp)[0].to(F32)).to(dt)
+    return _gathered(rgate, params, "cm_r", tp) * _row_mm(h, params, "cm_v", tp)
 
 
 def rwkv_cache_init(cfg: ModelConfig, batch: int, dtype=F32, device=None):

@@ -17,8 +17,9 @@ leaves, everything else is unrolled. The reference scans a segment with
 ``lax.scan``; here it is a plain loop over the repetitions.
 
 ``tp``: the optional shard context of a rank of a sharded model
-(:mod:`.layers`), passed on to the attention (GQA or MLA), MLP and MoE
-blocks' layers.
+(:mod:`.layers`), passed on to every block's layers: attention (GQA or MLA,
+the ``shared`` block's too), MLP, MoE, and the Mamba2 and RWKV-6 mixers
+(:mod:`.ssm`), and to their RMSNorms.
 """
 from __future__ import annotations
 
@@ -128,12 +129,12 @@ def block_apply(cfg, kind, params, shared_params, x, *, window_override=None, ch
             h = L.mlp_apply(params["mlp"], h, cfg.mlp_kind, tp)
         return x + h
     if kind == "mamba":
-        return x + SSM.mamba_apply(cfg, params["mamba"], L.rmsnorm(params["ln"], x, cfg.rms_eps))
+        return x + SSM.mamba_apply(cfg, params["mamba"], L.rmsnorm(params["ln"], x, cfg.rms_eps, tp), tp=tp)
     if kind == "rwkv":
-        h = L.rmsnorm(params["ln1"], x, cfg.rms_eps)
-        x = x + SSM.rwkv_timemix_apply(cfg, params["rwkv"], h)
-        h = L.rmsnorm(params["ln2"], x, cfg.rms_eps)
-        return x + SSM.rwkv_chanmix_apply(cfg, params["rwkv"], h)
+        h = L.rmsnorm(params["ln1"], x, cfg.rms_eps, tp)
+        x = x + SSM.rwkv_timemix_apply(cfg, params["rwkv"], h, tp=tp)
+        h = L.rmsnorm(params["ln2"], x, cfg.rms_eps, tp)
+        return x + SSM.rwkv_chanmix_apply(cfg, params["rwkv"], h, tp=tp)
     raise ValueError(kind)
 
 
@@ -170,17 +171,17 @@ def block_decode(cfg, kind, params, shared_params, x, cache, pos, *, window_over
             h = L.mlp_apply(params["mlp"], h, cfg.mlp_kind, tp)
         return x + h, cache
     if kind == "mamba":
-        h, new = SSM.mamba_decode(cfg, params["mamba"], L.rmsnorm(params["ln"], x, cfg.rms_eps),
-                                  cache, pos)
+        h, new = SSM.mamba_decode(cfg, params["mamba"], L.rmsnorm(params["ln"], x, cfg.rms_eps, tp),
+                                  cache, pos, tp=tp)
         return x + h, new
     if kind == "rwkv":
-        h = L.rmsnorm(params["ln1"], x, cfg.rms_eps)
+        h = L.rmsnorm(params["ln1"], x, cfg.rms_eps, tp)
         tm_cache = {"state": cache["state"], "x_last": cache["x_last"]}
-        hh, tm_new = SSM.rwkv_timemix_decode(cfg, params["rwkv"], h, tm_cache, pos)
+        hh, tm_new = SSM.rwkv_timemix_decode(cfg, params["rwkv"], h, tm_cache, pos, tp=tp)
         x = x + hh
-        h2 = L.rmsnorm(params["ln2"], x, cfg.rms_eps)
+        h2 = L.rmsnorm(params["ln2"], x, cfg.rms_eps, tp)
         x = x + SSM.rwkv_chanmix_apply(cfg, params["rwkv"], h2,
-                                       x_last=cache["cm_x_last"].to(h2.dtype))
+                                       x_last=cache["cm_x_last"].to(h2.dtype), tp=tp)
         return x, {"state": tm_new["state"], "x_last": tm_new["x_last"],
                    "cm_x_last": h2[:, 0].to(cache["cm_x_last"].dtype)}
     raise ValueError(kind)

@@ -23,7 +23,12 @@ r % M); its data index runs over the mesh's data axes ("data", or ("pod",
   (long_500k at B = 1), its slice of every ring's slots (``seq_split``); over
   "model", the kv heads the rank attends with: its share where
   num_kv_heads % M == 0, else all of them. MLA's caches hold the latent
-  ([.., B, L, r] and [.., B, L, rd]), whole on every "model" rank.
+  ([.., B, L, r] and [.., B, L, rd]), whole on every "model" rank. The
+  recurrent states (RWKV-6's ``state`` [.., B, H, k, v], Mamba2's ``ssm``
+  [.., B, H, N, hd]) hold the rank's heads (:func:`recurrent_heads`); the
+  token shifts ``x_last`` / ``cm_x_last`` [.., B, D] and Mamba2's ``conv``
+  window [.., B, W-1, C] are whole. Each leaf's batch dim comes from its
+  name (:data:`BATCH_DIM`): zamba2 mixes the kinds in one tree.
 
 The step (:func:`make_prefill_step`, :func:`make_decode_step`) is
 ``lm.forward`` / ``lm.decode_step`` with the rank's :class:`ServeShard` as
@@ -37,7 +42,8 @@ with ``wq`` / ``wk`` / ``wv`` gathered over "model" where the split cuts
 through a head (MLA: ``wq`` / ``w_uk`` / ``w_uv`` on the rank's heads where
 M divides H, else whole; its latent's ``w_dkv`` / ``w_krope`` whole); the
 routed experts over "model" on E at the call's global capacity, summed
-exactly over "model" (``models/moe.py``); the embedding's rows over "model";
+exactly over "model" (``models/moe.py``); RWKV-6's and Mamba2's recurrences
+on the rank's heads (``models/ssm.py``); the embedding's rows over "model";
 the logits' vocabulary block as the result. An axis of one rank runs no
 collective (at M = 1 a product is whole and rounds once, as ``params.mm``
 does; at D = 1 a weight is read where it lies), so at one rank the step is
@@ -45,8 +51,10 @@ does; at D = 1 a weight is read where it lies), so at one rank the step is
 same operands. Every collective goes through a
 :class:`~repro_torch.launch.comm.Comm` (a ``CountingComm`` on ``meta``).
 
-Ported: the dense, vlm, audio and moe families. Refused: ssm (rwkv6) and
-hybrid (zamba2).
+Ported: the dense, vlm, audio, moe, ssm (rwkv6) and hybrid (zamba2)
+families; refused: caches that ``cache_specs`` splits over another dim than
+the batch or the sequence (:func:`cache_split`; the recurrent states at
+long_500k's B = 1).
 
 :func:`init_params` draws the rank's blocks of ``lm.lm_init(seed=...)``
 leaf by leaf, so a rank of a model that no card holds whole needs only its
@@ -66,15 +74,16 @@ from ..launch.comm import Comm, device_type, mesh_groups
 from ..launch.mesh import Mesh
 from ..models import layers as L
 from ..models import lm
+from ..models import ssm as SSM
 from ..models.config import ModelConfig
 from ..kernels.runtime import resolve_device
 from ..models.params import (FlatParams, Leaf, draw, grad_tree, leaves, leaves_with_path, mm, mm_f32,
                              shape_tree, weight)
 
-PORTED_FAMILIES = ("dense", "vlm", "audio", "moe")
-# what each family that is refused would need
-NOT_PORTED = {"ssm": "rwkv6's recurrent blocks",
-              "hybrid": "zamba2's state-space blocks beside its shared attention"}
+PORTED_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
+PORTED_BLOCKS = {"attn", "attn_local", "moe", "rwkv", "mamba", "shared"}
+# what each family that is refused would need (none is)
+NOT_PORTED: dict = {}
 
 
 class NotPorted(ValueError):
@@ -85,10 +94,10 @@ class NotPorted(ValueError):
 def check_ported(cfg: ModelConfig, what: str = "serving across a process group") -> None:
     """Raise :class:`NotPorted` unless ``cfg``'s family is one the sharded
     steps port (``what``: the step named in the message)."""
-    if cfg.family not in PORTED_FAMILIES or not set(cfg.block_pattern) <= {"attn", "attn_local", "moe"}:
-        raise NotPorted(f"{cfg.arch_id} ({cfg.family}): {what} is not ported for the "
-                        f"{cfg.family} family ({NOT_PORTED.get(cfg.family, 'blocks other than attention')}); "
-                        f"it is for {', '.join(PORTED_FAMILIES)}")
+    if cfg.family not in PORTED_FAMILIES or not set(cfg.block_pattern) <= PORTED_BLOCKS:
+        lacks = NOT_PORTED.get(cfg.family, "blocks other than " + ", ".join(sorted(PORTED_BLOCKS)))
+        raise NotPorted(f"{cfg.arch_id} ({cfg.family}): {what} is not ported for the {cfg.family} family "
+                        f"({lacks}); it is for {', '.join(PORTED_FAMILIES)}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,13 +181,20 @@ def gather_dim(comm: Comm, layout: ServeLayout, t: torch.Tensor, dim: int, axis:
     return C.gather(comm, t, dim, layout.size(axis), axis)
 
 
-def _map_spec(fn, tree, specs):
-    """``fn(leaf, spec)`` over a tree of tensors or ``Leaf``s and its spec tree."""
+def _map_leaves(fn, tree, specs=None, path: tuple = ()):
+    """``fn(path, leaf, spec)`` over a tree (dicts and lists of tensors,
+    ``Leaf``s or pairs) and its spec tree (or None: every spec None)."""
+    pick = (lambda k: None) if specs is None else specs.__getitem__
     if isinstance(tree, dict):
-        return {k: _map_spec(fn, v, specs[k]) for k, v in tree.items()}
+        return {k: _map_leaves(fn, v, pick(k), path + (k,)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_map_spec(fn, v, specs[i]) for i, v in enumerate(tree)]
-    return fn(tree, specs)
+        return [_map_leaves(fn, v, pick(i), path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree, specs)
+
+
+def _map_spec(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree and its spec tree."""
+    return _map_leaves(lambda _, leaf, spec: fn(leaf, spec), tree, specs)
 
 
 def attention_heads(cfg: ModelConfig, layout: ServeLayout) -> L.Heads:
@@ -212,6 +228,29 @@ def attention_heads(cfg: ModelConfig, layout: ServeLayout) -> L.Heads:
     if nq == cfg.num_heads and nkv < cfg.num_kv_heads:
         raise ValueError(f"{cfg.arch_id}: every q head with a share of the kv heads (layout {layout.serve_layout})")
     return L.Heads(q0, nq, kv0, nkv, qw, kvw)
+
+
+def recurrent_heads(cfg: ModelConfig, layout: ServeLayout) -> Optional[SSM.Heads]:
+    """The recurrent heads this rank computes (RWKV-6: H = D / head_dim;
+    Mamba2: H = d_inner / head_dim; None for a model with neither): its
+    H / M where its "model" block of ``w_r``'s columns (RWKV-6) or of
+    ``out_proj``'s rows (Mamba2) is a whole number of heads; all of them,
+    the head-split weights gathered over "model", where the block cuts
+    through a head; all of them where the layout does not split it."""
+    D = cfg.d_model
+    if cfg.rwkv is not None:
+        H, name, shape, dim = D // cfg.rwkv.head_dim, "w_r", (D, D), -1
+    elif cfg.mamba is not None:
+        d_inner = cfg.mamba.expand * D
+        H, name, shape, dim = d_inner // cfg.mamba.head_dim, "out_proj", (d_inner, D), -2
+    else:
+        return None
+    M, m = layout.model_size, layout.coords[1]
+    if layout.param_specs({name: Leaf(shape)})[name][dim] != "model" or M == 1:
+        return SSM.Heads(0, H)
+    if H % M == 0:
+        return SSM.Heads(m * (H // M), H // M)
+    return SSM.Heads(0, H, True)
 
 
 class _ColMm(torch.autograd.Function):
@@ -273,6 +312,7 @@ class ServeShard:
         self.data_index, self.model_index = layout.coords
         self.data_size, self.model_size = layout.data_size, layout.model_size
         self.heads = attention_heads(cfg, layout)
+        self.ssm_heads = recurrent_heads(cfg, layout)
         self.specs = layout.param_specs(lm.lm_spec(cfg))
         self.local_spec = local_spec(lm.lm_spec(cfg), self.specs, layout)
 
@@ -330,6 +370,11 @@ class ServeShard:
             x = x[..., blk[0]:blk[0] + blk[1]]
         part = _RowMm.apply(x, w) if C._grad(x, w) else mm_f32(x, w)
         return self.all_reduce(part, "model").to(x.dtype)
+
+    def gather(self, t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """The blocks of ``t`` along ``dim`` of every rank of ``axis``
+        (:func:`gather_dim`)."""
+        return gather_dim(self.comm, self.layout, t, dim, axis)
 
     def copies_before(self, counts: torch.Tensor) -> torch.Tensor:
         """[E]: each expert's routed copies on the data ranks before this one
@@ -461,33 +506,48 @@ def cache_layout(cfg: ModelConfig, layout: ServeLayout, batch: int, cache_len: i
                        layout)
 
 
-def _inner(caches) -> int:
-    """The dims of a model's caches past the sequence: 2 for k / v caches
-    [.., B, L, KV, hd], 1 for MLA's latent caches [.., B, L, r]."""
-    return 1 if leaves_with_path(caches)[0][0][-1] in ("c", "k_rope") else 2
+# the batch dim of a cache leaf, counted from its end, by the leaf's name: k / v [.., B, L, KV, hd]; MLA's
+# latent c / k_rope [.., B, L, r]; RWKV-6's state [.., B, H, k, v] and token shifts [.., B, D]; Mamba2's ssm
+# [.., B, H, N, hd] and conv window [.., B, W-1, C]
+BATCH_DIM = {"k": -4, "v": -4, "c": -3, "k_rope": -3, "state": -4, "x_last": -2, "cm_x_last": -2,
+             "ssm": -4, "conv": -3}
+# the leaves whose dim after the batch is a ring of sequence slots
+RINGS = {"k", "v", "c", "k_rope"}
+
+
+def _batch_dim(path, t) -> int:
+    """The batch dim of the cache leaf ``t`` at ``path`` (from its start)."""
+    return t.dim() + BATCH_DIM[path[-1]]
+
+
+def _cache_batch(caches) -> int:
+    """The batch of a model's caches (its first leaf's batch dim)."""
+    path, t = leaves_with_path(caches)[0]
+    return t.shape[_batch_dim(path, t)]
 
 
 def cache_split(caches, layout: ServeLayout) -> tuple:
-    """(``cache_specs`` of a tree of caches [.., B, L, KV, hd] (MLA: [.., B,
-    L, r]), ``seq_split``: whether they split the rings' slots over "data",
-    else the batch or nothing). Raises where they split another dim over
-    more than one rank (the head dim, where a ring is shorter than a head; a
-    scan segment's repetitions, where their count equals B and
-    ``cache_specs`` takes it for the batch), or the layers differently."""
-    inner = _inner(caches)
-    specs = sh.cache_specs(caches, layout.mesh, leaves(caches)[0].shape[-2 - inner])
+    """(``cache_specs`` of a model's caches, ``seq_split``: whether they
+    split the rings' slots over "data", else the batch or nothing). Each
+    leaf's batch dim is found from its name (:data:`BATCH_DIM`). Raises where
+    they split another dim over more than one rank (the head dim, where a
+    ring is shorter than a head; a recurrent state's H or hd and a token
+    shift's D, where the batch does not split; a scan segment's
+    repetitions, where their count equals B and ``cache_specs`` takes it for
+    the batch), or the layers differently."""
+    specs = sh.cache_specs(caches, layout.mesh, _cache_batch(caches))
     kinds = set()
 
-    def one(t, spec):
-        split = [i for i, e in enumerate(spec) if e is not None and layout.size(layout.axis(e)) > 1]
-        b = t.dim() - 2 - inner
-        where = {(b,): "batch", (b + 1,): "seq", (): None}.get(tuple(split), "other")
+    def one(path, t, spec):
+        split = tuple(i for i, e in enumerate(spec) if e is not None and layout.size(layout.axis(e)) > 1)
+        b = _batch_dim(path, t)
+        where = {(b,): "batch", (): None}.get(split, "seq" if split == (b + 1,) and path[-1] in RINGS else "other")
         if where == "other":
             raise NotPorted(f"cache_specs splits a cache of shape {tuple(t.shape)} as {spec}: only its batch "
-                             "or its sequence over the data axes is ported")
+                            "or its sequence over the data axes is ported")
         kinds.add(where)
 
-    _map_spec(one, caches, specs)
+    _map_leaves(one, caches, specs)
     if len(kinds) > 1:
         raise NotPorted(f"cache_specs splits the layers' caches differently ({sorted(map(str, kinds))})")
     return specs, kinds == {"seq"}
@@ -496,24 +556,32 @@ def cache_split(caches, layout: ServeLayout) -> tuple:
 def shard_caches(caches, cfg: ModelConfig, layout: ServeLayout):
     """This rank's blocks (copies) of the model's caches (``lm.cache_init``'s
     tree): over "data" as ``cache_specs`` places them, over "model" the
-    rank's kv heads (MLA's latent caches: whole)."""
+    rank's kv heads and recurrent heads (MLA's latent caches, the token
+    shifts and the conv window: whole)."""
     specs, _ = cache_split(caches, layout)
-    hs = attention_heads(cfg, layout)
+    hs, rs = attention_heads(cfg, layout), recurrent_heads(cfg, layout)
 
-    def one(t, spec):
+    def one(path, t, spec):
         t = layout.block(t, spec)
-        if cfg.mla is None and hs.nkv != t.shape[-2]:
+        if path[-1] in ("k", "v") and hs.nkv != t.shape[-2]:
             t = t.narrow(t.dim() - 2, hs.kv0, hs.nkv)
+        elif path[-1] in ("state", "ssm") and rs.n != t.shape[-3]:
+            t = t.narrow(t.dim() - 3, rs.h0, rs.n)
         return t.clone()
 
-    return _map_spec(one, caches, specs)
+    return _map_leaves(one, caches, specs)
+
+
+def cache_rows(caches, start: int, n: int):
+    """Rows ``start ... start + n - 1`` of every leaf of a model's caches
+    (views, each on its own batch dim)."""
+    return _map_leaves(lambda path, t, _: t.narrow(_batch_dim(path, t), start, n), caches)
 
 
 def cache_bytes(layout: ServeLayout, caches) -> int:
     """Bytes a device holds of a model's caches (``lm.cache_init``'s tree)
     under the reference's ``cache_specs``."""
-    B = leaves(caches)[0].shape[-2 - _inner(caches)]
-    specs = sh.spec_leaves(sh.cache_specs(caches, layout.mesh, B))
+    specs = sh.spec_leaves(sh.cache_specs(caches, layout.mesh, _cache_batch(caches)))
     return sum(sh.local_numel(t.shape, s, layout.mesh) * t.element_size()
                for t, (_, s) in zip(leaves(caches), specs))
 

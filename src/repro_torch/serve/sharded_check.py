@@ -35,7 +35,17 @@ binade.
   full width, 2 blocks): :data:`FLOOR_TIMES` times the floor of the same
   run, the rank's rows alone where the batch splits over "data", else the
   widest of each row alone, each against the batch, with no routed copy
-  dropped in either run (:func:`single_case`).
+  dropped in either run (:func:`single_case`). The ssm and hybrid cases
+  (rwkv6-1.6b and zamba2-1.2b at full width, cut in depth) are held the
+  same way on every mesh (:data:`FLOOR_FAMILIES`), their floor the larger of
+  that one and the tensor-parallel arithmetic's in one process
+  (:class:`OneRank`: each column-parallel product in the ranks' column
+  blocks, each row-parallel one as M fp32 partials summed before one
+  rounding, against the plain single process). On the card a part of the
+  batch alone gives the batch's bits for both models, while the sharded
+  arithmetic moves rwkv6's prefill logits by ~0.3 of the largest (its
+  chunked recurrence amplifies a rounding; in one process on the CPU at
+  D = 512 the partial sums alone move them 0.043-0.048).
 * The routed experts (:func:`routed_rank`: the first MoE layer without its
   shared experts, on seeded activations) on every rank equal the single
   process's rows bit for bit: the capacity and the copies' positions are
@@ -79,6 +89,7 @@ from ..launch import op_cost
 from ..models import lm
 from ..models import moe as MOE
 from ..models.params import LOW_DTYPE, index_tree, leaves, mm
+from ..train import sharded_check as TC
 from . import sharded as SS
 
 SMOKE_BOUNDS = {"prefill": 2**-6, "decode": 2**-6, "caches": 2**-6}
@@ -87,6 +98,10 @@ SMOKE_BOUNDS = {"prefill": 2**-6, "decode": 2**-6, "caches": 2**-6}
 BOUNDS = {"1x4/tp": {"prefill": 0.026, "decode": 0.06, "caches": 0.04},
           "4x1/serve": {"prefill": 0.0, "decode": 0.048, "caches": 0.036}}
 FLOOR_TIMES = 1.5  # (2, 2) serve on the card: each number within 1.5 x the same run's floor
+# the families whose card bounds on every mesh are FLOOR_TIMES x the floor the same run measures
+FLOOR_FAMILIES = ("moe", "ssm", "hybrid")
+# the families whose floor also takes the tensor-parallel arithmetic in one process (OneRank)
+TP_FLOOR_FAMILIES = ("ssm", "hybrid")
 ROUNDED_ONCE = 2**-7  # the share of a row-parallel product's outputs that may miss the correctly rounded one
 # the routed part on the card where the batch's rows split over "data": the single process's experts, within
 # one bf16 ulp of its largest value (cuBLAS rounds the router product of a rank's rows elsewhere)
@@ -96,7 +111,8 @@ ROUTED_SPLIT_ROWS = 2**-7
 def inputs(cfg, *, batch: int, prompt: int, cache_len: int, steps: int, seed: int = 0,
            window_override=None, device="cpu") -> dict:
     """A case's inputs from ``seed`` (numpy, then moved to ``device``): the
-    prefill batch, the decode tokens, the initial caches (N(0, 1) in bf16)."""
+    prefill batch, the decode tokens, the initial caches (N(0, 1) in each
+    leaf's dtype: bf16, the recurrent states fp32)."""
     rng = np.random.default_rng(seed)
     tok = (batch, cfg.num_codebooks, prompt) if cfg.num_codebooks else (batch, prompt)
     out = {"batch": {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, tok).astype(np.int32))}}
@@ -106,7 +122,7 @@ def inputs(cfg, *, batch: int, prompt: int, cache_len: int, steps: int, seed: in
     one = (batch, cfg.num_codebooks, 1) if cfg.num_codebooks else (batch, 1)
     out["tokens"] = [torch.from_numpy(rng.integers(0, cfg.vocab_size, one).astype(np.int32)) for _ in range(steps)]
     zeros = lm.cache_init(cfg, batch, cache_len, window_override=window_override, device="meta")
-    out["caches"] = _map(lambda t: torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)).bfloat16(),
+    out["caches"] = _map(lambda t: torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)).to(t.dtype),
                          zeros)
     return _map(lambda t: t.to(device), out)
 
@@ -234,16 +250,50 @@ def routed_rank(cfg, layout, aux, sp, want: dict, *, batch: int, prompt: int, de
                if k in want}}
 
 
+class OneRank(TC.OneRank):
+    """The sharded serving step's arithmetic in one process over ``parts``
+    "model" ranks: the training floor's context (row-parallel products as
+    ``parts`` fp32 partials summed before one rounding) whose column-parallel
+    products also run in ``parts`` contiguous column blocks, the ranks'
+    shapes, where the columns split into ``parts``. The values are the single
+    process's, rounded as the ranks round them."""
+
+    def col_mm(self, x, ws):
+        out = []
+        for w in ws:
+            n = w.shape[-1] // self.parts
+            out.append(mm(x, w) if w.shape[-1] % self.parts else
+                       torch.cat([mm(x, w[..., i * n:(i + 1) * n].contiguous()) for i in range(self.parts)], -1))
+        return out
+
+
+def _tp_floor(cfg, params, x, out, *, parts: int, start: int, chunk: int, kw: dict) -> dict:
+    """The distances of :class:`OneRank`'s prefill, decode steps and last
+    caches from the single process's (``out``), over the whole batch."""
+    one = OneRank(cfg, parts)
+    sp = SS.shard_params(params, one.layout)
+    floor = {"prefill": _dist(lm.forward(cfg, sp, x["batch"], chunk=chunk, remat=False, tp=one, **kw),
+                              out["prefill"]), "decode": 0.0}
+    caches = x["caches"]
+    for i, tok in enumerate(x["tokens"]):
+        logits, caches = lm.decode_step(cfg, sp, caches, tok, start + i, tp=one, **kw)
+        floor["decode"] = max(floor["decode"], _dist(logits, out["decode"][i]))
+    floor["caches"] = max(_dist(a, b) for a, b in zip(leaves(caches), leaves(out["caches"])))
+    return floor
+
+
 def single_case(cfg, params, *, batch: int, prompt: int, cache_len: int, steps: int, start: int, split: int = 1,
-                window_override=None, chunk: int = 512, device="cpu") -> dict:
+                model: int = 1, window_override=None, chunk: int = 512, device="cpu") -> dict:
     """The single process's side of a case (:func:`run_case`) on
     ``params``: the prefill logits, each decode step's logits and the last
     caches; the floor (``floor``, by part): the same program on a part of
     the batch alone against its batch run (each of ``split`` data ranks'
-    rows, or for an MoE whose batch does not split each row), with no routed copy
+    rows, or, for the :data:`FLOOR_FAMILIES` where the batch does not split,
+    each row), with no routed copy
     dropped in either (an MoE's capacity is the call's, so a part alone
-    would drop others); and for an MoE the routed part
-    (:func:`routed_single`)."""
+    would drop others); for the :data:`TP_FLOOR_FAMILIES` over ``model``
+    > 1 ranks also :class:`OneRank`'s distances (``tp_floor``); and for an
+    MoE the routed part (:func:`routed_single`)."""
     x = inputs(cfg, batch=batch, prompt=prompt, cache_len=cache_len, steps=steps, seed=1,
                window_override=window_override, device=device)
     kw = dict(window_override=window_override)
@@ -256,11 +306,11 @@ def single_case(cfg, params, *, batch: int, prompt: int, cache_len: int, steps: 
             out["decode"].append(logits)
     out["caches"] = caches
     out["floor"] = {}
-    # where the batch does not split, each row alone: an MoE case's floor (gemma3-1b's cases have BOUNDS)
-    n, parts = (batch // split, range(split)) if split > 1 else (1, range(batch if cfg.moe and batch > 1 else 0))
+    # where the batch does not split, each row alone: the floor of an MoE, ssm or hybrid case (gemma3-1b's
+    # cases have BOUNDS)
+    by_floor = cfg.family in FLOOR_FAMILIES
+    n, parts = (batch // split, range(split)) if split > 1 else (1, range(batch if by_floor and batch > 1 else 0))
     fc = _no_drops(cfg)
-    inner = SS._inner(x["caches"])
-    rows = lambda t, a: t.narrow(t.dim() - 2 - inner, a * n, n)  # noqa: E731
     pick = lambda t, a: t.narrow(0, a * n, n)  # noqa: E731
     with torch.no_grad():
         if parts:  # the batch run with no copy dropped (the case's own where nothing can drop)
@@ -276,13 +326,17 @@ def single_case(cfg, params, *, batch: int, prompt: int, cache_len: int, steps: 
             alone = lm.forward(fc, params, {k: pick(v, a) for k, v in x["batch"].items()}, chunk=chunk, remat=False,
                                **kw)
             floor = {"prefill": _dist(alone, pick(whole["prefill"], a)), "decode": 0.0}
-            c = _map(lambda t: rows(t, a), x["caches"])
+            c = SS.cache_rows(x["caches"], a * n, n)
             for i, tok in enumerate(x["tokens"]):
                 alone, c = lm.decode_step(fc, params, c, pick(tok, a), start + i, **kw)
                 floor["decode"] = max(floor["decode"], _dist(alone, pick(whole["decode"][i], a)))
-            floor["caches"] = max(_dist(g, rows(w, a)) for g, w in zip(leaves(c), leaves(whole["caches"])))
+            floor["caches"] = max(_dist(g, w) for g, w in zip(leaves(c), leaves(SS.cache_rows(whole["caches"], a * n,
+                                                                                                n))))
             out["floor"][a] = floor
             del alone, c
+    if cfg.family in TP_FLOOR_FAMILIES and model > 1:
+        with torch.no_grad():
+            out["tp_floor"] = _tp_floor(cfg, params, x, out, parts=model, start=start, chunk=chunk, kw=kw)
     if cfg.moe is not None:
         out["routed"] = routed_single(cfg, params, batch=batch, prompt=prompt, split=split, device=device)
     return out
@@ -310,7 +364,7 @@ def run_case(cfg, layout, comm, aux, *, batch: int, prompt: int, cache_len: int,
                 window_override=window_override, chunk=chunk, device=device)
     if want is None:
         params = lm.lm_init(cfg, device=device, seed=0)
-        want = single_case(cfg, params, split=split, **case)
+        want = single_case(cfg, params, split=split, model=layout.model_size, **case)
         del params
     x = inputs(cfg, batch=batch, prompt=prompt, cache_len=cache_len, steps=steps, seed=1,
                window_override=window_override, device=device)
@@ -321,6 +375,8 @@ def run_case(cfg, layout, comm, aux, *, batch: int, prompt: int, cache_len: int,
     else:
         floor = {k: max(f[k] for f in want["floor"].values()) for k in ("prefill", "decode", "caches")} \
             if want["floor"] else None
+    if "tp_floor" in want:  # the tensor-parallel arithmetic in one process, where it moves more
+        floor = {k: max(floor[k] if floor else 0.0, want["tp_floor"][k]) for k in ("prefill", "decode", "caches")}
     sp = SS.init_params(cfg, layout, seed=0, device=device)
     checked = rounded_once(cfg, layout, aux, sp, device)
     prefill = SS.make_prefill_step(cfg, layout, comm, chunk=chunk, **kw)
@@ -339,6 +395,8 @@ def run_case(cfg, layout, comm, aux, *, batch: int, prompt: int, cache_len: int,
     moved = {"prefill": {k: float(v - before.get(k, 0)) for k, v in comm.bytes.items() if v - before.get(k, 0)}}
     res = {"prefill": _dist(got_pf, _block(want["prefill"], got_pf, layout)), "decode": [],
            "heads": SS.attention_heads(cfg, layout).__dict__, "moe": cfg.moe is not None, "rows_split": split,
+           "by_floor": cfg.family in FLOOR_FAMILIES, "family": cfg.family,
+           "ssm_heads": None if SS.recurrent_heads(cfg, layout) is None else SS.recurrent_heads(cfg, layout).__dict__,
            # the whole batch on this rank and no partial sums: the single process's arithmetic
            "prefill_exact": layout.model_size == 1 and n == batch}
     del got_pf
@@ -427,13 +485,14 @@ def _rows(want, got, layout):
 
 def card_bounds(case: str, res: dict) -> dict:
     """The card's bounds of a case (``"mesh/serve layout"``) at full width:
-    gemma3-1b's :data:`BOUNDS`, or for its (2, 2) serve and every MoE case
-    :data:`FLOOR_TIMES` times the floor this rank measured in the same run;
-    an MoE case whose batch rows split over "data" also bounds the routed
-    part by :data:`ROUTED_SPLIT_ROWS` (elsewhere it is bit for bit)."""
-    if case in BOUNDS and not res["moe"]:
+    gemma3-1b's :data:`BOUNDS`, or for its (2, 2) serve and every case of
+    the :data:`FLOOR_FAMILIES` :data:`FLOOR_TIMES` times the floor this rank
+    measured in the same run; an MoE case whose batch rows split over
+    "data" also bounds the routed part by :data:`ROUTED_SPLIT_ROWS`
+    (elsewhere it is bit for bit)."""
+    if case in BOUNDS and not res["by_floor"]:
         return BOUNDS[case]
-    if (case != "2x2/serve" and not res["moe"]) or res["floor"] is None:
+    if (case != "2x2/serve" and not res["by_floor"]) or res["floor"] is None:
         raise KeyError(f"no card bounds for {case}")
     out = {k: FLOOR_TIMES * v for k, v in res["floor"].items()}
     if res["moe"] and res["rows_split"] > 1:
@@ -446,7 +505,9 @@ def hold(name: str, res: dict, bounds: dict) -> None:
     runs the single process's arithmetic: 0), its row-parallel product is
     not rounded once (or the check would not have told), greedy sampling
     picks other tokens than the single process (an MoE case: tokens not
-    tied with them), its bytes differ from the count, or an MoE's routed
+    tied with them; an ssm or hybrid case: tokens whose single-process
+    logits lie farther below the largest than the decode bound), its bytes
+    differ from the count, or an MoE's routed
     part is not the single process's rows bit for bit (``bounds["routed"]``:
     the same experts within that distance)."""
     worst = {"prefill": res["prefill"], "decode": max(res["decode"]), "caches": res["caches"]}
@@ -462,8 +523,12 @@ def hold(name: str, res: dict, bounds: dict) -> None:
         raise AssertionError(f"{name}: bytes handed to the communicator {res['moved']} != counted {res['counted']}")
     if not res["greedy_equal"]:
         raise AssertionError(f"{name}: greedy over the ranks differs from the argmax of the gathered logits")
-    # an MoE case may pick another of the single process's tokens tied at its largest bf16 logit
-    if res["greedy_single"] != 1.0 and not (res["moe"] and res["greedy_margin"] == 0.0):
+    # an MoE case may pick another of the single process's tokens tied at its largest bf16 logit; an ssm or
+    # hybrid case one whose logit there lies within the decode bound of the largest (the bound lets every logit
+    # move that far: rwkv6's full-width tp case picks one 0.00325 of the largest below it, its bound 0.039)
+    tie = res["moe"] and res["greedy_margin"] == 0.0
+    near = res.get("family") in TP_FLOOR_FAMILIES and res["greedy_margin"] <= bounds["decode"]
+    if res["greedy_single"] != 1.0 and not (tie or near):
         raise AssertionError(f"{name}: greedy over the ranks picks the single process's token in a share "
                              f"{res['greedy_single']} of the rows")
     routed, lim = res.get("routed"), bounds.get("routed", 0.0)

@@ -75,8 +75,8 @@ dry-run counts one rank of a 256-rank mesh on ``meta`` with no group. Both
 charge an open op count (:func:`repro_torch.launch.op_cost.counting`).
 
 Refused (not ported): tensor parallelism for the moe, ssm and hybrid
-families (:data:`NOT_PORTED` names what each lacks: moe's serving step is
-ported, its training is not) and for a
+families (:data:`NOT_PORTED` names what each lacks: their serving steps are
+ported, their training is not) and for a
 weight "model" does not split, and ``act_spec`` for configs with experts
 (MoE capacity is computed over all tokens of a call, ``models/moe.py``, so a
 split batch drops other tokens).
@@ -364,7 +364,9 @@ def init_state(cfg: ModelConfig, tcfg, downlink, optimizer: Optimizer, layout: L
 
 
 # what each family the train step's tensor parallelism refuses would need, beyond its serving step's
-TRAIN_NOT_PORTED = {"moe": "the experts' gradients over E, and the router's"}
+TRAIN_NOT_PORTED = {"moe": "the experts' gradients over E, and the router's",
+                    "ssm": "the gradients of rwkv6's time and channel mix over 'model'",
+                    "hybrid": "the gradients of zamba2's Mamba2 blocks over 'model'"}
 NOT_PORTED = dict(SS.NOT_PORTED, **TRAIN_NOT_PORTED)
 
 

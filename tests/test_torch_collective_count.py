@@ -3,8 +3,8 @@ collectives counted (``launch/comm.CountingComm`` into
 ``op_cost.OpCount.coll``), priced by ``launch/roofline.roofline_terms`` over
 ``LINK_BW``, and carried by the dry-run's ``per_rank`` records (a train shape, with
 tensor parallelism over "model" by default or with
-``--train-act-model-sharded``; the serving shapes of the dense, vlm and
-audio families), beside the ``even`` records that keep ``collective_s:
+``--train-act-model-sharded``; the serving shapes of every family, those
+of the ssm and hybrid families at B = 1 aside), beside the ``even`` records that keep ``collective_s:
 None`` and say why. The tensor-parallel train count is held equal to the
 bytes 4 gloo ranks hand over in the same step here. The bytes the real communicator hands to gloo are held
 equal to this count in tests/test_torch_train_sharded.py and
@@ -209,8 +209,10 @@ def test_per_rank_serve_flops_against_the_even_count(smoke, monkeypatch, arch, s
 
 def test_serve_dry_run_records(smoke, tmp_path):
     """On 16x16, the ported families' serving shapes give per_rank records
-    with a collective term and the rank's parameter (and cache) bytes;
-    rwkv6 (ssm) keeps the even split and says why, as does gemma3's smoke
+    with a collective term and the rank's parameter (and cache) bytes:
+    minitron's three, and rwkv6's (ssm) prefill_32k and decode_32k; rwkv6's
+    long_500k keeps the even split and says why (at B = 1 cache_specs
+    splits its states' inner dims over "data"), as does gemma3's smoke
     long_500k, whose 16-slot local ring cache_specs splits on the head dim."""
     for arch in ("minitron-4b", "rwkv6-1.6b"):
         for shape in ("prefill_32k", "decode_32k", "long_500k"):
@@ -227,13 +229,15 @@ def test_serve_dry_run_records(smoke, tmp_path):
         sb = rec["state_bytes_per_device"]
         assert sb["params"]["port"] == 3 * sb["params"]["param_specs"] > 0
         assert ("caches" in sb) == (shape != "prefill_32k")
-        even = json.loads((tmp_path / f"rwkv6-1.6b__{shape}__16x16.json").read_text())
-        assert even["split"] == "even" and even["roofline"]["collective_s"] is None
-        assert "(ssm): serving across a process group is not ported for the ssm family" in even["collective_note"]
-        # its own reason only: not another refused family's, nor a cache split's; moe is among the ported
-        assert "hybrid" not in even["collective_note"] and "cache_specs" not in even["collective_note"]
-        assert even["collective_note"].endswith("it is for dense, vlm, audio, moe")
-        assert dryrun.record_problems(even) == []
+        rw = json.loads((tmp_path / f"rwkv6-1.6b__{shape}__16x16.json").read_text())
+        assert dryrun.record_problems(rw) == []
+        if shape == "long_500k":  # its own reason only: the cache split, not the family
+            assert rw["split"] == "even" and rw["roofline"]["collective_s"] is None
+            assert "cache_specs splits a cache of shape" in rw["collective_note"]
+            assert "family" not in rw["collective_note"]
+        else:
+            assert rw["split"] == "per_rank" and rw["serve_layout"] == "tp"
+            assert rw["roofline"]["collective_s"] > 0 and rw["collective_total_per_device"] > 0
     recs = reanalyze.reanalyze(str(tmp_path), str(tmp_path / "again"))
     assert sorted({r["split"] for r in recs}) == ["even", "per_rank"]
     for r in recs:
@@ -246,18 +250,19 @@ def test_serve_dry_run_records(smoke, tmp_path):
 def test_even_records_name_their_own_reason(smoke):
     """Each even record's note names what is not ported for its own step
     (from ``specs.build``'s ``even_note``), and nothing else: zamba2's
-    serving step (hybrid), rwkv6's train step (ssm) and deepseek-v2's
-    (moe: its serving step is ported, its training is not)."""
+    long_500k serving step (hybrid: the cache split of its states at
+    B = 1), rwkv6's train step (ssm) and deepseek-v2's (moe: their serving
+    steps are ported, their training is not)."""
     train = dryrun.run_one("rwkv6-1.6b", "train_4k", verbose=False)
-    hybrid = dryrun.run_one("zamba2-1.2b", "decode_32k", verbose=False)
+    hybrid = dryrun.run_one("zamba2-1.2b", "long_500k", verbose=False)
     moe = dryrun.run_one("deepseek-v2-236b", "train_4k", verbose=False)
     assert train["split"] == hybrid["split"] == moe["split"] == "even"
     assert train["collective_note"] == dryrun.EVEN_NOTE + specs.build("rwkv6-1.6b", "train_4k", MESH).meta["even_note"]
     assert "the train step's tensor parallelism over 'model'" in train["collective_note"]
-    assert f"not ported for the ssm family ({SS.NOT_PORTED['ssm']})" in train["collective_note"]
+    assert f"not ported for the ssm family ({SH.TRAIN_NOT_PORTED['ssm']})" in train["collective_note"]
     assert "serving" not in train["collective_note"]
-    assert f"not ported for the hybrid family ({SS.NOT_PORTED['hybrid']})" in hybrid["collective_note"]
-    assert "tensor parallelism" not in hybrid["collective_note"] and "ssm" not in hybrid["collective_note"]
+    assert "cache_specs splits a cache of shape" in hybrid["collective_note"]
+    assert "tensor parallelism" not in hybrid["collective_note"] and "family" not in hybrid["collective_note"]
     assert f"not ported for the moe family ({SH.TRAIN_NOT_PORTED['moe']})" in moe["collective_note"]
     assert "the train step's tensor parallelism over 'model'" in moe["collective_note"]
 
@@ -300,6 +305,38 @@ def test_full_width_moe_serve_counts():
         assert rec["split"] == "per_rank" and rec["collective_bytes_per_device"] == coll
         assert dryrun.record_problems(rec) == [] and rec["roofline"]["collective_s"] > 0
     assert coll["all-reduce"] == all_reduce and coll["all-gather"] == whole
+
+
+def test_full_width_recurrent_serve_counts():
+    """rwkv6-1.6b's and zamba2-1.2b's decode_32k on 16x16, rank 0 counted
+    on meta under serve and tp: 8 rows a data rank; rwkv6's 2 heads of 32
+    and zamba2's 4 Mamba2 heads of 64 (2 of its 32 attention heads) a model
+    rank. chip_smoke.py (x3) holds the card's count to the same numbers."""
+    rw, zb = configs.get("rwkv6-1.6b"), configs.get("zamba2-1.2b")
+    n, D = 8, rw.d_model
+    # rwkv6, a layer: the w_out and cm_v partials (fp32); gathered, the decay lora's tanh (fp32) and the gate
+    rw_reduce = rw.num_layers * 2 * n * D * 4 + n * D * 2
+    rw_gather = rw.num_layers * (n * rw.rwkv.decay_lora * 4 + n * D * 2)
+    # zamba2: a Mamba2 layer's out_proj partial and its rows' sums of squares (fp32), a shared block's wo and w_out
+    # partials (fp32); gathered, a Mamba2 layer's in_proj product (bf16) and conv_w (read whole, bf16)
+    m, mamba = zb.mamba, sum(k == "mamba" for k in zb.block_pattern)
+    d_inner = m.expand * D
+    zb_reduce = mamba * (n * D * 4 + n * 4) + (zb.num_layers - mamba) * 2 * n * D * 4 + n * D * 2
+    zb_gather = mamba * (n * (2 * d_inner + 2 * m.state_dim + d_inner // m.head_dim) * 2
+                         + m.conv_width * (d_inner + 2 * m.state_dim) * 2)
+    for arch, coll in (("rwkv6-1.6b", {"serve": {"all-gather": 200636416.0, "reduce-scatter": 0.0,
+                                                 "all-reduce": 3178496.0},
+                                       "tp": {"all-gather": 835584.0, "reduce-scatter": 0.0, "all-reduce": 3178496.0}}),
+                       ("zamba2-1.2b", {"serve": {"all-gather": 175509504.0, "reduce-scatter": 0.0,
+                                                  "all-reduce": 2917376.0},
+                                        "tp": {"all-gather": 5373952.0, "reduce-scatter": 0.0,
+                                               "all-reduce": 2917376.0}})):
+        for layout, want in coll.items():
+            rec = dryrun.run_one(arch, "decode_32k", serve_layout=layout, verbose=False)
+            assert rec["split"] == "per_rank" and rec["collective_bytes_per_device"] == want
+            assert dryrun.record_problems(rec) == [] and rec["roofline"]["collective_s"] > 0
+        reduce, gather = (rw_reduce, rw_gather) if arch == "rwkv6-1.6b" else (zb_reduce, zb_gather)
+        assert coll["tp"]["all-reduce"] == reduce and coll["tp"]["all-gather"] == gather
 
 
 @pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
