@@ -257,18 +257,27 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     parallelism over "model" (demo-100m at full width, W = 2 x TP_B x TP_S,
     3 steps: (1, 4) marina:perm with bf16 replicas, (2, 2) marina:ind;
     gemma3-1b at full width cut to 2 layers, one EF21-P step on (1, 4), rank
-    0 alone holding the single process), within ``train/sharded_check``'s
-    bounds of the single-process step (the CPU tests' own; under tensor
-    parallelism ACT_BOUNDS or 1.5x the single process's own floor from the
-    same run), rows at an offset or a rank's blocks launching
-    rotk_apply_rows in a compressed perm round, each case's peak memory a
-    rank; only gloo's own refusal of the collectives on CUDA tensors, met by
-    a probe before the steps, is logged in place of the run, and any other
-    error in either group fails it; (w3) ``python -m
-    repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k`` (the
-    default record: the tensor-parallel step) and the same with
-    ``--train-act-model-sharded``, on ``meta``: per_rank records with their
-    collective bytes by kind and a collective term.
+    0 alone holding the single process; rwkv6-1.6b and zamba2-1.2b at full
+    width cut to 2 and 6 layers, RECURRENT_TP, one compressed marina:perm
+    step with bf16 replicas each on (1, 4), W = 2, rank 0 alone holding the
+    single process) and, in the second group's processes after its act_spec
+    cases, the moe family's smoke configs (MOE_TP: deepseek-v2 and llama4,
+    3 steps, marina:perm with bf16 replicas and ef21p on (1, 4) and (2, 2)),
+    within ``train/sharded_check``'s bounds of the single-process step (the
+    CPU tests' own; under tensor parallelism ACT_BOUNDS or 1.5x the single
+    process's own floor from the same run), rows at an offset or a rank's
+    blocks launching rotk_apply_rows in a compressed perm round (every
+    tensor-parallel perm case has one), block_topk in every EF21-P case on
+    every rank, each case's peak memory a rank; only gloo's own refusal of
+    the collectives on CUDA tensors, met by a probe before the steps, is
+    logged in place of the run, and any other error in either group fails
+    it; (w3) ``python -m repro_torch.launch.dryrun --arch gemma3-1b --shape
+    train_4k`` (the default record: the tensor-parallel step) and the same
+    with ``--train-act-model-sharded``, on ``meta``: per_rank records with
+    their collective bytes by kind and a collective term; and (u0)'s
+    train_4k records of deepseek-v2-236b, llama4-maverick-400b-a17b,
+    rwkv6-1.6b and zamba2-1.2b: per_rank, tensor parallel, their counts the
+    CPU's exactly (TRAIN_COUNTS).
 
 (x) the serving step across a process group (``repro_torch.serve.sharded``),
     run after (u): (x1) alone on the card, then (x2)'s processes beside (v)
@@ -318,7 +327,8 @@ own; ``serve_sharded_path``: (x1)'s own; ``dryrun_path``: (u)'s own;
 ``grid_path`` and ``wire_smoke_path``: (v1)'s and (v2)'s); the rotk_apply row names its dtypes, its numbers are float32's and
 ``by_dtype`` gives each dtype's; the rotk_apply_rows row's are 4 f32 rows of the largest leaf, with
 ``by_dtype`` for bf16, the per-worker path's time and a whole round's, and ``block_map`` (w0)'s checks and
-times with (w2)'s tensor-parallel perm launches by rank; the unpack_bits row's ``serve_path`` gives
+times with (w2)'s tensor-parallel perm launches by rank; the block_topk row's ``sharded_tp_path`` (w2)'s
+tensor-parallel EF21-P launches by rank; the unpack_bits row's ``serve_path`` gives
 its (s) launches and its times at (s3)'s streams; every row's ``train_path``
 its (t) launches, and block_topk's and rotk_apply's their times at the
 largest leaf), then the card's name and power
@@ -2665,6 +2675,23 @@ SHARDED_STEPS = 3
 # kernels that must launch in the sharded steps of (w1)
 SHARDED_KERNELS = ("rotk_apply_rows", "block_topk")
 SHARDED_DRYRUN_DIR = ROOT / "runs" / "dryrun_chip_act"
+# (w3): the CPU's count of rank 0 of the tensor-parallel train_4k step on 16x16 (`python -m
+# repro_torch.launch.dryrun --arch A --shape train_4k`) of the moe, ssm and hybrid architectures, which
+# (u0) counts on the card's host: per-device FLOPs, bytes and collective bytes by kind
+TRAIN_COUNTS = {
+    "deepseek-v2-236b": {
+        "flops": 1345656203509760.0, "bytes": 78063251213430.0,
+        "coll": {"all-gather": 121183150080.0, "reduce-scatter": 3815133440.0, "all-reduce": 958986575752.0}},
+    "llama4-maverick-400b-a17b": {
+        "flops": 2375629626408960.0, "bytes": 157080598060922.0,
+        "coll": {"all-gather": 205959045120.0, "reduce-scatter": 6658387200.0, "all-reduce": 420773363592.0}},
+    "rwkv6-1.6b": {
+        "flops": 46695488421888.0, "bytes": 6255543924890.0,
+        "coll": {"all-gather": 14486237184.0, "reduce-scatter": 50041728.0, "all-reduce": 142540412808.0}},
+    "zamba2-1.2b": {
+        "flops": 46823733460992.0, "bytes": 4834911128778.0,
+        "coll": {"all-gather": 70843310080.0, "reduce-scatter": 4411736320.0, "all-reduce": 67404341128.0}},
+}
 # (w2): 4 gloo ranks on the one card, in two process groups of their own (run at once):
 # (group, cases (name, arch, downlink, replica dtype, B, S, attn_chunk, mesh, mode, steps, W)),
 # mode "data" (the workers over "data"), "act" (act_spec over "model") or "tp" (tensor
@@ -2679,14 +2706,29 @@ SHARDED_DRYRUN_DIR = ROOT / "runs" / "dryrun_chip_act"
 GLOO_SMOKE = (("marina:ind", "gemma-2b", "marina:ind", "float32", 2, 64, 32),
               ("ef21p:16:64", "gemma-2b", "ef21p:16:64", "float32", 2, 64, 32))
 TP_B, TP_S = 2, 128  # the tensor-parallel cases' rows a worker and sequence (demo-100m's width and depth)
+# the moe family's tensor-parallel cases at smoke width: its train step does not fit one card at full width
+# (deepseek-v2's one MoE block is 160 x 3 x 5120 x 1536 = 3.77e9 parameters, over 60 GB of training state,
+# beside 4 ranks that each hold the single process too); (w3) holds its full-width count
+MOE_TP = (("marina:perm/bf16", "deepseek-v2-236b", "marina:perm", "bfloat16", 2, 64, 32, (1, 4), "tp", 3, 4),
+          ("ef21p:16:64", "deepseek-v2-236b", "ef21p:16:64", "float32", 2, 64, 32, (2, 2), "tp", 3, 4),
+          ("marina:perm/bf16", "llama4-maverick-400b-a17b", "marina:perm", "bfloat16", 2, 64, 32, (2, 2), "tp", 3,
+           4),
+          ("ef21p:16:64", "llama4-maverick-400b-a17b", "ef21p:16:64", "float32", 2, 64, 32, (1, 4), "tp", 3, 4))
+# the ssm and hybrid families' at full width, cut to their first layers as gemma3-1b's (rwkv6: 2 of 24 layers,
+# 378,058,880 parameters; zamba2: 6 of 38, its 5 Mamba2 blocks then its shared attention block, 326,119,488
+# parameters, 256 tokens: its Mamba2 chunk), one compressed perm step with bf16 replicas on (1, 4), W = 2:
+# the block map on the recurrent leaves' column blocks (w_lora_b's, in_proj's)
+RECURRENT_TP = (("marina:perm/bf16", "rwkv6-1.6b/2", "marina:perm", "bfloat16", 1, 128, 128, (1, 4), "tp", 1, 2),
+                ("marina:perm/bf16", "zamba2-1.2b/6", "marina:perm", "bfloat16", 1, 256, 128, (1, 4), "tp", 1, 2))
 GLOO_RUNS = (
     ("data+tp", tuple(c + ((4, 1), "data", 3, 4) for c in (
         ("marina:perm/bf16", "demo-100m", "marina:perm", "bfloat16", TRAIN_B, TRAIN_S, 128),) + GLOO_SMOKE)
      + (("marina:perm/bf16", "demo-100m", "marina:perm", "bfloat16", TP_B, TP_S, 128, (1, 4), "tp", 3, 2),
         ("marina:ind", "demo-100m", "marina:ind", "float32", TP_B, TP_S, 128, (2, 2), "tp", 3, 2),
-        ("ef21p:128:1024", "gemma3-1b/2", "ef21p:128:1024", "float32", 1, 128, 128, (1, 4), "tp", 1, 2))),
-    ("act", tuple(c + ((2, 2), "act", 3, 4) for c in (
-        ("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32),) + GLOO_SMOKE)))
+        ("ef21p:128:1024", "gemma3-1b/2", "ef21p:128:1024", "float32", 1, 128, 128, (1, 4), "tp", 1, 2))
+     + RECURRENT_TP),
+    ("act+moe", tuple(c + ((2, 2), "act", 3, 4) for c in (
+        ("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32),) + GLOO_SMOKE) + MOE_TP))
 
 
 # (w0): rotk_apply_rows' block map (the perm downlink on a rank's blocks under tensor
@@ -2941,7 +2983,7 @@ def sharded_phase(np, torch, dev, card):
 # (w2)'s rank: 3 teacher-forced steps a case (train/sharded_check.run_case) on
 # the one card over gloo, held to train/sharded_check's bounds
 GLOO_RANK = """
-import datetime, json, os, re, sys
+import datetime, json, os, re, sys, time
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -2974,7 +3016,22 @@ def config(arch):
         return model_100m()
     if arch == "gemma3-1b/2":  # full width, 2 of its 26 layers
         return dataclasses.replace(configs.get("gemma3-1b"), num_layers=2, block_pattern=("attn_local", "attn"))
+    name, _, depth = arch.partition("/")
+    if depth:  # full width, its first layers
+        cfg = configs.get(name)
+        return dataclasses.replace(cfg, num_layers=int(depth), block_pattern=cfg.block_pattern[:int(depth)])
     return configs.get_smoke(arch)
+
+
+# the draws of a one-step case: seed 11's first two rounds are syncs at W = 2 and 4, seed 14's first round is
+# compressed, so a one-step perm case runs the downlink's rotations
+ONE_STEP_DRAWS = 14
+
+
+def progress(out_dir, rank, what):
+    # one line a case boundary, read by the parent when the group outlives its time
+    with open(os.path.join(out_dir, f"rank{rank}.progress"), "a") as f:
+        f.write(f"{time.time():.1f} {what}\\n")
 
 
 def rank_main(rank, init, cases, out_dir):
@@ -2994,6 +3051,7 @@ def rank_main(rank, init, cases, out_dir):
         if res["refusal"] is None:
             res["cases"] = {}
             for name, arch, spec, dtype, rows, seq, chunk, shape, mode, steps, W in cases:
+                progress(out_dir, rank, f"start {name} {arch} {tuple(shape)}")
                 cfg = config(arch)
                 torch.cuda.reset_peak_memory_stats()
                 layout, comm = SH.connect(Mesh(("data", "model"), tuple(shape)), W,
@@ -3002,13 +3060,15 @@ def rank_main(rank, init, cases, out_dir):
                                      act_spec=SH.ACT_SPEC if mode == "act" else None)
                 # a one-step case at gemma3-1b's width: rank 0 alone holds the single process's state
                 r = SC.run_case(cfg, tcfg, spec, layout, comm, SH.Comm(), batch_rows=rows, seq=seq,
-                                device=dev, steps=steps, check_rank=0 if steps == 1 else None)
+                                device=dev, steps=steps, check_rank=0 if steps == 1 else None,
+                                draw_seed=ONE_STEP_DRAWS if steps == 1 else 11)
                 SC.hold(name, r, SC.bounds(mode != "data"), W)
                 res["cases"][f"{name} {arch} {tuple(shape)}"] = dict(
                     r, d=layout.d, d_local=layout.d_local, off=layout.off, mode=mode,
                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
                 del comm, layout
                 torch.cuda.empty_cache()
+                progress(out_dir, rank, "done")
             res["peak_gib"] = max(c["peak_gib"] for c in res["cases"].values())
         dist.destroy_process_group()
     except Exception as e:  # every error fails (w2): the parent reports it
@@ -3038,7 +3098,8 @@ def gloo_card_phase(card):
     rank probes them first): it is logged, and nothing runs in its place.
     Any other error, in either group, fails the phase. Returns (the refusal
     or None, s, {case: the ranks' rotk_apply_rows launches} of the
-    tensor-parallel perm cases)."""
+    tensor-parallel perm cases, {case: the ranks' block_topk launches} of
+    the tensor-parallel EF21-P cases)."""
     import os
     import tempfile
 
@@ -3054,16 +3115,36 @@ def gloo_card_phase(card):
         script = os.path.join(tmp, "ranks.py")
         with open(script, "w") as f:
             f.write(GLOO_RANK)
-        runs[group] = (cases, tmp, spawn(
-            [sys.executable, script, f"file://{tmp}/rdv", json.dumps(cases), tmp],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        with open(os.path.join(tmp, "out.log"), "w") as out:  # a file: readable after a kill
+            runs[group] = (cases, tmp, spawn(
+                [sys.executable, script, f"file://{tmp}/rdv", json.dumps(cases), tmp],
+                env=env, stdout=out, stderr=subprocess.STDOUT))
+    deadline, late = time.perf_counter() + 900, []
     try:
-        outs = {group: run[2].communicate(timeout=900) for group, run in runs.items()}
+        for group, (_, tmp, proc) in runs.items():
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                late.append(group)
     finally:
         for *_, proc in runs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    outs = {}
+    for group, (_, tmp, _) in runs.items():
+        with open(os.path.join(tmp, "out.log")) as f:
+            outs[group] = (None, f.read())
+    if late:
+        where = []
+        for group in late:
+            tmp = runs[group][1]
+            for r in range(4):
+                path = os.path.join(tmp, f"rank{r}.progress")
+                last = open(path).read().splitlines()[-2:] if os.path.exists(path) else ["no progress"]
+                where.append(f"group {group} rank {r}: {last}")
+        fail(f"(w2) group(s) {late} still running after 900 s (now {time.time():.1f}); the ranks' last case "
+             f"boundaries: {where}\n" + "\n".join(outs[g][1][-3000:] for g in late))
     problems, refusals, results = [], [], {}
     for group, (cases, tmp, proc) in runs.items():
         ranks = []
@@ -3088,8 +3169,8 @@ def gloo_card_phase(card):
             fail(f"(w2) gloo refused CUDA tensors on some ranks only: {refusals}")
         log(f"(w2) gloo refused the step's collectives on CUDA tensors ({refusals[0]}); the 4-rank step on the "
             "card did not run (no CPU run stands in for it)")
-        return refusals[0], time.perf_counter() - t0, {}
-    tp_launches = {}
+        return refusals[0], time.perf_counter() - t0, {}, {}
+    tp_launches, tp_topk = {}, {}
     for group, cases in GLOO_RUNS:
         ranks = results[group]
         for name, arch, spec, dtype, rows, seq, chunk, shape, mode, steps, W in cases:
@@ -3101,8 +3182,14 @@ def gloo_card_phase(card):
                         and c["launches"].get("rotk_apply_rows", 0) <= 0):
                     fail(f"(w2) {key} rank {r['rank']} (rows from worker {c['off']}, mode {mode}): "
                          f"rotk_apply_rows never launched in {c['compressed']} compressed rounds")
+                if mode == "tp" and spec == "marina:perm" and not c["compressed"]:
+                    fail(f"(w2) {key} rank {r['rank']}: no compressed round, so the block map did not run")
+                if spec.startswith("ef21p") and c["launches"].get("block_topk", 0) <= 0:
+                    fail(f"(w2) {key} rank {r['rank']}: block_topk never launched in its EF21-P steps")
             if mode == "tp" and spec == "marina:perm":
                 tp_launches[key] = [r["cases"][key]["launches"].get("rotk_apply_rows", 0) for r in ranks]
+            if mode == "tp" and spec.startswith("ef21p"):
+                tp_topk[key] = [r["cases"][key]["launches"].get("block_topk", 0) for r in ranks]
             worst = [max(r["cases"][key]["worst"][j] for r in ranks) for j in range(6)]
             c0 = ranks[0]["cases"][key]
             floor = ("; the single process's own floor " + ", ".join(
@@ -3116,7 +3203,7 @@ def gloo_card_phase(card):
                 + f"; {c0['compressed']} compressed round(s); bytes a rank a step {c0['moved']} = counted; "
                 f"launches by rank {[r['cases'][key]['launches'] for r in ranks]}; peak GiB a rank "
                 f"{[round(r['cases'][key]['peak_gib'], 2) for r in ranks]} ({card})")
-    return None, time.perf_counter() - t0, tp_launches
+    return None, time.perf_counter() - t0, tp_launches, tp_topk
 
 
 def sharded_dryrun_start():
@@ -3137,10 +3224,12 @@ def sharded_dryrun_start():
                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def sharded_dryrun_phase(proc, card):
+def sharded_dryrun_phase(proc, card, u0_recs):
     """(w3): the counts started by :func:`sharded_dryrun_start`: valid
     per_rank records with a collective term, the default one tensor
-    parallel. Returns the records."""
+    parallel; and (u0)'s train_4k records of TRAIN_COUNTS' architectures
+    (``u0_recs``, counted on the card's host): per_rank, tensor parallel,
+    their counts equal to the CPU's exactly. Returns the records."""
     from repro_torch.launch import dryrun
 
     try:
@@ -3166,6 +3255,20 @@ def sharded_dryrun_phase(proc, card):
             f"(NVLink 450e9 B/s): {t['dominant']}; state bytes a device {rec['state_bytes_per_device']} "
             f"(H100 constants; no card used)")
         recs[tag or "tp"] = rec
+    for arch, want in TRAIN_COUNTS.items():
+        rec = u0_recs[arch, "train_4k"]
+        got = {"flops": rec["flops_per_device"], "bytes": rec["bytes_per_device"],
+               "coll": rec["collective_bytes_per_device"]}
+        t = rec["roofline"]
+        if rec["split"] != "per_rank" or not rec["tensor_parallel"] or t["collective_s"] is None:
+            fail(f"(w3) {arch} train_4k: split {rec['split']}, tensor_parallel {rec.get('tensor_parallel')}, {t}")
+        if got != want:
+            fail(f"(w3) {arch} train_4k: the card host's count {got} != the CPU's {want}")
+        log(f"(w3) {arch} train_4k on 16x16, tensor parallelism over 'model', rank 0 counted on meta by (u0) "
+            f"({rec['t_count_s']} s): the CPU's count exactly: {got['flops']:.6e} FLOPs, {got['bytes']:.6e} bytes, "
+            f"collective {got['coll']}; compute {t['compute_s']:.5g} s, memory {t['memory_s']:.5g} s, collective "
+            f"{t['collective_s']:.5g} s: {t['dominant']}, bound {t['bound_s']:.6g} s; state bytes a device "
+            f"{rec['state_bytes_per_device']} (H100 constants; no card used)")
     return recs
 
 
@@ -4475,8 +4578,8 @@ def main() -> int:
     # (w0) the block map against its plain version, after (w1)'s counts were read: not the path's launches
     block_err, block_cases, block_ms = rotk_block_phase(np, torch, dev, timed, card)
     w3 = sharded_dryrun_start()  # on the host's cores beside (w2)
-    gloo_refusal, w2_s, tp_launches = gloo_card_phase(card)
-    sharded_dryrun_phase(w3, card)
+    gloo_refusal, w2_s, tp_launches, tp_topk = gloo_card_phase(card)
+    sharded_dryrun_phase(w3, card, recs)
     log(f"(w) launches of the sharded steps: {w_launches}; (w1) {w1_s:.1f} s (beside (x2)), (w2) {w2_s:.1f} s"
         f"{' (gloo refused CUDA tensors)' if gloo_refusal else ''}; (w0), (w2) and (w3) took "
         f"{time.perf_counter() - t_w1:.1f} s ({card})")
@@ -4541,6 +4644,8 @@ def main() -> int:
             ms_, plain_, bound_, lib_ = train_times["block_topk"]
             row["train_path"].update(values=max(sizes), k_per_block=128, block=1024, ms=ms_,
                                      plain_ms=plain_, bound_ms=bound_, library_ms=lib_)
+            # (w2)'s tensor-parallel EF21-P cases: each of its 4 gloo processes counts its own launches
+            row["sharded_tp_path"] = {"w2_launches_by_rank": tp_topk}
         if row["name"] == "unpack_bits":
             # the serving path's decode: (s)'s launches (all from the replica's
             # delta_sync), and the kernel at (s3)'s three streams of a 10**6-entry

@@ -25,7 +25,22 @@ where it meets a replicated tensor again:
   row-parallel partial product, and after the embedding's row lookup;
 * :func:`gather`: all-gather along a dim forward, reduce-scatter (sum)
   backward; a weight gathered whole where the split cuts through a head,
-  whose use on every rank gives a partial gradient.
+  whose use on every rank gives a partial gradient;
+* :func:`gather_replicated`: all-gather forward, the rank's own block of the
+  gradient backward (no sum); a gathered activation that every rank then
+  uses whole, as a replicated tensor (RWKV-6's channel-mix gate, which
+  multiplies the row-parallel product's sum), so that its gradient is whole
+  on every rank already;
+* :func:`exit_enter`: all-reduce (sum) forward and backward (``exit``, then
+  ``enter``); a partial sum that each rank then uses only in part (Mamba2's
+  gated norm's sum of squares, which scales the rank's heads alone).
+
+:func:`enter` also carries a replicated weight that a rank reads in part
+(its heads' columns of RWKV-6's ``w0`` / ``u``, of Mamba2's ``A_log`` /
+``dt_bias`` / ``D`` / ``conv_b``, a per-head norm's scale, MLA's
+``kv_norm`` scale, whose latent only the rank's heads read): the rank's
+gradient of it is partial, and the sum over the axis gives every rank the
+whole one.
 
 Each goes through the communicator in both directions, so :class:`Comm`
 hands the backward's collective to the group too and :class:`CountingComm`
@@ -153,6 +168,17 @@ class _Gather(torch.autograd.Function):
         return (out.movedim(0, ctx.dim) if ctx.dim else out), None, None, None, None
 
 
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, axis, dim, size, index):
+        ctx.dim, ctx.lo, ctx.n = dim, index * t.shape[dim], t.shape[dim]
+        return _all_gather_dim(comm, t, dim, size, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.lo, ctx.n), None, None, None, None, None
+
+
 def enter(comm: Comm, x: torch.Tensor, axis) -> torch.Tensor:
     """``x`` forward; its gradient all-reduced (sum) over ``axis`` backward."""
     return _Enter.apply(x, comm, axis) if _grad(x) else x
@@ -171,6 +197,23 @@ def gather(comm: Comm, t: torch.Tensor, dim: int, size: int, axis) -> torch.Tens
     if _grad(t):
         return _Gather.apply(t, comm, axis, dim, size)
     return _all_gather_dim(comm, t, dim, size, axis)
+
+
+def gather_replicated(comm: Comm, t: torch.Tensor, dim: int, size: int, axis, index: int) -> torch.Tensor:
+    """The ``size`` ranks' blocks of ``t`` along ``dim``, in rank order (one
+    all-gather), for a use that is the same on every rank; backward, the
+    block of the gradient at this rank's ``index`` on the axis, which every
+    rank holds whole (no collective)."""
+    if _grad(t):
+        return _GatherReplicated.apply(t, comm, axis, dim, size, index)
+    return _all_gather_dim(comm, t, dim, size, axis)
+
+
+def exit_enter(comm: Comm, x: torch.Tensor, axis) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis`` forward (in place outside
+    autograd), for a use that differs by rank; backward, the gradient summed
+    over the axis too (:func:`exit`, then :func:`enter`)."""
+    return enter(comm, exit(comm, x, axis), axis)
 
 
 def mesh_groups(device_mesh) -> Dict[str, object]:

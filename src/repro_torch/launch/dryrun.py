@@ -15,13 +15,12 @@ sharded program (``"split": "per_rank"``) or the whole step once, split
 evenly over the mesh's devices (``"split": "even"``, no collective term,
 ``collective_note`` says why). Per rank:
 
-* the serving shapes (prefill_32k, decode_32k, long_500k) of the dense, vlm,
-  audio and moe families: rank 0 of ``serve/sharded.py``'s step under
+* the serving shapes (prefill_32k, decode_32k, long_500k) of every family
+  (those of the ssm and hybrid families at long_500k's B = 1 aside): rank 0 of ``serve/sharded.py``'s step under
   ``--serve-layout`` (ZeRO-3 gathers over "data", tensor parallelism over
   "model", the routed experts over "model" on E); ``state_bytes_per_device`` puts the rank's parameters and
   caches beside the reference's ``param_specs`` / ``cache_specs``;
-* a train shape of the dense, vlm and audio families on a ("data",
-  "model") mesh: one rank of ``train/sharded.py``'s step, by default with
+* a train shape of every family on a ("data", "model") mesh: one rank of ``train/sharded.py``'s step, by default with
   tensor parallelism over "model" (the reference's ``worker`` layout), with
   ``--train-act-model-sharded`` under ``act_spec`` instead (the record
   ``<arch>__<shape>__<mesh>__act.json``, any family without experts);

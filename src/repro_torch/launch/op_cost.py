@@ -15,7 +15,8 @@ every ATen op:
   recomputation run as ops and are counted, as XLA's program holds them.
 * **bytes**: operand and result bytes of every op that materialises a tensor
   (views, ``detach``, allocations and metadata queries are free, as
-  ``_FREE_OPS`` is there). This is the eager program's HBM-traffic proxy:
+  ``_FREE_OPS`` is there; an allocation that fills its result, ``zeros`` or
+  ``new_zeros``, writes its result and reads nothing). This is the eager program's HBM-traffic proxy:
   each op reads its inputs from and writes its outputs to memory. It is a
   different quantity from XLA's bytes of a fused program, and is not held
   against the reference.
@@ -54,6 +55,10 @@ _FREE = {
     aten.new_empty.default, aten.new_empty_strided.default,
     aten._local_scalar_dense.default, aten._unsafe_view.default,
 }
+# allocations that fill their result: they read nothing of ``self`` (its dtype and device only), so
+# only the result's bytes count, as for ``zeros`` (torch 2.11's SortBackward allocates with ``zeros``,
+# 2.13's with ``new_zeros``: the same bytes either way)
+_FILL = {aten.new_zeros.default, aten.new_ones.default, aten.new_full.default}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -173,7 +178,7 @@ class OpCount(TorchDispatchMode):
         fn = self._flop_fns.get(packet)
         if fn is not None and not _outer_product(packet, args):
             self.flops[name] += fn(*args, **kwargs, out_val=out)
-        ins = sum(_nbytes(t) for t in _tensors(args))
+        ins = 0 if func in _FILL else sum(_nbytes(t) for t in _tensors(args))
         ins += sum(_nbytes(t) for k, v in kwargs.items() if k != "out" for t in _tensors((v,)))
         self.bytes[name] += ins + sum(_nbytes(t) for t in outs)
         self.calls[name] += 1

@@ -27,10 +27,9 @@ collectives (the layers' forward, backward and recomputed ones included)
 and calls no process group. By default it is the reference's default
 program, the ``worker`` layout as tensor parallelism over "model" (rank 0's
 blocks of every leaf: its replicas' rows of them, the ZeRO-1 slices of its
-model-local master over "data") for the dense, vlm and audio families on a
-("data", "model") mesh; the moe, ssm and hybrid families, and the
-multi-pod and hierarchical meshes, keep the whole step split evenly
-(:func:`train_refusal` names why). ``train_act_model_sharded=True`` (the
+model-local master over "data") for every family on a ("data", "model")
+mesh; the multi-pod and hierarchical meshes keep the whole step split
+evenly (:func:`train_refusal` names why). ``train_act_model_sharded=True`` (the
 reference's ``act_spec = P("model", None, None)`` where a worker's batch
 splits over "model") builds the ``act_spec`` step instead: whole replicas,
 each worker's rows split over "model"; where the reference would drop
@@ -246,9 +245,9 @@ def build(arch_id: str, shape_id: str, mesh, *, downlink_spec: str = "marina:per
 def train_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
     """None where the dry-run counts one rank of the sharded train step with
     tensor parallelism over "model" for ``cfg`` on ``mesh`` (a ("data",
-    "model") mesh, the dense, vlm and audio families, every product's weight
-    split), else what is not ported (``train/sharded.check_tensor_parallel``'s
-    message)."""
+    "model") mesh, any family, every product's weight split), else what is
+    not ported (``train/sharded.check_tensor_parallel``'s message, or the
+    mesh's)."""
     if tuple(mesh.axis_names) != ("data", "model"):
         return (f"the train step across a process group runs on a ('data', 'model') mesh, not "
                 f"{tuple(mesh.axis_names)} (the multi-pod and hierarchical meshes' train programs are not ported)")

@@ -34,7 +34,8 @@ rank's q heads too, with its latent (``w_dkv``, ``w_krope``) read whole and
 its cache, the latent, whole on every "model" rank. Under autograd
 (the sharded train step) the context's collectives carry the gradients:
 ``x`` enters "model" before the column-parallel products, whose partial
-gradients of ``x`` sum there in fp32.
+gradients of ``x`` sum there in fp32; ``kv_norm``'s scale enters it too,
+since only the rank's heads read the latent it scales.
 """
 from __future__ import annotations
 
@@ -78,18 +79,21 @@ def rmsnorm_spec(d):
     return {"scale": full((d,), 1.0)}
 
 
-def rmsnorm(params, x, eps=1e-5, tp=None):
+def rmsnorm(params, x, eps=1e-5, tp=None, part=False):
+    """RMSNorm of ``x`` over its last dim; ``part``: on a rank of a sharded
+    model, a scale the rank uses only in part (``tp.weight``'s ``part``)."""
     xf = x.to(F32)
     var = (xf * xf).mean(-1, keepdim=True)
-    scale = params["scale"] if tp is None else tp.weight(params, "scale", F32)
+    scale = params["scale"] if tp is None else tp.weight(params, "scale", F32, part=part)
     out = xf * torch.rsqrt(var + eps) * scale
     return out.to(x.dtype)
 
 
-def _weight(p, name: str, dtype, tp, whole: bool = False) -> torch.Tensor:
+def _weight(p, name: str, dtype, tp, whole: bool = False, part: bool = False) -> torch.Tensor:
     """:func:`.params.weight`, or on a rank of a sharded model the rank's
-    block gathered over "data" (and over "model" too if ``whole``)."""
-    return weight(p, name, dtype) if tp is None else tp.weight(p, name, dtype, whole)
+    block gathered over "data" (and over "model" too if ``whole``; ``part``:
+    read only in part by the rank, its gradient summed over "model")."""
+    return weight(p, name, dtype) if tp is None else tp.weight(p, name, dtype, whole, part)
 
 
 def _col_mm(x, ws, tp) -> list:
@@ -458,7 +462,7 @@ def _mla_proj(cfg, params, x, positions, tp=None):
     q = q.reshape(B, S, hs.nq, m.nope_head_dim + m.rope_head_dim)
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    c = rmsnorm(params["kv_norm"], c, cfg.rms_eps, tp)
+    c = rmsnorm(params["kv_norm"], c, cfg.rms_eps, tp, part=True)  # the rank's heads read the latent
     return q_nope, q_rope, c, apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
 
 

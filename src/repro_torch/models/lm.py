@@ -175,12 +175,24 @@ def cross_entropy_tp(logits: torch.Tensor, labels: torch.Tensor, tp) -> torch.Te
     shift; the sum of exp(logit - max) and the target's logit (the rank
     that holds it adds it, the others zero) are summed over "model" in fp32
     (``comm.exit``: every rank holds the loss, and its gradient of its own
-    block)."""
+    block). A context with ``vocab_blocks`` > 1 on one rank (the whole
+    vocabulary: ``train/sharded_check.OneRank``) sums exp over that many
+    vocabulary blocks, each alone, then the blocks' sums in order, as that
+    many ranks would."""
     lf = logits.float()
     n = lf.shape[-1]
     lo = tp.model_index * n
     m = tp.comm.all_reduce(lf.detach().amax(-1), "model", "max")
-    s = tp.all_reduce(torch.exp(lf - m[..., None]).sum(-1), "model")
+    e = torch.exp(lf - m[..., None])
+    blocks = getattr(tp, "vocab_blocks", 1)
+    if blocks > 1:
+        e = e.reshape(*e.shape[:-1], blocks, n // blocks).sum(-1)
+        s = e[..., 0]
+        for i in range(1, blocks):
+            s = s + e[..., i]
+    else:
+        s = e.sum(-1)
+    s = tp.all_reduce(s, "model")
     idx = labels.long() - lo
     inside = (idx >= 0) & (idx < n)
     ll = torch.gather(lf, -1, torch.where(inside, idx, 0).unsqueeze(-1)).squeeze(-1)
@@ -190,12 +202,13 @@ def cross_entropy_tp(logits: torch.Tensor, labels: torch.Tensor, tp) -> torch.Te
 
 def loss_fn(cfg: ModelConfig, params, batch, **fwd_kw) -> torch.Tensor:
     """Mean next-token CE of ``forward``'s logits; where they are the rank's
-    vocabulary block (a ``tp`` context with M > 1), :func:`cross_entropy_tp`."""
+    vocabulary block (a ``tp`` context with M > 1), or the context asks for
+    vocabulary blocks (``vocab_blocks``), :func:`cross_entropy_tp`."""
     logits = forward(cfg, params, batch, **fwd_kw)
     tokens = batch["tokens"]
     ce = cross_entropy
-    if logits.shape[-1] != cfg.vocab_size:
-        tp = fwd_kw["tp"]
+    tp = fwd_kw.get("tp")
+    if logits.shape[-1] != cfg.vocab_size or getattr(tp, "vocab_blocks", 1) > 1:
         ce = lambda lg, lb: cross_entropy_tp(lg, lb, tp)  # noqa: E731
     if cfg.num_codebooks:
         return ce(logits[..., :-1, :], tokens[..., 1:])

@@ -37,6 +37,16 @@ card, where the batch's rows split over "data", up to the router's product
 of the rank's rows, which cuBLAS rounds elsewhere: ``serve/sharded_check``). Where
 "model" does not divide E the spec leaves E whole: every rank computes every
 expert, with no all-reduce. The shared expert is a tensor-parallel MLP.
+
+Under autograd (the sharded train step's tensor parallelism): the routed
+tokens ``xf`` enter "model" (``tp.enter``), since the router's gates and the
+dispatch reach only the copies of the rank's experts, so each rank holds a
+partial gradient of them; the router's gather sums its partial gradient back
+(reduce-scatter) and the combine's all-reduce passes the whole one on. The
+shared expert enters in its own column-parallel products. The capacity is
+the worker's own call: each data index trains other workers on other rows,
+so ``tp.rows`` stays 1 and the capacity is ``capacity(m, B * S)`` of the
+rank's call, as in the single process, with no ``copies_before``.
 """
 from __future__ import annotations
 
@@ -115,22 +125,23 @@ def moe_apply(cfg: ModelConfig, params, x, *, return_aux: bool = False, tp=None)
     if return_aux and tp is not None and (tp.model_size > 1 or tp.data_size > 1):
         raise ValueError("moe_apply's aux losses are the single process's: no shard context across ranks")
     xf = x.reshape(N, D)
-    probs, gate_vals, expert_ids = route(cfg, params, xf, tp)  # [N, E], [N, K], [N, K]
+    # the rank's experts e0 .. e0 + ne - 1 (all of them unless E is split over "model")
+    blk = None if tp is None else tp.model_block(params, "w_in", -3)
+    e0, ne = blk if blk is not None else (0, E)
+    xr = xf if blk is None else tp.enter(xf)  # routed to the rank's experts only
+    probs, gate_vals, expert_ids = route(cfg, params, xr, tp)  # [N, E], [N, K], [N, K]
     rows = 1 if tp is None else tp.rows  # the call's tokens are this rank's N times rows
     cap = capacity(m, N * rows)
     flat_e = expert_ids.reshape(N * K)
     slot, keep = _group_by_expert(flat_e, E, cap, None if rows == 1 else tp.copies_before)
     copy_token = torch.arange(N * K, device=x.device) // K  # repeat(arange(N), K), no host sync
-    # the rank's experts e0 .. e0 + ne - 1 (all of them unless E is split over "model")
-    blk = None if tp is None else tp.model_block(params, "w_in", -3)
-    e0, ne = blk if blk is not None else (0, E)
     if blk is not None:  # the copies this rank's experts own; the others are as dropped here
         keep = keep & (flat_e >= e0) & (flat_e < e0 + ne)
         slot = slot - e0 * cap
     # dispatch: dropped copies go to a spare row past the buffer
     src = torch.where(keep, slot, ne * cap)
     buf = torch.zeros((ne * cap + 1, D), dtype=dt, device=x.device)
-    buf = buf.index_put((src,), xf[copy_token])[:ne * cap].reshape(ne, cap, D)
+    buf = buf.index_put((src,), xr[copy_token])[:ne * cap].reshape(ne, cap, D)
     # expert compute
     h = mm(buf, _weight(params, "w_in", dt, tp))
     g = mm(buf, _weight(params, "w_gate", dt, tp))

@@ -8,7 +8,8 @@ recurrence step on an O(1) state. The SSM and RWKV states are fp32; the
 conv window and the token-shift ``x_last`` take the cache dtype.
 
 Numerical notes (the reference's): Mamba2 decay exponents are <= 0 inside
-the chunk quadratic; RWKV6 per-channel decays are clamped to log w in
+the chunk quadratic (the port masks them before the exp, the reference after
+it, whose gradient is NaN at a full-width chunk of 256); RWKV6 per-channel decays are clamped to log w in
 [-2, -1e-6] and the intra-chunk factors are stabilised around the chunk's
 midpoint cumulative decay (chunk = 32).
 
@@ -36,6 +37,17 @@ layout splits it there), and:
   sum of squares summed over "model" (one fp32 all-reduce of [B, S, 1]);
   ``out_proj`` row-parallel. The ssm cache holds the rank's heads; the conv
   window is whole (every rank has the whole product).
+
+Under autograd (the sharded train step) each use has its backward
+(``serve/sharded.ServeShard``): the replicated leaves a rank reads only for
+its heads (RWKV-6's ``w0``, ``u`` and ``out_norm`` scale; Mamba2's
+``A_log``, ``dt_bias``, ``D``, ``conv_b`` and gated norm scale) have their
+gradients summed over "model" (``part``); the gathered lora tanh, ``in_proj``
+product and ``conv_w`` feed the rank's heads only, so their reduce-scatter
+sums the ranks' partial gradients; RWKV-6's channel-mix gate multiplies the
+replicated row-parallel sum, so every rank holds its whole gradient and
+keeps its own block (``gather_replicated``); the gated norm's sum of squares
+scales the rank's heads only, so its gradient is summed too (``part``).
 """
 from __future__ import annotations
 
@@ -71,21 +83,23 @@ def _head_cols(t: torch.Tensor, hs: Heads, width: int, H: int) -> torch.Tensor:
     return t if hs.n == H else t.narrow(-1, hs.h0 * width, hs.n * width)
 
 
-def _raw(params, name: str, tp, whole: bool = False) -> torch.Tensor:
+def _raw(params, name: str, tp, whole: bool = False, part: bool = False) -> torch.Tensor:
     """``params[name]`` as the single process reads it, in its own dtype (no
     cast: the reference adds or multiplies the leaf as it is); on a rank,
     gathered over "data" where the layout splits it there (and over "model"
-    too if ``whole``)."""
-    return params[name] if tp is None else tp.weight(params, name, params[name].dtype, whole)
+    too if ``whole``; ``part``: read only for the rank's heads)."""
+    return params[name] if tp is None else tp.weight(params, name, params[name].dtype, whole, part)
 
 
-def _gathered(t: torch.Tensor, params, name: str, tp) -> torch.Tensor:
+def _gathered(t: torch.Tensor, params, name: str, tp, replicated: bool = False) -> torch.Tensor:
     """``t`` [..., cols], the rank's column block of a product with
     ``params[name]``, gathered over "model" where that weight's columns are
-    split there (the whole product); ``t`` itself elsewhere."""
+    split there (the whole product); ``t`` itself elsewhere. ``replicated``:
+    every rank uses the whole product alike (its gradient's own block kept,
+    not summed)."""
     if tp is None or tp.model_block(params, name, -1) is None:
         return t
-    return tp.gather(t, t.dim() - 1, "model")
+    return (tp.gather_replicated if replicated else tp.gather)(t, t.dim() - 1, "model")
 
 
 # ===========================================================================
@@ -125,7 +139,7 @@ def _conv_weights(cfg, params, dtype, tp, hs: Heads):
     """(conv_w [W, C'], conv_b [C']) of the channels of heads ``hs``
     (:func:`_conv_channels`); conv_w read whole."""
     w = _weight(params, "conv_w", dtype, tp, True)
-    return _conv_channels(w, cfg, hs), _conv_channels(_weight(params, "conv_b", dtype, tp), cfg, hs)
+    return _conv_channels(w, cfg, hs), _conv_channels(_weight(params, "conv_b", dtype, tp, part=True), cfg, hs)
 
 
 def _causal_conv(xBC, w, b):
@@ -157,21 +171,23 @@ def _mamba_project(cfg, params, x, tp=None):
 def _mamba_decay(cfg, params, tp, hs: Heads):
     """(dt_bias, A = -exp(A_log)) of heads ``hs``."""
     H = cfg.mamba.expand * cfg.d_model // cfg.mamba.head_dim
-    dt_bias = _head_cols(_raw(params, "dt_bias", tp), hs, 1, H)
-    return dt_bias, -torch.exp(_head_cols(_raw(params, "A_log", tp), hs, 1, H))
+    dt_bias = _head_cols(_raw(params, "dt_bias", tp, part=True), hs, 1, H)
+    return dt_bias, -torch.exp(_head_cols(_raw(params, "A_log", tp, part=True), hs, 1, H))
 
 
 def _gated_norm(cfg, params, y, tp):
     """The RMSNorm of ``y`` [B, S, n hd] over all of d_inner; on a rank of
     some of the heads, the row's sum of squares summed over "model" in fp32
-    and the scale's columns of its heads."""
+    and the scale's columns of its heads (``out_proj``'s row block reads only
+    the rank's part of the norm: both are ``part`` uses)."""
     m = cfg.mamba
     d_inner = m.expand * cfg.d_model
     if tp is None or y.shape[-1] == d_inner:
-        return rmsnorm(params["out_norm"], y, cfg.rms_eps, tp)
+        return rmsnorm(params["out_norm"], y, cfg.rms_eps, tp, part=True)
     xf = y.to(F32)
-    var = tp.all_reduce((xf * xf).sum(-1, keepdim=True), "model") / d_inner
-    scale = tp.weight(params["out_norm"], "scale", F32).narrow(-1, tp.ssm_heads.h0 * m.head_dim, y.shape[-1])
+    var = tp.all_reduce((xf * xf).sum(-1, keepdim=True), "model", part=True) / d_inner
+    scale = tp.weight(params["out_norm"], "scale", F32, part=True)
+    scale = scale.narrow(-1, tp.ssm_heads.h0 * m.head_dim, y.shape[-1])
     return (xf * torch.rsqrt(var + cfg.rms_eps) * scale).to(y.dtype)
 
 
@@ -179,7 +195,7 @@ def _mamba_post(cfg, params, xin, y, z, hs: Heads, tp=None):
     """y + D skip, gated norm, out projection (row-parallel on a rank)."""
     B_, S, H, hd = y.shape
     xh = xin.reshape(B_, S, H, hd)
-    D = _head_cols(_weight(params, "D", y.dtype, tp), hs, 1, cfg.mamba.expand * cfg.d_model // hd)
+    D = _head_cols(_weight(params, "D", y.dtype, tp, part=True), hs, 1, cfg.mamba.expand * cfg.d_model // hd)
     y = y + D[None, None, :, None] * xh
     y = y.reshape(B_, S, H * hd)
     y = _gated_norm(cfg, params, y, tp)
@@ -215,11 +231,15 @@ def mamba_apply(cfg: ModelConfig, params, x, tp=None):
     loga_c, x_c, B_c, C_c = r(loga), r(xdt), r(Bm), r(Cm)
     L = torch.cumsum(loga_c, dim=2)  # [B,nc,Q,H] inclusive
 
-    # intra-chunk quadratic: scores[t,s] = (C_t . B_s) e^{L_t - L_s} (s <= t)
+    # intra-chunk quadratic: scores[t,s] = (C_t . B_s) e^{L_t - L_s} (s <= t). The exponent is masked before
+    # the exp, where the reference masks after it: the same values, but past the diagonal L_t - L_s > 0 grows
+    # with the chunk (a full-width chunk of 256 passes 88, exp's fp32 range), and exp's backward there,
+    # 0 * inf, made the whole gradient NaN
     CB = torch.einsum("bctn,bcsn->bcts", C_c, B_c)
-    dec = torch.exp(L[:, :, :, None, :] - L[:, :, None, :, :])  # [B,nc,Q,Q,H]
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    scores = CB[..., None] * torch.where(mask[None, None, :, :, None], dec, 0.0)
+    dec = torch.exp(torch.where(mask[None, None, :, :, None], L[:, :, :, None, :] - L[:, :, None, :, :],
+                                float("-inf")))  # [B,nc,Q,Q,H]
+    scores = CB[..., None] * dec
     y_intra = torch.einsum("bctsh,bcshd->bcthd", scores, x_c)
 
     # inter-chunk recurrence over the carried state [B,H,N,hd]
@@ -332,8 +352,9 @@ def _rwkv_proj(cfg, params, x, x_prev, tp=None):
     kv = proj(1, "w_k").reshape(B_, S, H, r.head_dim)
     vv = proj(2, "w_v").reshape(B_, S, H, r.head_dim)
     lora = _gathered(torch.tanh(proj(3, "w_lora_a", False).to(F32)), params, "w_lora_a", tp)
-    w0 = _head_cols(_raw(params, "w0", tp), hs, r.head_dim, cfg.d_model // r.head_dim)
-    logw = w0 + lora @ _raw(params, "w_lora_b", tp, hs.whole)
+    w0 = _head_cols(_raw(params, "w0", tp, part=True), hs, r.head_dim, cfg.d_model // r.head_dim)
+    # fp32 @ the leaf as it is (bf16 under bf16 replicas): jnp promotes it to fp32, torch's matmul must be told
+    logw = w0 + lora @ _raw(params, "w_lora_b", tp, hs.whole).to(lora.dtype)
     logw = -torch.exp(logw)  # < 0
     logw = torch.clamp(logw, RWKV_LOGW_MIN, RWKV_LOGW_MAX).reshape(B_, S, H, r.head_dim)
     gv = F.silu(proj(4, "w_g").to(F32)).to(dt)
@@ -345,12 +366,12 @@ def _rwkv_u(cfg, params, tp) -> torch.Tensor:
     r = cfg.rwkv
     H = cfg.d_model // r.head_dim
     hs = _heads(tp, H)
-    return _head_cols(_raw(params, "u", tp), hs, r.head_dim, H).reshape(hs.n, r.head_dim)
+    return _head_cols(_raw(params, "u", tp, part=True), hs, r.head_dim, H).reshape(hs.n, r.head_dim)
 
 
 def _rwkv_out(cfg, params, wkv, g, x_dtype, tp=None):
     B_, S, H, hd = wkv.shape
-    y = rmsnorm(params["out_norm"], wkv.to(F32), tp=tp).to(x_dtype)
+    y = rmsnorm(params["out_norm"], wkv.to(F32), tp=tp, part=True).to(x_dtype)  # the rank's heads
     y = y.reshape(B_, S, H * hd) * g.reshape(B_, S, H * hd)
     return _row_mm(y, params, "w_out", tp)
 
@@ -417,7 +438,8 @@ def rwkv_timemix_decode(cfg: ModelConfig, params, x, cache, pos, tp=None):
 
 def rwkv_chanmix_apply(cfg: ModelConfig, params, x, x_last=None, tp=None):
     """RWKV channel mix (``ssm.py:319``). On a rank (``tp``): ``cm_k``
-    column-parallel, ``cm_v`` row-parallel, the gate gathered over "model"."""
+    column-parallel, ``cm_v`` row-parallel, the gate gathered over "model"
+    and used whole (its gradient's block kept)."""
     dt = x.dtype
     xs = _shift(x, x_last)
     mu = _weight(params, "cm_mu", dt, tp)
@@ -425,7 +447,7 @@ def rwkv_chanmix_apply(cfg: ModelConfig, params, x, x_last=None, tp=None):
     xr = x + mu[1] * (xs - x)
     h = torch.square(torch.relu(_col_mm(xk, [_weight(params, "cm_k", dt, tp)], tp)[0].to(F32))).to(dt)
     rgate = torch.sigmoid(_col_mm(xr, [_weight(params, "cm_r", dt, tp)], tp)[0].to(F32)).to(dt)
-    return _gathered(rgate, params, "cm_r", tp) * _row_mm(h, params, "cm_v", tp)
+    return _gathered(rgate, params, "cm_r", tp, replicated=True) * _row_mm(h, params, "cm_v", tp)
 
 
 def rwkv_cache_init(cfg: ModelConfig, batch: int, dtype=F32, device=None):

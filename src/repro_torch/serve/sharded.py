@@ -296,12 +296,32 @@ class ServeShard:
 
     The same context serves training (``train/sharded.py``'s tensor
     parallelism over "model", under the ``tp`` layout): under autograd its
-    collectives are ``launch/comm``'s (``enter`` before the column-parallel
-    products, ``exit`` after a row-parallel partial and the embedding's
-    lookup, ``gather`` with a reduce-scatter backward), and
-    :meth:`grad_tree` gives the rank's blocks as a tree to differentiate.
+    collectives are ``launch/comm``'s, one backward per kind of use, and
+    :meth:`grad_tree` gives the rank's blocks as a tree to differentiate:
+
+    * :meth:`col_mm` enters "model" (``enter``: the gradient summed) before
+      the column-parallel products of every layer; :meth:`enter` does the
+      same for moe's routed tokens, which only the rank's experts read
+      (``models/moe.py``; the shared expert enters in its own ``col_mm``);
+    * :meth:`weight` with ``part``: a replicated weight the rank reads in
+      part (``enter``): RWKV-6's ``w0``, ``u`` and per-head ``out_norm``
+      scale, Mamba2's ``A_log``, ``dt_bias``, ``D``, ``conv_b`` and gated
+      norm scale (``models/ssm.py``), MLA's ``kv_norm`` scale
+      (``models/layers.py``);
+    * :meth:`row_mm` and :meth:`all_reduce` (``exit``: the gradient as it
+      is) after a row-parallel partial, the embedding's lookup and moe's
+      combine; :meth:`all_reduce` with ``part`` (``exit_enter``: the
+      gradient summed too) for Mamba2's gated norm's sum of squares;
+    * :meth:`weight` with ``whole`` and :meth:`gather` (``gather``: a
+      reduce-scatter backward) for a weight or product gathered for a use
+      that differs by rank: moe's router, MLA's ``w_dkv`` / ``w_krope``,
+      Mamba2's ``conv_w`` and ``in_proj`` product, RWKV-6's lora tanh;
+      :meth:`gather_replicated` (the rank's block of the gradient, no sum)
+      for RWKV-6's channel-mix gate, used whole on every rank.
+
     Outside autograd (the serving steps run under ``torch.no_grad()``) each
-    is the plain collective, as before."""
+    is the plain collective, as before, and a ``part`` read is the weight
+    itself."""
 
     def __init__(self, cfg: ModelConfig, layout: ServeLayout, comm: Comm, *, seq_split: bool = False,
                  rows: int = 1):
@@ -324,15 +344,26 @@ class ServeShard:
         _attach_specs(tree, self.specs)
         return tree
 
-    def weight(self, p, name: str, dtype, whole: bool = False) -> torch.Tensor:
+    def weight(self, p, name: str, dtype, whole: bool = False, part: bool = False) -> torch.Tensor:
         """``p[name]`` in ``dtype`` (the bf16 copy), gathered over "data"
-        where the layout splits it there, and over "model" too if ``whole``."""
+        where the layout splits it there, and over "model" too if ``whole``;
+        ``part``: a weight the rank reads only in part, which enters "model"
+        (:meth:`enter`)."""
         w = weight(p, name, dtype)
         for dim, entry in enumerate(p.specs[name]):
             ax = None if entry is None else self.layout.axis(entry)
             if ax == "data" or (ax == "model" and whole):
                 w = gather_dim(self.comm, self.layout, w, dim, ax)
-        return w
+        return self.enter(w) if part else w
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, replicated over "model", for a use that differs by rank:
+        under autograd its gradient is summed over "model" in fp32 at least
+        and rounded once to ``x``'s dtype (``comm.enter``); ``x`` itself
+        outside autograd or on an axis of one rank."""
+        if self.model_size == 1 or not C._grad(x):
+            return x
+        return C.enter(self.comm, x.to(torch.promote_types(x.dtype, torch.float32)), "model").to(x.dtype)
 
     def model_block(self, p, name: str, dim: int) -> Optional[tuple]:
         """(first index, count) of the rank's block of ``p[name]`` along
@@ -376,6 +407,13 @@ class ServeShard:
         (:func:`gather_dim`)."""
         return gather_dim(self.comm, self.layout, t, dim, axis)
 
+    def gather_replicated(self, t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """:meth:`gather` for a use that is the same on every rank: under
+        autograd the gradient's block of this rank, with no sum
+        (``comm.gather_replicated``)."""
+        n = self.layout.size(axis)
+        return t if n == 1 else C.gather_replicated(self.comm, t, dim, n, axis, self.layout.index(axis))
+
     def copies_before(self, counts: torch.Tensor) -> torch.Tensor:
         """[E]: each expert's routed copies on the data ranks before this one
         (the global copy order is token-major, and a data rank holds a
@@ -384,11 +422,13 @@ class ServeShard:
         every = gather_dim(self.comm, self.layout, counts.to(torch.int32)[None].contiguous(), 0, "data")
         return every[:self.data_index].sum(0)
 
-    def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum", part: bool = False) -> torch.Tensor:
         """The ``op`` of ``t`` over ``axis``; a sum under autograd is
-        ``comm.exit`` (the gradient passes as it is)."""
+        ``comm.exit`` (the gradient passes as it is), or with ``part``, for
+        a sum each rank uses only in part, ``comm.exit_enter`` (the gradient
+        summed over ``axis`` too)."""
         if op == "sum":
-            return C.exit(self.comm, t, axis)
+            return (C.exit_enter if part else C.exit)(self.comm, t, axis)
         return self.comm.all_reduce(t, axis, op)
 
 

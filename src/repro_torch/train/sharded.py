@@ -23,8 +23,11 @@ over ``launch/specs.build``'s specs on a ("data", "model") mesh).
   :class:`~repro_torch.serve.sharded.ServeShard` under the ``tp`` layout
   (column-parallel products, row-parallel partials summed in fp32, the
   embedding's rows and the vocabulary split over "model", kv heads gathered
-  where the split cuts one), whose collectives carry the gradients
-  (``launch/comm.py``); the loss is the vocabulary-parallel CE.
+  where the split cuts one; moe's experts over "model" on E, RWKV-6's and
+  Mamba2's recurrences on the rank's heads), whose collectives carry the
+  gradients (``launch/comm.py``, one backward per kind of use: the
+  ``ServeShard`` docstring); the loss is the vocabulary-parallel CE. Every
+  family the reference trains runs so: dense, vlm, audio, moe, ssm, hybrid.
 * Otherwise (data parallelism, and ``act_spec``): a rank holds its data
   index's rows of MARINA-P's replicas [W/D, d] whole (the M ranks of one
   data index hold the same rows), or EF21-P's shift [d]. The flat server
@@ -74,9 +77,7 @@ layers' forward, backward and recomputed collectives too);
 dry-run counts one rank of a 256-rank mesh on ``meta`` with no group. Both
 charge an open op count (:func:`repro_torch.launch.op_cost.counting`).
 
-Refused (not ported): tensor parallelism for the moe, ssm and hybrid
-families (:data:`NOT_PORTED` names what each lacks: their serving steps are
-ported, their training is not) and for a
+Refused (not ported): tensor parallelism for a column- or row-parallel
 weight "model" does not split, and ``act_spec`` for configs with experts
 (MoE capacity is computed over all tokens of a call, ``models/moe.py``, so a
 split batch drops other tokens).
@@ -363,24 +364,13 @@ def init_state(cfg: ModelConfig, tcfg, downlink, optimizer: Optimizer, layout: L
 # ---------------------------------------------------------------------------
 
 
-# what each family the train step's tensor parallelism refuses would need, beyond its serving step's
-TRAIN_NOT_PORTED = {"moe": "the experts' gradients over E, and the router's",
-                    "ssm": "the gradients of rwkv6's time and channel mix over 'model'",
-                    "hybrid": "the gradients of zamba2's Mamba2 blocks over 'model'"}
-NOT_PORTED = dict(SS.NOT_PORTED, **TRAIN_NOT_PORTED)
-
-
 def check_tensor_parallel(cfg: ModelConfig, layout: Layout) -> None:
     """Raise ``serve/sharded.NotPorted`` unless the port runs ``cfg``'s train
-    step with tensor parallelism over ``layout``'s "model" axis: the dense,
-    vlm and audio families, with every weight of a column- or row-parallel
-    product split (a product "model" does not split would run whole on every
-    rank, and its gradients are not carried)."""
-    what = "the train step's tensor parallelism over 'model' (the reference's worker layout)"
-    if cfg.family in TRAIN_NOT_PORTED:  # a family whose serving step across ranks is ported
-        raise SS.NotPorted(f"{cfg.arch_id} ({cfg.family}): {what} is not ported for the {cfg.family} family "
-                           f"({TRAIN_NOT_PORTED[cfg.family]})")
-    SS.check_ported(cfg, what)
+    step with tensor parallelism over ``layout``'s "model" axis: every
+    family whose serving step across ranks is ported, with every weight of a
+    column- or row-parallel product split (a product "model" does not split
+    would run whole on every rank, and its gradients are not carried)."""
+    SS.check_ported(cfg, "the train step's tensor parallelism over 'model' (the reference's worker layout)")
     tree = lm.lm_spec(cfg)
     for (path, leaf), b in zip(P.leaves_with_path(tree), layout.blocks):
         name = path[-1]

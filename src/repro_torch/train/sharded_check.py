@@ -26,9 +26,9 @@ product's. Each number is held to the ``act_spec`` bound or, where wider,
 same run: the distance of the single process from itself with the
 tensor-parallel step's summation order in one process (:class:`OneRank`:
 the row-parallel products' M fp32 partials summed before one rounding, x's
-gradient summed in fp32 and rounded once), and for the loss the larger of
-that and :func:`loss_floor` (the distance one rounding of the logits
-makes). Measured with the smoke gemma-2b on 4 CPU
+gradient summed in fp32 and rounded once, the vocabulary-parallel CE over M
+blocks), and for the loss the larger of that and :func:`loss_floor` (the
+distance one rounding of the logits makes). Measured with the smoke gemma-2b on 4 CPU
 ranks at (1, 4) and (2, 2): loss 1.4e-5-4.3e-5 (floor 8.8e-5-1.9e-4), g
 6.5e-3, grad_norm 8.3e-4, the master 2.0 lr with 1.5e-3 past 0.1 lr.
 MARINA-P's replicas are held to W times the master's bound (a kept
@@ -72,12 +72,17 @@ class OneRank(SS.ServeShard):
     products sum x's gradient in fp32 before one rounding, as the ranks'
     ``enter`` does), whose row-parallel products sum ``parts`` fp32 partials
     over blocks of their rows before one rounding, as ``parts`` ranks'
-    ``exit`` does. The values are the single process's, summed in another
+    ``exit`` does, and whose loss is the vocabulary-parallel CE over
+    ``parts`` vocabulary blocks (``lm.cross_entropy_tp``, where the
+    vocabulary splits so): rwkv6's backward amplifies that CE's rounding
+    into its grad norm (1.2e-3 at (1, 4) on the smoke config, against 6e-5
+    without it). The values are the single process's, summed in another
     order."""
 
     def __init__(self, cfg, parts: int):
         super().__init__(cfg, SS.ServeLayout(Mesh(("data", "model"), (1, 1)), 0, "tp"), SH.CountingComm())
         self.parts = parts
+        self.vocab_blocks = parts if cfg.vocab_size % parts == 0 else 1
 
     def row_mm(self, x, p, name):
         w = self.weight(p, name, x.dtype)
@@ -162,11 +167,11 @@ def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Comm, *, batch_rows: int,
-             seq: int, device, steps: int = 3, forced: bool = False, check_rank=None) -> dict:
+             seq: int, device, steps: int = 3, forced: bool = False, check_rank=None, draw_seed: int = 11) -> dict:
     """``steps`` teacher-forced steps of the sharded step under downlink
     ``spec`` (``tcfg`` as the sharded step takes it; the single-process step
     runs it without ``act_spec``) on a [W, batch_rows, seq] synthetic batch
-    from seed 1's state and seed 11's draws, every rank calling it. Each
+    from seed 1's state and ``draw_seed``'s draws, every rank calling it. Each
     step also checks that ``shard_state`` / ``gather_state`` give the state
     back bit for bit and that the bytes ``comm`` handed to the group equal
     the dry-run's count of the same step on ``meta``; a forced sync at step
@@ -198,8 +203,8 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
     plan = trainer.participation_plan(tcfg)
     state = trainer.init_state(cfg, tcfg, dl, opt, device=device, seed=1)
     data = SyntheticLMData(cfg, W, batch_rows, seq, device=str(device))
-    gen, pgen = torch.Generator().manual_seed(11), torch.Generator().manual_seed(11)
-    dgen = torch.Generator(device).manual_seed(11)
+    gen, pgen = torch.Generator().manual_seed(draw_seed), torch.Generator().manual_seed(draw_seed)
+    dgen = torch.Generator(device).manual_seed(draw_seed)
     worst, moved, launches, compressed = [0.0] * len(WORST_KEYS), {}, {}, 0
     floor = [0.0] * len(WORST_KEYS)
     for i in range(steps):

@@ -96,20 +96,21 @@ def test_dry_run_records_of_both_splits(smoke, tmp_path):
     """run_one: the per_rank records (the default train count, tensor
     parallelism over "model", and the act-sharded one) carry the collective
     bytes by kind, a collective term and both layouts' state bytes; the even
-    record of a family whose train step across ranks is not ported (rwkv6,
-    ssm) keeps collective_s None and says why; reanalyze gives all three
-    back; the file of the act-sharded count is tagged ``__act``."""
+    record of a mesh whose train program across ranks is not ported (rwkv6
+    on the multi-pod mesh) keeps collective_s None and says why; reanalyze
+    gives all three back; the file of the act-sharded count is tagged
+    ``__act``."""
     dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--out", str(tmp_path)])
     dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--train-act-model-sharded",
                  "--out", str(tmp_path)])
-    dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "train_4k", "--out", str(tmp_path)])
+    dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "train_4k", "--multi-pod", "--out", str(tmp_path)])
     tp = json.loads((tmp_path / "gemma3-1b__train_4k__16x16.json").read_text())
     act = json.loads((tmp_path / "gemma3-1b__train_4k__16x16__act.json").read_text())
-    even = json.loads((tmp_path / "rwkv6-1.6b__train_4k__16x16.json").read_text())
+    even = json.loads((tmp_path / "rwkv6-1.6b__train_4k__2x16x16.json").read_text())
     for rec in (tp, act, even):
         assert dryrun.record_problems(rec) == []
     assert even["split"] == "even" and even["roofline"]["collective_s"] is None
-    assert "tensor parallelism" in even["collective_note"] and even["collective_bytes_per_device"] is None
+    assert "multi-pod" in even["collective_note"] and even["collective_bytes_per_device"] is None
     assert act["split"] == "per_rank" and act["act_spec"] == ["model", None, None] and not act["tensor_parallel"]
     assert tp["split"] == "per_rank" and tp["act_spec"] is None and tp["tensor_parallel"]
     for rec in (tp, act):
@@ -125,7 +126,7 @@ def test_dry_run_records_of_both_splits(smoke, tmp_path):
     recs = reanalyze.reanalyze(str(tmp_path), str(out))
     assert sorted(r["split"] for r in recs) == ["even", "per_rank", "per_rank"]
     for name in ("gemma3-1b__train_4k__16x16.json", "gemma3-1b__train_4k__16x16__act.json",
-                 "rwkv6-1.6b__train_4k__16x16.json"):
+                 "rwkv6-1.6b__train_4k__2x16x16.json"):
         assert json.loads((out / name).read_text()) == json.loads((tmp_path / name).read_text())
 
 
@@ -251,20 +252,22 @@ def test_even_records_name_their_own_reason(smoke):
     """Each even record's note names what is not ported for its own step
     (from ``specs.build``'s ``even_note``), and nothing else: zamba2's
     long_500k serving step (hybrid: the cache split of its states at
-    B = 1), rwkv6's train step (ssm) and deepseek-v2's (moe: their serving
-    steps are ported, their training is not)."""
-    train = dryrun.run_one("rwkv6-1.6b", "train_4k", verbose=False)
+    B = 1), rwkv6's train step on the multi-pod mesh (its train program is
+    not ported) and deepseek-v2's on 16x16 (the smoke config's 4 experts do
+    not split over 'model' = 16: its router's and experts' products would
+    run whole on every rank)."""
+    train = dryrun.run_one("rwkv6-1.6b", "train_4k", multi_pod=True, verbose=False)
     hybrid = dryrun.run_one("zamba2-1.2b", "long_500k", verbose=False)
     moe = dryrun.run_one("deepseek-v2-236b", "train_4k", verbose=False)
     assert train["split"] == hybrid["split"] == moe["split"] == "even"
-    assert train["collective_note"] == dryrun.EVEN_NOTE + specs.build("rwkv6-1.6b", "train_4k", MESH).meta["even_note"]
-    assert "the train step's tensor parallelism over 'model'" in train["collective_note"]
-    assert f"not ported for the ssm family ({SH.TRAIN_NOT_PORTED['ssm']})" in train["collective_note"]
-    assert "serving" not in train["collective_note"]
+    assert train["collective_note"] == dryrun.EVEN_NOTE + specs.build(
+        "rwkv6-1.6b", "train_4k", make_production_mesh(multi_pod=True)).meta["even_note"]
+    assert "the multi-pod and hierarchical meshes' train programs are not ported" in train["collective_note"]
+    assert "serving" not in train["collective_note"] and "family" not in train["collective_note"]
     assert "cache_specs splits a cache of shape" in hybrid["collective_note"]
     assert "tensor parallelism" not in hybrid["collective_note"] and "family" not in hybrid["collective_note"]
-    assert f"not ported for the moe family ({SH.TRAIN_NOT_PORTED['moe']})" in moe["collective_note"]
-    assert "the train step's tensor parallelism over 'model'" in moe["collective_note"]
+    assert "moe/router (128, 4) does not split over 'model' = 16" in moe["collective_note"]
+    assert "tensor parallelism" in moe["collective_note"] and "family" not in moe["collective_note"]
 
 
 def test_full_width_serve_counts():

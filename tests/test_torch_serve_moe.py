@@ -216,17 +216,21 @@ def test_latent_caches_split_batch_or_sequence():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_still_refuses_moe(arch):
-    """Serving admits the moe family; the train step's tensor parallelism
-    does not, with a message of its own (the experts' and the router's
-    gradients)."""
+    """Serving admits the moe family, and so does the train step's tensor
+    parallelism (tests/test_torch_train_tp_families.py); what it still
+    refuses is experts that "model" does not split (the smoke config's 4 at
+    M = 16: the router's and experts' products would run whole on every
+    rank), with its own message."""
     cfg = configs.get_smoke(arch)
     SS.check_ported(cfg)
+    assert "moe" not in SS.NOT_PORTED
+    d = sum(leaf_sizes(lm.lm_spec(cfg)))
     mesh = Mesh(("data", "model"), (2, 2))
-    layout = SH.Layout(mesh, 0, 2, sum(leaf_sizes(lm.lm_spec(cfg))), SH.model_blocks(cfg, mesh, 0))
-    with pytest.raises(SS.NotPorted, match="not ported for the moe family") as e:
-        SH.check_tensor_parallel(cfg, layout)
-    assert SH.TRAIN_NOT_PORTED["moe"] in str(e.value) and "train step's tensor parallelism" in str(e.value)
-    assert "moe" not in SS.NOT_PORTED and SH.NOT_PORTED["moe"] == SH.TRAIN_NOT_PORTED["moe"]
+    SH.check_tensor_parallel(cfg, SH.Layout(mesh, 0, 2, d, SH.model_blocks(cfg, mesh, 0)))
+    wide = Mesh(("data", "model"), (1, 16))
+    with pytest.raises(SS.NotPorted, match=r"moe/router \(128, 4\) does not split over 'model' = 16") as e:
+        SH.check_tensor_parallel(cfg, SH.Layout(wide, 0, 1, d, SH.model_blocks(cfg, wide, 0)))
+    assert "family" not in str(e.value)
 
 
 @pytest.mark.parametrize("shape,layout_name", [("2x2", "serve"), ("1x4", "tp"), ("2x2", "tp_attn_rep"),

@@ -116,19 +116,21 @@ def test_one_rank_equals_forward_and_decode_bit_for_bit(one_rank, arch, layout_n
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_refuses_the_families_not_ported(arch):
     """rwkv6 (ssm) and zamba2 (hybrid): their serving steps across ranks are
-    ported; what still refuses them is the train step's tensor parallelism,
-    with its own message, and a batch of one over 4 data ranks, where
-    cache_specs splits their recurrent states' inner dims."""
+    ported, and so is their train step's tensor parallelism; what still
+    refuses them is a product's weight that "model" does not split (at
+    M = 32), with its own message, and a batch of one over 4 data ranks,
+    where cache_specs splits their recurrent states' inner dims."""
     cfg = configs.get_smoke(arch)
     layout = SS.ServeLayout(Mesh(("data", "model"), (2, 2)), 0)
     SS.check_ported(cfg)
     SS.make_prefill_step(cfg, layout, CountingComm())
     SS.make_decode_step(cfg, layout, CountingComm(), 2, 16)
-    own = (re.escape(f"{cfg.arch_id} ({cfg.family}): ") + ".* not ported for the "
-           + re.escape(f"{cfg.family} family ({SH.TRAIN_NOT_PORTED[cfg.family]})"))
-    lay = SH.Layout(layout.mesh, 0, 2, sum(leaf_sizes(lm.lm_spec(cfg))), SH.model_blocks(cfg, layout.mesh, 0))
+    d = sum(leaf_sizes(lm.lm_spec(cfg)))
+    SH.check_tensor_parallel(cfg, SH.Layout(layout.mesh, 0, 2, d, SH.model_blocks(cfg, layout.mesh, 0)))
+    wide = Mesh(("data", "model"), (1, 32))
+    own = re.escape(f"{cfg.arch_id}: ") + ".* does not split over 'model' = 32"
     with pytest.raises(SS.NotPorted, match=own):
-        SH.check_tensor_parallel(cfg, lay)
+        SH.check_tensor_parallel(cfg, SH.Layout(wide, 0, 1, d, SH.model_blocks(cfg, wide, 0)))
     with pytest.raises(SS.NotPorted, match="only its batch or its sequence"):
         SS.make_decode_step(cfg, SS.ServeLayout(Mesh(("data", "model"), (4, 1)), 0), CountingComm(), 1, 16)
 

@@ -201,37 +201,32 @@ def test_downlink_on_blocks_is_the_whole_downlinks_block(mode):
                 assert torch.equal(_bits(rows), _bits(lay.model_local(full[lay.off:lay.off + lay.local])))
 
 
-@pytest.mark.parametrize("arch,match", [("rwkv6-1.6b", "not ported for the ssm family"),
-                                        ("zamba2-1.2b", "not ported for the hybrid family"),
-                                        ("deepseek-v2-236b", "not ported for the moe family"),
-                                        ("llama4-maverick-400b-a17b", "not ported for the moe family")])
-def test_tensor_parallel_refusals(arch, match):
-    """moe, ssm and hybrid are refused with a message that names what each
-    lacks (``train/sharded.NOT_PORTED``: moe's serving step across ranks is
-    ported, its training is not); so is a layout without the rank's blocks,
-    and act_spec on one with them."""
-    cfg = configs.get_smoke(arch)
-    d = sum(P.leaf_sizes(lm.lm_spec(cfg)))
+@pytest.mark.parametrize("case", ["no blocks", "act_spec on blocks", "act_spec with experts", "odd weight"])
+def test_tensor_parallel_refusals(case):
+    """What the train step's tensor parallelism still refuses, each with its
+    message: a layout without the rank's blocks where "model" > 1, act_spec
+    on one with them, act_spec with experts (the moe family's tensor
+    parallelism itself is ported: ``tests/test_torch_train_tp_families.py``),
+    and a product's weight that "model" does not split."""
     mesh = Mesh(("data", "model"), (2, 2))
     tcfg = TrainerConfig(n_workers=2, attn_chunk=32)
-    layout = SH.Layout(mesh, 0, 2, d, SH.model_blocks(cfg, mesh, 0))
-    with pytest.raises(SS.NotPorted, match=match) as e:
-        SH.make_sharded_train_step(cfg, tcfg, make_downlink("marina:perm", 2), make_optimizer("adamw"),
-                                   constant_lr(SC.LR), layout, SH.CountingComm())
-    assert "train step's tensor parallelism" in str(e.value) and SH.NOT_PORTED[cfg.family] in str(e.value)
-    dense = configs.get_smoke("gemma-2b")
-    dd = sum(P.leaf_sizes(lm.lm_spec(dense)))
-    for lay, tc, what in ((SH.Layout(mesh, 0, 2, dd), tcfg, "holds the rank's blocks"),
-                          (SH.Layout(mesh, 0, 2, dd, SH.model_blocks(dense, mesh, 0)),
-                           TrainerConfig(n_workers=2, attn_chunk=32, act_spec=SH.ACT_SPEC), "whole replicas")):
-        with pytest.raises(ValueError, match=what):
-            SH.make_sharded_train_step(dense, tc, make_downlink("marina:perm", 2), make_optimizer("adamw"),
-                                       constant_lr(SC.LR), lay, SH.CountingComm())
-    wide = Mesh(("data", "model"), (1, 32))  # the smoke starcoder2's 48-column kv projection does not split
-    odd = configs.get_smoke("starcoder2-7b")
-    lay = SH.Layout(wide, 0, 1, sum(P.leaf_sizes(lm.lm_spec(odd))), SH.model_blocks(odd, wide, 0))
-    with pytest.raises(SS.NotPorted, match="does not split over 'model' = 32"):
-        SH.check_tensor_parallel(odd, lay)
+    act = TrainerConfig(n_workers=2, attn_chunk=32, act_spec=SH.ACT_SPEC)
+    cfg = configs.get_smoke("deepseek-v2-236b" if case == "act_spec with experts" else "gemma-2b")
+    d = sum(P.leaf_sizes(lm.lm_spec(cfg)))
+    if case == "odd weight":  # the smoke starcoder2's 48-column kv projection does not split
+        wide = Mesh(("data", "model"), (1, 32))
+        odd = configs.get_smoke("starcoder2-7b")
+        lay = SH.Layout(wide, 0, 1, sum(P.leaf_sizes(lm.lm_spec(odd))), SH.model_blocks(odd, wide, 0))
+        with pytest.raises(SS.NotPorted, match="does not split over 'model' = 32"):
+            SH.check_tensor_parallel(odd, lay)
+        return
+    lay, tc, what = {"no blocks": (SH.Layout(mesh, 0, 2, d), tcfg, "holds the rank's blocks"),
+                     "act_spec on blocks": (SH.Layout(mesh, 0, 2, d, SH.model_blocks(cfg, mesh, 0)), act,
+                                            "whole replicas"),
+                     "act_spec with experts": (SH.Layout(mesh, 0, 2, d), act, "act_spec with experts")}[case]
+    with pytest.raises(ValueError, match=what):
+        SH.make_sharded_train_step(cfg, tc, make_downlink("marina:perm", 2), make_optimizer("adamw"),
+                                   constant_lr(SC.LR), lay, SH.CountingComm())
 
 
 # ---------------------------------------------------------------------------
