@@ -42,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from ..data import SyntheticLMData
 from ..kernels import runtime
@@ -181,13 +182,15 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
     launches, "compressed": the steps that were no sync, "floor": under
     tensor parallelism the single process's own floor, each distance's
     largest over the steps (:data:`WORST_KEYS`; see :func:`hold`), else
-    None}. ``check_rank``: only that rank runs the single-process steps and
-    holds the whole state (the others free theirs once sharded, and report
-    zeros), for a model whose whole state a card holds once, not on every
-    rank; one step only (the next would start from the single process's)."""
-    if check_rank is not None and steps != 1:
-        raise ValueError(f"check_rank {check_rank} with {steps} steps: one step only (the ranks teacher-force "
-                         "each step from the whole state)")
+    None}. ``check_rank``: only that rank runs the single-process steps,
+    the floor and the comparisons (of the gathered state, which holds every
+    rank's share), and the others report zeros; between steps it
+    broadcasts the single-process state that teacher-forces the next one
+    (:func:`share_state`). One step holds the whole state on that rank
+    alone, for a model whose whole state a card holds once, not on every
+    rank."""
+    if check_rank is not None and not 0 <= check_rank < layout.world:
+        raise ValueError(f"check_rank {check_rank} outside a mesh of {layout.world} ranks")
     mine = check_rank is None or layout.rank == check_rank
     W = layout.n_workers
     sizes = P.leaf_sizes(lm.lm_spec(cfg))
@@ -208,6 +211,8 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
     worst, moved, launches, compressed = [0.0] * len(WORST_KEYS), {}, {}, 0
     floor = [0.0] * len(WORST_KEYS)
     for i in range(steps):
+        if check_rank is not None and i:
+            state = share_state(state if mine else None, check_rank)
         batch = data.batch(i)
         draws = D.draw_round(dl, sizes, gen, dgen)
         if not plan.is_full:
@@ -272,6 +277,33 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
     wmax = float(state["workers"].float().abs().max()) if mine and "workers" in state else 0.0
     return {"worst": worst, "moved": moved, "wmax": wmax, "launches": launches,
             "floor": floor if layout.tp else None, "compressed": compressed}
+
+
+def share_state(state, src: int):
+    """Rank ``src``'s train state on every rank of the default group
+    (``state`` there, None elsewhere): its structure and the shapes of its
+    tensors in one object broadcast, then one broadcast a tensor, on the
+    device ``src``'s tensors lie on."""
+    from torch.utils import _pytree as pytree
+    mine = dist.get_rank() == src
+    if mine:
+        leaves, tree = pytree.tree_flatten(state)
+        meta = [(tuple(v.shape), v.dtype, str(v.device)) if isinstance(v, torch.Tensor) else ("value", v)
+                for v in leaves]
+        box = [pytree.treespec_dumps(tree), meta]
+    else:
+        box = [None, None]
+    dist.broadcast_object_list(box, src=src)
+    tree, meta = pytree.treespec_loads(box[0]), box[1]
+    out = []
+    for i, m in enumerate(meta):
+        if m[0] == "value":
+            out.append(m[1])
+            continue
+        t = leaves[i].contiguous() if mine else torch.empty(m[0], dtype=m[1], device=m[2])
+        dist.broadcast(t.view(torch.uint8) if t.dtype == torch.bool else t, src=src)
+        out.append(t)
+    return pytree.tree_unflatten(out, tree)
 
 
 def hold(name: str, res: dict, bnds: tuple, n_workers: int) -> None:
