@@ -96,14 +96,14 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
 (n) the lossy transport: MARINA-P (perm, Polyak) and EF21-P (TopK, Polyak)
     through ``Fleet.make(10,
     transport_bench.CHAOS_SPEC)`` (10% drop, 2% corrupt, 10% reorder in a
-    window of 4, seed 7), T=120, on the card and the CPU port at one seed:
+    window of 4, seed 7), T=60, on the card and the CPU port at one seed:
     every event counter of hist["transport"] equal, goodput and the s2w
     ledger within rtol 1e-4 (a message's length follows the exact zeros of
     x_{t+1} - x_t, which may differ in a late round), MARINA-P's f_x within
     rtol 1e-4 a round, EF21-P's finite and falling; then
     ``repro_torch.transport_bench`` on the card;
 (o) the fleet: ``fleet_run`` of MARINA-P (perm, Polyak) and EF21-P (TopK) at
-    d=1000, population 50,000, cohort 16, T=3, measure_wire, on the
+    d=1000, population 50,000, cohort 16, T=2, measure_wire, on the
     flaky_mobile and two_tier_diurnal mixes (the evaluation cohort: 64
     clients, 256 MB of f32 on the card), card against CPU at one seed:
     participation stats, s2w, wire and join bits equal a round, MARINA-P's
@@ -238,10 +238,11 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     (w0) after (w1)'s counters are read and (x2) has ended, ``rotk_apply_rows``' block
     map (the perm downlink on a rank's blocks under tensor parallelism over
     "model") against its plain version bit for bit in f32, fp16 and bf16, at
-    every block of demo-100m's leaves on a (1, 4) mesh and at edge leaves,
-    each also equal to the same columns of the whole leaf's launch, then
-    timed at demo-100m's largest many-run block beside the contiguous
-    launch; (w1) as one NCCL rank (mesh (1, 1)), demo-100m at full width (TRAIN_W x
+    every block of demo-100m's leaves on a (1, 4) mesh, its two-level map at
+    every block of them on (wk, data, model) = HIER_BLOCK_MESH, and at edge
+    leaves of both, each also equal to the same columns of the whole leaf's
+    launch, then both timed at demo-100m's largest many-run block beside
+    the contiguous launch; (w1) as one NCCL rank (mesh (1, 1)), demo-100m at full width (TRAIN_W x
     TRAIN_B x TRAIN_S), AdamW, SHARDED_STEPS steps under marina:perm (bf16
     replicas), marina:ind and ef21p:128:1024, beside ``make_train_step``
     from the same state, batches and draws: state and metrics bit for bit
@@ -251,11 +252,13 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     rotk_apply_rows must launch once a leaf in each compressed perm round and
     block_topk once a leaf in each EF21-P step; (w2) 4 gloo processes on the
     one card on a (4, 1) mesh (demo-100m's marina:perm with bf16 replicas at
-    full width, the smoke gemma-2b's marina:ind and ef21p) and a (2, 2) mesh
+    full width, one compressed step, the smoke gemma-2b's marina:ind and
+    ef21p) and a (2, 2) mesh
     with act_spec (the smoke gemma-2b, W = 4 x 2 x 64, all three), and, in
     the first group's processes after its (4, 1) cases, with tensor
     parallelism over "model" (demo-100m at full width, W = 2 x TP_B x TP_S,
-    3 steps: (1, 4) marina:perm with bf16 replicas, (2, 2) marina:ind;
+    one compressed step: (1, 4) marina:perm with bf16 replicas, (2, 2)
+    marina:ind;
     gemma3-1b at full width cut to 2 layers, one EF21-P step on (1, 4), rank
     0 alone holding the single process; rwkv6-1.6b and zamba2-1.2b at full
     width cut to 2 and 6 layers, RECURRENT_TP, one compressed marina:perm
@@ -263,7 +266,12 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     single process) and, in the second group's processes after its act_spec
     cases, the moe family's smoke configs (MOE_TP: deepseek-v2 and llama4,
     3 steps, marina:perm with bf16 replicas and ef21p on (1, 4) and (2, 2)),
-    within ``train/sharded_check``'s bounds of the single-process step (the
+    the act_spec step with experts (ACT_MOE, deepseek-v2 on (2, 2)) and the
+    multi-pod mesh (MULTIPOD, gemma-2b on (pod, data, model) = (2, 1, 2));
+    and a third group of 8 processes, the hierarchical mesh (HIER, gemma-2b
+    on (wk, data, model) = (2, 2, 2), W = 2, marina:perm with bf16
+    replicas: every rank its two-level blocks, rotk_apply_rows at least once
+    a leaf in each compressed round); all within ``train/sharded_check``'s bounds of the single-process step (the
     CPU tests' own; under tensor parallelism ACT_BOUNDS or 1.5x the single
     process's own floor from the same run), rows at an offset or a rank's
     blocks launching rotk_apply_rows in a compressed perm round (every
@@ -273,8 +281,10 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     logged in place of the run, and any other error in either group fails
     it; (w3) ``python -m repro_torch.launch.dryrun --arch gemma3-1b --shape
     train_4k`` (the default record: the tensor-parallel step) and the same
-    with ``--train-act-model-sharded``, on ``meta``: per_rank records with
-    their collective bytes by kind and a collective term; and (u0)'s
+    with ``--train-act-model-sharded``, ``--multi-pod`` and
+    ``--hierarchical-workers 4``, on ``meta``: per_rank records with their
+    collective bytes by kind and a collective term, the last two the CPU's
+    count exactly (MESH_COUNTS); and (u0)'s
     train_4k records of deepseek-v2-236b, llama4-maverick-400b-a17b,
     rwkv6-1.6b and zamba2-1.2b: per_rank, tensor parallel, their counts the
     CPU's exactly (TRAIN_COUNTS).
@@ -327,7 +337,8 @@ own; ``serve_sharded_path``: (x1)'s own; ``dryrun_path``: (u)'s own;
 ``grid_path`` and ``wire_smoke_path``: (v1)'s and (v2)'s); the rotk_apply row names its dtypes, its numbers are float32's and
 ``by_dtype`` gives each dtype's; the rotk_apply_rows row's are 4 f32 rows of the largest leaf, with
 ``by_dtype`` for bf16, the per-worker path's time and a whole round's, and ``block_map`` (w0)'s checks and
-times with (w2)'s tensor-parallel perm launches by rank; the block_topk row's ``sharded_tp_path`` (w2)'s
+times with (w2)'s perm launches by rank on a rank's blocks (``one_level`` / ``two_level``: each map's times,
+the second's launches (w2)'s hierarchical case's); the block_topk row's ``sharded_tp_path`` (w2)'s
 tensor-parallel EF21-P launches by rank; the unpack_bits row's ``serve_path`` gives
 its (s) launches and its times at (s3)'s streams; every row's ``train_path``
 its (t) launches, and block_topk's and rotk_apply's their times at the
@@ -339,6 +350,7 @@ from __future__ import annotations
 
 import atexit
 import json
+import math
 import pathlib
 import shutil
 import subprocess
@@ -368,23 +380,58 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def mark(phase: str) -> None:
+    """One line at the start of a phase: the script's seconds so far."""
+    log(f"-- {phase} starts at {time.perf_counter() - T_START:.1f} s")
+
+
 _CHILDREN: list = []
 
 
 def spawn(args, **kw) -> subprocess.Popen:
-    """``subprocess.Popen(args, **kw)``, killed at exit if it still runs (a
-    failed phase exits before the phase that waits for it)."""
+    """``subprocess.Popen(args, **kw)``, killed at exit with every process it
+    started (a rank group's spawned ranks too) if it still runs: a failed
+    phase exits before the phase that waits for it."""
     proc = subprocess.Popen(args, **kw)
     _CHILDREN.append(proc)
     return proc
+
+
+def kill_tree(proc) -> None:
+    """Kills ``proc`` and every process it started (read from /proc), then
+    waits for it."""
+    import os
+    import signal
+
+    children = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, ValueError, IndexError):
+                continue
+            children.setdefault(ppid, []).append(int(entry))
+    tree, todo = [], [proc.pid]
+    while todo:
+        for pid in children.get(todo.pop(), []):
+            tree.append(pid)
+            todo.append(pid)
+    if proc.poll() is None:
+        proc.kill()
+    for pid in tree:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+    proc.wait()
 
 
 @atexit.register
 def _stop_children() -> None:
     for proc in _CHILDREN:
         if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+            kill_tree(proc)
 
 
 # ---------------------------------------------------------------------------
@@ -1229,7 +1276,31 @@ def rotk16_phase(np, torch, dev, timed):
     return err, cases, times
 
 
-def spmd_phase(np, torch, dev, T):
+DATAGEN_CELL = """
+import sys, time
+import torch
+from repro_torch.core import problems
+t0 = time.perf_counter()
+prob = problems.generate_problem(n=100, d=1000, noise_scale=1.0, seed=0, device="cpu")
+secs = time.perf_counter() - t0
+torch.save(dict(A=prob.A, x0=prob.x0, L0i=prob.L0i, sigma_A=prob.sigma_A, secs=secs), sys.argv[1])
+"""
+
+
+def datagen_start():
+    """(q)'s problem, started: ``problems.generate_problem`` of the n = 100,
+    d = 1000 problem on the host, in a process of its own at the lowest CPU
+    priority (its LAPACK threads take the idle cores, not the phases' own)
+    from the build on. Returns (the process, its output file)."""
+    import os
+
+    out = os.path.join(tempfile.mkdtemp(prefix="datagen_"), "problem.pt")
+    env = dict(os.environ, PYTHONPATH=str(SRC))  # the BLAS threads of this process, as (v3)'s
+    return spawn([sys.executable, "-c", DATAGEN_CELL, out], env=env, stdout=subprocess.PIPE,
+                 stderr=subprocess.STDOUT, text=True, preexec_fn=lambda: os.nice(19)), out
+
+
+def spmd_phase(np, torch, dev, T, datagen):
     """(q): the SPMD runner (``core/distributed.py``) as one NCCL rank at the
     paper's largest width, d = 1000, n = 100 (A: 400 MB of f32): MARINA-P
     same/ind/perm with Polyak for T rounds against the single-process
@@ -1237,8 +1308,10 @@ def spmd_phase(np, torch, dev, T):
     within SPMD_ATOL every round; EF21-P/TopK (Polyak) teacher-forced per
     step, x and the k kept magnitudes within SPMD_ATOL, w where the k-th
     magnitude gap exceeds 1e-5 (at n = 100 exact ties there are common).
-    Returns (problem, datagen s, max abs error, {run: (SPMD µs/round,
+    ``datagen``: :func:`datagen_start`'s process and file. Returns
+    (problem, datagen s, max abs error, {run: (SPMD µs/round,
     single-process µs/round)})."""
+    import os
     import socket
 
     import torch.distributed as dist
@@ -1248,9 +1321,17 @@ def spmd_phase(np, torch, dev, T):
 
     N, D = 100, 1000
     k, p = D // N, (D // N) / D
-    t0 = time.perf_counter()
-    prob = problems.generate_problem(n=N, d=D, noise_scale=1.0, seed=0, device=dev)
-    datagen_s = time.perf_counter() - t0
+    proc, out = datagen
+    text, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"(q) the datagen process exited {proc.returncode}:\n{text[-3000:]}")
+    made = torch.load(out)
+    shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    datagen_s = made.pop("secs")
+    prob = problems.L1Problem(**made).to(dev)
+    del made
+    if (prob.n, prob.d) != (N, D):
+        fail(f"(q) the problem made beside the earlier phases is n={prob.n}, d={prob.d}")
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -1840,7 +1921,7 @@ def serve_suite_phase(np, torch, dev, card):
 # ---------------------------------------------------------------------------
 
 TRAIN_SPECS = ("marina:perm", "marina:ind", "marina:same", "ef21p:128:1024", "none")
-TRAIN_W, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2, 512, 4
+TRAIN_W, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2, 512, 3
 TRAIN_PARAMS = 119_550_720  # examples/train_lm.py::model_100m, by the reference's count_params
 # (t1) the card's train steps against the CPU port's from the same weights,
 # batches and draws: the first step's loss differs only by the forward's
@@ -2143,12 +2224,14 @@ def train_wire_buffers(np, torch, dev, sizes, pair, cases):
     """(t3b), after the counters' read: the device buffers of (t3a)'s rounds
     against the host codec, byte for byte: the DENSE sync buffer, EF21-P's
     message, rows 0 and W-1 of perm and row 0 of ind and same (the host
-    codec takes ~6 s a 30M-entry row)."""
+    codec takes ~6 s a 30M-entry row: the six encodes run in threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch import wire
     from repro_torch.kernels import encode as kenc
 
     x_old, x_new = pair
-    compared = 0
+    todo = []
     for name, (dl, draws) in cases.items():
         if name == "sync":
             pairs = [(kenc.dense_encode(x_new), x_new, wire.encode_dense)]
@@ -2160,10 +2243,13 @@ def train_wire_buffers(np, torch, dev, sizes, pair, cases):
             bufs = kenc.encode_rows(Q)
             rows = (0, Q.shape[0] - 1) if name == "marina:perm" else (0,)
             pairs = [(bufs[i], Q[i], wire.encode_sparse) for i in rows]
-        for buf, x, host in pairs:
-            if buf != host(x.cpu().numpy()):
-                fail(f"(t3) {name}: device buffer != host codec")
-            compared += 1
+        todo += [(name, buf, x.cpu().numpy(), host) for buf, x, host in pairs]
+    with ThreadPoolExecutor(len(todo)) as pool:
+        same = list(pool.map(lambda job: job[1] == job[3](job[2]), todo))
+    for (name, *_), ok in zip(todo, same):
+        if not ok:
+            fail(f"(t3) {name}: device buffer != host codec")
+    compared = len(todo)
     log(f"(t3) {compared} full-width device buffers byte-identical to the host codec "
         "(DENSE sync, EF21-P, rows 0 and W-1 of perm, row 0 of ind and of same)")
 
@@ -2421,8 +2507,7 @@ def dryrun_phase(started, card):
     finally:
         for proc in procs.values():
             if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+                kill_tree(proc)
     waited = time.perf_counter() - t_wait
     for arch, proc in procs.items():
         if proc.returncode != 0:
@@ -2692,13 +2777,23 @@ TRAIN_COUNTS = {
         "flops": 46823733460992.0, "bytes": 4834911128778.0,
         "coll": {"all-gather": 70843310080.0, "reduce-scatter": 4411736320.0, "all-reduce": 67404341128.0}},
 }
-# (w2): 4 gloo ranks on the one card, in two process groups of their own (run at once):
+# (w3): the CPU's count of rank 0 of MEASURED_ARCH's train_4k step on the multi-pod mesh 2x16x16 and the
+# hierarchical mesh wk4x4x16 (`python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
+# --multi-pod` / `--hierarchical-workers 4`): per-device FLOPs, bytes and collective bytes by kind
+MESH_COUNTS = {
+    "2x16x16": {"flops": 47340203278336.0, "bytes": 2543379270234.0,
+                "coll": {"all-gather": 684389376.0, "reduce-scatter": 19319760.0, "all-reduce": 22876127272.0}},
+    "wk4x4x16": {"flops": 94680406556672.0, "bytes": 5035227980514.0,
+                 "coll": {"all-gather": 809480448.0, "reduce-scatter": 27137952.0, "all-reduce": 45752254296.0}},
+}
+# (w2): gloo ranks on the one card, in process groups of their own (run at once):
 # (group, cases (name, arch, downlink, replica dtype, B, S, attn_chunk, mesh, mode, steps, W)),
 # mode "data" (the workers over "data"), "act" (act_spec over "model") or "tp" (tensor
 # parallelism over "model", the reference's worker layout). The first group's (4, 1) case runs
-# demo-100m at full width, so ranks 1-3 apply rotations (r + off) mod W through
-# rotk_apply_rows' vector kernel at the real leaves; its tensor-parallel cases run demo-100m at
-# full width on (1, 4) and (2, 2) (rotk_apply_rows through its block map on every rank) and
+# demo-100m at full width, one compressed step (ONE_STEP_DRAWS), so ranks 1-3 apply rotations (r + off) mod
+# W through rotk_apply_rows' vector kernel at the real leaves; its tensor-parallel cases run demo-100m at
+# full width, one compressed step each, on (1, 4) and (2, 2) (rotk_apply_rows through its block map on every
+# rank) and
 # gemma3-1b at full width, 2 of its 26 layers, one EF21-P step on (1, 4) (its one kv head cut
 # over "model": wk and wv gathered, their gradients reduce-scattered), after the rest, one at a
 # time, with W = 2 workers: a rank holds the single process's state and two of its steps (the
@@ -2720,15 +2815,25 @@ MOE_TP = (("marina:perm/bf16", "deepseek-v2-236b", "marina:perm", "bfloat16", 2,
 # the block map on the recurrent leaves' column blocks (w_lora_b's, in_proj's)
 RECURRENT_TP = (("marina:perm/bf16", "rwkv6-1.6b/2", "marina:perm", "bfloat16", 1, 128, 128, (1, 4), "tp", 1, 2),
                 ("marina:perm/bf16", "zamba2-1.2b/6", "marina:perm", "bfloat16", 1, 256, 128, (1, 4), "tp", 1, 2))
+# the act_spec step with experts (each worker's rows over "model" at the worker's capacity), the multi-pod
+# mesh ("pod", "data", "model") with tensor parallelism over "model", and the hierarchical mesh ("wk",
+# "data", "model") at (2, 2, 2) in a group of 8 processes of its own: W = 2 workers on "wk", each replica and
+# its rows over "data" and "model", so the perm downlink runs rotk_apply_rows' two-level block map
+ACT_MOE = (("marina:perm/bf16", "deepseek-v2-236b", "marina:perm", "bfloat16", 2, 64, 32, (2, 2), "act", 3, 4),)
+MULTIPOD = (("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32, (2, 1, 2), "pod", 3, 4),)
+HIER = (("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32, (2, 2, 2), "hier", 3, 2),)
 GLOO_RUNS = (
-    ("data+tp", tuple(c + ((4, 1), "data", 3, 4) for c in (
-        ("marina:perm/bf16", "demo-100m", "marina:perm", "bfloat16", TRAIN_B, TRAIN_S, 128),) + GLOO_SMOKE)
-     + (("marina:perm/bf16", "demo-100m", "marina:perm", "bfloat16", TP_B, TP_S, 128, (1, 4), "tp", 3, 2),
-        ("marina:ind", "demo-100m", "marina:ind", "float32", TP_B, TP_S, 128, (2, 2), "tp", 3, 2),
+    ("data+tp", (("marina:perm/bf16", "demo-100m", "marina:perm", "bfloat16", TRAIN_B, TRAIN_S, 128, (4, 1), "data",
+                  1, 4),)
+     + tuple(c + ((4, 1), "data", 3, 4) for c in GLOO_SMOKE)
+     + (("marina:perm/bf16", "demo-100m", "marina:perm", "bfloat16", TP_B, TP_S, 128, (1, 4), "tp", 1, 2),
+        ("marina:ind", "demo-100m", "marina:ind", "float32", TP_B, TP_S, 128, (2, 2), "tp", 1, 2),
         ("ef21p:128:1024", "gemma3-1b/2", "ef21p:128:1024", "float32", 1, 128, 128, (1, 4), "tp", 1, 2))
      + RECURRENT_TP),
     ("act+moe", tuple(c + ((2, 2), "act", 3, 4) for c in (
-        ("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32),) + GLOO_SMOKE) + MOE_TP))
+        ("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32),) + GLOO_SMOKE) + MOE_TP
+     + ACT_MOE + MULTIPOD),
+    ("hier", HIER))
 
 
 # (w0): rotk_apply_rows' block map (the perm downlink on a rank's blocks under tensor
@@ -2738,6 +2843,14 @@ GLOO_RUNS = (
 BLOCK_MESH = (1, 4)
 BLOCK_EDGES = (((3, 10, 12), -1, 4), ((2, 40, 52), -1, 4), ((192, 96, 132), -1, 4), ((6, 16, 35), -2, 4),
                ((1, 2048, 300), -2, 2))
+# the two-level block map (a leaf cut over "data" and "model" at once): demo-100m's leaves on the
+# hierarchical mesh (wk, data, model) = HIER_BLOCK_MESH, every rank, and edge leaves (shape, cuts (dim, n,
+# index)): runs of 3 and 13 values off the 16-byte grid, runs of 33 in a block long enough for the vector
+# path in every dtype (vectors across the runs' ends), long runs in two groups, a cut on dims 0 and 1
+HIER_BLOCK_MESH = (1, 2, 2)
+TWO_LEVEL_EDGES = (((4, 6, 12), ((1, 2, 1), (2, 4, 3))), ((3, 20, 52), ((1, 2, 0), (2, 4, 1))),
+                   ((384, 96, 132), ((1, 2, 1), (2, 4, 1))), ((2, 256, 5280), ((1, 2, 1), (2, 2, 1))),
+                   ((6, 16, 35), ((0, 2, 1), (1, 4, 2))))
 
 
 def rotk_block_phase(np, torch, dev, timed, card):
@@ -2772,6 +2885,13 @@ def rotk_block_phase(np, torch, dev, timed, card):
     for shape, dim, Me in BLOCK_EDGES:
         for m in range(Me):
             leaves.append((f"edge {shape} dim {dim} M={Me} m={m}", shape, SH.leaf_block(shape, dim, Me, m)))
+    hmesh = Mesh(("wk", "data", "model"), HIER_BLOCK_MESH)
+    for r in range(hmesh.size):
+        for shape, b in zip(shapes, SH.fsdp_blocks(cfg, hmesh, r)[1]):
+            if b.inner:
+                leaves.append((f"demo-100m two-level {shape} rank {r}", shape, b._replace(lo=0)))
+    for shape, cuts in TWO_LEVEL_EDGES:
+        leaves.append((f"edge two-level {shape} cuts {cuts}", shape, SH.two_cut_block(shape, cuts)))
     gen = torch.Generator(dev).manual_seed(53)
     err, cases, n = 0.0, 0, 4
 
@@ -2787,7 +2907,7 @@ def rotk_block_phase(np, torch, dev, timed, card):
 
     for dtype in (torch.float32, torch.float16, torch.bfloat16):
         for what, shape, b in leaves:
-            s = b.size // b.chunk * b.stride
+            s = b.leaf_size
             Wf = torch.randn(4, s, generator=gen, device=dev).to(dtype)
             Df = (torch.randn(s, generator=gen, device=dev) * 1e-2).to(dtype)
             w, delta = b.cut(Wf).contiguous(), b.cut(Df).contiguous()
@@ -2814,31 +2934,35 @@ def rotk_block_phase(np, torch, dev, timed, card):
                     if not (bool((out[:, :c] == 5).all()) and bool((out[:, c + b.size:] == 5).all())):
                         fail(f"(w0) rotk_apply_rows block map {tag} at offset {c}: wrote outside out")
             del Wf, Df, w, delta
-    # the time at demo-100m's largest block of many runs (the unembedding's columns): 4 rows (a (1, 4)
-    # rank's replicas), n 4
-    what, shape, b = max((x for x in leaves if x[0].startswith("demo")),
-                         key=lambda x: (x[2].size > x[2].chunk, x[2].size))
+    # the times at demo-100m's largest block of many runs, one-level (the unembedding's columns of a (1, 4)
+    # rank) and two-level (the embedding's block of a (1, 2, 2) rank, as many values): 4 rows, n 4
     rot = torch.tensor([5], dtype=torch.int32, device=dev)
-    times = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        w = torch.randn(4, b.size, generator=gen, device=dev).to(dtype)
-        delta = (torch.randn(b.size, generator=gen, device=dev) * 1e-2).to(dtype)
-        out = torch.empty_like(w)
-        bound = ((2 * 4 + 1) * b.size * w.element_size() + 4) / HBM_BYTES_PER_S * 1e3
-        times[str(dtype).split(".")[-1]] = (
-            timed(lambda: ops.rotk_apply_rows(w, delta, rot, n=n, out=out, block=b.map)),
-            timed(lambda: ref.rotk_apply_rows_ref(w, delta, rot, n=n, block=b.map), reps=5), bound,
-            timed(lambda: ops.rotk_apply_rows(w, delta, rot, n=n, out=out)))
-        del w, delta, out
+    times, timed_blocks = {}, {}
+    for level in ("one", "two"):
+        what, shape, b = max((x for x in leaves if x[0].startswith("demo") and (x[2].inner > 0) == (level == "two")),
+                             key=lambda x: (x[2].size > x[2].chunk, x[2].size))
+        timed_blocks[level] = (shape, b)
+        for dtype in (torch.float32, torch.bfloat16):
+            w = torch.randn(4, b.size, generator=gen, device=dev).to(dtype)
+            delta = (torch.randn(b.size, generator=gen, device=dev) * 1e-2).to(dtype)
+            out = torch.empty_like(w)
+            bound = ((2 * 4 + 1) * b.size * w.element_size() + 4) / HBM_BYTES_PER_S * 1e3
+            times[(level, str(dtype).split(".")[-1])] = (
+                timed(lambda: ops.rotk_apply_rows(w, delta, rot, n=n, out=out, block=b.map)),
+                timed(lambda: ref.rotk_apply_rows_ref(w, delta, rot, n=n, block=b.map), reps=5), bound,
+                timed(lambda: ops.rotk_apply_rows(w, delta, rot, n=n, out=out)))
+            del w, delta, out
+    n_two = sum(1 for x in leaves if x[2].inner)
     log(f"(w0) rotk_apply_rows block map: {cases} cases bit-equal to the plain version and to the whole leaf's "
         f"launch (f32, fp16, bf16; demo-100m's {sum(1 for x in leaves if x[0].startswith('demo'))} blocks on "
-        f"mesh {BLOCK_MESH} and {len(BLOCK_EDGES)} edge leaves), max |err| {err:.3e}; "
-        f"{time.perf_counter() - t0:.1f} s")
-    for dt, (ms_, plain_, bound_, contig_) in times.items():
-        log(f"(w0) rotk_apply_rows block map {dt} at demo-100m {shape} block {b.map} ({b.size:,} values, 4 rows, "
-            f"n 4): {ms_:.5f} ms, plain {plain_:.5f}, bound {bound_:.5f} by bytes (share {bound_ / ms_:.3f}), "
-            f"contiguous launch {contig_:.5f} ({card})")
-    return err, cases, times
+        f"mesh {BLOCK_MESH} and on (wk, data, model) = {HIER_BLOCK_MESH}, {len(BLOCK_EDGES) + len(TWO_LEVEL_EDGES)} "
+        f"edge leaves; {n_two} blocks with a two-level map), max |err| {err:.3e}; {time.perf_counter() - t0:.1f} s")
+    for (level, dt), (ms_, plain_, bound_, contig_) in times.items():
+        shape, b = timed_blocks[level]
+        log(f"(w0) rotk_apply_rows {level}-level block map {dt} at demo-100m {shape} block {b.map} ({b.size:,} "
+            f"values, 4 rows, n 4): {ms_:.5f} ms, plain {plain_:.5f}, bound {bound_:.5f} by bytes (share "
+            f"{bound_ / ms_:.3f}), contiguous launch {contig_:.5f} ({card})")
+    return err, cases, times, {k: (list(shape), list(b.map), b.size) for k, (shape, b) in timed_blocks.items()}
 
 
 def _states_equal(torch, a, b) -> list:
@@ -2988,7 +3112,9 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-WORLD = 4
+WORLD = int(os.environ.get("GLOO_WORLD", "4"))
+# mesh axes by mode: "data", "act" and "tp" on ("data", "model"), "pod" the multi-pod mesh, "hier" the hierarchical
+AXES = {"pod": ("pod", "data", "model"), "hier": ("wk", "data", "model")}
 # gloo's own refusal of a device: ProcessGroupGloo's "unsupported device type",
 # or no gloo backend registered for cuda
 REFUSAL = re.compile(r"unsupported device type|No backend type associated with device type")
@@ -3054,17 +3180,21 @@ def rank_main(rank, init, cases, out_dir):
                 progress(out_dir, rank, f"start {name} {arch} {tuple(shape)}")
                 cfg = config(arch)
                 torch.cuda.reset_peak_memory_stats()
-                layout, comm = SH.connect(Mesh(("data", "model"), tuple(shape)), W,
-                                          sum(P.leaf_sizes(lm.lm_spec(cfg))), cfg=cfg if mode == "tp" else None)
+                layout, comm = SH.connect(Mesh(AXES.get(mode, ("data", "model")), tuple(shape)), W,
+                                          sum(P.leaf_sizes(lm.lm_spec(cfg))),
+                                          cfg=None if mode in ("data", "act") else cfg)
                 tcfg = TrainerConfig(n_workers=W, attn_chunk=chunk, weight_dtype=getattr(torch, dtype),
                                      act_spec=SH.ACT_SPEC if mode == "act" else None)
-                # a one-step case at gemma3-1b's width: rank 0 alone holds the single process's state
+                # a one-step case at gemma3-1b's width: rank 0 alone holds the single process's state (a
+                # state broadcast between steps through gloo costs more on the card than each rank's step)
                 r = SC.run_case(cfg, tcfg, spec, layout, comm, SH.Comm(), batch_rows=rows, seq=seq,
                                 device=dev, steps=steps, check_rank=0 if steps == 1 else None,
                                 draw_seed=ONE_STEP_DRAWS if steps == 1 else 11)
                 SC.hold(name, r, SC.bounds(mode != "data"), W)
                 res["cases"][f"{name} {arch} {tuple(shape)}"] = dict(
-                    r, d=layout.d, d_local=layout.d_local, off=layout.off, mode=mode,
+                    r, d=layout.d, d_local=layout.d_local, d_rank=layout.d_rank, off=layout.off, mode=mode,
+                    leaves=len(layout.blocks or ()), blocks=layout.d_rank < layout.d,
+                    two_level=sum(bool(b.inner) for b in layout.rank_blocks or ()),
                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
                 del comm, layout
                 torch.cuda.empty_cache()
@@ -3085,9 +3215,52 @@ if __name__ == "__main__":
 """
 
 
-def gloo_card_phase(card):
-    """(w2): 4 gloo processes on the one card for each process group of
-    GLOO_RUNS (both groups' 8 processes at once), each case on its own mesh:
+def gloo_card_start(groups, nice=0):
+    """(w2)'s process groups of GLOO_RUNS named in ``groups``, started, each
+    at CPU priority ``nice``: {group: (its cases, its directory, its
+    process, its start on the wall clock and on the script's clock)}."""
+    import os
+    import tempfile
+
+    runs = {}
+    # 8 processes share the card: the allocator's expandable segments keep each one's reserve near its use
+    env = dict(os.environ, PORT_SRC=str(SRC), PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    for group, cases in GLOO_RUNS:
+        if group not in groups:
+            continue
+        tmp = tempfile.mkdtemp(prefix="gloo_card_")
+        script = os.path.join(tmp, "ranks.py")
+        with open(script, "w") as f:
+            f.write(GLOO_RANK)
+        world = math.prod(cases[0][7])  # a group's cases share its size
+        wall, t0 = time.time(), time.perf_counter()
+        with open(os.path.join(tmp, "out.log"), "w") as out:  # a file: readable after a kill
+            runs[group] = (cases, tmp, spawn(
+                [sys.executable, script, f"file://{tmp}/rdv", json.dumps(cases), tmp],
+                env=dict(env, GLOO_WORLD=str(world)), stdout=out, stderr=subprocess.STDOUT,
+                preexec_fn=(lambda: os.nice(nice)) if nice else None), wall, t0)
+    return runs
+
+
+def gloo_card_wait(started):
+    """Waits until the processes of :func:`gloo_card_start`'s groups end,
+    each at most until 900 s after its start (:func:`gloo_card_phase` reports
+    a group still running then). Returns the seconds waited."""
+    t0 = time.perf_counter()
+    for *_, proc, _, t_start in started.values():
+        try:
+            proc.wait(timeout=max(1.0, t_start + 900 - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            break
+    return time.perf_counter() - t0
+
+
+def gloo_card_phase(started, card):
+    """(w2): the process groups of GLOO_RUNS on the one card, started by
+    :func:`gloo_card_start` (the smoke-width groups beside the phases from
+    (t) on, at the lowest CPU priority; the full-width group at (w)), each
+    case on its own mesh:
     ``steps`` teacher-forced steps against the single-process step on the
     card, within ``train/sharded_check``'s bounds (the CPU tests' own; under
     tensor parallelism the loss within FLOOR_FACTOR x the run's own floor),
@@ -3096,41 +3269,29 @@ def gloo_card_phase(card):
     a perm case, and each case's peak memory a rank. A refusal counts only
     where gloo itself refuses the step's collectives on CUDA tensors (each
     rank probes them first): it is logged, and nothing runs in its place.
-    Any other error, in either group, fails the phase. Returns (the refusal
-    or None, s, {case: the ranks' rotk_apply_rows launches} of the
-    tensor-parallel perm cases, {case: the ranks' block_topk launches} of
-    the tensor-parallel EF21-P cases)."""
+    Any other error, in any group, fails the phase. Returns (the refusal
+    or None, the seconds from the last group's start, {case: the ranks'
+    rotk_apply_rows launches} of the tensor-parallel perm cases, {case: the
+    ranks' block_topk launches} of the tensor-parallel EF21-P cases)."""
     import os
-    import tempfile
 
     from repro_torch.train.sharded_check import WORST_KEYS
 
-    t0 = time.perf_counter()
-    runs = {}
-    # 8 processes share the card: the allocator's expandable segments keep each one's reserve near its use
-    env = dict(os.environ, PORT_SRC=str(SRC), PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
-               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    for group, cases in GLOO_RUNS:
-        tmp = tempfile.mkdtemp(prefix="gloo_card_")
-        script = os.path.join(tmp, "ranks.py")
-        with open(script, "w") as f:
-            f.write(GLOO_RANK)
-        with open(os.path.join(tmp, "out.log"), "w") as out:  # a file: readable after a kill
-            runs[group] = (cases, tmp, spawn(
-                [sys.executable, script, f"file://{tmp}/rdv", json.dumps(cases), tmp],
-                env=env, stdout=out, stderr=subprocess.STDOUT))
-    deadline, late = time.perf_counter() + 900, []
+    if set(started) != {group for group, _ in GLOO_RUNS}:
+        fail(f"(w2) started the groups {sorted(started)}, not all of GLOO_RUNS")
+    t0 = max(t for *_, t in started.values())
+    runs = {group: run[:3] for group, run in started.items()}
+    late = []
     try:
         for group, (_, tmp, proc) in runs.items():
             try:
-                proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+                proc.wait(timeout=max(1.0, started[group][4] + 900 - time.perf_counter()))
             except subprocess.TimeoutExpired:
                 late.append(group)
     finally:
         for *_, proc in runs.values():
             if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+                kill_tree(proc)
     outs = {}
     for group, (_, tmp, _) in runs.items():
         with open(os.path.join(tmp, "out.log")) as f:
@@ -3138,24 +3299,26 @@ def gloo_card_phase(card):
     if late:
         where = []
         for group in late:
-            tmp = runs[group][1]
-            for r in range(4):
+            cases, tmp = runs[group][:2]
+            for r in range(math.prod(cases[0][7])):
                 path = os.path.join(tmp, f"rank{r}.progress")
                 last = open(path).read().splitlines()[-2:] if os.path.exists(path) else ["no progress"]
                 where.append(f"group {group} rank {r}: {last}")
         fail(f"(w2) group(s) {late} still running after 900 s (now {time.time():.1f}); the ranks' last case "
              f"boundaries: {where}\n" + "\n".join(outs[g][1][-3000:] for g in late))
     problems, refusals, results = [], [], {}
+    worlds = 0
     for group, (cases, tmp, proc) in runs.items():
-        ranks = []
-        for r in range(4):
+        ranks, world = [], math.prod(cases[0][7])
+        worlds += world
+        for r in range(world):
             path = os.path.join(tmp, f"rank{r}.json")
             if os.path.exists(path):
                 with open(path) as f:
                     ranks.append(json.load(f))
-        if proc.returncode != 0 or len(ranks) != 4:
-            problems.append(f"group {group}: the 4 gloo processes exited {proc.returncode} with {len(ranks)} "
-                            f"reports:\n{outs[group][1][-3000:]}")
+        if proc.returncode != 0 or len(ranks) != world:
+            problems.append(f"group {group}: the {world} gloo processes exited {proc.returncode} with "
+                            f"{len(ranks)} reports:\n{outs[group][1][-3000:]}")
         for r in ranks:
             if "error" in r:
                 problems.append(f"group {group} rank {r['rank']}: {r['error']}\n{r['trace'][-1500:]}")
@@ -3164,8 +3327,20 @@ def gloo_card_phase(card):
         results[group] = ranks
     if problems:
         fail("(w2) " + "\n".join(problems))
+    for group, (cases, tmp, _) in runs.items():  # rank 0's case boundaries: where a group's time goes
+        path = os.path.join(tmp, "rank0.progress")
+        if os.path.exists(path):
+            wall = started[group][3]
+            marks = [ln.split(" ", 1) for ln in open(path).read().splitlines()]
+            spans = [f"{what[len('start '):]} {float(marks[i + 1][0]) - float(at):.1f} s"
+                     for i, (at, what) in enumerate(marks[:-1]) if what.startswith("start ")]
+            ended = max(os.path.getmtime(os.path.join(tmp, f"rank{r}.json"))
+                        for r in range(math.prod(cases[0][7])))
+            log(f"(w2) group {group}: started at {started[group][4] - T_START:.1f} s of the script, ended "
+                f"{ended - wall:.1f} s later; rank 0's first case began {float(marks[0][0]) - wall:.1f} s "
+                f"after the start; cases: {'; '.join(spans)}")
     if refusals:
-        if len(refusals) != 4 * len(runs):
+        if len(refusals) != worlds:
             fail(f"(w2) gloo refused CUDA tensors on some ranks only: {refusals}")
         log(f"(w2) gloo refused the step's collectives on CUDA tensors ({refusals[0]}); the 4-rank step on the "
             "card did not run (no CPU run stands in for it)")
@@ -3177,16 +3352,21 @@ def gloo_card_phase(card):
             key = f"{name} {arch} {tuple(shape)}"
             for r in ranks:
                 c = r["cases"][key]
-                moved_rows = c["off"] > 0 or mode == "tp"  # rows at an offset, or a rank's blocks
+                moved_rows = c["off"] > 0 or c["blocks"]  # rows at an offset, or a rank's blocks
                 if (spec == "marina:perm" and moved_rows and c["compressed"]
                         and c["launches"].get("rotk_apply_rows", 0) <= 0):
                     fail(f"(w2) {key} rank {r['rank']} (rows from worker {c['off']}, mode {mode}): "
                          f"rotk_apply_rows never launched in {c['compressed']} compressed rounds")
-                if mode == "tp" and spec == "marina:perm" and not c["compressed"]:
+                if c["blocks"] and spec == "marina:perm" and not c["compressed"]:
                     fail(f"(w2) {key} rank {r['rank']}: no compressed round, so the block map did not run")
+                if mode == "hier" and spec == "marina:perm" and not (
+                        c["two_level"] and c["launches"].get("rotk_apply_rows", 0) >= c["compressed"] * c["leaves"]):
+                    fail(f"(w2) {key} rank {r['rank']}: {c['two_level']} leaves with a two-level block, "
+                         f"{c['launches'].get('rotk_apply_rows', 0)} rotk_apply_rows launches in {c['compressed']} "
+                         f"compressed rounds of {c['leaves']} leaves")
                 if spec.startswith("ef21p") and c["launches"].get("block_topk", 0) <= 0:
                     fail(f"(w2) {key} rank {r['rank']}: block_topk never launched in its EF21-P steps")
-            if mode == "tp" and spec == "marina:perm":
+            if ranks[0]["cases"][key]["blocks"] and spec == "marina:perm":
                 tp_launches[key] = [r["cases"][key]["launches"].get("rotk_apply_rows", 0) for r in ranks]
             if mode == "tp" and spec.startswith("ef21p"):
                 tp_topk[key] = [r["cases"][key]["launches"].get("block_topk", 0) for r in ranks]
@@ -3194,10 +3374,11 @@ def gloo_card_phase(card):
             c0 = ranks[0]["cases"][key]
             floor = ("; the single process's own floor " + ", ".join(
                 f"{k} {max(r['cases'][key]['floor'][j] for r in ranks):.3g}" for j, k in enumerate(WORST_KEYS))
-                if mode == "tp" else "")
-            bounds = {"data": "data-axis", "act": "act_spec", "tp": "act_spec (or 1.5x the floor)"}[mode]
-            log(f"(w2) 4 gloo ranks on the one card, mesh {tuple(shape)} {mode}, {name} {arch} d={c0['d']:,} "
-                f"(d_local {c0['d_local']:,}), W = {W}, {steps} step(s) of {rows} x {seq} a worker: within the "
+                if c0["floor"] is not None else "")
+            bounds = "data-axis" if mode == "data" else "act_spec" if mode == "act" else "act_spec (or 1.5x the floor)"
+            log(f"(w2) {len(ranks)} gloo ranks on the one card, mesh {tuple(shape)} {mode}, {name} {arch} "
+                f"d={c0['d']:,} (d_local {c0['d_local']:,}, a replica row {c0['d_rank']:,}, "
+                f"{c0['two_level']} two-level leaves), W = {W}, {steps} step(s) of {rows} x {seq} a worker: within the "
                 f"{bounds} bounds of the single-process step: "
                 + ", ".join(f"{k} {v:.3g}" for k, v in zip(WORST_KEYS, worst)) + floor
                 + f"; {c0['compressed']} compressed round(s); bytes a rank a step {c0['moved']} = counted; "
@@ -3210,7 +3391,8 @@ def sharded_dryrun_start():
     """(w3)'s counts, started in a process of their own: ``python -m
     repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k`` (the
     default record: tensor parallelism over "model"), then the same with
-    ``--train-act-model-sharded``, into SHARDED_DRYRUN_DIR."""
+    ``--train-act-model-sharded``, ``--multi-pod`` and
+    ``--hierarchical-workers 4``, into SHARDED_DRYRUN_DIR."""
     import os
 
     if SHARDED_DRYRUN_DIR.exists():
@@ -3220,14 +3402,17 @@ def sharded_dryrun_start():
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     count = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", MEASURED_ARCH, "--shape", "train_4k",
              "--out", str(SHARDED_DRYRUN_DIR)]
-    return spawn(["bash", "-c", 'set -e; "$@"; "$@" --train-act-model-sharded', "counts"] + count, env=env,
+    return spawn(["bash", "-c", 'set -e; "$@"; "$@" --train-act-model-sharded; "$@" --multi-pod; '
+                  '"$@" --hierarchical-workers 4', "counts"] + count, env=env,
                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def sharded_dryrun_phase(proc, card, u0_recs):
     """(w3): the counts started by :func:`sharded_dryrun_start`: valid
     per_rank records with a collective term, the default one tensor
-    parallel; and (u0)'s train_4k records of TRAIN_COUNTS' architectures
+    parallel, those of the multi-pod and hierarchical meshes equal to the
+    CPU's count (MESH_COUNTS); and (u0)'s train_4k records of TRAIN_COUNTS'
+    architectures
     (``u0_recs``, counted on the card's host): per_rank, tensor parallel,
     their counts equal to the CPU's exactly. Returns the records."""
     from repro_torch.launch import dryrun
@@ -3236,25 +3421,34 @@ def sharded_dryrun_phase(proc, card, u0_recs):
         outp = proc.communicate(timeout=600)[0]
     finally:
         if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+            kill_tree(proc)
     if proc.returncode != 0:
         fail(f"(w3) the train_4k dry-runs exited {proc.returncode}:\n{outp[-3000:]}")
     recs = {}
-    for tag, what in (("", "tensor parallelism over 'model' (the default)"), ("__act", "act_spec")):
-        rec = json.loads((SHARDED_DRYRUN_DIR / f"{MEASURED_ARCH}__train_4k__16x16{tag}.json").read_text())
+    for mesh, tag, what in (("16x16", "", "tensor parallelism over 'model' (the default)"),
+                            ("16x16", "__act", "act_spec"),
+                            ("2x16x16", "", "the multi-pod mesh, tensor parallelism over 'model'"),
+                            ("wk4x4x16", "", "the hierarchical mesh, replicas over 'data' and 'model'")):
+        rec = json.loads((SHARDED_DRYRUN_DIR / f"{MEASURED_ARCH}__train_4k__{mesh}{tag}.json").read_text())
         problems = dryrun.record_problems(rec)
         t = rec["roofline"]
         if problems or rec["split"] != "per_rank" or t["collective_s"] is None or rec["tensor_parallel"] != (not tag):
             fail(f"(w3) {MEASURED_ARCH} train_4k {what} record: {problems}, split {rec['split']}, "
                  f"tensor_parallel {rec.get('tensor_parallel')}, {t}")
-        log(f"(w3) {MEASURED_ARCH} train_4k on 16x16 with {what}, one rank counted on meta "
+        if mesh in MESH_COUNTS:
+            got = {"flops": rec["flops_per_device"], "bytes": rec["bytes_per_device"],
+                   "coll": rec["collective_bytes_per_device"]}
+            if got != MESH_COUNTS[mesh]:
+                fail(f"(w3) {MEASURED_ARCH} train_4k on {mesh}: the card host's count {got} != the CPU's "
+                     f"{MESH_COUNTS[mesh]}")
+        exact = " (the CPU's count exactly)" if mesh in MESH_COUNTS else ""
+        log(f"(w3) {MEASURED_ARCH} train_4k on {mesh} with {what}{exact}, one rank counted on meta "
             f"({rec['t_count_s']} s): {rec['flops_per_device']:.4e} FLOPs, {rec['bytes_per_device']:.4e} bytes, "
             f"collective bytes {rec['collective_bytes_per_device']} ({rec['collective_total_per_device']:.4e}); "
             f"compute {t['compute_s']:.4e} s, memory {t['memory_s']:.4e} s, collective {t['collective_s']:.4e} s "
             f"(NVLink 450e9 B/s): {t['dominant']}; state bytes a device {rec['state_bytes_per_device']} "
             f"(H100 constants; no card used)")
-        recs[tag or "tp"] = rec
+        recs[mesh + (tag or "")] = rec
     for arch, want in TRAIN_COUNTS.items():
         rec = u0_recs[arch, "train_4k"]
         got = {"flops": rec["flops_per_device"], "bytes": rec["bytes_per_device"],
@@ -3754,8 +3948,7 @@ def gloo_serve_phase(started, card):
         _, err = proc.communicate(timeout=600)
     finally:
         if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+            kill_tree(proc)
     ranks = []
     for r in range(4):
         path = os.path.join(tmp, f"rank{r}.json")
@@ -3843,8 +4036,7 @@ def serve_dryrun_phase(proc, card):
         outp = proc.communicate(timeout=600)[0]
     finally:
         if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+            kill_tree(proc)
     if proc.returncode != 0:
         fail(f"(x3) the serving dry-runs exited {proc.returncode}:\n{outp[-3000:]}")
     for key, want in SERVE_COUNTS.items():
@@ -3864,6 +4056,9 @@ def serve_dryrun_phase(proc, card):
 
 
 def main() -> int:
+    import signal
+
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))  # a stop runs atexit: the children are killed
     import torch
 
     if not torch.cuda.is_available():
@@ -3894,6 +4089,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = runtime.build_all()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    datagen = datagen_start()  # (q)'s problem, on the host from here on
     for stem in sorted(libs):
         logf = runtime.BUILD / f"{stem}.log"
         if logf.exists():
@@ -3902,6 +4098,7 @@ def main() -> int:
                     log(f"  ptxas {stem}: {line.strip()}")
 
     # --- (a) kernels against their plain versions on the card -------------------
+    mark("(a)")
     l1_err = 0.0
     # the last six: the shapes the harness's runs (q)-(r) give it (comm_complexity,
     # fig1, stepsize_grid, scenario / transport / trace_smoke)
@@ -3977,6 +4174,7 @@ def main() -> int:
         "digit-boundary blocks in f32 and bf16 included (inf case keeps only index 1, as the Pallas kernel)")
 
     # --- (b) the main path on the card --------------------------------------------
+    mark("(b)")
     D, N, T = 1000, 10, 400
     runtime.reset_launches()
     suite = fig1.run_suite(d=D, n=N, T=T, device=dev)
@@ -4000,6 +4198,7 @@ def main() -> int:
         fail("(b) quickstart: MARINA-P did not decrease f")
 
     # --- (c) CPU port against the card, T=20, same seeds ------------------------------
+    mark("(c)")
     T_C = 20
     gpu20 = fig1.run_suite(d=D, n=N, T=T_C, device=dev)
     cpu20 = fig1.run_suite(d=D, n=N, T=T_C, device="cpu")
@@ -4048,6 +4247,7 @@ def main() -> int:
         f"max rel f_x err {worst:.3e}")
 
     # --- (d) timing at the main path's shapes -------------------------------------------
+    mark("(d)")
     flush_buf = torch.empty(kernel_bench.FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
 
     def timed(fn, reps=30):
@@ -4113,6 +4313,7 @@ def main() -> int:
     log(f"(d) launch floor, one empty kernel (torch.cuda._sleep(0)) timed as the kernels are: {floor_ms:.5f} ms")
 
     # --- (e) the wire kernels against their plain versions on the card ------------------
+    mark("(e)")
     from repro_torch import wire, wire_bench
     from repro_torch.core import marina_p
     from repro_torch.kernels import encode as kenc
@@ -4123,6 +4324,7 @@ def main() -> int:
         "plain versions; device buffers == host codec")
 
     # --- (f) the wire path on the card ---------------------------------------------------
+    mark("(f)")
     p = k / D
     omegas = {"same": D / k - 1.0, "ind": D / k - 1.0, "perm": float(N - 1)}
     runtime.reset_launches()
@@ -4151,6 +4353,7 @@ def main() -> int:
         f"of each MARINA-P mode: {n_checked} device buffers == host buffers")
 
     # --- (g) CPU port against the card, T=20 ---------------------------------------------
+    mark("(g)")
     T_G = 20
     gpu20, _ = wire_runs(torch, prob, k, p, T_G, None)
     cpu20, _ = wire_runs(torch, prob_cpu, k, p, T_G, None)
@@ -4164,6 +4367,7 @@ def main() -> int:
             fail(f"(g) {name}: CPU and card wire bits differ")
 
     # --- (h) DESIGN §3.5 on the card: measured vs analytic ------------------------------------
+    mark("(h)")
     for d_b, n_b in wire_bench.SETTINGS:
         rows = wire_bench.parity_rows(d=d_b, n=n_b, T=200, device=dev)
         for name, analytic, measured, pct in rows:
@@ -4172,6 +4376,7 @@ def main() -> int:
             fail(f"(h) d={d_b} n={n_b}: MARINA-P gap >= {wire_bench.GAP_LIMIT_PCT}%: {wire_bench.failures(rows)}")
 
     # --- (i) timing of the wire kernels -------------------------------------------------------
+    mark("(i)")
     step = marina_p.make_step(prob, "ind", k, p, stepsizes.MarinaPPolyak(omega=omegas["ind"], p=p),
                               return_q=True)
     bcast = marina_p.make_broadcast("ind", N, k)
@@ -4258,6 +4463,7 @@ def main() -> int:
         f"without measure_wire {us_plain:.1f}")
 
     # --- (j) the encode- and kernel-benchmark kernels against their plain versions ------------
+    mark("(j)")
     t_j = time.perf_counter()
     bench_err, n_cases = bench_kernels_vs_plain(np, torch, dev)
     log(f"(j) bernk, rotk_apply, rotk_apply_rows, mask_streams, topk_streams: {n_cases} cases bit-equal "
@@ -4265,6 +4471,7 @@ def main() -> int:
         f"({time.perf_counter() - t_j:.1f} s)")
 
     # --- (k) their path: wire_bench's codec and encode sections, kernel_bench --------------------
+    mark("(k)")
     t_k = time.perf_counter()
     runtime.reset_launches()
     thr_rows = wire_bench.throughput_rows(device=dev)
@@ -4301,6 +4508,7 @@ def main() -> int:
         "over ops.block_topk / ops.bernk; NaturalCompression on the card round-trips NATURAL exactly")
 
     # --- (l) timing of the four kernels -------------------------------------------------------
+    mark("(l)")
     def bench_kernel_timings(d, names=BENCH_KERNELS):
         """{kernel: (ms, plain_ms, bound_ms, bound_by)} of ``names`` at the path's settings and size d."""
         g = torch.Generator().manual_seed(d)
@@ -4363,15 +4571,16 @@ def main() -> int:
             f"{host_ms_:.4f} ms (host clock, each incl. its copy to the host)")
 
     # --- (m)-(o): tracing, the lossy transport and the client fleet -----------------------
+    mark("(m)-(o)")
     runtime.reset_launches()
     u0 = dryrun_start()  # host work only: on the idle cores from here to (u)
     sigma = sigma_start()  # and (v3)'s
     t_m = time.perf_counter()
     trace_us = tracing_phase(np, torch, dev, prob, T=50)
     t_n = time.perf_counter()
-    transport_us = transport_phase(np, torch, dev, prob, prob_cpu, T=120)
+    transport_us = transport_phase(np, torch, dev, prob, prob_cpu, T=60)
     t_o = time.perf_counter()
-    fleet_us = fleet_phase(np, torch, dev, D, T=3, population=50_000, cohort=16)
+    fleet_us = fleet_phase(np, torch, dev, D, T=2, population=50_000, cohort=16)
     part_us = participation_phase(np, torch, dev, prob, prob_cpu, T=40)
     torch.cuda.synchronize()
     slice_launches = dict(runtime.LAUNCHES)
@@ -4391,6 +4600,7 @@ def main() -> int:
     log(f"(o) us/round marina_p with BernoulliStragglerPlan d={D} n={N}: {part_us:.1f} ({card})")
 
     # --- (p) the repairs on the card: rotk_apply in fp16 and bf16 --------------------------
+    mark("(p)")
     t_p = time.perf_counter()
     rotk16_err, n16, rotk16_ms = rotk16_phase(np, torch, dev, timed)
     for kname, e in rotk16_err.items():
@@ -4403,9 +4613,10 @@ def main() -> int:
             f"by bytes; f32 {st['rotk_apply'][0]:.5f}) ({card})")
 
     # --- (q)-(r) the SPMD runner and the benchmark harness ------------------------------------
+    mark("(q)-(r)")
     runtime.reset_launches()
     t_q = time.perf_counter()
-    prob100, datagen_s, spmd_err, spmd_us = spmd_phase(np, torch, dev, T=50)
+    prob100, datagen_s, spmd_err, spmd_us = spmd_phase(np, torch, dev, T=50, datagen=datagen)
     sigma100 = prob100.sigma_A
     t_r = time.perf_counter()
     walls = harness_phase(np, torch, dev, prob100, datagen_s)
@@ -4428,6 +4639,7 @@ def main() -> int:
         log(f"(r) wall {suite}: {wall:.2f} s ({card})")
 
     # --- (s) the LM serving path ------------------------------------------------------------
+    mark("(s)")
     from repro_torch.models.layers import set_reference_precision
 
     set_reference_precision()
@@ -4459,10 +4671,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- (t) the LM training path ----------------------------------------------------------
+    mark("(t)")
     from repro_torch.models import lm as lm_
     from repro_torch.models import params as params_
     from repro_torch.train_lm import model_100m
 
+    # (w2)'s smoke-width groups (12 processes, ~0.1 GiB of the card a rank) on the host's idle cores from here
+    w2_early = gloo_card_start(("act+moe", "hier"), nice=19)
     t_t0 = time.perf_counter()
     train_err = train_kernels_vs_plain(np, torch, dev, params_.leaf_sizes(lm_.lm_spec(model_100m())))
     runtime.reset_launches()
@@ -4494,12 +4709,15 @@ def main() -> int:
     del pair, wire_cases
     torch.cuda.empty_cache()
     t_tk = time.perf_counter()
+    w2_wait = gloo_card_wait(w2_early)  # the card free of (w2)'s smoke-width groups for the kernels' times
     train_times = train_kernel_timing(np, torch, dev, timed, max(sizes), card)
     rounds = downlink_round_timing(np, torch, dev, flush_buf, sizes, card)
-    log(f"(t) kernel and downlink timings {time.perf_counter() - t_tk:.1f} s; (t) took "
+    log(f"(t) waited {w2_wait:.1f} s for (w2)'s smoke-width groups; kernel and downlink timings "
+        f"{time.perf_counter() - t_tk - w2_wait:.1f} s; (t) took "
         f"{time.perf_counter() - t_t0:.1f} s")
 
     # --- (u) the dry-run and the measured roofline share -------------------------------
+    mark("(u)")
     t_u0 = time.perf_counter()
     recs, u0_s = dryrun_phase(u0, card)
     runtime.reset_launches()
@@ -4523,6 +4741,7 @@ def main() -> int:
         f"(u2) {time.perf_counter() - t_u2:.1f} s; (u) took {time.perf_counter() - t_u0:.1f} s ({card})")
 
     # --- (x) the serving step across a process group (its 4 gloo processes run beside (v)) ------
+    mark("(x)")
     t_x0 = time.perf_counter()
     x3 = serve_dryrun_start()  # on the host's cores beside (x1) and (x2)
     runtime.reset_launches()
@@ -4535,6 +4754,7 @@ def main() -> int:
     x2 = gloo_serve_start(moe_files)  # (v) holds little of the card; its launches are its own process's
 
     # --- (v) the paper's grid, the wire smoke and sigma_A ----------------------------------
+    mark("(v)")
     runtime.reset_launches()
     grid_s = grid_phase(np, torch, dev, card)
     torch.cuda.synchronize()
@@ -4553,6 +4773,7 @@ def main() -> int:
         f"(v3) {sigma_s:.1f} s, beside (x2)'s 4 processes ({card})")
 
     # --- (w1) the LM train step across a process group as one NCCL rank, also beside (x2)'s processes
+    mark("(w1)")
     # (their launches are their own processes'; its ms a step are taken in turns with the single process)
     t_w0 = time.perf_counter()
     runtime.reset_launches()
@@ -4574,16 +4795,18 @@ def main() -> int:
         f"{time.perf_counter() - T_START:.1f} s ({card})")
 
     # --- (w) the rest: (w0) once the card is free of (x2)'s processes (its kernel times), then (w2), (w3) ------
+    mark("(w)")
     t_w1 = time.perf_counter()
     # (w0) the block map against its plain version, after (w1)'s counts were read: not the path's launches
-    block_err, block_cases, block_ms = rotk_block_phase(np, torch, dev, timed, card)
+    block_err, block_cases, block_ms, block_at = rotk_block_phase(np, torch, dev, timed, card)
     w3 = sharded_dryrun_start()  # on the host's cores beside (w2)
-    gloo_refusal, w2_s, tp_launches, tp_topk = gloo_card_phase(card)
+    gloo_refusal, w2_s, tp_launches, tp_topk = gloo_card_phase({**w2_early, **gloo_card_start(("data+tp",))}, card)
     sharded_dryrun_phase(w3, card, recs)
     log(f"(w) launches of the sharded steps: {w_launches}; (w1) {w1_s:.1f} s (beside (x2)), (w2) {w2_s:.1f} s"
         f"{' (gloo refused CUDA tensors)' if gloo_refusal else ''}; (w0), (w2) and (w3) took "
         f"{time.perf_counter() - t_w1:.1f} s ({card})")
 
+    mark("the summary")
     summary = {"kernels": [
         {"name": "l1_subgrad", "route": "cuda", "source": "src/repro_torch/csrc/l1_subgrad.cu",
          "replaces": "src/repro/kernels/l1_subgrad.py:46", "launches": launches["l1_subgrad"],
@@ -4675,10 +4898,18 @@ def main() -> int:
             # (w0) the block map (the perm downlink on a rank's blocks under tensor parallelism over
             # "model"): its checks and times; its launches are the tensor-parallel perm cases' of (w2),
             # each of its 4 gloo processes counting its own
-            row["block_map"] = {"cases": block_cases, "max_abs_err": block_err, "w2_launches_by_rank": tp_launches,
-                                "by_dtype": {dt: {"rows": 4, "n": 4, "ms": ms_, "plain_ms": plain_, "bound_ms": bound_,
-                                                  "contiguous_ms": contig_}
-                                             for dt, (ms_, plain_, bound_, contig_) in block_ms.items()}}
+            # and the two-level map (a block cut over "data" and "model", the hierarchical mesh's): its
+            # times at a block of as many values, its launches those of (w2)'s hierarchical perm case
+            row["block_map"] = {"cases": block_cases, "max_abs_err": block_err, "w2_launches_by_rank": tp_launches}
+            for level in ("one", "two"):
+                shape, bmap, size = block_at[level]
+                row["block_map"][f"{level}_level"] = {
+                    "leaf": shape, "map": bmap, "values": size,
+                    "by_dtype": {dt: {"rows": 4, "n": 4, "ms": ms_, "plain_ms": plain_, "bound_ms": bound_,
+                                      "contiguous_ms": contig_}
+                                 for (lv, dt), (ms_, plain_, bound_, contig_) in block_ms.items() if lv == level}}
+            hier_key = f"{HIER[0][0]} {HIER[0][1]} {tuple(HIER[0][7])}"
+            row["block_map"]["two_level"]["w2_launches_by_rank"] = {hier_key: tp_launches.get(hier_key)}
             row["dtypes"] = ["float32", "float16", "bfloat16"]
             row["by_dtype"] = {}
             w_rows = w_launches.get("rotk_apply_rows", 0)  # (w1)'s perm runs bf16 replicas

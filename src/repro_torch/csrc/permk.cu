@@ -56,6 +56,13 @@
 // inside one run takes the lane mask as above, and a vector across a run's end
 // (runs need not start on a 16-byte boundary) tests its lanes one by one. The
 // contiguous map (chunk = stride = s, offset = 0) is the plain launch above.
+// A second level (inner > 0) takes a block cut on two dims of a leaf (a rank's
+// block under "data" and "model" at once, e.g. w_in [E, D, F] with D over
+// "data" and F over "model"): the runs come in groups of `inner`, `stride`
+// apart inside a group and the groups `ostride` apart,
+//   j = offset + (u / inner) * ostride + (u % inner) * stride + t % chunk,  u = t / chunk;
+// the runs' ends are the same, so only the coordinate differs. inner = 0 is the
+// one-level map above, on the same code with the same bits.
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -141,15 +148,23 @@ __device__ __forceinline__ unsigned add_mod(unsigned a, unsigned b, unsigned n) 
   return s >= n ? s - n : s;
 }
 
-// Block element t -> leaf coordinate offset + (t / chunk) * stride + t % chunk.
+// Block element t -> leaf coordinate offset + (t / chunk) * stride + t % chunk,
+// or with a second level (inner > 0) the runs u = t / chunk in groups of inner:
+// offset + (u / inner) * ostride + (u % inner) * stride + t % chunk.
 struct BlockMap {
-  long long chunk, stride, offset;
+  long long chunk, stride, offset, inner, ostride;
 };
+
+__device__ __forceinline__ long long leaf_coord(long long t, const BlockMap& bm) {
+  const long long u = t / bm.chunk;
+  const long long run = bm.inner ? (u / bm.inner) * bm.ostride + (u % bm.inner) * bm.stride : u * bm.stride;
+  return bm.offset + run + t % bm.chunk;
+}
 
 // the leaf coordinate of block column t, mod n (Map false: t itself)
 template <bool Map>
 __device__ __forceinline__ unsigned leaf_mod(long long t, const BlockMap& bm, int n) {
-  if constexpr (Map) return mod64(bm.offset + (t / bm.chunk) * bm.stride + t % bm.chunk, n);
+  if constexpr (Map) return mod64(leaf_coord(t, bm), n);
   else return mod64(t, n);
 }
 
@@ -236,9 +251,8 @@ rotk_vec_kernel(const typename V::U* __restrict__ w, long long w_stride,
       res[u] = rr;
       cross[u] = false;
       if constexpr (Map) {  // the residue restarts at every run: computed, not carried
-        const long long in_run = col[u] % bm.chunk;
-        res[u] = mod64(bm.offset + (col[u] / bm.chunk) * bm.stride + in_run, n);
-        cross[u] = in_run + VEC > bm.chunk;
+        res[u] = mod64(leaf_coord(col[u], bm), n);
+        cross[u] = col[u] % bm.chunk + VEC > bm.chunk;
       }
       rr = add_mod(rr, step_u, un);
       dv[u] = wv[u] = make_uint4(0u, 0u, 0u, 0u);
@@ -353,11 +367,11 @@ void launch_dtype(const void* w, long long w_stride, const void* delta, const vo
 
 int dispatch(const void* w, long long w_stride, const void* delta, const void* rotation, void* out,
              long long out_stride, int dtype, int rows, long long s, int n, int worker0, void* stream,
-             BlockMap bm = BlockMap{0, 0, 0}) {
+             BlockMap bm = BlockMap{0, 0, 0, 0, 0}) {
   if (s < 0 || rows < 0 || n < 1 || dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   if (s == 0 || rows == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool contiguous = bm.chunk == 0 || (bm.chunk == s && bm.stride == s && bm.offset == 0);
+  const bool contiguous = bm.chunk == 0 || (bm.chunk == s && bm.stride == s && bm.offset == 0 && bm.inner == 0);
   if (contiguous)
     launch_dtype<false>(w, w_stride, delta, rotation, out, out_stride, dtype, rows, s, n, worker0, bm, st);
   else
@@ -391,12 +405,19 @@ extern "C" int rotk_apply_rows(const void* w, long long w_stride, const void* de
 // coordinate offset + (t / chunk) * stride + t % chunk, and the kept rule
 // reads that coordinate. 1 <= chunk <= stride, offset + chunk <= stride, s a
 // multiple of chunk; chunk = stride = s with offset 0 is rotk_apply_rows.
+// inner > 0: the second level, run u at offset + (u / inner) * ostride +
+// (u % inner) * stride; then offset % stride + chunk <= stride, offset +
+// (inner - 1) * stride + chunk <= ostride and s a multiple of chunk * inner.
 extern "C" int rotk_apply_rows_map(const void* w, long long w_stride, const void* delta,
                                    const void* rotation, void* out, long long out_stride, int dtype,
                                    int rows, long long s, int n, long long chunk, long long stride,
-                                   long long offset, void* stream) {
-  if (rows > n || chunk < 1 || stride < chunk || offset < 0 || offset + chunk > stride || s % chunk)
+                                   long long offset, long long inner, long long ostride, void* stream) {
+  if (rows > n || chunk < 1 || stride < chunk || offset < 0 || inner < 0 || s % chunk)
+    return (int)cudaErrorInvalidValue;
+  if (inner == 0 ? offset + chunk > stride
+                 : offset % stride + chunk > stride || offset + (inner - 1) * stride + chunk > ostride ||
+                       s % (chunk * inner))
     return (int)cudaErrorInvalidValue;
   return dispatch(w, w_stride, delta, rotation, out, out_stride, dtype, rows, s, n, 0, stream,
-                  BlockMap{chunk, stride, offset});
+                  BlockMap{chunk, stride, offset, inner, ostride});
 }

@@ -134,7 +134,11 @@ def rotk_apply_rows(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor
     split over a mesh axis: column t is leaf coordinate ``offset + (t //
     chunk) * stride + t % chunk``, which the kept rule reads (1 <= chunk <=
     stride, offset + chunk <= stride, s a multiple of chunk); None, or
-    (s, s, 0), is the leaf itself."""
+    (s, s, 0), is the leaf itself. A second level, (chunk, stride, offset,
+    inner, ostride) with inner > 0, takes a block cut on two dims of the
+    leaf: run u = t // chunk at ``offset + (u // inner) * ostride + (u %
+    inner) * stride`` (offset % stride + chunk <= stride, offset + (inner -
+    1) * stride + chunk <= ostride, s a multiple of chunk * inner)."""
     if w.dim() != 2 or delta.dim() != 1 or delta.shape[0] != w.shape[1]:
         raise ValueError(f"rotk_apply_rows: w must be [R, s] and delta [s], got {tuple(w.shape)} "
                          f"and {tuple(delta.shape)}")
@@ -151,11 +155,18 @@ def rotk_apply_rows(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor
         if s > 1 and out.stride(1) != 1:
             raise ValueError("rotk_apply_rows: out needs unit column stride")
     if block is not None:
-        chunk, stride, offset = (int(v) for v in block)
-        if not (1 <= chunk <= stride and 0 <= offset and offset + chunk <= stride and s % chunk == 0):
-            raise ValueError(f"rotk_apply_rows: block (chunk, stride, offset) = {tuple(block)} does not map "
-                             f"{s} columns into a leaf")
-        block = None if (chunk, stride, offset) == (s, s, 0) else (chunk, stride, offset)
+        chunk, stride, offset, inner, ostride = (int(v) for v in (tuple(block) + (0, 0))[:5])
+        ok = 1 <= chunk <= stride and 0 <= offset and s % chunk == 0 and inner >= 0
+        if inner == 0:
+            ok = ok and offset + chunk <= stride
+        else:
+            ok = (ok and offset % stride + chunk <= stride and offset + (inner - 1) * stride + chunk <= ostride
+                  and s % (chunk * inner) == 0)
+        if not ok:
+            raise ValueError(f"rotk_apply_rows: block (chunk, stride, offset[, inner, ostride]) = {tuple(block)} "
+                             f"does not map {s} columns into a leaf")
+        block = (None if (chunk, stride, offset, inner) == (s, s, 0, 0) else (chunk, stride, offset) if inner == 0
+                 else (chunk, stride, offset, inner, ostride))
     if R == 0 or s == 0:
         return torch.empty_like(w) if out is None else out
     rows_read = 1 if w.stride(0) == 0 else R  # (2R + 1) values a column; a broadcast row once

@@ -11,8 +11,11 @@ run one value a thread), carries each vector's residue j mod n by adds, and
 in the rows entry reads delta once for all rows. The rows entry also takes a
 block map (``block = (chunk, stride, offset)``: one rank's block of a leaf
 split over a mesh axis, block column t being leaf coordinate ``offset + (t //
-chunk) * stride + t % chunk``), for which each vector computes its residue
-from its column instead. Takes CUDA tensors only;
+chunk) * stride + t % chunk``; with a second level ``(chunk, stride, offset,
+inner, ostride)`` the runs u = t // chunk come ``inner`` to a group,
+``ostride`` apart: ``offset + (u // inner) * ostride + (u % inner) * stride
++ t % chunk``, a block cut on two dims), for which each vector computes its
+residue from its column instead. Takes CUDA tensors only;
 :func:`repro_torch.kernels.ops.rotk_apply` / :func:`~repro_torch.kernels.ops.rotk_apply_rows`
 are the public, device-dispatching wrappers.
 """
@@ -51,7 +54,8 @@ def rotk_apply_rows(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor
     delta: [s] contiguous, same dtype; rotation: one int32 on the card; R <= n.
     Writes w[i] + Q_i(delta) into row i of ``out`` ([R, s], unit column stride,
     overlapping neither input; allocated if None) and returns it. ``block``:
-    (chunk, stride, offset) of a rank's block of a leaf (None: the leaf)."""
+    (chunk, stride, offset) of a rank's block of a leaf, or (chunk, stride,
+    offset, inner, ostride) with a second level (None: the leaf)."""
     R, s = w.shape
     if out is None:
         out = torch.empty((R, s), dtype=w.dtype, device=w.device)
@@ -62,8 +66,8 @@ def rotk_apply_rows(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor
     if block is None:
         fn = runtime.function("permk", "rotk_apply_rows", types + [ctypes.c_void_p])
     else:
-        fn = runtime.function("permk", "rotk_apply_rows_map", types + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
-        args += list(block)
+        fn = runtime.function("permk", "rotk_apply_rows_map", types + [ctypes.c_longlong] * 5 + [ctypes.c_void_p])
+        args += list(block) + [0, 0] * (len(block) == 3)
     err = fn(*args, runtime.stream_ptr(w))
     runtime.check(err, "rotk_apply_rows")
     runtime.count_launch("rotk_apply_rows")

@@ -260,13 +260,19 @@ def _to16(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def block_coords(s: int, block, device) -> torch.Tensor:
     """The leaf coordinates of a block's ``s`` columns under ``block`` =
-    (chunk, stride, offset): ``offset + (t // chunk) * stride + t % chunk``
-    (None: ``t``)."""
+    (chunk, stride, offset): ``offset + (t // chunk) * stride + t % chunk``;
+    (chunk, stride, offset, inner, ostride), the second level: with u = t //
+    chunk, ``offset + (u // inner) * ostride + (u % inner) * stride + t %
+    chunk`` (None: ``t``)."""
     t = torch.arange(s, device=device)
     if block is None:
         return t
-    chunk, stride, offset = block
-    return offset + torch.div(t, chunk, rounding_mode="floor") * stride + t % chunk
+    chunk, stride, offset = block[:3]
+    u = torch.div(t, chunk, rounding_mode="floor")
+    if len(block) == 5 and block[3]:
+        inner, ostride = block[3:]
+        return offset + torch.div(u, inner, rounding_mode="floor") * ostride + u % inner * stride + t % chunk
+    return offset + u * stride + t % chunk
 
 
 def _rotk_ref(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Tensor, n: int,
@@ -300,9 +306,10 @@ def rotk_apply_rows_ref(w: torch.Tensor, delta: torch.Tensor, rotation: torch.Te
     """[R, s]: row i is :func:`rotk_apply_ref` of w[i] with worker i, as the
     reference downlink's vmap over the workers computes it (w [R, s], which
     may be one row broadcast; delta [s]). ``block`` = (chunk, stride,
-    offset): the s columns are a rank's block of a leaf, column t its
-    coordinate ``offset + (t // chunk) * stride + t % chunk``, which the kept
-    rule reads (the same values as the whole leaf's row at those columns)."""
+    offset), or (chunk, stride, offset, inner, ostride) with a second level:
+    the s columns are a rank's block of a leaf, column t at its coordinate
+    :func:`block_coords`, which the kept rule reads (the same values as the
+    whole leaf's row at those columns)."""
     return _rotk_ref(w, delta, rotation, n, torch.arange(w.shape[0], dtype=torch.int32, device=w.device),
                      block)
 

@@ -23,7 +23,8 @@ evenly over the mesh's devices (``"split": "even"``, no collective term,
 * a train shape of every family on a ("data", "model") mesh: one rank of ``train/sharded.py``'s step, by default with
   tensor parallelism over "model" (the reference's ``worker`` layout), with
   ``--train-act-model-sharded`` under ``act_spec`` instead (the record
-  ``<arch>__<shape>__<mesh>__act.json``, any family without experts);
+  ``<arch>__<shape>__<mesh>__act.json``, any family); on the multi-pod and
+  hierarchical meshes too (``--multi-pod``, ``--hierarchical-workers N``);
   ``state_bytes_per_device`` puts the rank's flat state (its blocks, or
   its whole rows, and its ZeRO-1 slices) beside the reference's per-leaf
   specs.

@@ -28,14 +28,18 @@ and calls no process group. By default it is the reference's default
 program, the ``worker`` layout as tensor parallelism over "model" (rank 0's
 blocks of every leaf: its replicas' rows of them, the ZeRO-1 slices of its
 model-local master over "data") for every family on a ("data", "model")
-mesh; the multi-pod and hierarchical meshes keep the whole step split
-evenly (:func:`train_refusal` names why). ``train_act_model_sharded=True`` (the
+mesh, on the multi-pod mesh over the flattened ("pod", "data") axes, and on
+the hierarchical mesh with the workers on "wk" and each replica and its rows
+split over "data" too (``train/sharded.fsdp_blocks``); where a family or a
+mesh is not ported the step is split evenly (:func:`train_refusal` names
+why). ``train_act_model_sharded=True`` (the
 reference's ``act_spec = P("model", None, None)`` where a worker's batch
 splits over "model") builds the ``act_spec`` step instead: whole replicas,
 each worker's rows split over "model"; where the reference would drop
 ``act_spec`` (the batch does not split over "model") it runs the tensor
-parallel program, the default build, so that request, and ``act_spec`` for
-configs with experts, raise.
+parallel program, the default build, so that request raises. Configs with
+experts route each row block at the worker's whole capacity
+(``models/moe.split_rows``).
 
 The serving shapes (prefill_32k, decode_32k, long_500k) of every family
 (dense, vlm, audio, moe, ssm, hybrid) build rank 0's step of ``serve/sharded.py`` under
@@ -167,18 +171,20 @@ def build(arch_id: str, shape_id: str, mesh, *, downlink_spec: str = "marina:per
         meta = dict(cfg=cfg, W=W, bpw=bpw, split="even", **info)
         d = sum(leaf_sizes(lm.lm_spec(cfg)))
         if train_act_model_sharded:
+            if "wk" in mesh.axis_names:
+                raise ValueError("act_spec on the hierarchical mesh is not ported: its workers' rows split over "
+                                 "'data' there (the count without --train-act-model-sharded)")
             if bpw % mesh.shape["model"]:
                 raise ValueError(f"{bpw} rows a worker do not split over 'model' = {mesh.shape['model']}: "
                                  "the reference drops act_spec there and runs tensor parallelism over "
                                  "'model' (the count without --train-act-model-sharded)")
             tcfg = dataclasses.replace(tcfg, act_spec=SH.ACT_SPEC)
-            layout = SH.Layout(mesh, 0, W, d)
+            layout = SH.make_layout(mesh, 0, W, d)
         else:
             refusal = train_refusal(cfg, mesh)
             layout = None
             if refusal is None:
-                M = mesh.shape["model"]
-                layout = SH.Layout(mesh, 0, W, d, SH.model_blocks(cfg, mesh, 0) if M > 1 else None)
+                layout = SH.make_layout(mesh, 0, W, d, cfg)
             else:
                 meta["even_note"] = refusal
         if layout is not None:
@@ -245,16 +251,15 @@ def build(arch_id: str, shape_id: str, mesh, *, downlink_spec: str = "marina:per
 def train_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
     """None where the dry-run counts one rank of the sharded train step with
     tensor parallelism over "model" for ``cfg`` on ``mesh`` (a ("data",
-    "model") mesh, any family, every product's weight split), else what is
-    not ported (``train/sharded.check_tensor_parallel``'s message, or the
-    mesh's)."""
-    if tuple(mesh.axis_names) != ("data", "model"):
-        return (f"the train step across a process group runs on a ('data', 'model') mesh, not "
-                f"{tuple(mesh.axis_names)} (the multi-pod and hierarchical meshes' train programs are not ported)")
+    "model"), multi-pod ("pod", "data", "model") or hierarchical ("wk",
+    "data", "model") mesh, any family, every product's weight split), else
+    what is not ported (``train/sharded.check_tensor_parallel``'s message,
+    or the mesh's)."""
+    if tuple(mesh.axis_names) not in SH.MESHES:
+        return f"the train step across a process group runs on a {SH.MESHES} mesh, not {tuple(mesh.axis_names)}"
     if mesh.shape["model"] == 1:
         return None
-    W = mesh_n_workers(mesh)
-    layout = SH.Layout(mesh, 0, W, sum(leaf_sizes(lm.lm_spec(cfg))), SH.model_blocks(cfg, mesh, 0))
+    layout = SH.make_layout(mesh, 0, mesh_n_workers(mesh), sum(leaf_sizes(lm.lm_spec(cfg))), cfg)
     try:
         SH.check_tensor_parallel(cfg, layout)
     except SS.NotPorted as e:

@@ -47,8 +47,22 @@ shared expert enters in its own column-parallel products. The capacity is
 the worker's own call: each data index trains other workers on other rows,
 so ``tp.rows`` stays 1 and the capacity is ``capacity(m, B * S)`` of the
 rank's call, as in the single process, with no ``copies_before``.
+
+A worker's rows split over ranks (the sharded train step's ``act_spec``
+over "model", and the hierarchical mesh's rows over "data", with or without
+a shard context): inside :func:`split_rows` the call is a contiguous range
+of the worker's tokens, the capacity is the whole call's (the rank's N times
+``rows``) and a copy's position is its global one, with the copies before
+it on the lower indices of that axis from ``copies_before`` (the step's
+all-gather of the [E] counts): the same mechanism as the data ranks' above,
+so each row's routed part is the single process's and the same copies
+drop. The counts are integers: no gradient flows through them. Training
+adds no aux loss (the reference's train step does not ask ``return_aux``),
+and ``return_aux`` is refused inside a split.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -93,6 +107,22 @@ def capacity(m: MoEConfig, tokens: int) -> int:
     return int(max(1, -(-m.top_k * tokens // m.num_experts) * m.capacity_factor))
 
 
+_SPLIT = []  # the open split_rows contexts: (rows, copies_before)
+
+
+@contextlib.contextmanager
+def split_rows(rows: int, copies_before):
+    """Inside it, a :func:`moe_apply` with no shard context is one part of a
+    call split over ``rows`` ranks by contiguous token ranges: the capacity
+    is the whole call's, and ``copies_before(counts [E]) -> [E]`` gives each
+    expert's copies on the ranks before this one."""
+    _SPLIT.append((rows, copies_before))
+    try:
+        yield
+    finally:
+        _SPLIT.pop()
+
+
 def _group_by_expert(expert_ids: torch.Tensor, num_experts: int, capacity: int, before=None):
     """(slot, keep) of each routed token copy in an [E * cap] buffer
     (``moe.py:40``): a stable sort by expert, each copy's rank within its
@@ -122,7 +152,7 @@ def moe_apply(cfg: ModelConfig, params, x, *, return_aux: bool = False, tp=None)
     N = B * S
     E, K = m.num_experts, m.top_k
     dt = x.dtype
-    if return_aux and tp is not None and (tp.model_size > 1 or tp.data_size > 1):
+    if return_aux and (_SPLIT or tp is not None and (tp.model_size > 1 or tp.data_size > 1)):
         raise ValueError("moe_apply's aux losses are the single process's: no shard context across ranks")
     xf = x.reshape(N, D)
     # the rank's experts e0 .. e0 + ne - 1 (all of them unless E is split over "model")
@@ -130,10 +160,11 @@ def moe_apply(cfg: ModelConfig, params, x, *, return_aux: bool = False, tp=None)
     e0, ne = blk if blk is not None else (0, E)
     xr = xf if blk is None else tp.enter(xf)  # routed to the rank's experts only
     probs, gate_vals, expert_ids = route(cfg, params, xr, tp)  # [N, E], [N, K], [N, K]
-    rows = 1 if tp is None else tp.rows  # the call's tokens are this rank's N times rows
+    # the call's tokens are this rank's N times rows; the copies before this rank's, by expert
+    rows, before = _SPLIT[-1] if _SPLIT else (tp.rows, tp.copies_before) if tp is not None else (1, None)
     cap = capacity(m, N * rows)
     flat_e = expert_ids.reshape(N * K)
-    slot, keep = _group_by_expert(flat_e, E, cap, None if rows == 1 else tp.copies_before)
+    slot, keep = _group_by_expert(flat_e, E, cap, None if rows == 1 else before)
     copy_token = torch.arange(N * K, device=x.device) // K  # repeat(arange(N), K), no host sync
     if blk is not None:  # the copies this rank's experts own; the others are as dropped here
         keep = keep & (flat_e >= e0) & (flat_e < e0 + ne)

@@ -17,12 +17,13 @@ DEFAULT_DIR = os.environ.get("DRYRUN_DIR", DEFAULT_OUT)
 
 
 def load(dirpath=None, mesh="16x16"):
-    """The records of ``dirpath`` (default :data:`DEFAULT_DIR`) for ``mesh``."""
+    """The records of ``dirpath`` (default :data:`DEFAULT_DIR`) for ``mesh``
+    (None: every mesh)."""
     recs = []
     for f in sorted(glob.glob(os.path.join(dirpath or DEFAULT_DIR, "*.json"))):
         with open(f) as fh:
             r = json.load(fh)
-        if r.get("mesh") == mesh:
+        if mesh is None or r.get("mesh") == mesh:
             recs.append(r)
     return recs
 
@@ -61,14 +62,17 @@ def markdown_table(recs):
 def bench(dirpath=None, tracker=None):
     """Rows (name, us_per_call, derived) for the harness: each record's
     bound in seconds (the count's time as us_per_call), and a measured
-    record's roofline share. Raises where there is no record to report."""
-    recs = load(dirpath)
+    record's roofline share; a record of another mesh than 16x16 (the
+    multi-pod and hierarchical ones) or of the ``act_spec`` step names them
+    after the shape. Raises where there is no record to report."""
+    recs = load(dirpath, mesh=None)
     if not recs:
-        raise FileNotFoundError(f"no 16x16 dry-run records under {dirpath or DEFAULT_DIR}: "
+        raise FileNotFoundError(f"no dry-run records under {dirpath or DEFAULT_DIR}: "
                                 "run python -m repro_torch.launch.dryrun first")
     rows = []
     for r in recs:
-        name = f"roofline/{r['arch']}/{r['shape']}"
+        name = (f"roofline/{r['arch']}/{r['shape']}" + ("" if r["mesh"] == "16x16" else f"/{r['mesh']}")
+                + ("/act" if r.get("act_spec") else ""))
         rows.append((f"{name}/bound_s", r["t_count_s"] * 1e6, r["roofline"]["bound_s"]))
         if "measured" in r:
             rows.append((f"{name}/roofline_share", r["measured"]["ms"] * 1e3, r["measured"]["roofline_share"]))

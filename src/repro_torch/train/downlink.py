@@ -82,22 +82,47 @@ class LeafBlock(NamedTuple):
     """One rank's block of a leaf split over a mesh axis, in the rank's flat
     vector of blocks: at ``lo``, ``size`` values, block element t being leaf
     coordinate ``offset + (t // chunk) * stride + t % chunk`` (a leaf the
-    axis does not split: chunk = stride = its size, offset 0)."""
+    axis does not split: chunk = stride = its size, offset 0). A block cut
+    on two dims (``inner`` > 0: "data" and "model" at once) has a second
+    level: the runs u = t // chunk come ``inner`` to a group, ``stride``
+    apart in a group and the groups ``ostride`` apart, so element t is at
+    ``offset + (u // inner) * ostride + (u % inner) * stride + t % chunk``."""
 
     lo: int
     size: int
     chunk: int
     stride: int
     offset: int
+    inner: int = 0
+    ostride: int = 0
 
     @property
     def map(self) -> tuple:
+        """``rotk_apply_rows``' block map: 3 values, or 5 with a second level."""
+        if self.inner:
+            return self.chunk, self.stride, self.offset, self.inner, self.ostride
         return self.chunk, self.stride, self.offset
+
+    @property
+    def whole(self) -> bool:
+        """The leaf itself, not a block of it."""
+        return self.chunk == self.stride and not self.inner
+
+    @property
+    def leaf_size(self) -> int:
+        """The values of the whole leaf this is a block of."""
+        if self.inner:
+            return self.size // (self.chunk * self.inner) * self.ostride
+        return self.size // self.chunk * self.stride
 
     def cut(self, t: torch.Tensor) -> torch.Tensor:
         """The block's values of ``t`` [..., leaf size], as [..., size]."""
         lead = t.shape[:-1]
-        return t.reshape(*lead, -1, self.stride)[..., self.offset:self.offset + self.chunk].reshape(*lead, -1)
+        if not self.inner:
+            return t.reshape(*lead, -1, self.stride)[..., self.offset:self.offset + self.chunk].reshape(*lead, -1)
+        a, b = divmod(self.offset, self.stride)
+        groups = t.reshape(*lead, -1, self.ostride)[..., a * self.stride:(a + self.inner) * self.stride]
+        return groups.reshape(*lead, -1, self.inner, self.stride)[..., b:b + self.chunk].reshape(*lead, -1)
 
 
 def _dense_buf(flat: torch.Tensor, mag, device_encode) -> bytes:

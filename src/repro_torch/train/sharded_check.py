@@ -176,7 +176,8 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
     step also checks that ``shard_state`` / ``gather_state`` give the state
     back bit for bit and that the bytes ``comm`` handed to the group equal
     the dry-run's count of the same step on ``meta``; a forced sync at step
-    1 where ``forced``. Returns {"worst": the largest distances
+    1 where ``forced`` (the count once for each kind of round: a sync, a
+    forced sync, a compressed round). Returns {"worst": the largest distances
     (:data:`WORST_KEYS`), "moved": the last step's bytes by kind, "wmax":
     the replicas' largest |value|, "launches": the sharded steps' kernel
     launches, "compressed": the steps that were no sync, "floor": under
@@ -209,6 +210,7 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
     gen, pgen = torch.Generator().manual_seed(draw_seed), torch.Generator().manual_seed(draw_seed)
     dgen = torch.Generator(device).manual_seed(draw_seed)
     worst, moved, launches, compressed = [0.0] * len(WORST_KEYS), {}, {}, 0
+    counts = {}  # (sync round, forced sync) -> the meta count's (bytes the counter tallied, collectives)
     floor = [0.0] * len(WORST_KEYS)
     for i in range(steps):
         if check_rank is not None and i:
@@ -237,17 +239,19 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
             if v - l0.get(k, 0):
                 launches[k] = launches.get(k, 0) + v - l0.get(k, 0)
         moved = {k: v - before.get(k, 0) for k, v in comm.bytes.items()}
-        mdraws = D.DownlinkDraws(coin=True) if draws.coin else compressed_draws(dl, sizes)
-        if not plan.is_full:
-            mdraws = mdraws._replace(part=tuple(torch.empty(W, device="meta") for _ in range(2)))
-        before = dict(counter.bytes)
-        with op_cost.counting() as c:
-            metastep(meta_state, {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
-                                  for k, v in batch.items()}, mdraws, force)
-        counted = {k: v - before.get(k, 0) for k, v in counter.bytes.items()}
-        if not moved == counted == dict(c.coll):
+        if (draws.coin, force) not in counts:  # the count on meta depends on the round's kind alone
+            mdraws = D.DownlinkDraws(coin=True) if draws.coin else compressed_draws(dl, sizes)
+            if not plan.is_full:
+                mdraws = mdraws._replace(part=tuple(torch.empty(W, device="meta") for _ in range(2)))
+            before = dict(counter.bytes)
+            with op_cost.counting() as c:
+                metastep(meta_state, {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                                      for k, v in batch.items()}, mdraws, force)
+            counts[draws.coin, force] = ({k: v - before.get(k, 0) for k, v in counter.bytes.items()}, dict(c.coll))
+        counted, coll = counts[draws.coin, force]
+        if not moved == counted == coll:
             raise AssertionError(f"{spec} step {i}: bytes handed to the group {moved} != counted {counted} "
-                                 f"(op count {dict(c.coll)})")
+                                 f"(op count {coll})")
         if not mine:
             SH.gather_state(sp, layout, aux)  # the others' part of the check's gather
             continue
@@ -271,9 +275,9 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
         del full, rows
     if sp["server"].shape != (layout.shard_len,):
         raise AssertionError(f"a rank's master slice {tuple(sp['server'].shape)}, not ({layout.shard_len},)")
-    if "workers" in sp and sp["workers"].dim() == 2 and sp["workers"].shape != (layout.local, layout.d_local):
+    if "workers" in sp and sp["workers"].dim() == 2 and sp["workers"].shape != (layout.local, layout.d_rank):
         raise AssertionError(f"a rank's replicas {tuple(sp['workers'].shape)}, not ({layout.local}, "
-                             f"{layout.d_local})")
+                             f"{layout.d_rank})")
     wmax = float(state["workers"].float().abs().max()) if mine and "workers" in state else 0.0
     return {"worst": worst, "moved": moved, "wmax": wmax, "launches": launches,
             "floor": floor if layout.tp else None, "compressed": compressed}

@@ -19,6 +19,17 @@ from repro_torch.kernels import runtime  # noqa: E402
 D = 1 << 12
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Small CPU ops on one thread: far faster under a parallel test run
+    (test_kernel_bench_on_cpu on an 8-core host: 1.2 s alone, 157 s beside
+    five other test workers with every core's thread)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _ref_inputs(d):
     rng = np.random.default_rng(0)
     dense = rng.standard_normal(d).astype(np.float32)

@@ -22,7 +22,7 @@ from repro_torch import configs
 from repro_torch.kernels import runtime
 from repro_torch import roofline_report
 from repro_torch.launch import dryrun, op_cost, reanalyze, roofline, sharding, specs
-from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.launch.mesh import Mesh, make_hierarchical_mesh, make_production_mesh
 from repro_torch.models import lm
 from repro_torch.models import params as P
 from repro_torch.serve import sharded as SS
@@ -96,21 +96,23 @@ def test_dry_run_records_of_both_splits(smoke, tmp_path):
     """run_one: the per_rank records (the default train count, tensor
     parallelism over "model", and the act-sharded one) carry the collective
     bytes by kind, a collective term and both layouts' state bytes; the even
-    record of a mesh whose train program across ranks is not ported (rwkv6
-    on the multi-pod mesh) keeps collective_s None and says why; reanalyze
+    record of a step that is not ported (zamba2's smoke config on the
+    multi-pod mesh: its Mamba2 in_proj does not split over 'model' = 16,
+    ROADMAP Queue 1 item 4) keeps collective_s None and says why; reanalyze
     gives all three back; the file of the act-sharded count is tagged
     ``__act``."""
     dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--out", str(tmp_path)])
     dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--train-act-model-sharded",
                  "--out", str(tmp_path)])
-    dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "train_4k", "--multi-pod", "--out", str(tmp_path)])
+    dryrun.main(["--arch", "zamba2-1.2b", "--shape", "train_4k", "--multi-pod", "--out", str(tmp_path)])
     tp = json.loads((tmp_path / "gemma3-1b__train_4k__16x16.json").read_text())
     act = json.loads((tmp_path / "gemma3-1b__train_4k__16x16__act.json").read_text())
-    even = json.loads((tmp_path / "rwkv6-1.6b__train_4k__2x16x16.json").read_text())
+    even = json.loads((tmp_path / "zamba2-1.2b__train_4k__2x16x16.json").read_text())
     for rec in (tp, act, even):
         assert dryrun.record_problems(rec) == []
     assert even["split"] == "even" and even["roofline"]["collective_s"] is None
-    assert "multi-pod" in even["collective_note"] and even["collective_bytes_per_device"] is None
+    assert "in_proj (128, 552) does not split over 'model' = 16" in even["collective_note"]
+    assert even["collective_bytes_per_device"] is None
     assert act["split"] == "per_rank" and act["act_spec"] == ["model", None, None] and not act["tensor_parallel"]
     assert tp["split"] == "per_rank" and tp["act_spec"] is None and tp["tensor_parallel"]
     for rec in (tp, act):
@@ -126,7 +128,7 @@ def test_dry_run_records_of_both_splits(smoke, tmp_path):
     recs = reanalyze.reanalyze(str(tmp_path), str(out))
     assert sorted(r["split"] for r in recs) == ["even", "per_rank", "per_rank"]
     for name in ("gemma3-1b__train_4k__16x16.json", "gemma3-1b__train_4k__16x16__act.json",
-                 "rwkv6-1.6b__train_4k__2x16x16.json"):
+                 "zamba2-1.2b__train_4k__2x16x16.json"):
         assert json.loads((out / name).read_text()) == json.loads((tmp_path / name).read_text())
 
 
@@ -152,15 +154,18 @@ def test_local_numel():
     assert sharding.local_numel((9,), sharding.Spec(), mesh) == 9
 
 
-@pytest.mark.parametrize("arch,shape,match", [("deepseek-v2-236b", "train_4k", "experts"),
+@pytest.mark.parametrize("arch,shape,match", [("deepseek-v2-236b", "train_4k", "hierarchical"),
                                               ("gemma-2b", "tp", "tensor parallelism")])
 def test_build_refuses_what_is_not_ported(smoke, monkeypatch, arch, shape, match):
-    """act_spec with experts; a batch that does not split over "model" (the
-    reference drops act_spec and runs tensor parallelism)."""
+    """act_spec on the hierarchical mesh, with experts too (act_spec with
+    experts on ("data", "model") is ported: tests/test_torch_train_act_moe.py);
+    a batch that does not split over "model" (the reference drops act_spec
+    and runs tensor parallelism)."""
     if shape == "tp":
         monkeypatch.setitem(specs.SHAPES, "tp", dict(kind="train", seq=64, global_batch=6))
+    mesh = make_hierarchical_mesh(4) if match == "hierarchical" else MESH
     with pytest.raises(ValueError, match=match):
-        specs.build(arch, shape, MESH, train_act_model_sharded=True)
+        specs.build(arch, shape, mesh, train_act_model_sharded=True)
 
 
 def test_full_width_act_sharded_dry_run(tmp_path):
@@ -252,17 +257,18 @@ def test_even_records_name_their_own_reason(smoke):
     """Each even record's note names what is not ported for its own step
     (from ``specs.build``'s ``even_note``), and nothing else: zamba2's
     long_500k serving step (hybrid: the cache split of its states at
-    B = 1), rwkv6's train step on the multi-pod mesh (its train program is
-    not ported) and deepseek-v2's on 16x16 (the smoke config's 4 experts do
-    not split over 'model' = 16: its router's and experts' products would
-    run whole on every rank)."""
-    train = dryrun.run_one("rwkv6-1.6b", "train_4k", multi_pod=True, verbose=False)
+    B = 1), zamba2's train step on the hierarchical mesh wk4x4x16 (the
+    smoke config's Mamba2 in_proj does not split over 'model' = 16) and
+    deepseek-v2's on 16x16 (the smoke config's 4 experts do not split over
+    'model' = 16: its router's and experts' products would run whole on
+    every rank)."""
+    train = dryrun.run_one("zamba2-1.2b", "train_4k", hierarchical_workers=4, verbose=False)
     hybrid = dryrun.run_one("zamba2-1.2b", "long_500k", verbose=False)
     moe = dryrun.run_one("deepseek-v2-236b", "train_4k", verbose=False)
     assert train["split"] == hybrid["split"] == moe["split"] == "even"
     assert train["collective_note"] == dryrun.EVEN_NOTE + specs.build(
-        "rwkv6-1.6b", "train_4k", make_production_mesh(multi_pod=True)).meta["even_note"]
-    assert "the multi-pod and hierarchical meshes' train programs are not ported" in train["collective_note"]
+        "zamba2-1.2b", "train_4k", make_hierarchical_mesh(4)).meta["even_note"]
+    assert "in_proj (128, 552) does not split over 'model' = 16" in train["collective_note"]
     assert "serving" not in train["collective_note"] and "family" not in train["collective_note"]
     assert "cache_specs splits a cache of shape" in hybrid["collective_note"]
     assert "tensor parallelism" not in hybrid["collective_note"] and "family" not in hybrid["collective_note"]

@@ -13,6 +13,10 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+# each subprocess on one thread: beside five other test workers a run on every core's thread takes 9x as
+# long as alone (the training run on an 8-core host: 111 s of its 120 against 12 s alone), on one thread a
+# fair share
+ONE_THREAD = "1"
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 # `import jax`, `from jax...`, `import ml_dtypes` (it comes with JAX),
@@ -292,7 +296,7 @@ print("ok")
 
 
 def test_paper_grid_and_wire_smoke_run_without_jax_repro_or_benchmarks():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS=ONE_THREAD)
     out = subprocess.run([sys.executable, "-c", PAPER_RUN], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -300,7 +304,7 @@ def test_paper_grid_and_wire_smoke_run_without_jax_repro_or_benchmarks():
 
 
 def test_dry_run_runs_without_jax_repro_or_benchmarks():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS=ONE_THREAD)
     out = subprocess.run([sys.executable, "-c", LAUNCH_RUN], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -308,7 +312,7 @@ def test_dry_run_runs_without_jax_repro_or_benchmarks():
 
 
 def test_training_path_runs_without_jax_repro_or_benchmarks():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS=ONE_THREAD)
     out = subprocess.run([sys.executable, "-c", TRAIN_RUN], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -316,7 +320,7 @@ def test_training_path_runs_without_jax_repro_or_benchmarks():
 
 
 def test_serving_path_runs_without_jax_repro_or_benchmarks():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS=ONE_THREAD)
     out = subprocess.run([sys.executable, "-c", SERVE_RUN], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -335,7 +339,7 @@ def test_entry_points_default_to_the_card():
 
 
 def test_harness_runs_without_jax_repro_or_benchmarks():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS=ONE_THREAD)
     out = subprocess.run([sys.executable, "-c", HARNESS_RUN, str(ROOT)], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -343,7 +347,7 @@ def test_harness_runs_without_jax_repro_or_benchmarks():
 
 
 def test_port_runs_without_jax_and_without_repro():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS=ONE_THREAD)
     out = subprocess.run([sys.executable, "-c", JAX_FREE_RUN], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -2,8 +2,9 @@
 ``launch/``: the dot FLOPs the port's op count gives a step on ``meta`` equal
 ``hlo_cost.analyze`` of the reference's jitted step, exactly (forward and
 decode_step here; the marina:perm train step with remat off and on, all ten
-smoke architectures, in tests/test_torch_launch_flops_a.py and _b.py); MODEL_FLOPS and the parameter counts; the roofline
-formula; the W-fold shortcut of a train step's count against the full loop;
+smoke architectures, in tests/test_torch_launch_flops_a.py and _b.py);
+MODEL_FLOPS and the parameter counts; the roofline formula; the W-fold
+shortcut of a train step's count against the full loop;
 the hand kernels charged at their wrappers; ``reanalyze``; gemma3-1b's
 full-width dry-run of all four shapes; the ``roofline`` suite; and the
 entry points' default device.

@@ -440,3 +440,32 @@ _REFERENCE = textwrap.dedent(
     pickle.dump(out, open(out_path, "wb"))
     """
 )
+
+
+def test_four_ranks_against_the_reference_sharded_program(tmp_path):
+    pytest.importorskip("jax")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    ref_path = tmp_path / "reference.pkl"
+    res = subprocess.run([sys.executable, "-c", _REFERENCE, str(ref_path), ",".join(REF_ARCHS)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-6000:]
+    with open(ref_path, "rb") as f:
+        ref = pickle.load(f)
+    reports = _run_ranks(tmp_path, [], reference=ref)
+    for arch in REF_ARCHS:
+        r = ref[arch]
+        own = [float(np.abs(r["prefill"] - r["one_prefill"]).max())]  # the reference: sharded vs one device
+        own += [float(np.abs(a - b).max()) for a, b in zip(r["decode"], r["one_decode"])]
+        assert np.isfinite(r["prefill"]).all() and max(own) > 0
+        for rank, rep in enumerate(reports):
+            got = rep["reference"][arch]
+            print(f"{arch} rank {rank}: port vs the reference's one-device program {got['one']}, vs its "
+                  f"partitioned program {got['sharded']}; the reference's two programs differ by {own}; the "
+                  f"single-process port vs the one-device program {got['single']}")
+            if arch in RECURRENT:  # each step no farther than the single-process port is from the same program
+                assert all(g <= max(REF_ATOL, s) for g, s in zip(got["one"], got["single"])), (arch, rank, got)
+            else:
+                assert max(got["one"]) <= REF_ATOL, (arch, rank, got)
+            # fp32 partials: at every step nearer the one-device program than XLA's bf16 partials are
+            assert all(g < o for g, o in zip(got["one"], own)), (arch, rank, got, own)

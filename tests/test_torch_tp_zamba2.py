@@ -1,5 +1,5 @@
 """Four gloo ranks of the train step's tensor parallelism over "model" for
-zamba2 (hybrid) (``tests/torch_tp_ranks.py``: one subprocess a part, each with its own
+zamba2 (hybrid) (``tests/torch_ranks.py``: one subprocess a part, each with its own
 time limit, ``TIMEOUT``, past which the failure names the case each rank was
 running).
 
@@ -23,7 +23,7 @@ are in tests/test_torch_train_tp_families.py.
 """
 import pytest
 
-import torch_tp_ranks as R
+import torch_ranks as R
 from repro_torch.train import sharded_check as SC
 from test_torch_train_tp import LEAF_RTOL, LOSS_ATOL
 

@@ -164,20 +164,23 @@ def test_layout_slices_and_refusals():
         lay.local_batch({"tokens": torch.zeros(4, 3, 2)}, 2)
     with pytest.raises(ValueError, match="workers do not split"):
         SH.Layout(mesh, 0, 3, 10)
-    with pytest.raises(ValueError, match="'data', 'model'"):
-        SH.Layout(Mesh(("wk", "data", "model"), (2, 1, 2)), 0, 4, 10)
+    with pytest.raises(ValueError, match="holds the rank's blocks over 'model' and 'data'"):
+        SH.Layout(Mesh(("wk", "data", "model"), (2, 1, 2)), 0, 4, 10)  # the hierarchical mesh: make_layout
+    with pytest.raises(ValueError, match="runs on a"):
+        SH.Layout(Mesh(("data", "seq", "model"), (2, 1, 2)), 0, 4, 10)
 
 
 @pytest.mark.parametrize("arch,act,match", [
-    ("deepseek-v2-236b", True, "experts"), ("llama4-maverick-400b-a17b", True, "experts"),
+    ("deepseek-v2-236b", ("model", "data", None), "realizes"),
+    ("llama4-maverick-400b-a17b", "blocks", "whole replicas"),
     ("rwkv6-1.6b", None, "holds the rank's blocks"), ("zamba2-1.2b", "blocks", "whole replicas"),
     ("gemma-2b", ("data", None, None), "realizes")])
 def test_refusals_of_what_is_not_ported(arch, act, match):
-    """act_spec with experts (MoE capacity spans all of a call's tokens), a
-    mesh with "model" > 1 and neither act_spec nor the rank's blocks, and
-    act_spec on a layout with them (``act`` "blocks") are refused, as is any
-    other act_spec; lm.forward keeps refusing act_spec and names the
-    sharded step."""
+    """A mesh with "model" > 1 and neither act_spec nor the rank's blocks,
+    and act_spec on a layout with them (``act`` "blocks") are refused, as is
+    any other act_spec, with experts too (act_spec with experts itself is
+    ported: tests/test_torch_train_act_moe.py); lm.forward keeps refusing
+    act_spec and names the sharded step."""
     cfg = configs.get_smoke(arch)
     d = sum(P.leaf_sizes(lm.lm_spec(cfg)))
     spec = SH.ACT_SPEC if act in (True, "blocks") else act
@@ -225,8 +228,8 @@ _RANKS = textwrap.dedent(
         dist.init_process_group("gloo", init_method=init, rank=rank, world_size=WORLD)
         cases = pickle.load(open(cases_path, "rb"))
         cfg = configs.get_smoke(cases["arch"])
-        d, W = sum(P.leaf_sizes(lm.lm_spec(cfg))), 4
-        layout, comm = SH.connect(Mesh(("data", "model"), shape), W, d, cfg=None if act else cfg)
+        d, W = sum(P.leaf_sizes(lm.lm_spec(cfg))), cases["W"]
+        layout, comm = SH.connect(Mesh(*shape), W, d, cfg=None if act else cfg)
         aux = SH.Comm()  # the checks' gathers, apart from the step's tally
         report = {}
         for name, spec, dtype, drop, forced in cases["cases"]:
@@ -267,7 +270,8 @@ _RANKS = textwrap.dedent(
 
     if __name__ == "__main__":
         init, shape, act, cases_path, out_path = sys.argv[1:]
-        shape = tuple(int(x) for x in shape.split("x"))
+        names, sizes = shape.split(":") if ":" in shape else ("data,model", shape)
+        shape = (tuple(names.split(",")), tuple(int(x) for x in sizes.split("x")))
         mp.spawn(worker, args=(init, shape, act == "act", cases_path, out_path), nprocs=WORLD, join=True)
     """
 )
@@ -279,12 +283,15 @@ CASES = [("marina:perm", "marina:perm", "float32", 0.0, False),
          ("ef21p/forced", "ef21p:16:64", "float32", 0.0, True)]
 
 
-def _run_ranks(tmp_path, shape: str, act: bool, cases, reference=None, arch: str = "gemma-2b") -> dict:
+def _run_ranks(tmp_path, shape: str, act: bool, cases, reference=None, arch: str = "gemma-2b",
+               W: int = 4) -> dict:
+    """Rank 0's report of 4 gloo ranks on the mesh ``shape`` ("2x2", or
+    "names:sizes" such as "wk,data,model:2x2x1") with ``W`` workers."""
     script = tmp_path / "ranks.py"
     script.write_text(_RANKS)
     cases_path, out_path = tmp_path / "cases.pkl", tmp_path / "report.pkl"
     with open(cases_path, "wb") as f:
-        pickle.dump({"cases": cases, "reference": reference, "arch": arch}, f)
+        pickle.dump({"cases": cases, "reference": reference, "arch": arch, "W": W}, f)
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
     res = subprocess.run([sys.executable, str(script), f"file://{tmp_path / 'rdv'}", shape,
@@ -338,10 +345,11 @@ _REFERENCE = textwrap.dedent(
     from repro.optim.schedules import constant_lr
     from repro.train import TrainerConfig, init_state, make_downlink, make_train_step
 
-    spec, act, out, arch, own = sys.argv[1:]
+    spec, act, out, arch, own, names, sizes, W = sys.argv[1:]
     cfg = configs.get_smoke(arch)
-    mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
-    W = 4
+    sizes = tuple(int(x) for x in sizes.split("x"))
+    mesh = Mesh(np.array(jax.devices()).reshape(sizes), tuple(names.split(",")))
+    W = int(W)
     tcfg = TrainerConfig(n_workers=W, attn_chunk=32, act_spec=P("model", None, None) if act == "act" else None)
     dl, opt = make_downlink(spec, W), make_optimizer("adamw")
     state = init_state(cfg, tcfg, dl, opt, jax.random.PRNGKey(0))
@@ -366,7 +374,9 @@ _REFERENCE = textwrap.dedent(
         coll = hlo_cost.analyze(compiled.as_text())["coll"]
     one = None
     if own == "own":  # the same step as one device's program, from the same state: the reference's own distance
-        s2_one, m2_one = jax.jit(make_train_step(cfg, tcfg, dl, opt, constant_lr(2e-3)))(
+        # (act_spec is a sharding constraint: one device's program has none)
+        one_tcfg = TrainerConfig(n_workers=W, attn_chunk=32)
+        s2_one, m2_one = jax.jit(make_train_step(cfg, one_tcfg, dl, opt, constant_lr(2e-3)))(
             tonp(s1), data.batch(1), keys[1])
         one = {"new": tonp(s2_one), "metrics": tonp(m2_one)}
     sys.path.insert(0, os.path.dirname(out))
@@ -408,13 +418,15 @@ _DRAWS_OF = textwrap.dedent(
 )
 
 
-def reference_case(tmp_path, spec: str, act: bool, arch: str = "gemma-2b", own: bool = False) -> None:
-    """One step of the reference's sharded program on (2, 2) (XLA on 4 CPU
-    devices; ``act``: act_spec, else the ``worker`` layout) from its state
-    after one step, against the port's sharded step on 4 gloo ranks from
-    the same state, batch and draws, the smoke ``arch``: the counters and
-    lr exactly, the rest within REF_LOSS_ATOL, REF_GNORM_RTOL, REF_G_RTOL,
-    PARAM_ATOL and BULK_FRAC."""
+def reference_case(tmp_path, spec: str, act: bool, arch: str = "gemma-2b", own: bool = False,
+                   mesh: str = "data,model:2x2", W: int = 4) -> None:
+    """One step of the reference's sharded program on ``mesh`` (axis names
+    and sizes, 4 devices; XLA on 4 CPU devices; ``act``: act_spec, else the
+    ``worker`` layout) with ``W`` workers from its state after one step,
+    against the port's sharded step on 4 gloo ranks from the same state,
+    batch and draws, the smoke ``arch``: the counters and lr exactly, the
+    rest within REF_LOSS_ATOL, REF_GNORM_RTOL, REF_G_RTOL, PARAM_ATOL and
+    BULK_FRAC."""
     pytest.importorskip("jax")
     from repro_torch import convert
 
@@ -423,13 +435,14 @@ def reference_case(tmp_path, spec: str, act: bool, arch: str = "gemma-2b", own: 
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
     ref_path = tmp_path / "reference.pkl"
     res = subprocess.run([sys.executable, "-c", _REFERENCE, spec, "act" if act else "-", str(ref_path), arch,
-                          "own" if own else "-"], env=env, capture_output=True, text=True, timeout=300)
+                          "own" if own else "-", *mesh.split(":"), str(W)], env=env, capture_output=True,
+                         text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-6000:]
     with open(ref_path, "rb") as f:
         ref = pickle.load(f)
-    port = _run_ranks(tmp_path, "2x2", act, [], reference=ref, arch=arch)["reference"]
+    port = _run_ranks(tmp_path, mesh, act, [], reference=ref, arch=arch, W=W)["reference"]
     cfg = configs.get_smoke(arch)
-    tcfg = TrainerConfig(n_workers=4, attn_chunk=32)
+    tcfg = TrainerConfig(n_workers=W, attn_chunk=32)
     old = convert.train_state_from_numpy(cfg, tcfg, ref["state"], "cpu")
     want = convert.train_state_from_numpy(cfg, tcfg, ref["new"], "cpu")
     got, m, jm = port["state"], port["metrics"], ref["metrics"]
@@ -438,13 +451,13 @@ def reference_case(tmp_path, spec: str, act: bool, arch: str = "gemma-2b", own: 
     assert got["step"] == want["step"] and got["bits_per_worker"] == want["bits_per_worker"]
     assert got["uplink_bits_per_worker"] == want["uplink_bits_per_worker"]
     assert m["lr"] == float(jm["lr"])
-    bounds = dict(REF_BOUNDS, workers=(4 if spec.startswith("marina") else 1) * PARAM_ATOL)
+    bounds = dict(REF_BOUNDS, workers=(W if spec.startswith("marina") else 1) * PARAM_ATOL)
     dist = _ref_distances(got, {k: float(v) for k, v in m.items()}, want, jm, old)
     print(f"  the port from the reference's partitioned step: {dist}")
     if own:  # the reference's one-device program and the port's single process, from the same state
         one = _ref_distances(convert.train_state_from_numpy(cfg, tcfg, ref["one"]["new"], "cpu"),
                              {k: float(v) for k, v in ref["one"]["metrics"].items()}, want, jm, old)
-        single, ms = make_train_step(cfg, tcfg, make_downlink(spec, 4), make_optimizer("adamw"),
+        single, ms = make_train_step(cfg, tcfg, make_downlink(spec, W), make_optimizer("adamw"),
                                      constant_lr(LR))(old, {k: torch.from_numpy(np.asarray(v))
                                                             for k, v in ref["batch"].items()}, _draws(ref))
         single = _ref_distances(single, {k: float(v) for k, v in ms.items()}, want, jm, old)

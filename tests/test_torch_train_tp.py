@@ -176,11 +176,13 @@ def test_rotk_rows_block_map_is_the_whole_rows_block(dtype):
 def test_downlink_on_blocks_is_the_whole_downlinks_block(mode):
     """``round_rows`` on a rank's blocks ([R, d_local] rows, model-local
     x^{t+1} and delta) equals the rank's blocks of ``round``'s rows bit for
-    bit, f32 and bf16 replicas, a sync too, at every rank of (2, 2)."""
+    bit, f32 and bf16 replicas, a sync too, at every rank of (2, 2), and of
+    the hierarchical (wk, data, model) = (2, 2, 2), whose replica rows hold
+    two-level blocks ([R, d_rank])."""
     cfg = configs.get_smoke("minitron-4b")
     sizes = P.leaf_sizes(lm.lm_spec(cfg))
     d, W = sum(sizes), 4
-    mesh = Mesh(("data", "model"), (2, 2))
+    meshes = (Mesh(("data", "model"), (2, 2)), Mesh(("wk", "data", "model"), (2, 2, 2)))
     g = torch.Generator().manual_seed(1)
     x_old = torch.randn(d, generator=g)
     x_new = x_old + 0.01 * torch.randn(d, generator=g)
@@ -191,23 +193,27 @@ def test_downlink_on_blocks_is_the_whole_downlinks_block(mode):
             draws = D.draw_round(dl, sizes, torch.Generator().manual_seed(3),
                                  torch.Generator().manual_seed(4))._replace(coin=coin)
             full, bits = dl.round(draws, sizes, x_new, x_old, workers)
-            for r in range(4):
-                lay = SH.Layout(mesh, r, W, d, SH.model_blocks(cfg, mesh, r))
-                rows, b = dl.round_rows(draws, sizes, lay.model_local(x_new),
-                                        None if coin else lay.model_local(x_new - x_old),
-                                        lay.model_local(workers[lay.off:lay.off + lay.local]), lay.off,
-                                        blocks=lay.blocks)
-                assert b == bits
-                assert torch.equal(_bits(rows), _bits(lay.model_local(full[lay.off:lay.off + lay.local])))
+            for mesh in meshes:
+                for r in range(mesh.size):
+                    lay = SH.make_layout(mesh, r, W, d, cfg)
+                    rows, b = dl.round_rows(draws, sizes, lay.rank_local(x_new),
+                                            None if coin else lay.rank_local(x_new - x_old),
+                                            lay.rank_local(workers[lay.off:lay.off + lay.local]), lay.off,
+                                            blocks=lay.rank_blocks)
+                    assert b == bits
+                    assert torch.equal(_bits(rows), _bits(lay.rank_local(full[lay.off:lay.off + lay.local])))
+            assert any(b.inner for b in lay.rank_blocks)  # the hierarchical mesh's two-level blocks ran
 
 
 @pytest.mark.parametrize("case", ["no blocks", "act_spec on blocks", "act_spec with experts", "odd weight"])
 def test_tensor_parallel_refusals(case):
     """What the train step's tensor parallelism still refuses, each with its
     message: a layout without the rank's blocks where "model" > 1, act_spec
-    on one with them, act_spec with experts (the moe family's tensor
-    parallelism itself is ported: ``tests/test_torch_train_tp_families.py``),
-    and a product's weight that "model" does not split."""
+    on one with them, act_spec with experts on the hierarchical mesh (the
+    moe family's tensor parallelism is ported,
+    ``tests/test_torch_train_tp_families.py``, and its act_spec on ("data",
+    "model"), ``tests/test_torch_train_act_moe.py``), and a product's weight
+    that "model" does not split."""
     mesh = Mesh(("data", "model"), (2, 2))
     tcfg = TrainerConfig(n_workers=2, attn_chunk=32)
     act = TrainerConfig(n_workers=2, attn_chunk=32, act_spec=SH.ACT_SPEC)
@@ -223,7 +229,8 @@ def test_tensor_parallel_refusals(case):
     lay, tc, what = {"no blocks": (SH.Layout(mesh, 0, 2, d), tcfg, "holds the rank's blocks"),
                      "act_spec on blocks": (SH.Layout(mesh, 0, 2, d, SH.model_blocks(cfg, mesh, 0)), act,
                                             "whole replicas"),
-                     "act_spec with experts": (SH.Layout(mesh, 0, 2, d), act, "act_spec with experts")}[case]
+                     "act_spec with experts": (SH.make_layout(Mesh(("wk", "data", "model"), (1, 2, 2)), 0, 2, d, cfg),
+                                               act, "act_spec on the hierarchical mesh is not ported")}[case]
     with pytest.raises(ValueError, match=what):
         SH.make_sharded_train_step(cfg, tc, make_downlink("marina:perm", 2), make_optimizer("adamw"),
                                    constant_lr(SC.LR), lay, SH.CountingComm())

@@ -11,14 +11,15 @@ In this process: every family is admitted at (1, 2), (1, 4) and (2, 2) on
 the smoke configs and on the full configs' 16x16 production mesh too (their
 model-local sizes); a bf16 replica differentiates as the fp32 row of its
 values; the dry-run's train_4k records of the four architectures are
-``per_rank``. What stays refused (``act_spec`` with experts, a product's
-weight that "model" does not split) is held in
+``per_rank``. What stays refused (a product's weight that "model" does
+not split, ``act_spec`` on the hierarchical mesh) is held in
 tests/test_torch_train_tp.py, tests/test_torch_train_sharded.py and the
-serving tests of these families.
+serving tests of these families; ``act_spec`` with experts runs in
+tests/test_torch_train_act_moe.py.
 
 Four gloo ranks, one subprocess a part and an architecture, each in a file
 of its own (tests/test_torch_tp_deepseek.py, _llama4, _rwkv6, _zamba2,
-through tests/torch_tp_ranks.py): the two new backwards against finite
+through tests/torch_ranks.py): the two new backwards against finite
 differences, each leaf's gradient at (1, 2) and (1, 4) against the single
 process for the four smoke configs, and 3 teacher-forced steps at (1, 4)
 and (2, 2) of deepseek-v2, rwkv6 and zamba2.

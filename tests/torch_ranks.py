@@ -1,10 +1,9 @@
-"""Four gloo ranks of the train step's tensor parallelism for the moe, ssm
-and hybrid families, one part a process group, and the runner the test
-files start them with (:func:`run`).
+"""Gloo ranks of the sharded train step in a subprocess, one part a process
+group, and the runner the test files start them with (:func:`run`).
 
-``python torch_tp_ranks.py PART ARCH INIT OUT_DIR`` spawns 4 ranks
-(``torch.multiprocessing.spawn``, ``file://`` rendezvous ``INIT``) that run
-one part:
+``python torch_ranks.py PART ARCH INIT OUT_DIR`` spawns the part's ranks
+(``torch.multiprocessing.spawn``, ``file://`` rendezvous ``INIT``, 4 ranks)
+that run one part:
 
 * ``fd``: the two backwards ``gather_replicated`` and ``exit_enter`` in
   float64 against central differences on each pair of ranks (ARCH unused);
@@ -13,14 +12,23 @@ one part:
   process's own distance under the tensor-parallel summation order
   (``sharded_check.OneRank``) and the routes of a moe config;
 * ``steps``: ARCH's 3 teacher-forced steps at (1, 4) and (2, 2) for each
-  of :data:`CASES` (``sharded_check.run_case`` with ``check_rank=0``: rank
-  0 alone runs the single process and its floor, and broadcasts the state
-  that teacher-forces the next step).
+  of :data:`CASES`, tensor parallelism over "model";
+* ``act_moe``: each of ARCH (moe configs, comma-separated) under
+  ``act_spec`` on (2, 2): the routes (expert ids, kept copies, capacity) of
+  every moe call of a step against the single process's, at the config's
+  capacity factor and at :data:`LOW_CF`, and 3 teacher-forced steps of each
+  of :data:`ACT_CASES` (the second at :data:`LOW_CF`);
+* ``multipod``: ARCH's steps on the ("pod", "data", "model") meshes (2, 1,
+  2) and (2, 2, 1), W = 4;
+* ``hier``: each of ARCH's (comma-separated) steps on the hierarchical
+  ("wk", "data", "model") meshes of :data:`HIER_CASES`.
 
-The single-process side of ``leaves`` and ``steps`` runs on rank 0 only:
-the comparisons are of what the ranks gathered, which holds every rank's
-share. Each rank appends its case boundaries to ``OUT_DIR/rank<r>.progress``
-and rank 0 writes the report to ``OUT_DIR/report.pkl``.
+The steps are ``sharded_check.run_case`` with ``check_rank=0``: rank 0
+alone runs the single process and its floor and broadcasts the state that
+teacher-forces the next step; the comparisons are of what the ranks
+gathered, which holds every rank's share. Each rank appends its case
+boundaries to ``OUT_DIR/rank<r>.progress`` and rank 0 writes the report to
+``OUT_DIR/report.pkl``.
 """
 import os
 import pickle
@@ -36,6 +44,14 @@ WORLD = 4
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 CASES = [("marina:perm/bf16", "marina:perm", "bfloat16", False),
          ("ef21p/forced", "ef21p:16:64", "float32", True)]
+LOW_CF = 1.0  # a capacity factor at which the smoke moe configs drop routed copies
+# (name, downlink, replicas' dtype, forced sync at step 1, capacity factor: None the config's)
+ACT_CASES = [("marina:perm/bf16", "marina:perm", "bfloat16", False, None),
+             ("marina:perm/low_cf", "marina:perm", "float32", False, LOW_CF)]
+MULTIPOD_MESHES = ((2, 1, 2), (2, 2, 1))
+# (name, downlink, replicas' dtype, forced sync, mesh (wk, data, model), workers)
+HIER_CASES = [("marina:perm/bf16", "marina:perm", "bfloat16", False, (2, 2, 1), 2),
+              ("ef21p/forced", "ef21p:16:64", "float32", True, (1, 2, 2), 1)]
 
 
 def progress(out_dir, rank, what):
@@ -181,11 +197,60 @@ def leaf_grads(rank, pair, arch, out_dir):
     return out
 
 
-def steps(rank, arch, out_dir):
-    # 3 teacher-forced steps of each case at (1, 4) and (2, 2); rank 0 holds the single process
+def act_routes(rank, cfg, layout, comm, W):
+    # every moe call of one act_spec step from seed 1's state: each rank's (expert ids, kept copies,
+    # capacity), gathered to rank 0 and its model indices' pieces put together, against the single
+    # process's step (the calls of a worker in order: its forward's, then remat's recomputation)
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim import constant_lr, make_optimizer
+    from repro_torch.train import TrainerConfig, init_state, make_downlink, make_train_step
+    from repro_torch.train import downlink as D, sharded as SH
+
+    recs, real = [], MOE._group_by_expert
+
+    def recorded(expert_ids, num_experts, capacity, before=None):
+        slot, keep = real(expert_ids, num_experts, capacity, before)
+        recs.append((expert_ids.clone(), keep.clone(), capacity))
+        return slot, keep
+
+    MOE._group_by_expert = recorded
+    tcfg = TrainerConfig(n_workers=W, attn_chunk=32, act_spec=SH.ACT_SPEC)
+    dl, opt = make_downlink("marina:perm", W), make_optimizer("adamw")
+    state = init_state(cfg, tcfg, dl, opt, device="cpu", seed=1)
+    batch = SyntheticLMData(cfg, W, 2, 64, device="cpu").batch(0)
+    step = SH.make_sharded_train_step(cfg, tcfg, dl, opt, constant_lr(2e-3), layout, comm)
+    step(SH.shard_state(state, layout), batch, D.DownlinkDraws(coin=True))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, list(recs))
+    out = None
+    if rank == 0:
+        del recs[:]
+        single = make_train_step(cfg, TrainerConfig(n_workers=W, attn_chunk=32), dl, opt, constant_lr(2e-3))
+        single(state, batch, D.DownlinkDraws(coin=True))
+        per, M = len(recs) // W, layout.model_size
+        pieces = {}
+        for r, mine in enumerate(every):
+            a, m = divmod(r, M)
+            for k, rec in enumerate(mine):
+                pieces.setdefault((a * layout.local + k // per, k % per), {})[m] = rec
+        equal = len(pieces) == len(recs) > 0
+        for (w, c), by_m in pieces.items():
+            ids = torch.cat([by_m[m][0] for m in range(M)])
+            keep = torch.cat([by_m[m][1] for m in range(M)])
+            want = recs[w * per + c]
+            equal = equal and torch.equal(ids, want[0]) and torch.equal(keep, want[1]) and all(
+                by_m[m][2] == want[2] for m in range(M))
+        out = {"calls": len(recs), "equal": equal, "dropped": sum(int((~k).sum()) for _, k, _ in recs),
+               "copies": sum(k.numel() for _, k, _ in recs)}
+    MOE._group_by_expert = real
+    return out
+
+
+def sharded_steps(rank, arch, out_dir, cases, mesh_of, cfg_of=None):
+    # each case's 3 teacher-forced steps on its mesh; rank 0 holds the single process
     from repro_torch import configs
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import Mesh
     from repro_torch.models import lm, params as P
     from repro_torch.train import TrainerConfig
     from repro_torch.train import sharded as SH, sharded_check as SC
@@ -199,36 +264,75 @@ def steps(rank, arch, out_dir):
         return real(*a, **kw)
 
     ops.rotk_apply_rows = counted
-    report, W = {}, 4
-    cfg = configs.get_smoke(arch)
-    d = sum(P.leaf_sizes(lm.lm_spec(cfg)))
-    for shape in ((1, 4), (2, 2)):
-        layout, comm = SH.connect(Mesh(("data", "model"), shape), W, d, cfg=cfg)
-        aux = SH.Comm()
-        for name, spec, dtype, forced in CASES:
-            progress(out_dir, rank, f"start steps {name} {arch} {shape}")
-            del launches[:]
-            tcfg = TrainerConfig(n_workers=W, attn_chunk=32, weight_dtype=getattr(torch, dtype))
-            res = SC.run_case(cfg, tcfg, spec, layout, comm, aux, batch_rows=2, seq=64, device="cpu",
-                              forced=forced, check_rank=0)
-            res["block_launches"] = len(launches)
-            report[(name, shape)] = res
+    report = {}
+    for case in cases:
+        name, spec, dtype, forced = case[:4]
+        mesh, W, act = mesh_of(case)
+        cfg = cfg_of(case) if cfg_of else configs.get_smoke(arch)
+        progress(out_dir, rank, f"start {name} {arch} {mesh.sizes}")
+        layout, comm = SH.connect(mesh, W, sum(P.leaf_sizes(lm.lm_spec(cfg))), cfg=None if act else cfg)
+        del launches[:]
+        tcfg = TrainerConfig(n_workers=W, attn_chunk=32, weight_dtype=getattr(torch, dtype),
+                             act_spec=SH.ACT_SPEC if act else None)
+        res = SC.run_case(cfg, tcfg, spec, layout, comm, SH.Comm(), batch_rows=2, seq=64, device="cpu",
+                          forced=forced, check_rank=0)
+        res.update(block_launches=len(launches), two_level=sum(len(b) == 5 for b in launches),
+                   d_rank=layout.d_rank, d=layout.d)
+        report[(name, mesh.sizes)] = res
     ops.rotk_apply_rows = real
     return report
 
 
+def act_moe(rank, arch, out_dir):
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import lm, params as P
+    from repro_torch.train import sharded as SH
+
+    base = configs.get_smoke(arch)
+
+    def with_cf(cf):
+        return base if cf is None else dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=cf))
+
+    mesh, W = Mesh(("data", "model"), (2, 2)), 4
+    layout, comm = SH.connect(mesh, W, sum(P.leaf_sizes(lm.lm_spec(base))))
+    report = {}
+    for cf in (None, LOW_CF):
+        progress(out_dir, rank, f"start routes {arch} cf {cf}")
+        report[("routes", cf)] = act_routes(rank, with_cf(cf), layout, comm, W)
+    report.update(sharded_steps(rank, arch, out_dir, ACT_CASES, lambda c: (mesh, W, True),
+                                lambda c: with_cf(c[4])))
+    return report
+
+
+def each_arch(part, rank, archs, out_dir):
+    """``part(rank, arch, out_dir)`` for each of the comma-separated
+    ``archs`` in one process group: {arch: its report}."""
+    return {arch: part(rank, arch, out_dir) for arch in archs.split(",")}
+
+
 def worker(rank, part, arch, init, out_dir):
     torch.set_num_threads(1)
+    from repro_torch.launch.mesh import Mesh
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=WORLD)
-    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
-    pair = pairs[rank // 2]
     progress(out_dir, rank, f"start {part} {arch}")
-    if part == "fd":
-        report = finite_differences(rank, pair)
-    elif part == "leaves":
-        report = leaf_grads(rank, pair, arch, out_dir)
+    if part in ("fd", "leaves"):
+        pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+        pair = pairs[rank // 2]
+        report = finite_differences(rank, pair) if part == "fd" else leaf_grads(rank, pair, arch, out_dir)
+    elif part == "steps":
+        cases = [c + (shape,) for shape in ((1, 4), (2, 2)) for c in CASES]
+        report = sharded_steps(rank, arch, out_dir, cases, lambda c: (Mesh(("data", "model"), c[4]), 4, False))
+    elif part == "act_moe":
+        report = each_arch(act_moe, rank, arch, out_dir)
+    elif part == "multipod":
+        cases = [c + (shape,) for shape in MULTIPOD_MESHES for c in CASES]
+        report = sharded_steps(rank, arch, out_dir, cases,
+                               lambda c: (Mesh(("pod", "data", "model"), c[4]), 4, False))
     else:
-        report = steps(rank, arch, out_dir)
+        report = each_arch(lambda r, a, o: sharded_steps(
+            r, a, o, HIER_CASES, lambda c: (Mesh(("wk", "data", "model"), c[4]), c[5], False)), rank, arch, out_dir)
     gathered = [None] * WORLD
     dist.all_gather_object(gathered, report)
     if rank == 0:
@@ -250,8 +354,9 @@ if __name__ == "__main__":
 MOE = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
 RESIDUE = 1e-6  # a leaf's max |g| below this share of the model's largest: rounding residue
 # each part's time limit in seconds: at least 3x its time beside five other test workers (about 2x its
-# time alone on an 8-core host: fd 9.5 s, leaves 12-18 s, steps 58-66 s)
-TIMEOUT = {"fd": 180, "leaves": 240, "steps": 600}
+# time alone on an 8-core host: fd 9.5 s, leaves 12-18 s, steps 43-58 s, act_moe 34 s, multipod 37 s,
+# hier 23 s)
+TIMEOUT = {"fd": 180, "leaves": 240, "steps": 600, "act_moe": 360, "multipod": 360, "hier": 300}
 
 
 def check_backward(report, kind):
@@ -288,15 +393,28 @@ def check_leaves(report, arch, shape, leaf_rtol, loss_atol, floor_factor):
 
 
 def check_steps(report, name, arch, shape):
-    """3 teacher-forced steps within ``sharded_check``'s bounds (``hold``;
-    rank 0 holds the gathered state, which every rank's share makes), bytes
-    handed = counted and the round trip bit for bit on every rank
-    (``run_case``), perm through the block map on every rank."""
+    """:func:`check_case` of a tensor-parallel case (every rank its blocks):
+    its 3 teacher-forced steps within ``sharded_check``'s bounds, and every
+    kind of collective issued."""
     from repro_torch.train import sharded_check as SC
-    for rank in range(WORLD):
-        res = report[rank][(name, tuple(shape))]
-        print(f"{name} {arch} {shape} rank {rank}: {dict(zip(SC.WORST_KEYS, res['worst']))}, floor "
-              f"{res['floor']}; bytes a step {res['moved']}")
-        SC.hold(name, res, SC.bounds(True), 4)
-        assert (res["block_launches"] > 0) == (name.startswith("marina:perm") and res["compressed"] > 0)
-        assert set(res["moved"]) == {"all-gather", "reduce-scatter", "all-reduce"}
+    check_case(report, (name, tuple(shape)), SC.bounds(True), 4)
+    assert all(set(rep[(name, tuple(shape))]["moved"]) == {"all-gather", "reduce-scatter", "all-reduce"}
+               for rep in report), arch
+
+
+def check_case(report, key, bounds, n_workers):
+    """One case of ``sharded_steps`` on every rank: within ``bounds``
+    (``sharded_check.hold``; rank 0 holds the gathered state), the bytes
+    handed to gloo equal to the dry-run's count and the round trip bit for
+    bit on every rank (``run_case`` raised otherwise), a perm case through
+    the block map on every rank where its rows are blocks."""
+    from repro_torch.train import sharded_check as SC
+    name = key[0]
+    for rank in range(len(report)):
+        res = report[rank][key]
+        print(f"{key} rank {rank}: {dict(zip(SC.WORST_KEYS, res['worst']))}, floor {res['floor']}; bytes a "
+              f"step {res['moved']}; d_rank {res['d_rank']} of {res['d']}; block-map launches "
+              f"{res['block_launches']} ({res['two_level']} two-level)")
+        SC.hold(name, res, bounds, n_workers)
+        blocks = res["d_rank"] < res["d"]
+        assert (res["block_launches"] > 0) == (name.startswith("marina:perm") and res["compressed"] > 0 and blocks)
