@@ -20,12 +20,12 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     TopK and MARINA-P same/ind/perm, constant and Polyak stepsizes) and the
     port's quickstart at a 2e6-bit budget, with the launch counters zeroed
     just before and read just after; both kernels must have launched;
-(c) the same 8 runs at T=20 on the CPU port against the card, same seeds:
+(c) the same 8 runs at T=10 on the CPU port against the card, same seeds:
     equal s2w_bits; MARINA-P's per-round f_x within rtol 1e-4; EF21-P's
     within rtol 1e-4 per step from the card's state of each round (its
     free-running TopK trajectory follows the last bits of gamma*g, see the
-    note in the code, and is only reported); and the card's T=20 Polyak runs
-    bit-equal to the first 20 rounds of (b) (their stepsize does not depend
+    note in the code, and is only reported); and the card's T=10 Polyak runs
+    bit-equal to the first 10 rounds of (b) (their stepsize does not depend
     on T);
 (d) each kernel's median time (CUDA events, L2 flushed between launches by a
     read), its plain version's and the library call's, beside its lower
@@ -266,12 +266,15 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     single process) and, in the second group's processes after its act_spec
     cases, the moe family's smoke configs (MOE_TP: deepseek-v2 and llama4,
     3 steps, marina:perm with bf16 replicas and ef21p on (1, 4) and (2, 2)),
-    the act_spec step with experts (ACT_MOE, deepseek-v2 on (2, 2)) and the
-    multi-pod mesh (MULTIPOD, gemma-2b on (pod, data, model) = (2, 1, 2));
+    the act_spec step with experts (ACT_MOE, deepseek-v2 on (2, 2)), the
+    multi-pod mesh (MULTIPOD, gemma-2b on (pod, data, model) = (2, 1, 2))
+    and a product weight "model" does not split (WHOLE_TP: the smoke zamba2
+    with a Mamba2 state of 17, its in_proj and conv_w whole on (1, 4));
     and a third group of 8 processes, the hierarchical mesh (HIER, gemma-2b
     on (wk, data, model) = (2, 2, 2), W = 2, marina:perm with bf16
     replicas: every rank its two-level blocks, rotk_apply_rows at least once
-    a leaf in each compressed round); all within ``train/sharded_check``'s bounds of the single-process step (the
+    a leaf in each compressed round), then deepseek-v2's smoke config on
+    (1, 8) (WHOLE_TP8: its router and 4 experts whole, 3 steps); all within ``train/sharded_check``'s bounds of the single-process step (the
     CPU tests' own; under tensor parallelism ACT_BOUNDS or 1.5x the single
     process's own floor from the same run), rows at an offset or a rank's
     blocks launching rotk_apply_rows in a compressed perm round (every
@@ -315,7 +318,12 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     alone; the routed experts bit for bit the single process's rows), then
     rwkv6-1.6b and zamba2-1.2b at full width, their first RECURRENT_DEPTH
     layers, on the same two meshes (the floor includes the sharded
-    arithmetic in one process, ``sharded_check.OneRank``), each rank
+    arithmetic in one process, ``sharded_check.OneRank``) and at B = 1 on
+    (4, 1) and (2, 2) ``serve`` (long_500k's split: the states, token shifts
+    and conv windows over "data", gathered before each decode step reads
+    them; rwkv6 on (4, 1) bit for bit), then gemma3-1b's first 4 layers (a
+    scan segment of 4) at B = 4 on (2, 2) ``serve`` (the repetitions over
+    "data", the rows too), each rank
     ``serve/sharded_check.run_case`` + ``hold`` (the CPU tests' own code,
     with ``card_bounds``, a bound for each case and number: logits and
     caches against the single process on the card, (2, 2) within 1.5 x the
@@ -323,10 +331,11 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     for bit; the first ``w_out`` product at full width rounded once, where
     bf16 partials would not be; bytes handed to gloo = counted; greedy over
     the vocabulary blocks equal to the gathered argmax and to the single
-    process's tokens), each rank's peak memory printed; only gloo's own refusal of a
+    process's tokens), each rank's peak memory and cache bytes at rest by
+    their split printed; only gloo's own refusal of a
     CUDA collective, met by a probe, is logged in place of the run; (x3) gemma3-1b's prefill_32k,
-    decode_32k and long_500k and the decode_32k of deepseek-v2-236b, rwkv6-1.6b and zamba2-1.2b on 16x16
-    under ``serve`` and ``tp``, one rank
+    decode_32k and long_500k, the decode_32k of deepseek-v2-236b, rwkv6-1.6b and zamba2-1.2b and the
+    long_500k of the last two on 16x16 under ``serve`` and ``tp``, one rank
     counted on ``meta`` (``python -m repro_torch.launch.dryrun``): per_rank
     records whose counts equal the CPU's (SERVE_COUNTS) exactly, with a
     collective term.
@@ -2820,6 +2829,12 @@ RECURRENT_TP = (("marina:perm/bf16", "rwkv6-1.6b/2", "marina:perm", "bfloat16", 
 # "data", "model") at (2, 2, 2) in a group of 8 processes of its own: W = 2 workers on "wk", each replica and
 # its rows over "data" and "model", so the perm downlink runs rotk_apply_rows' two-level block map
 ACT_MOE = (("marina:perm/bf16", "deepseek-v2-236b", "marina:perm", "bfloat16", 2, 64, 32, (2, 2), "act", 3, 4),)
+# product weights that "model" does not split, read whole (train/sharded_check.VARIANTS): zamba2's smoke config
+# with a Mamba2 state of 17 ("zamba2-1.2b@n17": in_proj (128, 554) and conv_w (4, 290) whole at M = 4, read in
+# part by the rank's heads) in the "act+moe" group, and deepseek-v2's smoke config on (1, 8) (its router (128, 4)
+# and 4 experts whole, the routed part alike on every rank) in the 8 processes of the "hier" group
+WHOLE_TP = (("marina:perm/bf16", "zamba2-1.2b@n17", "marina:perm", "bfloat16", 2, 64, 32, (1, 4), "tp", 3, 4),)
+WHOLE_TP8 = (("marina:perm/bf16", "deepseek-v2-236b", "marina:perm", "bfloat16", 2, 64, 32, (1, 8), "tp", 3, 2),)
 MULTIPOD = (("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32, (2, 1, 2), "pod", 3, 4),)
 HIER = (("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32, (2, 2, 2), "hier", 3, 2),)
 GLOO_RUNS = (
@@ -2832,8 +2847,8 @@ GLOO_RUNS = (
      + RECURRENT_TP),
     ("act+moe", tuple(c + ((2, 2), "act", 3, 4) for c in (
         ("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32),) + GLOO_SMOKE) + MOE_TP
-     + ACT_MOE + MULTIPOD),
-    ("hier", HIER))
+     + ACT_MOE + MULTIPOD + WHOLE_TP),
+    ("hier", HIER + WHOLE_TP8))
 
 
 # (w0): rotk_apply_rows' block map (the perm downlink on a rank's blocks under tensor
@@ -3136,6 +3151,7 @@ def probe(dev):
 def config(arch):
     import dataclasses
     from repro_torch import configs
+    from repro_torch.train import sharded_check as SC
     from repro_torch.train_lm import model_100m
 
     if arch == "demo-100m":
@@ -3146,7 +3162,7 @@ def config(arch):
     if depth:  # full width, its first layers
         cfg = configs.get(name)
         return dataclasses.replace(cfg, num_layers=int(depth), block_pattern=cfg.block_pattern[:int(depth)])
-    return configs.get_smoke(arch)
+    return SC.variant(arch)  # a smoke config, or "arch@variant" (sharded_check.VARIANTS)
 
 
 # the draws of a one-step case: seed 11's first two rounds are syncs at W = 2 and 4, seed 14's first round is
@@ -3243,14 +3259,26 @@ def gloo_card_start(groups, nice=0):
     return runs
 
 
+# the last second of the script's clock at which (w2) still waits for a group: a group past it is reported
+# (its ranks' last case boundaries and output) before the script's 1200 s limit
+W2_DEADLINE = 1100
+
+
+def _group_deadline(t_start: float) -> float:
+    """The clock time until which (w2) waits for a group started at
+    ``t_start``: 900 s after its start, at most W2_DEADLINE s of the script."""
+    return min(t_start + 900, T_START + W2_DEADLINE)
+
+
 def gloo_card_wait(started):
     """Waits until the processes of :func:`gloo_card_start`'s groups end,
-    each at most until 900 s after its start (:func:`gloo_card_phase` reports
-    a group still running then). Returns the seconds waited."""
+    each at most until its deadline (:func:`_group_deadline`;
+    :func:`gloo_card_phase` reports a group still running then). Returns the
+    seconds waited."""
     t0 = time.perf_counter()
     for *_, proc, _, t_start in started.values():
         try:
-            proc.wait(timeout=max(1.0, t_start + 900 - time.perf_counter()))
+            proc.wait(timeout=max(1.0, _group_deadline(t_start) - time.perf_counter()))
         except subprocess.TimeoutExpired:
             break
     return time.perf_counter() - t0
@@ -3285,7 +3313,7 @@ def gloo_card_phase(started, card):
     try:
         for group, (_, tmp, proc) in runs.items():
             try:
-                proc.wait(timeout=max(1.0, started[group][4] + 900 - time.perf_counter()))
+                proc.wait(timeout=max(1.0, _group_deadline(started[group][4]) - time.perf_counter()))
             except subprocess.TimeoutExpired:
                 late.append(group)
     finally:
@@ -3304,7 +3332,8 @@ def gloo_card_phase(started, card):
                 path = os.path.join(tmp, f"rank{r}.progress")
                 last = open(path).read().splitlines()[-2:] if os.path.exists(path) else ["no progress"]
                 where.append(f"group {group} rank {r}: {last}")
-        fail(f"(w2) group(s) {late} still running after 900 s (now {time.time():.1f}); the ranks' last case "
+        fail(f"(w2) group(s) {late} still running at their deadline (900 s, at most {W2_DEADLINE} s of the "
+             f"script; now {time.time():.1f}); the ranks' last case "
              f"boundaries: {where}\n" + "\n".join(outs[g][1][-3000:] for g in late))
     problems, refusals, results = [], [], {}
     worlds = 0
@@ -3487,12 +3516,16 @@ RECURRENT_DEPTH = 6
 # (x2)'s cases: (mesh, serve layout, batch, arch); gemma3-1b at full width (prompt SERVE_S, SERVE_STEPS
 # decode steps), then the moe cut (prompt MOE_S, MOE_STEPS decode steps; every rank builds its
 # blocks from the seed and reads the single process's outputs from (x1)'s files). gemma3-1b's (2, 2)
-# batch is 2: at B = 4 the reference's cache_specs takes the 4 repetitions of gemma3-1b's scan
-# segment for the batch and splits them over "data", which the port refuses (serve/sharded.cache_split)
+# full-depth case has B = 2; at B = 4 the reference's cache_specs takes the 4 repetitions of gemma3-1b's
+# scan segment for the batch and splits them over "data" (serve/sharded.cache_split's "other"): its first 4
+# layers (a scan segment of 4 local layers, "gemma3-1b/4") run that at B = 4. The recurrent archs also run
+# long_500k's split at B = 1 on (4, 1) and (2, 2): their states, token shifts and conv windows over "data"
+# (zamba2's shared-attention ring on its slots), gathered before each decode step reads them
 GLOO_SERVE = (("2x2", "serve", 2, SERVE_ARCH), ("1x4", "tp", SERVE_B, SERVE_ARCH), ("4x1", "serve", 1, SERVE_ARCH),
               ("1x4", "tp", MOE_B, MOE_ARCH), ("2x2", "serve", 2, MOE_ARCH)) + tuple(
     (shape, name, batch, f"{arch}/{RECURRENT_DEPTH}") for arch in RECURRENT_ARCHS
-    for shape, name, batch in (("1x4", "tp", SERVE_B), ("2x2", "serve", 2)))
+    for shape, name, batch in (("1x4", "tp", SERVE_B), ("2x2", "serve", 2), ("4x1", "serve", 1),
+                               ("2x2", "serve", 1))) + (("2x2", "serve", SERVE_B, f"{SERVE_ARCH}/4"),)
 # (x3): the CPU's per-rank counts of gemma3-1b's serving shapes and deepseek-v2-236b's decode_32k on
 # 16x16 (python -m repro_torch.launch.dryrun --arch A --shape S --serve-layout L;
 # tests/test_torch_collective_count.py), by "layout/arch/shape"
@@ -3533,6 +3566,19 @@ SERVE_COUNTS = {
     "tp/zamba2-1.2b/decode_32k": {
         "flops": 2100559872.0, "bytes": 11050128124.0,
         "coll": {"all-gather": 5373952.0, "reduce-scatter": 0.0, "all-reduce": 2917376.0}},
+    # long_500k at B = 1: the recurrent states, token shifts and conv windows gathered over "data" each step
+    "serve/rwkv6-1.6b/long_500k": {
+        "flops": 181540864.0, "bytes": 380270791.0,
+        "coll": {"all-gather": 200888320.0, "reduce-scatter": 0.0, "all-reduce": 397312.0}},
+    "tp/rwkv6-1.6b/long_500k": {
+        "flops": 181540864.0, "bytes": 222832839.0,
+        "coll": {"all-gather": 1087488.0, "reduce-scatter": 0.0, "all-reduce": 397312.0}},
+    "serve/zamba2-1.2b/long_500k": {
+        "flops": 162693120.0, "bytes": 347170881.0,
+        "coll": {"all-gather": 174661632.0, "reduce-scatter": 0.0, "all-reduce": 367840.0}},
+    "tp/zamba2-1.2b/long_500k": {
+        "flops": 162693120.0, "bytes": 225036353.0,
+        "coll": {"all-gather": 4526080.0, "reduce-scatter": 0.0, "all-reduce": 367840.0}},
 }
 
 
@@ -3889,7 +3935,7 @@ def rank_main(rank, init, cases, out_dir):
                     r["hold"] = str(e)[:600]
                 r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
                 r["s"] = time.perf_counter() - t0
-                res["cases"][f"{shape}/{name}/{case['arch']}"] = r
+                res["cases"][f"{shape}/{name}/{case['arch']}/B{batch}"] = r
                 del comm, layout
                 torch.cuda.empty_cache()
         dist.destroy_process_group()
@@ -3969,7 +4015,7 @@ def gloo_serve_phase(started, card):
         return refusals[0], time.perf_counter() - t0
     held = []
     for shape, name, batch, arch in GLOO_SERVE:
-        cases = [r["cases"][f"{shape}/{name}/{arch}"] for r in ranks]
+        cases = [r["cases"][f"{shape}/{name}/{arch}/B{batch}"] for r in ranks]
         held += [f"rank {i}: {c['hold']}" for i, c in enumerate(cases) if "hold" in c]
         c0 = cases[0]
         numbers = [{k: max(c[k]) if isinstance(c[k], list) else c[k] for k in ("prefill", "decode", "caches")}
@@ -3996,7 +4042,8 @@ def gloo_serve_phase(started, card):
             f"rounded (rank 0: port / single process / bf16 partials) {c0['rounded_once']}; heads of rank 1 "
             f"{cases[1]['heads']}, recurrent heads {cases[1].get('ssm_heads')}; bytes a rank (rank 0) "
             f"{c0['moved']} = counted; cache bytes a rank "
-            f"{c0['cache_bytes']:,} (cache_specs: {c0['cache_bytes_specs']:,}); parameters a rank "
+            f"{c0['cache_bytes']:,} (cache_specs: {c0['cache_bytes_specs']:,}; at rest by their split over "
+            f"'data': {c0['cache_bytes_by_kind']}; each 'other' leaf's: {c0['other_leaf_bytes']}); parameters a rank "
             f"{c0['param_numel']:,} = local_numel; greedy tokens equal to the single process's by rank "
             f"{[c['greedy_single'] for c in cases]} (the picked tokens' single-process logits below its largest by "
             f"{[round(c['greedy_margin'], 5) for c in cases]} of the largest |logit|); peak GiB by rank {[round(c['peak_gib'], 2) for c in cases]}; "
@@ -4197,20 +4244,20 @@ def main() -> int:
     if not qs["MARINA-P/PermK/Polyak"]["f_x"][-1] < f0:
         fail("(b) quickstart: MARINA-P did not decrease f")
 
-    # --- (c) CPU port against the card, T=20, same seeds ------------------------------
+    # --- (c) CPU port against the card, T=10, same seeds ------------------------------
     mark("(c)")
-    T_C = 20
-    gpu20 = fig1.run_suite(d=D, n=N, T=T_C, device=dev)
-    cpu20 = fig1.run_suite(d=D, n=N, T=T_C, device="cpu")
+    T_C = 10
+    gpu_c = fig1.run_suite(d=D, n=N, T=T_C, device=dev)
+    cpu_c = fig1.run_suite(d=D, n=N, T=T_C, device="cpu")
     worst, problems_c = 0.0, []
     for name in suite:
-        hc, hg = cpu20[name]["hist"], gpu20[name]["hist"]
+        hc, hg = cpu_c[name]["hist"], gpu_c[name]["hist"]
         rel = float(np.max(np.abs(np.subtract(hc["f_x"], hg["f_x"])) / np.abs(hg["f_x"])))
         log(f"(c) {name}: CPU vs card max rel f_x diff {rel:.3e}")
         if hc["s2w_bits"] != hg["s2w_bits"]:
             problems_c.append(f"{name}: CPU and card s2w_bits differ")
         if name.endswith("_polyak") and hg["f_x"] != suite[name]["hist"]["f_x"][:T_C]:
-            problems_c.append(f"{name}: card T=20 run differs from (b)'s first 20 rounds")
+            problems_c.append(f"{name}: card T={T_C} run differs from (b)'s first {T_C} rounds")
         # EF21-P is not held free-running: TopK breaks exact ties of |x - w|
         # (the tridiagonal problem makes many) by the last bit of x - gamma*g,
         # so its trajectory follows the summation order of the worker mean

@@ -48,12 +48,14 @@ The serving shapes (prefill_32k, decode_32k, long_500k) of every family
 step takes its rows) and a ``CountingComm`` that charges the ZeRO-3 gathers
 over "data", the partial sums over "model" (the routed experts' K·N·D
 outputs, Mamba2's gathered ``in_proj`` product and RWKV-6's gathered gates
-among them) and the rest of the step's collectives. Caches that
-``cache_specs`` splits over another dim than the batch or the sequence (the
-recurrent states of rwkv6 and zamba2 at long_500k's B = 1) keep the whole
-step, which the dry-run splits evenly (``"even"``); ``meta["even_note"]``
-names what is not ported, for these and for the train step of a family or
-mesh that :func:`train_refusal` names.
+among them) and the rest of the step's collectives, the all-gathers over
+the data axes of the caches that ``cache_specs`` splits on another dim than
+the batch or the sequence included (the recurrent states, token shifts and
+conv windows of rwkv6 and zamba2 at long_500k's B = 1:
+``serve/sharded.make_decode_step``). Every config runs so on every mesh of
+``train/sharded.MESHES``; ``meta["even_note"]`` would name what is not ported
+where :func:`serving_refusal` or :func:`train_refusal` refuses a step, which
+the dry-run then splits evenly (``"even"``).
 """
 from __future__ import annotations
 
@@ -252,9 +254,10 @@ def train_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
     """None where the dry-run counts one rank of the sharded train step with
     tensor parallelism over "model" for ``cfg`` on ``mesh`` (a ("data",
     "model"), multi-pod ("pod", "data", "model") or hierarchical ("wk",
-    "data", "model") mesh, any family, every product's weight split), else
-    what is not ported (``train/sharded.check_tensor_parallel``'s message,
-    or the mesh's)."""
+    "data", "model") mesh: every config, a weight that "model" does not
+    split read whole), else what is not ported (the mesh's names, or
+    ``train/sharded.check_tensor_parallel``'s message for a family it
+    refuses)."""
     if tuple(mesh.axis_names) not in SH.MESHES:
         return f"the train step across a process group runs on a {SH.MESHES} mesh, not {tuple(mesh.axis_names)}"
     if mesh.shape["model"] == 1:
@@ -270,8 +273,8 @@ def train_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
 def serving_refusal(cfg: ModelConfig, mesh, batch: int, seq: int, window, kind: str) -> Optional[str]:
     """None where the dry-run counts one rank of the sharded serving step
     (``serve/sharded.py``) for ``cfg`` on ``mesh`` (the ported families on a
-    (data axes, "model") mesh, with caches that ``cache_specs`` splits over
-    the batch or the sequence), else what is not ported (the message of
+    (data axes, "model") mesh, with every cache split ``cache_specs`` makes:
+    ``serve/sharded.cache_split``), else what is not ported (the message of
     :class:`~repro_torch.serve.sharded.NotPorted`)."""
     try:
         SS.check_ported(cfg)

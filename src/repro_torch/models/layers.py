@@ -35,7 +35,11 @@ its cache, the latent, whole on every "model" rank. Under autograd
 (the sharded train step) the context's collectives carry the gradients:
 ``x`` enters "model" before the column-parallel products, whose partial
 gradients of ``x`` sum there in fp32; ``kv_norm``'s scale enters it too,
-since only the rank's heads read the latent it scales.
+since only the rank's heads read the latent it scales, and so does a
+product's weight that "model" leaves whole where only the rank's heads read
+its output (MQA's ``wk`` / ``wv``, MLA's ``w_dkv`` / ``w_krope``). A layer
+whose output product "model" does not split (``wo``, ``w_out``) runs alike
+on every rank, in the context's alike view (``tp.core``).
 """
 from __future__ import annotations
 
@@ -96,6 +100,13 @@ def _weight(p, name: str, dtype, tp, whole: bool = False, part: bool = False) ->
     return weight(p, name, dtype) if tp is None else tp.weight(p, name, dtype, whole, part)
 
 
+def _core(tp, p, name: str, dim: int = -2):
+    """``tp``, or its alike view where "model" does not split ``p[name]``
+    on ``dim`` (``tp.core``: a layer whose output product runs whole on
+    every rank runs alike there)."""
+    return tp if tp is None else tp.core(p, name, dim)
+
+
 def _col_mm(x, ws, tp) -> list:
     """``[x @ w for w in ws]``; on a rank of a sharded model its
     column-parallel products (``tp.col_mm``: under autograd, ``x``'s
@@ -149,6 +160,7 @@ def mlp_spec(d_model: int, d_ff: int, kind: str):
 
 
 def mlp_apply(params, x, kind: str, tp=None):
+    tp = _core(tp, params, "w_out")
     dt = x.dtype
     names = ("w_in", "w_gate") if kind in ("swiglu", "geglu") else ("w_in",)
     h, *g = _col_mm(x, [_weight(params, n, dt, tp) for n in names], tp)
@@ -375,6 +387,7 @@ def _qkv(cfg: ModelConfig, params, x, positions, tp=None):
 
 def attention_apply(cfg: ModelConfig, params, x, *, window=None, chunk=512, tp=None):
     """Prefill self-attention. x: [B, S, D]."""
+    tp = _core(tp, params, "wo")
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _qkv(cfg, params, x, positions, tp)
@@ -387,16 +400,17 @@ def attention_decode(cfg: ModelConfig, params, x, cache, pos, *, window=None, tp
     """One-token decode (``layers.py:286``). x: [B, 1, D]; cache {k, v: [B, L,
     KV, hd]}, a ring buffer of length L (the window for local layers, the
     whole sequence for global ones). Returns (y, new cache). On a rank
-    whose cache holds a slice of the ring (``tp.seq_split``: its L slots
+    whose cache holds a slice of the ring (``tp.ring_split``: its L slots
     of ``data_size`` x L), the rank that owns slot ``pos % (data_size x
     L)`` writes the new k/v, and the attention is
     :func:`split_decode_attention`."""
+    tp = _core(tp, params, "wo")
     B = x.shape[0]
     L = cache["k"].shape[1]
     pos = _pos_tensor(pos, x.device)
     q, k, v = _qkv(cfg, params, x, pos.expand(B, 1), tp)
     hs = _heads(cfg, tp)
-    if tp is not None and tp.seq_split:
+    if tp is not None and tp.ring_split(L, window):
         lo = tp.data_index * L
         slot = torch.remainder(pos, tp.data_size * L).reshape(1)
         mine = (slot >= lo) & (slot < lo + L)
@@ -471,6 +485,7 @@ def mla_apply(cfg: ModelConfig, params, x, *, window=None, chunk=512, tp=None):
     attention with a concatenated [nope | rope] key; on the rank's q heads
     (:class:`Heads`), ``wo`` row-parallel."""
     m = cfg.mla
+    tp = _core(tp, params, "wo")
     B, S, _ = x.shape
     dt = x.dtype
     hs = _heads(cfg, tp)
@@ -489,11 +504,12 @@ def mla_decode(cfg: ModelConfig, params, x, cache, pos, *, window=None, tp=None)
     """Absorbed-matmul decode (``layers.py:371``): attention runs in the
     kv_lora latent space; the cache holds [c | k_rope] per token and
     W_uk / W_uv are absorbed into the query / output projections. On a rank:
-    its q heads, the whole latent cache (or, under ``tp.seq_split``, its
+    its q heads, the whole latent cache (or, under ``tp.ring_split``, its
     slice of the ring's slots, written by the rank that owns ``pos``'s slot,
     with the partial softmaxes combined over "data" as in
     :func:`split_decode_attention`), ``wo`` row-parallel."""
     m = cfg.mla
+    tp = _core(tp, params, "wo")
     B = x.shape[0]
     L = cache["c"].shape[1]
     dt = x.dtype
@@ -501,7 +517,7 @@ def mla_decode(cfg: ModelConfig, params, x, cache, pos, *, window=None, tp=None)
     pos = _pos_tensor(pos, x.device)
     positions = pos.expand(B, 1)
     q_nope, q_rope, c, k_rope = _mla_proj(cfg, params, x, positions, tp)  # [B,1,nq,*], [B,1,r], [B,1,rd]
-    split = tp is not None and tp.seq_split
+    split = tp is not None and tp.ring_split(L, window)
     if split:
         lo = tp.data_index * L
         slot = torch.remainder(pos, tp.data_size * L).reshape(1)

@@ -115,6 +115,7 @@ def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor, tp=None) -> tor
 def logits_from_hidden(cfg: ModelConfig, params, h: torch.Tensor, tp=None) -> torch.Tensor:
     p = tree_of(params)
     tied = cfg.tie_embeddings
+    tp = L._core(tp, p, "embed" if tied else "unembed", -2 if tied else -1)  # the vocabulary whole: alike
     w = L._weight(p, "embed" if tied else "unembed", h.dtype, tp)
     if cfg.num_codebooks:
         if tp is not None and torch.is_grad_enabled():  # training: each codebook's product on its own

@@ -36,7 +36,11 @@ process, so the routed part is the single process's rows bit for bit (on the
 card, where the batch's rows split over "data", up to the router's product
 of the rank's rows, which cuBLAS rounds elsewhere: ``serve/sharded_check``). Where
 "model" does not divide E the spec leaves E whole: every rank computes every
-expert, with no all-reduce. The shared expert is a tensor-parallel MLP.
+expert, with no all-reduce: the routed part runs alike on every rank
+(``ServeShard.core``: the router and the experts read whole, no collective
+over "model", and under autograd none on their gradients, which are whole
+on every rank; the routed tokens do not enter "model", whose sum would count
+their gradient M times). The shared expert is a tensor-parallel MLP.
 
 Under autograd (the sharded train step's tensor parallelism): the routed
 tokens ``xf`` enter "model" (``tp.enter``), since the router's gates and the
@@ -155,6 +159,7 @@ def moe_apply(cfg: ModelConfig, params, x, *, return_aux: bool = False, tp=None)
     if return_aux and (_SPLIT or tp is not None and (tp.model_size > 1 or tp.data_size > 1)):
         raise ValueError("moe_apply's aux losses are the single process's: no shard context across ranks")
     xf = x.reshape(N, D)
+    shared, tp = tp, (None if tp is None else tp.core(params, "w_in", -3))  # the routed part alike: E whole
     # the rank's experts e0 .. e0 + ne - 1 (all of them unless E is split over "model")
     blk = None if tp is None else tp.model_block(params, "w_in", -3)
     e0, ne = blk if blk is not None else (0, E)
@@ -188,7 +193,7 @@ def moe_apply(cfg: ModelConfig, params, x, *, return_aux: bool = False, tp=None)
     for j in range(K):
         y = y + y_copies[:, j]
     if m.num_shared:
-        y = y + mlp_apply(params["shared"], xf, "swiglu", tp)
+        y = y + mlp_apply(params["shared"], xf, "swiglu", shared)
     out = y.reshape(B, S, D)
     if return_aux:
         me = probs.mean(0)

@@ -47,7 +47,12 @@ product and ``conv_w`` feed the rank's heads only, so their reduce-scatter
 sums the ranks' partial gradients; RWKV-6's channel-mix gate multiplies the
 replicated row-parallel sum, so every rank holds its whole gradient and
 keeps its own block (``gather_replicated``); the gated norm's sum of squares
-scales the rank's heads only, so its gradient is summed too (``part``).
+scales the rank's heads only, so its gradient is summed too (``part``). A
+product's weight that "model" leaves whole where only the rank's heads read
+its output (Mamba2's ``in_proj`` and ``conv_w``, RWKV-6's ``w_lora_a``) has
+its gradient summed the same way (``ServeShard.weight``); a mixer whose
+output product "model" does not split (``w_out``, ``out_proj``, ``cm_v``)
+runs alike on every rank (``ServeShard.core``).
 """
 from __future__ import annotations
 
@@ -57,7 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import MambaConfig, ModelConfig, RWKVConfig
-from .layers import F32, _col_mm, _row_mm, _weight, rmsnorm, rmsnorm_spec
+from .layers import F32, _col_mm, _core, _row_mm, _weight, rmsnorm, rmsnorm_spec
 from .params import Leaf, dense, full
 
 
@@ -207,6 +212,7 @@ def mamba_apply(cfg: ModelConfig, params, x, tp=None):
     """Prefill SSD (``ssm.py:88``). x: [B, S, D] -> [B, S, D]; S must be a
     multiple of the chunk. On a rank (``tp``): its heads."""
     m = cfg.mamba
+    tp = _core(tp, params, "out_proj")
     B_, S, _ = x.shape
     z, xBC, dt_raw, _, hs = _mamba_project(cfg, params, x, tp)
     H, nd = hs.n, hs.n * m.head_dim
@@ -272,6 +278,7 @@ def mamba_decode(cfg: ModelConfig, params, x, cache, pos, tp=None):
     """One-token recurrence (``ssm.py:158``). x: [B, 1, D]. On a rank
     (``tp``): its heads and their ssm cache, the whole conv window."""
     m = cfg.mamba
+    tp = _core(tp, params, "out_proj")
     B_ = x.shape[0]
     z, _, dt_raw, xBC, hs = _mamba_project(cfg, params, x, tp)
     H, nd = hs.n, hs.n * m.head_dim
@@ -380,6 +387,7 @@ def rwkv_timemix_apply(cfg: ModelConfig, params, x, x_last=None, tp=None):
     """Chunked RWKV6 time mix (``ssm.py:251``). x: [B, S, D], S a multiple
     of 32. On a rank (``tp``): its heads."""
     r = cfg.rwkv
+    tp = _core(tp, params, "w_out")
     B_, S, D = x.shape
     rv, kv, vv, logw, g = _rwkv_proj(cfg, params, x, _shift(x, x_last), tp)
     H = rv.shape[2]
@@ -424,6 +432,7 @@ def rwkv_timemix_apply(cfg: ModelConfig, params, x, x_last=None, tp=None):
 def rwkv_timemix_decode(cfg: ModelConfig, params, x, cache, pos, tp=None):
     """One-token RWKV6 step (``ssm.py:300``). cache: {state: [B,H,k,v],
     x_last: [B,D]}; on a rank (``tp``) the state of its heads."""
+    tp = _core(tp, params, "w_out")
     rv, kv, vv, logw, g = _rwkv_proj(cfg, params, x, cache["x_last"][:, None, :].to(x.dtype), tp)
     rv, kv, vv = (t.to(F32)[:, 0] for t in (rv, kv, vv))  # [B,H,hd]
     w = torch.exp(logw.to(F32))[:, 0]
@@ -439,15 +448,17 @@ def rwkv_timemix_decode(cfg: ModelConfig, params, x, cache, pos, tp=None):
 def rwkv_chanmix_apply(cfg: ModelConfig, params, x, x_last=None, tp=None):
     """RWKV channel mix (``ssm.py:319``). On a rank (``tp``): ``cm_k``
     column-parallel, ``cm_v`` row-parallel, the gate gathered over "model"
-    and used whole (its gradient's block kept)."""
+    and used whole (its gradient's block kept; where "model" does not split
+    ``cm_r``, computed alike on every rank)."""
     dt = x.dtype
+    tg, tp = _core(tp, params, "cm_r", -1), _core(tp, params, "cm_v")
     xs = _shift(x, x_last)
     mu = _weight(params, "cm_mu", dt, tp)
     xk = x + mu[0] * (xs - x)
     xr = x + mu[1] * (xs - x)
     h = torch.square(torch.relu(_col_mm(xk, [_weight(params, "cm_k", dt, tp)], tp)[0].to(F32))).to(dt)
-    rgate = torch.sigmoid(_col_mm(xr, [_weight(params, "cm_r", dt, tp)], tp)[0].to(F32)).to(dt)
-    return _gathered(rgate, params, "cm_r", tp, replicated=True) * _row_mm(h, params, "cm_v", tp)
+    rgate = torch.sigmoid(_col_mm(xr, [_weight(params, "cm_r", dt, tg)], tg)[0].to(F32)).to(dt)
+    return _gathered(rgate, params, "cm_r", tg, replicated=True) * _row_mm(h, params, "cm_v", tp)
 
 
 def rwkv_cache_init(cfg: ModelConfig, batch: int, dtype=F32, device=None):

@@ -18,17 +18,25 @@ r % M); its data index runs over the mesh's data axes ("data", or ("pod",
   :func:`gather_params` undoes it.
 * The batch: the rank's rows over "data" (``sharding.serve_batch_spec``;
   pixtral's patches follow their rows), all of it where B does not split.
-* Caches (:func:`shard_caches`): over "data" as ``sharding.cache_specs``
-  places them, the rank's batch rows or, where the batch does not split
-  (long_500k at B = 1), its slice of every ring's slots (``seq_split``); over
-  "model", the kv heads the rank attends with: its share where
-  num_kv_heads % M == 0, else all of them. MLA's caches hold the latent
-  ([.., B, L, r] and [.., B, L, rd]), whole on every "model" rank. The
-  recurrent states (RWKV-6's ``state`` [.., B, H, k, v], Mamba2's ``ssm``
-  [.., B, H, N, hd]) hold the rank's heads (:func:`recurrent_heads`); the
-  token shifts ``x_last`` / ``cm_x_last`` [.., B, D] and Mamba2's ``conv``
-  window [.., B, W-1, C] are whole. Each leaf's batch dim comes from its
-  name (:data:`BATCH_DIM`): zamba2 mixes the kinds in one tree.
+* Caches (:func:`shard_caches`): over "data" exactly as
+  ``sharding.cache_specs`` places them (:func:`cache_split` names each
+  leaf's split): the rank's batch rows (``batch``); where the batch does not
+  split (long_500k at B = 1), its slice of a ring's slots (``seq``); or its
+  block of any other dim that ``cache_specs`` falls back to (``other``: the
+  recurrent states' v / hd, a token shift's D, the conv window's C, a ring's
+  head dim where the ring is shorter than a head, a scan segment's
+  repetitions where their count equals B). Over "model", the kv heads the
+  rank attends with: its share where num_kv_heads % M == 0, else all of
+  them. MLA's caches hold the latent ([.., B, L, r] and [.., B, L, rd]),
+  whole on every "model" rank. The recurrent states (RWKV-6's ``state``
+  [.., B, H, k, v], Mamba2's ``ssm`` [.., B, H, N, hd]) hold the rank's heads
+  (:func:`recurrent_heads`); the token shifts ``x_last`` / ``cm_x_last``
+  [.., B, D] and Mamba2's ``conv`` window [.., B, W-1, C] are whole over
+  "model". Each leaf's batch dim comes from its name (:data:`BATCH_DIM`):
+  zamba2 mixes the kinds in one tree. The decode step all-gathers each
+  ``other`` leaf over the data axes before it reads it (bit copies; the
+  rank's rows of it where the batch splits too) and keeps only its block of
+  what it wrote (:func:`make_decode_step`).
 
 The step (:func:`make_prefill_step`, :func:`make_decode_step`) is
 ``lm.forward`` / ``lm.decode_step`` with the rank's :class:`ServeShard` as
@@ -52,9 +60,7 @@ same operands. Every collective goes through a
 :class:`~repro_torch.launch.comm.Comm` (a ``CountingComm`` on ``meta``).
 
 Ported: the dense, vlm, audio, moe, ssm (rwkv6) and hybrid (zamba2)
-families; refused: caches that ``cache_specs`` splits over another dim than
-the batch or the sequence (:func:`cache_split`; the recurrent states at
-long_500k's B = 1).
+families, with every cache split that ``cache_specs`` makes.
 
 :func:`init_params` draws the rank's blocks of ``lm.lm_init(seed=...)``
 leaf by leaf, so a rank of a model that no card holds whole needs only its
@@ -62,8 +68,9 @@ blocks and one whole leaf at a time.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -291,8 +298,9 @@ class _RowMm(torch.autograd.Function):
 
 class ServeShard:
     """The shard context the layers take (``tp``) on one rank: the layout,
-    the communicator, the rank's heads, and whether its caches hold a slice
-    of every ring's slots (``seq_split``).
+    the communicator, the rank's heads, and the cache length of its decode
+    step (``cache_len``: a ring shorter than the layer's is the rank's slice
+    of its slots, :meth:`ring_split`).
 
     The same context serves training (``train/sharded.py``'s tensor
     parallelism over "model", under the ``tp`` layout): under autograd its
@@ -307,7 +315,10 @@ class ServeShard:
       part (``enter``): RWKV-6's ``w0``, ``u`` and per-head ``out_norm``
       scale, Mamba2's ``A_log``, ``dt_bias``, ``D``, ``conv_b`` and gated
       norm scale (``models/ssm.py``), MLA's ``kv_norm`` scale
-      (``models/layers.py``);
+      (``models/layers.py``); a column-parallel product's weight that
+      "model" does not split enters too (its output feeds only the rank's
+      heads: MQA's ``wk`` / ``wv``, Mamba2's ``in_proj`` and ``conv_w``,
+      RWKV-6's ``w_lora_a``, MLA's ``w_dkv`` / ``w_krope``);
     * :meth:`row_mm` and :meth:`all_reduce` (``exit``: the gradient as it
       is) after a row-parallel partial, the embedding's lookup and moe's
       combine; :meth:`all_reduce` with ``part`` (``exit_enter``: the
@@ -319,14 +330,24 @@ class ServeShard:
       :meth:`gather_replicated` (the rank's block of the gradient, no sum)
       for RWKV-6's channel-mix gate, used whole on every rank.
 
+    A layer whose output product "model" does not split (:meth:`core`: an
+    MLP, attention, RWKV-6 mix or Mamba2 block whose row-parallel weight, or
+    moe's experts, it leaves whole) runs alike on every rank: its alike view
+    reads every weight whole, gathered over "model" where split there with
+    the rank's block of the gradient kept (``gather_replicated``), and takes
+    no other collective over "model", so the gradients are the single
+    process's on every rank.
+
     Outside autograd (the serving steps run under ``torch.no_grad()``) each
     is the plain collective, as before, and a ``part`` read is the weight
     itself."""
 
-    def __init__(self, cfg: ModelConfig, layout: ServeLayout, comm: Comm, *, seq_split: bool = False,
+    alike = False  # the alike view of a layer computed whole on every rank (:meth:`core`)
+
+    def __init__(self, cfg: ModelConfig, layout: ServeLayout, comm: Comm, *, cache_len: Optional[int] = None,
                  rows: int = 1):
         check_ported(cfg)
-        self.layout, self.comm, self.seq_split = layout, comm, seq_split
+        self.layout, self.comm, self.cache_len = layout, comm, cache_len
         # how many data ranks the call's batch rows split over (the MoE capacity's global token count)
         self.rows = rows
         self.data_index, self.model_index = layout.coords
@@ -344,33 +365,65 @@ class ServeShard:
         _attach_specs(tree, self.specs)
         return tree
 
+    def ring_split(self, slots: int, window: Optional[int]) -> bool:
+        """Whether a ring of ``slots`` slots on this rank is its slice of the
+        layer's ring over "data" (``cache_specs``' ``seq`` split): shorter
+        than the ring of the step's ``cache_len`` positions (``window`` its
+        length where shorter). A ring split on its batch, or gathered whole
+        before the step, has the layer's length."""
+        if self.cache_len is None:
+            return False
+        return slots < (min(self.cache_len, window) if window else self.cache_len)
+
+    def core(self, p, name: str, dim: int = -2) -> "ServeShard":
+        """The context of a layer whose output is ``p[name]``'s product (its
+        row-parallel weight; moe's experts on ``dim`` -3; the logits' table):
+        this one where "model" splits that weight on ``dim``, else the alike
+        view, in which the layer runs whole on every rank (the class
+        docstring)."""
+        if self.alike or self.model_size == 1 or self.model_block(p, name, dim) is not None:
+            return self
+        view = copy.copy(self)
+        view.alike = True
+        return view
+
     def weight(self, p, name: str, dtype, whole: bool = False, part: bool = False) -> torch.Tensor:
         """``p[name]`` in ``dtype`` (the bf16 copy), gathered over "data"
-        where the layout splits it there, and over "model" too if ``whole``;
-        ``part``: a weight the rank reads only in part, which enters "model"
-        (:meth:`enter`)."""
+        where the layout splits it there, and over "model" too if ``whole``
+        (in the alike view always, keeping the rank's block of the gradient);
+        one that "model" does not split enters "model" (:meth:`enter`) where
+        the rank reads it only in part (``part``) or feeds a column-parallel
+        product with it (a name of ``sharding._COL``)."""
         w = weight(p, name, dtype)
+        split = False
         for dim, entry in enumerate(p.specs[name]):
             ax = None if entry is None else self.layout.axis(entry)
-            if ax == "data" or (ax == "model" and whole):
+            if ax == "data":
                 w = gather_dim(self.comm, self.layout, w, dim, ax)
-        return self.enter(w) if part else w
+            elif ax == "model" and self.model_size > 1:
+                split = True
+                if self.alike:
+                    w = self.gather_replicated(w, dim, ax)
+                elif whole:
+                    w = gather_dim(self.comm, self.layout, w, dim, ax)
+        return self.enter(w) if not split and (part or name in sh._COL) else w
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """``x``, replicated over "model", for a use that differs by rank:
         under autograd its gradient is summed over "model" in fp32 at least
         and rounded once to ``x``'s dtype (``comm.enter``); ``x`` itself
         outside autograd or on an axis of one rank."""
-        if self.model_size == 1 or not C._grad(x):
+        if self.alike or self.model_size == 1 or not C._grad(x):
             return x
         return C.enter(self.comm, x.to(torch.promote_types(x.dtype, torch.float32)), "model").to(x.dtype)
 
     def model_block(self, p, name: str, dim: int) -> Optional[tuple]:
         """(first index, count) of the rank's block of ``p[name]`` along
-        ``dim`` where it is split over "model" and M > 1, else None."""
+        ``dim`` where it is split over "model" and M > 1, else None (in the
+        alike view, which reads every weight whole, None)."""
         spec = p.specs[name]
         dim %= p[name].dim()
-        if dim >= len(spec) or spec[dim] != "model" or self.model_size == 1:
+        if self.alike or dim >= len(spec) or spec[dim] != "model" or self.model_size == 1:
             return None
         n = p[name].shape[dim]
         return self.model_index * n, n
@@ -382,8 +435,9 @@ class ServeShard:
         (``_ColMm``): the partials of all the products and all the ranks are
         summed before x's gradient rounds to bf16 once, as the single
         product's does (at one rank, where the single process rounds each
-        product's, this is ``train/sharded_check``'s floor)."""
-        if not C._grad(x, *ws):
+        product's, this is ``train/sharded_check``'s floor). The alike view
+        computes the plain products."""
+        if self.alike or not C._grad(x, *ws):
             return [mm(x, w) for w in ws]
         xf = C.enter(self.comm, x.float(), "model")
         return [_ColMm.apply(xf, w) for w in ws]
@@ -539,7 +593,7 @@ def param_numel(layout: ServeLayout, spec_tree) -> int:
 
 
 def cache_layout(cfg: ModelConfig, layout: ServeLayout, batch: int, cache_len: int, *,
-                 window_override=None) -> tuple:
+                 window_override=None) -> "CacheSplit":
     """:func:`cache_split` of the model's caches for ``batch`` sequences of
     ``cache_len`` positions."""
     return cache_split(lm.cache_init(cfg, batch, cache_len, window_override=window_override, device="meta"),
@@ -553,6 +607,8 @@ BATCH_DIM = {"k": -4, "v": -4, "c": -3, "k_rope": -3, "state": -4, "x_last": -2,
              "ssm": -4, "conv": -3}
 # the leaves whose dim after the batch is a ring of sequence slots
 RINGS = {"k", "v", "c", "k_rope"}
+# the dim of the heads that "model" narrows a cache leaf to, counted from its end
+HEAD_DIM = {"k": -2, "v": -2, "state": -3, "ssm": -3}
 
 
 def _batch_dim(path, t) -> int:
@@ -566,39 +622,57 @@ def _cache_batch(caches) -> int:
     return t.shape[_batch_dim(path, t)]
 
 
-def cache_split(caches, layout: ServeLayout) -> tuple:
-    """(``cache_specs`` of a model's caches, ``seq_split``: whether they
-    split the rings' slots over "data", else the batch or nothing). Each
-    leaf's batch dim is found from its name (:data:`BATCH_DIM`). Raises where
-    they split another dim over more than one rank (the head dim, where a
-    ring is shorter than a head; a recurrent state's H or hd and a token
-    shift's D, where the batch does not split; a scan segment's
-    repetitions, where their count equals B and ``cache_specs`` takes it for
-    the batch), or the layers differently."""
+class CacheSplit(NamedTuple):
+    """``cache_specs`` of a model's caches and, in the same tree, what each
+    leaf splits over the data axes: ``"batch"`` (its rows), ``"seq"`` (a
+    ring's slots), ``"other"`` (any other dim: :func:`cache_split`) or None
+    (whole)."""
+
+    specs: object
+    kinds: object
+
+    @property
+    def found(self) -> set:
+        """The kinds of split among the leaves."""
+        return {k for k in leaves(self.kinds) if k is not None}
+
+
+def cache_split(caches, layout: ServeLayout) -> CacheSplit:
+    """``cache_specs`` of a model's caches and each leaf's kind of split over
+    the data axes (:class:`CacheSplit`): ``batch`` on its batch dim (found
+    from its name, :data:`BATCH_DIM`), ``seq`` on a ring's slots (long_500k
+    at B = 1), else ``other``: the recurrent states' v / hd, a token shift's
+    D or the conv window's C where the batch does not split, a ring's head
+    dim where the ring is shorter than a head (gemma3's smoke window of 16),
+    a scan segment's repetitions where their count equals B (``cache_specs``
+    takes them for the batch: gemma3-1b's 4 at B = 4). One tree may mix
+    them (zamba2's rings ``seq`` and its Mamba2 states ``other``; gemma3-1b's
+    global rings ``batch`` and its scanned local rings ``other``). A dim that
+    "model" narrows to the rank's heads is never the one ``cache_specs``
+    splits over the data axes: that would raise."""
     specs = sh.cache_specs(caches, layout.mesh, _cache_batch(caches))
-    kinds = set()
 
     def one(path, t, spec):
         split = tuple(i for i, e in enumerate(spec) if e is not None and layout.size(layout.axis(e)) > 1)
+        if not split:
+            return None
         b = _batch_dim(path, t)
-        where = {(b,): "batch", (): None}.get(split, "seq" if split == (b + 1,) and path[-1] in RINGS else "other")
-        if where == "other":
-            raise NotPorted(f"cache_specs splits a cache of shape {tuple(t.shape)} as {spec}: only its batch "
-                            "or its sequence over the data axes is ported")
-        kinds.add(where)
+        if path[-1] in HEAD_DIM and split == (t.dim() + HEAD_DIM[path[-1]],):
+            raise ValueError(f"cache_specs splits the heads dim of a cache of shape {tuple(t.shape)} ({spec}), "
+                             "which 'model' narrows to the rank's heads")
+        return "batch" if split == (b,) else "seq" if split == (b + 1,) and path[-1] in RINGS else "other"
 
-    _map_leaves(one, caches, specs)
-    if len(kinds) > 1:
-        raise NotPorted(f"cache_specs splits the layers' caches differently ({sorted(map(str, kinds))})")
-    return specs, kinds == {"seq"}
+    return CacheSplit(specs, _map_leaves(one, caches, specs))
 
 
 def shard_caches(caches, cfg: ModelConfig, layout: ServeLayout):
     """This rank's blocks (copies) of the model's caches (``lm.cache_init``'s
-    tree): over "data" as ``cache_specs`` places them, over "model" the
+    tree): over "data" its block of every leaf as ``cache_specs`` places it
+    (rows, ring slots or another dim: :func:`cache_split`), over "model" the
     rank's kv heads and recurrent heads (MLA's latent caches, the token
-    shifts and the conv window: whole)."""
-    specs, _ = cache_split(caches, layout)
+    shifts and the conv window: whole). Its bytes are :func:`cache_bytes`',
+    less the heads of other "model" ranks."""
+    specs = cache_split(caches, layout).specs
     hs, rs = attention_heads(cfg, layout), recurrent_heads(cfg, layout)
 
     def one(path, t, spec):
@@ -652,17 +726,49 @@ def make_decode_step(cfg: ModelConfig, layout: ServeLayout, comm: Comm, batch: i
     """``decode(params, caches, token, pos) -> (logits, caches)``:
     ``caches`` the rank's :func:`shard_caches` of ``batch`` x ``cache_len``,
     ``token`` the global [B, 1] (or [B, K, 1]) tokens, ``pos`` an int or a
-    0-d tensor; the logits are the rank's block ``[B_local, (K,) V / M]``."""
+    0-d tensor; the logits are the rank's block ``[B_local, (K,) V / M]``.
+
+    A cache leaf that ``cache_specs`` splits over the data axes on another
+    dim than the batch or a ring's slots (``other``, :func:`cache_split`) is
+    all-gathered over them before ``lm.decode_step`` reads it (bit copies),
+    the rank's rows of it taken where the batch splits over "data" too; of
+    what the step writes the rank keeps its block, after gathering the
+    written rows over "data" where the batch splits, so that the holder of
+    each block has every row of it. The caches at rest are the rank's blocks
+    only; the step holds each ``other`` leaf whole for its duration."""
     check_ported(cfg)
-    _, seq_split = cache_layout(cfg, layout, batch, cache_len, window_override=window_override)
-    tp = ServeShard(cfg, layout, comm, seq_split=seq_split, rows=layout.rows_split(batch))
+    split = cache_layout(cfg, layout, batch, cache_len, window_override=window_override)
+    rows = layout.rows_split(batch)
+    tp = ServeShard(cfg, layout, comm, cache_len=cache_len, rows=rows)
+    n, lo = batch // rows, layout.coords[0] * (batch // rows)
+
+    def whole(path, t, spec):  # the rank's rows of the whole leaf
+        t = gather_dim(comm, layout, t, _data_dim(spec, layout), "data")
+        return t.narrow(_batch_dim(path, t), lo, n) if rows > 1 else t
+
+    def block(path, t, spec):  # the rank's block of a leaf of its rows
+        if rows > 1:
+            t = gather_dim(comm, layout, t, _batch_dim(path, t), "data")
+        return layout.block(t, spec).clone()
+
+    def other(fn):
+        return lambda path, t, sk: fn(path, t, sk[0]) if sk[1] == "other" else t
+
+    pairs = _zip(split.specs, split.kinds)
 
     def decode(params, caches, token, pos):
         with torch.no_grad():
-            return lm.decode_step(cfg, params, caches, layout.local_batch({"t": token})["t"], pos,
-                                  window_override=window_override, tp=tp)
+            logits, new = lm.decode_step(cfg, params, _map_leaves(other(whole), caches, pairs),
+                                         layout.local_batch({"t": token})["t"], pos,
+                                         window_override=window_override, tp=tp)
+            return logits, _map_leaves(other(block), new, pairs)
 
     return decode
+
+
+def _data_dim(spec, layout: ServeLayout) -> int:
+    """The dim a cache leaf's spec splits over the data axes."""
+    return next(i for i, e in enumerate(spec) if e is not None and layout.axis(e) == "data")
 
 
 def greedy(logits: torch.Tensor, layout: ServeLayout, comm: Comm, vocab: int) -> torch.Tensor:

@@ -41,7 +41,12 @@ binade.
   that one and the tensor-parallel arithmetic's in one process
   (:class:`OneRank`: each column-parallel product in the ranks' column
   blocks, each row-parallel one as M fp32 partials summed before one
-  rounding, against the plain single process). On the card a part of the
+  rounding, against the plain single process). So is gemma3-1b's (2, 2)
+  case at B = 4 (its scan repetitions split over "data"): a part of two
+  rows alone gives the batch's prefill bits on the card (its prefill floor
+  read 0, the sharded prefill 0.0082-0.0103), so the row-parallel partial
+  sums' own floor (:class:`OneRank`) joins it wherever the batch splits
+  over "data" into parts of more than one row. On the card a part of the
   batch alone gives the batch's bits for both models, while the sharded
   arithmetic moves rwkv6's prefill logits by ~0.3 of the largest (its
   chunked recurrence amplifies a rounding; in one process on the CPU at
@@ -58,7 +63,12 @@ binade.
   (measured 0.0047-0.0050, deepseek-v2-236b's first 2 blocks at (2, 2)).
 * Where a rank runs the whole batch with no partial sums (M = 1, a batch
   that does not split over "data"), its prefill is the single process's
-  bit for bit.
+  bit for bit. At B = 1 on (4, 1) (long_500k's split: the recurrent states,
+  token shifts and conv windows gathered over "data" before the step reads
+  them, :func:`~.sharded.make_decode_step`) there is no floor: rwkv6-1.6b,
+  whose caches are all gathered, is held bit for bit in every number;
+  zamba2-1.2b, whose shared attention's ring splits its slots, to
+  gemma3-1b's (4, 1) bound (:func:`card_bounds`).
 
 At full width these distances cannot tell fp32 partials from partials
 rounded to bf16 before the sum, as XLA's partitioned program rounds them
@@ -88,7 +98,7 @@ from ..launch.comm import CountingComm
 from ..launch import op_cost
 from ..models import lm
 from ..models import moe as MOE
-from ..models.params import LOW_DTYPE, index_tree, leaves, mm
+from ..models.params import LOW_DTYPE, index_tree, leaves, leaves_with_path, mm, path_key
 from ..train import sharded_check as TC
 from . import sharded as SS
 
@@ -291,9 +301,10 @@ def single_case(cfg, params, *, batch: int, prompt: int, cache_len: int, steps: 
     rows, or, for the :data:`FLOOR_FAMILIES` where the batch does not split,
     each row), with no routed copy
     dropped in either (an MoE's capacity is the call's, so a part alone
-    would drop others); for the :data:`TP_FLOOR_FAMILIES` over ``model``
-    > 1 ranks also :class:`OneRank`'s distances (``tp_floor``); and for an
-    MoE the routed part (:func:`routed_single`)."""
+    would drop others); over ``model`` > 1 ranks, for the
+    :data:`TP_FLOOR_FAMILIES` and where the batch splits over "data" into
+    parts of more than one row, also :class:`OneRank`'s distances
+    (``tp_floor``); and for an MoE the routed part (:func:`routed_single`)."""
     x = inputs(cfg, batch=batch, prompt=prompt, cache_len=cache_len, steps=steps, seed=1,
                window_override=window_override, device=device)
     kw = dict(window_override=window_override)
@@ -334,7 +345,7 @@ def single_case(cfg, params, *, batch: int, prompt: int, cache_len: int, steps: 
                                                                                                 n))))
             out["floor"][a] = floor
             del alone, c
-    if cfg.family in TP_FLOOR_FAMILIES and model > 1:
+    if model > 1 and (cfg.family in TP_FLOOR_FAMILIES or split > 1 and batch // split > 1):
         with torch.no_grad():
             out["tp_floor"] = _tp_floor(cfg, params, x, out, parts=model, start=start, chunk=chunk, kw=kw)
     if cfg.moe is not None:
@@ -412,6 +423,15 @@ def run_case(cfg, layout, comm, aux, *, batch: int, prompt: int, cache_len: int,
     res["caches"] = max(_dist(a, b) for a, b in zip(leaves(lc), leaves(want_c)))
     res["cache_bytes"] = sum(t.numel() * t.element_size() for t in leaves(lc))
     res["cache_bytes_specs"] = SS.cache_bytes(layout, want["caches"])
+    # the rank's cache bytes at rest by the kind of split over the data axes (serve/sharded.cache_split), and
+    # each "other" leaf's
+    kinds = leaves(SS.cache_split(want["caches"], layout).kinds)
+    res["cache_bytes_by_kind"], res["other_leaf_bytes"] = {}, {}
+    for (path, t), k in zip(leaves_with_path(lc), kinds):
+        res["cache_bytes_by_kind"][str(k)] = res["cache_bytes_by_kind"].get(str(k), 0) + t.numel() * t.element_size()
+        if k == "other":
+            res["other_leaf_bytes"][path_key(path)] = t.numel() * t.element_size()
+    res["seq_split"] = "seq" in kinds
     res["param_numel"] = sp.flat.numel()
     res["param_numel_specs"] = SS.param_numel(layout, sp.global_spec)
     res["moved"], res["counted"], res["floor"], res["rounded_once"] = moved, counted, floor, checked
@@ -489,7 +509,14 @@ def card_bounds(case: str, res: dict) -> dict:
     the :data:`FLOOR_FAMILIES` :data:`FLOOR_TIMES` times the floor this rank
     measured in the same run; an MoE case whose batch rows split over
     "data" also bounds the routed part by :data:`ROUTED_SPLIT_ROWS`
-    (elsewhere it is bit for bit)."""
+    (elsewhere it is bit for bit). A case of the :data:`FLOOR_FAMILIES` with
+    no floor (one row, every rank the whole batch, M = 1: the long_500k
+    split at B = 1 on (4, 1)) is bit for bit where no ring splits its slots
+    (the caches gathered over "data" are bit copies, the arithmetic the
+    single process's), else held to gemma3-1b's bound of the same mesh,
+    whose sequence split it shares."""
+    if res["by_floor"] and res["floor"] is None and res["prefill_exact"]:
+        return BOUNDS[case] if res["seq_split"] else {"prefill": 0.0, "decode": 0.0, "caches": 0.0}
     if case in BOUNDS and not res["by_floor"]:
         return BOUNDS[case]
     if (case != "2x2/serve" and not res["by_floor"]) or res["floor"] is None:

@@ -97,8 +97,11 @@ its leaf-by-leaf residency), scales its rows' gradient by 1/D (as
 ``rotk_apply_rows``' two-level block map; the server's ZeRO-1 slices lie
 over the flattened ("wk", "data") group ("dp"), EF21-P's shift stays whole.
 
-Refused (not ported): tensor parallelism for a column- or row-parallel
-weight "model" does not split.
+A column- or row-parallel weight that "model" does not split (the
+reference's ``try_shard`` replicates it) is whole on every rank and counted
+once: a layer whose output product it is runs alike on every rank, and a
+product whose output only the rank's heads read sums its weight's gradient
+over "model" (``serve/sharded.ServeShard``).
 """
 from __future__ import annotations
 
@@ -533,17 +536,12 @@ def init_state(cfg: ModelConfig, tcfg, downlink, optimizer: Optimizer, layout: L
 def check_tensor_parallel(cfg: ModelConfig, layout: Layout) -> None:
     """Raise ``serve/sharded.NotPorted`` unless the port runs ``cfg``'s train
     step with tensor parallelism over ``layout``'s "model" axis: every
-    family whose serving step across ranks is ported, with every weight of a
-    column- or row-parallel product split (a product "model" does not split
-    would run whole on every rank, and its gradients are not carried)."""
+    family whose serving step across ranks is ported. A product's weight
+    that "model" does not split is whole on every rank, as the reference's
+    ``try_shard`` leaves it: its product runs whole there, alike on every
+    rank or entered into "model" where only the rank's heads read it
+    (``serve/sharded.ServeShard``), and the leaf is counted once."""
     SS.check_ported(cfg, "the train step's tensor parallelism over 'model' (the reference's worker layout)")
-    tree = lm.lm_spec(cfg)
-    for (path, leaf), b in zip(P.leaves_with_path(tree), layout.blocks):
-        name = path[-1]
-        if b.whole and (name in sh._COL or name in sh._ROW):
-            raise SS.NotPorted(f"{cfg.arch_id}: {P.path_key(path)} {tuple(leaf.shape)} does not split over "
-                               f"'model' = {layout.model_size}: its product would run whole on every rank, "
-                               "which the port's tensor parallelism does not carry")
 
 
 def row_split(cfg: ModelConfig, tcfg, layout: Layout) -> int:

@@ -66,6 +66,33 @@ WORST_KEYS = ("loss", "g", "server_lr", "bulk", "rows_lr", "norms")
 
 FLOOR_FACTOR = 1.5  # tensor parallelism's bounds: at most this times the run's own floor
 
+# smoke configs with product weights that "model" = 4 does not split, whose tensor-parallel step reads them
+# whole (tests/test_torch_train_whole.py, chip_smoke.py (w2)), by "arch@variant" (:func:`variant`):
+# * deepseek-v2-236b@e3: 3 experts: the router (128, 3) and the experts [3, ..] whole at M = 2 and 4, the
+#   routed part alike on every rank;
+# * zamba2-1.2b@n17: Mamba2's state of 17: in_proj (128, 554) and conv_w (4, 290) whole at M = 4 (split at
+#   M = 2), read in part by the rank's heads;
+# * gemma-2b@odd: d_ff 255 and a vocabulary of 511: the MLP and the tied embedding whole at M = 2 and 4 (the
+#   MLP and the logits alike on every rank), attention on the rank's heads.
+VARIANTS = ("deepseek-v2-236b@e3", "zamba2-1.2b@n17", "gemma-2b@odd")
+
+
+def variant(name: str):
+    """The smoke config ``arch``, or of ``arch@variant`` (:data:`VARIANTS`)."""
+    from .. import configs
+
+    arch, _, which = name.partition("@")
+    cfg = configs.get_smoke(arch)
+    if which == "e3":
+        return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_experts=3))
+    if which == "n17":
+        return dataclasses.replace(cfg, mamba=dataclasses.replace(cfg.mamba, state_dim=17))
+    if which == "odd":
+        return dataclasses.replace(cfg, d_ff=255, vocab_size=511)
+    if which:
+        raise ValueError(f"no variant {which!r} of {arch}")
+    return cfg
+
 
 class OneRank(SS.ServeShard):
     """The tensor-parallel step's arithmetic in one process, the floor of

@@ -92,29 +92,35 @@ def test_per_rank_count_of_the_act_sharded_step(smoke, monkeypatch):
     assert state["server"].shape == (lay.shard_len,) and state["workers"].shape == (lay.local, lay.d)
 
 
-def test_dry_run_records_of_both_splits(smoke, tmp_path):
+def test_dry_run_records_of_both_splits(smoke, tmp_path, monkeypatch):
     """run_one: the per_rank records (the default train count, tensor
     parallelism over "model", and the act-sharded one) carry the collective
-    bytes by kind, a collective term and both layouts' state bytes; the even
-    record of a step that is not ported (zamba2's smoke config on the
-    multi-pod mesh: its Mamba2 in_proj does not split over 'model' = 16,
-    ROADMAP Queue 1 item 4) keeps collective_s None and says why; reanalyze
-    gives all three back; the file of the act-sharded count is tagged
-    ``__act``."""
+    bytes by kind, a collective term and both layouts' state bytes; zamba2's
+    smoke config on the multi-pod mesh, whose Mamba2 in_proj does not split
+    over 'model' = 16, counts per rank too (read whole, entered into
+    "model"); an even record, which no config gives any more (here a
+    refusal put in ``specs.train_refusal``'s place), keeps collective_s None
+    and says why; reanalyze gives all four back; the file of the
+    act-sharded count is tagged ``__act``."""
     dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--out", str(tmp_path)])
     dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--train-act-model-sharded",
                  "--out", str(tmp_path)])
     dryrun.main(["--arch", "zamba2-1.2b", "--shape", "train_4k", "--multi-pod", "--out", str(tmp_path)])
+    with monkeypatch.context() as m:
+        m.setattr(specs, "train_refusal", lambda cfg, mesh: "a step the port refuses (put in by the test)")
+        dryrun.main(["--arch", "gemma-2b", "--shape", "train_4k", "--multi-pod", "--out", str(tmp_path)])
     tp = json.loads((tmp_path / "gemma3-1b__train_4k__16x16.json").read_text())
     act = json.loads((tmp_path / "gemma3-1b__train_4k__16x16__act.json").read_text())
-    even = json.loads((tmp_path / "zamba2-1.2b__train_4k__2x16x16.json").read_text())
-    for rec in (tp, act, even):
+    whole = json.loads((tmp_path / "zamba2-1.2b__train_4k__2x16x16.json").read_text())
+    even = json.loads((tmp_path / "gemma-2b__train_4k__2x16x16.json").read_text())
+    for rec in (tp, act, whole, even):
         assert dryrun.record_problems(rec) == []
     assert even["split"] == "even" and even["roofline"]["collective_s"] is None
-    assert "in_proj (128, 552) does not split over 'model' = 16" in even["collective_note"]
+    assert "a step the port refuses" in even["collective_note"]
     assert even["collective_bytes_per_device"] is None
     assert act["split"] == "per_rank" and act["act_spec"] == ["model", None, None] and not act["tensor_parallel"]
-    assert tp["split"] == "per_rank" and tp["act_spec"] is None and tp["tensor_parallel"]
+    assert tp["split"] == whole["split"] == "per_rank" and tp["act_spec"] is None and tp["tensor_parallel"]
+    assert whole["tensor_parallel"] and whole["roofline"]["collective_s"] > 0
     for rec in (tp, act):
         coll = rec["collective_bytes_per_device"]
         assert set(coll) == {"all-gather", "reduce-scatter", "all-reduce"} and min(coll.values()) > 0
@@ -126,9 +132,9 @@ def test_dry_run_records_of_both_splits(smoke, tmp_path):
     assert tp["flops_per_device"] > act["flops_per_device"]
     out = tmp_path / "again"
     recs = reanalyze.reanalyze(str(tmp_path), str(out))
-    assert sorted(r["split"] for r in recs) == ["even", "per_rank", "per_rank"]
+    assert sorted(r["split"] for r in recs) == ["even", "per_rank", "per_rank", "per_rank"]
     for name in ("gemma3-1b__train_4k__16x16.json", "gemma3-1b__train_4k__16x16__act.json",
-                 "zamba2-1.2b__train_4k__2x16x16.json"):
+                 "zamba2-1.2b__train_4k__2x16x16.json", "gemma-2b__train_4k__2x16x16.json"):
         assert json.loads((out / name).read_text()) == json.loads((tmp_path / name).read_text())
 
 
@@ -213,20 +219,27 @@ def test_per_rank_serve_flops_against_the_even_count(smoke, monkeypatch, arch, s
     assert not ce.coll and set(cr.coll) == {"all-gather", "all-reduce"}
 
 
-def test_serve_dry_run_records(smoke, tmp_path):
+def test_serve_dry_run_records(smoke, tmp_path, monkeypatch):
     """On 16x16, the ported families' serving shapes give per_rank records
     with a collective term and the rank's parameter (and cache) bytes:
-    minitron's three, and rwkv6's (ssm) prefill_32k and decode_32k; rwkv6's
-    long_500k keeps the even split and says why (at B = 1 cache_specs
-    splits its states' inner dims over "data"), as does gemma3's smoke
-    long_500k, whose 16-slot local ring cache_specs splits on the head dim."""
+    minitron's three and rwkv6's (ssm) three, its long_500k too (at B = 1
+    cache_specs splits its states' inner dims over "data": gathered before
+    the step reads them), as does gemma3's smoke long_500k, whose 16-slot
+    local ring cache_specs splits on the head dim; an even record (a
+    refusal put in ``specs.serving_refusal``'s place for musicgen's) keeps
+    collective_s None and says why, and reanalyze gives both kinds back."""
     for arch in ("minitron-4b", "rwkv6-1.6b"):
         for shape in ("prefill_32k", "decode_32k", "long_500k"):
             dryrun.main(["--arch", arch, "--shape", shape, "--serve-layout", "tp", "--out", str(tmp_path)])
+    with monkeypatch.context() as m:
+        m.setattr(specs, "serving_refusal", lambda *a: "a step the port refuses (put in by the test)")
+        dryrun.main(["--arch", "musicgen-large", "--shape", "decode_32k", "--out", str(tmp_path)])
+    rec = json.loads((tmp_path / "musicgen-large__decode_32k__16x16.json").read_text())
+    assert rec["split"] == "even" and rec["roofline"]["collective_s"] is None
+    assert "a step the port refuses" in rec["collective_note"]
     dryrun.main(["--arch", "gemma3-1b", "--shape", "long_500k", "--out", str(tmp_path / "gemma3")])
     rec = json.loads((tmp_path / "gemma3" / "gemma3-1b__long_500k__16x16.json").read_text())
-    assert rec["split"] == "even" and "cache_specs splits a cache of shape" in rec["collective_note"]
-    assert "family" not in rec["collective_note"]
+    assert rec["split"] == "per_rank" and rec["roofline"]["collective_s"] > 0 and dryrun.record_problems(rec) == []
     for shape in ("prefill_32k", "decode_32k", "long_500k"):
         rec = json.loads((tmp_path / f"minitron-4b__{shape}__16x16.json").read_text())
         assert dryrun.record_problems(rec) == [] and rec["split"] == "per_rank"
@@ -237,13 +250,8 @@ def test_serve_dry_run_records(smoke, tmp_path):
         assert ("caches" in sb) == (shape != "prefill_32k")
         rw = json.loads((tmp_path / f"rwkv6-1.6b__{shape}__16x16.json").read_text())
         assert dryrun.record_problems(rw) == []
-        if shape == "long_500k":  # its own reason only: the cache split, not the family
-            assert rw["split"] == "even" and rw["roofline"]["collective_s"] is None
-            assert "cache_specs splits a cache of shape" in rw["collective_note"]
-            assert "family" not in rw["collective_note"]
-        else:
-            assert rw["split"] == "per_rank" and rw["serve_layout"] == "tp"
-            assert rw["roofline"]["collective_s"] > 0 and rw["collective_total_per_device"] > 0
+        assert rw["split"] == "per_rank" and rw["serve_layout"] == "tp"
+        assert rw["roofline"]["collective_s"] > 0 and rw["collective_total_per_device"] > 0
     recs = reanalyze.reanalyze(str(tmp_path), str(tmp_path / "again"))
     assert sorted({r["split"] for r in recs}) == ["even", "per_rank"]
     for r in recs:
@@ -254,26 +262,36 @@ def test_serve_dry_run_records(smoke, tmp_path):
 
 
 def test_even_records_name_their_own_reason(smoke):
-    """Each even record's note names what is not ported for its own step
-    (from ``specs.build``'s ``even_note``), and nothing else: zamba2's
-    long_500k serving step (hybrid: the cache split of its states at
-    B = 1), zamba2's train step on the hierarchical mesh wk4x4x16 (the
-    smoke config's Mamba2 in_proj does not split over 'model' = 16) and
-    deepseek-v2's on 16x16 (the smoke config's 4 experts do not split over
-    'model' = 16: its router's and experts' products would run whole on
-    every rank)."""
+    """No dry-run record is even any more: every smoke config's step on
+    16x16, 2x16x16 and wk4x4x16, train and serving shapes, is one rank of
+    the sharded step (neither ``train_refusal`` nor ``serving_refusal``
+    names anything), and the three that were even count per rank with a
+    collective term: zamba2's long_500k serving step (its Mamba2 states,
+    conv windows and shared-attention rings split at B = 1), its train step
+    on wk4x4x16 (in_proj (128, 552) whole over 'model' = 16) and
+    deepseek-v2's on 16x16 (4 experts over 'model' = 16: the router and the
+    experts whole, the routed part alike on every rank). act_spec on the
+    hierarchical mesh still raises rather than give an even record."""
+    meshes = (make_production_mesh(), make_production_mesh(multi_pod=True), make_hierarchical_mesh(4))
+    for arch in configs.ALIASES:
+        cfg = configs.get_smoke(arch)
+        for mesh in meshes:
+            assert specs.train_refusal(cfg, mesh) is None, (arch, mesh.sizes)
+            for shape in ("prefill_32k", "decode_32k", "long_500k"):
+                info = specs.SHAPES[shape]
+                window = specs.long_ctx_window(cfg) if shape == "long_500k" else None
+                assert specs.serving_refusal(cfg, mesh, info["global_batch"], info["seq"], window,
+                                             info["kind"]) is None, (arch, shape, mesh.sizes)
     train = dryrun.run_one("zamba2-1.2b", "train_4k", hierarchical_workers=4, verbose=False)
     hybrid = dryrun.run_one("zamba2-1.2b", "long_500k", verbose=False)
     moe = dryrun.run_one("deepseek-v2-236b", "train_4k", verbose=False)
-    assert train["split"] == hybrid["split"] == moe["split"] == "even"
-    assert train["collective_note"] == dryrun.EVEN_NOTE + specs.build(
-        "zamba2-1.2b", "train_4k", make_hierarchical_mesh(4)).meta["even_note"]
-    assert "in_proj (128, 552) does not split over 'model' = 16" in train["collective_note"]
-    assert "serving" not in train["collective_note"] and "family" not in train["collective_note"]
-    assert "cache_specs splits a cache of shape" in hybrid["collective_note"]
-    assert "tensor parallelism" not in hybrid["collective_note"] and "family" not in hybrid["collective_note"]
-    assert "moe/router (128, 4) does not split over 'model' = 16" in moe["collective_note"]
-    assert "tensor parallelism" in moe["collective_note"] and "family" not in moe["collective_note"]
+    for rec in (train, hybrid, moe):
+        assert rec["split"] == "per_rank" and rec["roofline"]["collective_s"] is not None, rec["collective_note"]
+        assert dryrun.record_problems(rec) == [] and "even_note" not in specs.build(
+            rec["arch"], rec["shape"], make_hierarchical_mesh(4) if rec is train else make_production_mesh()).meta
+    assert hybrid["collective_bytes_per_device"]["all-gather"] > 0
+    with pytest.raises(ValueError, match="act_spec on the hierarchical mesh is not ported"):
+        dryrun.run_one("gemma-2b", "train_4k", hierarchical_workers=4, train_act_model_sharded=True, verbose=False)
 
 
 def test_full_width_serve_counts():

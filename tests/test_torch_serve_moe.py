@@ -39,7 +39,7 @@ from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models import moe as MOE
-from repro_torch.models.params import leaf_sizes, leaves
+from repro_torch.models.params import leaf_sizes, leaves, leaves_with_path
 from repro_torch.serve import sharded as SS
 from repro_torch.serve import sharded_check as SC
 from repro_torch.train import sharded as SH
@@ -197,15 +197,15 @@ def test_latent_caches_split_batch_or_sequence():
     cache_specs never splits them over "model"."""
     full = configs.get("deepseek-v2-236b")
     lay = SS.ServeLayout(make_production_mesh(), 0)
-    assert SS.cache_layout(full, lay, 128, 32768)[1] is False
-    assert SS.cache_layout(full, lay, 1, 524288, window_override=8192)[1] is True
+    assert SS.cache_layout(full, lay, 128, 32768).found == {"batch"}
+    assert SS.cache_layout(full, lay, 1, 524288, window_override=8192).found == {"seq"}
     ds = configs.get_smoke("deepseek-v2-236b")  # 32-wide latent, 16-wide rope key
     # (B, slots, mesh, the dim cache_specs puts "data" on, the ranks it splits over)
     for B, L, shape, dim, D in ((2, 40, "2x2", 0, 2), (1, 64, "4x1", 1, 4), (2, 40, "1x4", 0, 1)):
         caches = lm.cache_init(ds, B, L, device="cpu")
         lay = SS.ServeLayout(Mesh(("data", "model"), tuple(int(x) for x in shape.split("x"))), 1)
-        specs, seq = SS.cache_split(caches, lay)
-        assert seq is (dim == 1)
+        specs, kinds = SS.cache_split(caches, lay)
+        assert set(leaves(kinds)) == ({"seq"} if dim == 1 else {"batch"} if D > 1 else {None})
         assert all(tuple(s) == tuple(None if i != dim else "data" for i in range(3))
                    for s in (specs[0]["c"], specs[1]["k_rope"]))
         mine = SS.shard_caches(caches, ds, lay)
@@ -217,10 +217,10 @@ def test_latent_caches_split_batch_or_sequence():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_still_refuses_moe(arch):
     """Serving admits the moe family, and so does the train step's tensor
-    parallelism (tests/test_torch_train_tp_families.py); what it still
-    refuses is experts that "model" does not split (the smoke config's 4 at
-    M = 16: the router's and experts' products would run whole on every
-    rank), with its own message."""
+    parallelism (tests/test_torch_train_tp_families.py), also where "model"
+    does not split the experts (the smoke config's 4 at M = 16: the router
+    and the experts whole on every rank, the routed part alike there,
+    tests/test_torch_train_whole.py): nothing of it is refused."""
     cfg = configs.get_smoke(arch)
     SS.check_ported(cfg)
     assert "moe" not in SS.NOT_PORTED
@@ -228,9 +228,14 @@ def test_train_step_still_refuses_moe(arch):
     mesh = Mesh(("data", "model"), (2, 2))
     SH.check_tensor_parallel(cfg, SH.Layout(mesh, 0, 2, d, SH.model_blocks(cfg, mesh, 0)))
     wide = Mesh(("data", "model"), (1, 16))
-    with pytest.raises(SS.NotPorted, match=r"moe/router \(128, 4\) does not split over 'model' = 16") as e:
-        SH.check_tensor_parallel(cfg, SH.Layout(wide, 0, 1, d, SH.model_blocks(cfg, wide, 0)))
-    assert "family" not in str(e.value)
+    blocks = SH.model_blocks(cfg, wide, 0)
+    SH.check_tensor_parallel(cfg, SH.Layout(wide, 0, 1, d, blocks))
+    whole = {p[-1] for (p, _), b in zip(leaves_with_path(lm.lm_spec(cfg)), blocks) if b.whole}
+    assert {"router", "w_in", "w_gate", "w_out"} <= whole
+    layout = SS.ServeLayout(wide, 3, "tp")
+    node = SC._first_moe(SS.shard_params(lm.lm_init(cfg, device="meta"), layout).tree)
+    tp = SS.ServeShard(cfg, layout, CountingComm())
+    assert tp.core(node, "w_in", -3).alike and not tp.alike
 
 
 @pytest.mark.parametrize("shape,layout_name", [("2x2", "serve"), ("1x4", "tp"), ("2x2", "tp_attn_rep"),

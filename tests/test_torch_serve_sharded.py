@@ -46,7 +46,6 @@ against the reference's own sharded prefill and decode.
 """
 import os
 import pickle
-import re
 import subprocess
 import sys
 import textwrap
@@ -62,7 +61,7 @@ from repro_torch.launch.comm import CountingComm
 from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import lm
-from repro_torch.models.params import leaf_sizes, leaves
+from repro_torch.models.params import leaf_sizes, leaves, leaves_with_path, path_key
 from repro_torch.serve import sharded as SS
 from repro_torch.serve import sharded_check as SC
 from repro_torch.train import sharded as SH
@@ -116,10 +115,11 @@ def test_one_rank_equals_forward_and_decode_bit_for_bit(one_rank, arch, layout_n
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_refuses_the_families_not_ported(arch):
     """rwkv6 (ssm) and zamba2 (hybrid): their serving steps across ranks are
-    ported, and so is their train step's tensor parallelism; what still
-    refuses them is a product's weight that "model" does not split (at
-    M = 32), with its own message, and a batch of one over 4 data ranks,
-    where cache_specs splits their recurrent states' inner dims."""
+    ported, and so is their train step's tensor parallelism, also where a
+    product's weight does not split over "model" (at M = 32: rwkv6's 16
+    lora columns, zamba2's in_proj), and a batch of one over 4 data ranks,
+    where cache_specs splits their recurrent states' inner dims: nothing of
+    either is refused."""
     cfg = configs.get_smoke(arch)
     layout = SS.ServeLayout(Mesh(("data", "model"), (2, 2)), 0)
     SS.check_ported(cfg)
@@ -128,11 +128,13 @@ def test_refuses_the_families_not_ported(arch):
     d = sum(leaf_sizes(lm.lm_spec(cfg)))
     SH.check_tensor_parallel(cfg, SH.Layout(layout.mesh, 0, 2, d, SH.model_blocks(cfg, layout.mesh, 0)))
     wide = Mesh(("data", "model"), (1, 32))
-    own = re.escape(f"{cfg.arch_id}: ") + ".* does not split over 'model' = 32"
-    with pytest.raises(SS.NotPorted, match=own):
-        SH.check_tensor_parallel(cfg, SH.Layout(wide, 0, 1, d, SH.model_blocks(cfg, wide, 0)))
-    with pytest.raises(SS.NotPorted, match="only its batch or its sequence"):
-        SS.make_decode_step(cfg, SS.ServeLayout(Mesh(("data", "model"), (4, 1)), 0), CountingComm(), 1, 16)
+    blocks = SH.model_blocks(cfg, wide, 0)
+    SH.check_tensor_parallel(cfg, SH.Layout(wide, 0, 1, d, blocks))
+    whole = {path_key(p) for (p, _), b in zip(leaves_with_path(lm.lm_spec(cfg)), blocks) if b.whole}
+    assert {"stack/segments/0/rwkv/w_lora_a", "stack/segments/0/mamba/in_proj"} & whole
+    split = SS.cache_layout(cfg, SS.ServeLayout(Mesh(("data", "model"), (4, 1)), 0), 1, 16)
+    assert "other" in split.found
+    SS.make_decode_step(cfg, SS.ServeLayout(Mesh(("data", "model"), (4, 1)), 0), CountingComm(), 1, 16)
 
 
 @pytest.mark.parametrize("layout_name", ["serve", "tp", "tp_attn_rep"])
@@ -156,7 +158,10 @@ def test_heads_and_cache_splits():
     """Which heads a rank computes, and which cache dim the reference's
     cache_specs split: gemma3-1b cuts its one kv head at M = 16 (and its 4
     q heads), minitron-4b splits 24 q / 8 kv heads; long_500k's B = 1 puts
-    the sequence over "data"; a split of another dim is refused."""
+    the sequence over "data"; where it splits another dim (the smoke ring's
+    head dim at B = 1; gemma3-1b's 4 scan repetitions at B = 4, taken for the
+    batch) that leaf is ``other``, beside the batch or sequence splits of the
+    rest."""
     mesh = make_production_mesh()
     g, m = configs.get("gemma3-1b"), configs.get("minitron-4b")
     assert SS.attention_heads(g, SS.ServeLayout(mesh, 3)) == L.Heads(0, 4, 0, 1, True, True)
@@ -165,16 +170,21 @@ def test_heads_and_cache_splits():
     assert SS.attention_heads(m, SS.ServeLayout(small, 3)) == L.Heads(9, 3, 3, 1, False, False)
     assert SS.attention_heads(m, SS.ServeLayout(small, 3, "tp_attn_rep")) == L.Heads(0, 24, 0, 8)
     lay = SS.ServeLayout(mesh, 0)
-    assert SS.cache_layout(g, lay, 128, 32768)[1] is False
-    assert SS.cache_layout(g, lay, 1, 524288)[1] is True
-    with pytest.raises(ValueError, match="only its batch or its sequence"):
-        SS.cache_layout(configs.get_smoke("gemma3-1b"), SS.ServeLayout(Mesh(("data", "model"), (4, 1)), 0), 1, 64)
-    # gemma3-1b's scan segment has 4 repetitions: at B = 4 cache_specs splits them over "data"
-    # (refused), which is no split on a data axis of one rank
-    with pytest.raises(ValueError, match="only its batch or its sequence"):
-        SS.cache_layout(g, SS.ServeLayout(Mesh(("data", "model"), (2, 2)), 0), 4, 520)
-    assert SS.cache_layout(g, SS.ServeLayout(Mesh(("data", "model"), (1, 4)), 0), 4, 520)[1] is False
-    assert SS.cache_layout(g, SS.ServeLayout(Mesh(("data", "model"), (2, 2)), 0), 2, 520)[1] is False
+    assert SS.cache_layout(g, lay, 128, 32768).found == {"batch"}
+    assert SS.cache_layout(g, lay, 1, 524288).found == {"seq"}
+    # the smoke window of 16 slots is shorter than a head of 32: its head dim splits; the global ring's slots
+    smoke = SS.cache_layout(configs.get_smoke("gemma3-1b"), SS.ServeLayout(Mesh(("data", "model"), (4, 1)), 0), 1,
+                            64)
+    assert [k for k in leaves(smoke.kinds)] == ["other", "other", "seq", "seq"]
+    assert [tuple(s) for _, s in sh.spec_leaves(smoke.specs)][:2] == [(None, None, None, "data")] * 2
+    # gemma3-1b's scan segment has 4 repetitions: at B = 4 cache_specs splits them over "data" (other) and the
+    # unrolled local layers' rows (batch), which is no split on a data axis of one rank
+    reps = SS.cache_layout(g, SS.ServeLayout(Mesh(("data", "model"), (2, 2)), 0), 4, 520)
+    assert reps.found == {"batch", "other"}
+    assert {tuple(s)[:2] for k, (_, s) in zip(leaves(reps.kinds), sh.spec_leaves(reps.specs)) if k == "other"} == \
+        {("data", None)}
+    assert SS.cache_layout(g, SS.ServeLayout(Mesh(("data", "model"), (1, 4)), 0), 4, 520).found == set()
+    assert SS.cache_layout(g, SS.ServeLayout(Mesh(("data", "model"), (2, 2)), 0), 2, 520).found == {"batch"}
 
 
 @pytest.mark.parametrize("q0,nq", [(0, 6), (2, 2), (3, 3), (1, 1), (4, 2)])

@@ -335,8 +335,8 @@ def test_cache_rules_per_leaf(arch):
         D, M = (int(v) for v in shape.split("x"))
         for r in range(D * M):
             lay = SS.ServeLayout(Mesh(("data", "model"), (D, M)), r, lay_name)
-            specs, seq = SS.cache_split(caches, lay)
-            assert seq is False
+            specs, kinds = SS.cache_split(caches, lay)
+            assert set(leaves(kinds)) == ({"batch"} if D > 1 else {None})
             mine = SS.shard_caches(caches, cfg, lay)
             rs, hs = SS.recurrent_heads(cfg, lay), SS.attention_heads(cfg, lay)
             held = sum(t.numel() * t.element_size() for t in leaves(mine))
@@ -358,22 +358,29 @@ def test_cache_rules_per_leaf(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_long_500k_cache_split_refused(arch):
-    """At long_500k (B = 1) cache_specs splits the recurrent states' hd (or a
-    token shift's D) over the data axes: refused with NotPorted, so the
-    dry-run keeps that record even; a batch of one on a data axis of one
-    rank is no split."""
+    """At long_500k (B = 1) cache_specs splits the recurrent states' v / hd,
+    the token shifts' D and the conv window's C over the data axes (other)
+    and zamba2's shared-attention rings on their slots (seq): the port runs
+    it, so the dry-run counts that record per rank, with the gathers of the
+    other leaves in its collective term; a batch of one on a data axis of
+    one rank is no split."""
     cfg = configs.get(arch)
     from repro_torch.launch import specs as SP
 
     window = SP.long_ctx_window(cfg)
-    with pytest.raises(SS.NotPorted, match="only its batch or its sequence"):
-        SS.cache_layout(cfg, SS.ServeLayout(make_production_mesh(), 0), 1, 524288, window_override=window)
-    assert "cache_specs splits a cache of shape" in SP.serving_refusal(cfg, make_production_mesh(), 1, 524288,
-                                                                        window, "decode")
+    caches = lm.cache_init(cfg, 1, 524288, window_override=window, device="meta")
+    split = SS.cache_split(caches, SS.ServeLayout(make_production_mesh(), 0))
+    # the dim over the data axes from the leaf's end: v, D, hd, C; a ring's slots
+    want = {"state": (-1, "other"), "x_last": (-1, "other"), "cm_x_last": (-1, "other"), "ssm": (-1, "other"),
+            "conv": (-1, "other"), "k": (-3, "seq"), "v": (-3, "seq")}
+    for (path, t), (_, spec), kind in zip(leaves_with_path(caches), sh.spec_leaves(split.specs), leaves(split.kinds)):
+        dim = [i - t.dim() for i, e in enumerate(spec) if e is not None]
+        assert (dim, kind) == ([want[path[-1]][0]], want[path[-1]][1]), (path, spec, kind)
+    assert split.found == ({"other"} if arch == "rwkv6-1.6b" else {"other", "seq"})
+    assert SP.serving_refusal(cfg, make_production_mesh(), 1, 524288, window, "decode") is None
     small = configs.get_smoke(arch)
-    with pytest.raises(SS.NotPorted, match="only its batch or its sequence"):
-        SS.cache_layout(small, SS.ServeLayout(Mesh(("data", "model"), (4, 1)), 0), 1, 64)
-    assert SS.cache_layout(small, SS.ServeLayout(Mesh(("data", "model"), (1, 4)), 0, "tp"), 1, 64)[1] is False
+    assert "other" in SS.cache_layout(small, SS.ServeLayout(Mesh(("data", "model"), (4, 1)), 0), 1, 64).found
+    assert SS.cache_layout(small, SS.ServeLayout(Mesh(("data", "model"), (1, 4)), 0, "tp"), 1, 64).found == set()
     for shape in ("prefill_32k", "decode_32k"):
         info = SP.SHAPES[shape]
         assert SP.serving_refusal(cfg, make_production_mesh(), info["global_batch"], info["seq"], None,
@@ -414,10 +421,10 @@ def test_rank_parameters_are_local_numel_of_the_specs(arch, layout_name):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_still_refuses_ssm_and_hybrid(arch):
     """Serving admits both families, and so does the train step's tensor
-    parallelism (tests/test_torch_train_tp_families.py); what it still
-    refuses for them is a product's weight that "model" does not split,
-    with its own message (at M = 32: rwkv6's 16 lora columns, zamba2's
-    in_proj)."""
+    parallelism (tests/test_torch_train_tp_families.py), also where a
+    product's weight does not split over "model" (at M = 32: rwkv6's 16
+    lora columns, zamba2's in_proj, read whole and entered into "model"):
+    nothing of either is refused."""
     cfg = configs.get_smoke(arch)
     SS.check_ported(cfg)
     assert not SS.NOT_PORTED
@@ -425,9 +432,10 @@ def test_train_step_still_refuses_ssm_and_hybrid(arch):
     mesh = Mesh(("data", "model"), (2, 2))
     SH.check_tensor_parallel(cfg, SH.Layout(mesh, 0, 2, d, SH.model_blocks(cfg, mesh, 0)))
     wide = Mesh(("data", "model"), (1, 32))
-    with pytest.raises(SS.NotPorted, match="does not split over 'model' = 32") as e:
-        SH.check_tensor_parallel(cfg, SH.Layout(wide, 0, 1, d, SH.model_blocks(cfg, wide, 0)))
-    assert cfg.arch_id in str(e.value) and "family" not in str(e.value)
+    blocks = SH.model_blocks(cfg, wide, 0)
+    SH.check_tensor_parallel(cfg, SH.Layout(wide, 0, 1, d, blocks))
+    whole = {p[-1] for (p, _), b in zip(leaves_with_path(lm.lm_spec(cfg)), blocks) if b.whole}
+    assert whole & {"w_lora_a", "in_proj"}
 
 
 @pytest.mark.parametrize("arch", ARCHS)

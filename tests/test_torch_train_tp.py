@@ -212,8 +212,10 @@ def test_tensor_parallel_refusals(case):
     on one with them, act_spec with experts on the hierarchical mesh (the
     moe family's tensor parallelism is ported,
     ``tests/test_torch_train_tp_families.py``, and its act_spec on ("data",
-    "model"), ``tests/test_torch_train_act_moe.py``), and a product's weight
-    that "model" does not split."""
+    "model"), ``tests/test_torch_train_act_moe.py``); a product's weight
+    that "model" does not split is not refused: the smoke starcoder2's
+    attention at M = 32 runs whole, alike on every rank
+    (``tests/test_torch_train_whole.py``)."""
     mesh = Mesh(("data", "model"), (2, 2))
     tcfg = TrainerConfig(n_workers=2, attn_chunk=32)
     act = TrainerConfig(n_workers=2, attn_chunk=32, act_spec=SH.ACT_SPEC)
@@ -223,8 +225,13 @@ def test_tensor_parallel_refusals(case):
         wide = Mesh(("data", "model"), (1, 32))
         odd = configs.get_smoke("starcoder2-7b")
         lay = SH.Layout(wide, 0, 1, sum(P.leaf_sizes(lm.lm_spec(odd))), SH.model_blocks(odd, wide, 0))
-        with pytest.raises(SS.NotPorted, match="does not split over 'model' = 32"):
-            SH.check_tensor_parallel(odd, lay)
+        SH.check_tensor_parallel(odd, lay)
+        SH.make_sharded_train_step(odd, TrainerConfig(n_workers=1, attn_chunk=32), make_downlink("marina:perm", 1),
+                                   make_optimizer("adamw"), constant_lr(SC.LR), lay, SH.CountingComm())
+        rank = SS.ServeLayout(wide, 5, "tp")
+        attn = SS.shard_params(lm.lm_init(odd, device="meta"), rank).tree["stack"]["segments"][0]["attn"]
+        assert tuple(attn["wk"].shape) == (144, 48) and tuple(attn["wo"].shape) == (144, 144)
+        assert SS.ServeShard(odd, rank, SH.CountingComm()).core(attn, "wo").alike
         return
     lay, tc, what = {"no blocks": (SH.Layout(mesh, 0, 2, d), tcfg, "holds the rank's blocks"),
                      "act_spec on blocks": (SH.Layout(mesh, 0, 2, d, SH.model_blocks(cfg, mesh, 0)), act,

@@ -21,7 +21,13 @@ that run one part:
 * ``multipod``: ARCH's steps on the ("pod", "data", "model") meshes (2, 1,
   2) and (2, 2, 1), W = 4;
 * ``hier``: each of ARCH's (comma-separated) steps on the hierarchical
-  ("wk", "data", "model") meshes of :data:`HIER_CASES`.
+  ("wk", "data", "model") meshes of :data:`HIER_CASES`;
+* ``whole``: the rules for a weight that "model" does not split
+  (``serve/sharded.ServeShard``: entered where the rank reads its product
+  in part, the alike view of a layer whose output product is whole) in
+  float64 against central differences on each pair of ranks, then each of
+  ARCH's (comma-separated ``sharded_check.VARIANTS``) leaf gradients at
+  (1, 4) and, for :data:`WHOLE_STEPS`, 3 steps of :data:`WHOLE_CASE`.
 
 The steps are ``sharded_check.run_case`` with ``check_rank=0``: rank 0
 alone runs the single process and its floor and broadcasts the state that
@@ -50,6 +56,9 @@ ACT_CASES = [("marina:perm/bf16", "marina:perm", "bfloat16", False, None),
              ("marina:perm/low_cf", "marina:perm", "float32", False, LOW_CF)]
 MULTIPOD_MESHES = ((2, 1, 2), (2, 2, 1))
 # (name, downlink, replicas' dtype, forced sync, mesh (wk, data, model), workers)
+# the whole part's step case, and the variants (sharded_check.VARIANTS) it runs it for
+WHOLE_CASE = ("marina:perm/bf16", "marina:perm", "bfloat16", False, (1, 4))
+WHOLE_STEPS = ("deepseek-v2-236b@e3", "zamba2-1.2b@n17")
 HIER_CASES = [("marina:perm/bf16", "marina:perm", "bfloat16", False, (2, 2, 1), 2),
               ("ef21p/forced", "ef21p:16:64", "float32", True, (1, 2, 2), 1)]
 
@@ -131,7 +140,86 @@ def finite_differences(rank, pair):
     return worst
 
 
-def leaf_grads(rank, pair, arch, out_dir):
+def whole_fd(rank, pair):
+    # ServeShard's rules for a weight that "model" does not split, on a pair of ranks in float64: each input's
+    # analytic gradient against central differences of the loss (the same on both ranks)
+    from repro_torch import configs
+    from repro_torch.launch import comm as C
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import Spec
+    from repro_torch.serve import sharded as SS
+    comm = C.Comm({"model": pair})
+    m = rank % 2
+    tp = SS.ServeShard(configs.get_smoke("gemma-2b"), SS.ServeLayout(Mesh(("data", "model"), (1, 2)), m, "tp"), comm)
+    f64 = torch.float64
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(3, 4, generator=g, dtype=f64)                                        # replicated
+    whole = torch.randn(4, 6, generator=g, dtype=f64)                                    # whole on both ranks
+    out_w = torch.randn(6, 2, generator=g, dtype=f64)                                    # whole on both ranks
+    split = torch.randn(2, 4, 3, generator=g, dtype=f64)[m].clone()                      # rank m's block of [4, 6]
+    rows = torch.randn(2, 3, 2, generator=g, dtype=f64)[m].clone()                       # rank m's rows of [6, 2]
+    cols = torch.randn(2, 2, 3, generator=g, dtype=f64)[m].clone()                       # rank m's columns of [2, 6]
+
+    class Node(dict):  # a parameter node carrying its leaves' specs, as ShardedParams' nodes do
+        pass
+
+    def node(specs, **ws):
+        n = Node(ws)
+        n.specs = specs
+        return n
+
+    def after(z, down):  # z used alike, then by the rank's columns of a column-parallel product
+        part = C.exit(comm, (C.enter(comm, z, "model") @ down).sum(0), "model")
+        return (z * z).sum() + (part * torch.sin(part)).sum() + (x * x).sum()
+
+    def read_in_part(x, w, down):
+        # in_proj whole at rest: the product's output feeds only the rank's columns (its heads)
+        p = node({"in_proj": Spec(None, None)}, in_proj=w)
+        y = C.enter(comm, x, "model") @ tp.weight(p, "in_proj", f64)
+        h = torch.tanh(y[:, 3 * m:3 * m + 3])
+        out = C.exit(comm, h @ down, "model")
+        return (out * torch.cos(out)).sum() + (x * x).sum()
+
+    def alike(x, w, wo, down):
+        # an MLP whose w_out "model" does not split: the alike view, its weights whole
+        p = node({"w_in": Spec(None, None), "w_out": Spec(None, None)}, w_in=w, w_out=wo)
+        t = tp.core(p, "w_out")
+        return after(t.row_mm(torch.tanh(t.col_mm(x, [t.weight(p, "w_in", f64)])[0]), p, "w_out"), down)
+
+    def alike_gathered(x, w, wo, down):
+        # the alike view reads a weight split over "model" whole: the rank keeps its block of the gradient
+        p = node({"w_in": Spec(None, "model"), "w_out": Spec(None, None)}, w_in=w, w_out=wo)
+        t = tp.core(p, "w_out")
+        return after(t.row_mm(torch.tanh(t.col_mm(x, [t.weight(p, "w_in", f64)])[0]), p, "w_out"), down)
+
+    cases = (("read_in_part", read_in_part, (x, whole, rows), (0, 1)),
+             ("alike", alike, (x, whole, out_w, cols), (0, 1, 2)),
+             ("alike_gathered", alike_gathered, (x, split, out_w, cols), (0, 2)))
+    worst = {}
+    for name, loss, inputs, replicated in cases:
+        args = [t.clone().requires_grad_(True) for t in inputs]
+        loss(*args).backward()
+        worst[name] = 0.0
+        eps = 1e-6
+        for i, t in enumerate(args):
+            for r in range(2):                    # a block is moved on its own rank, a replicated input on both
+                for j in range(t.numel()):
+                    moved = []
+                    for sgn in (1, -1):
+                        vals = [a.detach().clone() for a in args]
+                        if i in replicated or r == m:
+                            vals[i].view(-1)[j] += sgn * eps
+                        moved.append(float(loss(*vals)))
+                    num = (moved[0] - moved[1]) / (2 * eps)
+                    if i in replicated or r == m:
+                        mine = float(t.grad.view(-1)[j])
+                        worst[name] = max(worst[name], abs(num - mine) / max(abs(num), 1.0))
+                if i in replicated:
+                    break
+    return worst
+
+
+def leaf_grads(rank, pair, arch, out_dir, shapes=((1, 2), (1, 4))):
     # each leaf's gradient at (1, 2) (the pairs) and (1, 4) against the single process, the single
     # process's own distance with the tensor-parallel summation order (OneRank), and the routes; the
     # single process's gradient and routes once for both meshes, all of it on rank 0
@@ -151,7 +239,7 @@ def leaf_grads(rank, pair, arch, out_dir):
         return vals, idx
 
     MOE.top_k = top_k
-    cfg = configs.get_smoke(arch)
+    cfg = SC.variant(arch)
     spec = lm.lm_spec(cfg)
     x = lm.lm_init(cfg, device="cpu", seed=1).flat.detach()
     batch = {k: v[0] for k, v in SyntheticLMData(cfg, 1, 2, 64, device="cpu").batch(0).items()}
@@ -161,7 +249,7 @@ def leaf_grads(rank, pair, arch, out_dir):
         ids1 = list(routes)
         floor = SC.loss_floor(cfg, [x], {k: v[None] for k, v in batch.items()}, chunk=32)
     out = {}
-    for shape in ((1, 2), (1, 4)):
+    for shape in shapes:
         progress(out_dir, rank, f"start leaves {arch} {shape}")
         M = shape[1]
         mesh = Mesh(("data", "model"), shape)
@@ -268,7 +356,7 @@ def sharded_steps(rank, arch, out_dir, cases, mesh_of, cfg_of=None):
     for case in cases:
         name, spec, dtype, forced = case[:4]
         mesh, W, act = mesh_of(case)
-        cfg = cfg_of(case) if cfg_of else configs.get_smoke(arch)
+        cfg = cfg_of(case) if cfg_of else SC.variant(arch)
         progress(out_dir, rank, f"start {name} {arch} {mesh.sizes}")
         layout, comm = SH.connect(mesh, W, sum(P.leaf_sizes(lm.lm_spec(cfg))), cfg=None if act else cfg)
         del launches[:]
@@ -306,6 +394,21 @@ def act_moe(rank, arch, out_dir):
     return report
 
 
+def whole_weights(rank, pair, archs, out_dir):
+    # weights "model" does not split: whole_fd, then each of archs' (comma-separated) leaf gradients at (1, 4),
+    # and the 3 steps of WHOLE_CASE at (1, 4) for each of those in WHOLE_STEPS
+    from repro_torch.launch.mesh import Mesh
+
+    progress(out_dir, rank, "start whole_fd")
+    report = {"fd": whole_fd(rank, pair)}
+    for arch in archs.split(","):
+        report[("leaves", arch)] = leaf_grads(rank, pair, arch, out_dir, ((1, 4),))
+        if arch in WHOLE_STEPS:
+            report[("steps", arch)] = sharded_steps(rank, arch, out_dir, [WHOLE_CASE],
+                                                    lambda c: (Mesh(("data", "model"), c[4]), 4, False))
+    return report
+
+
 def each_arch(part, rank, archs, out_dir):
     """``part(rank, arch, out_dir)`` for each of the comma-separated
     ``archs`` in one process group: {arch: its report}."""
@@ -317,10 +420,13 @@ def worker(rank, part, arch, init, out_dir):
     from repro_torch.launch.mesh import Mesh
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=WORLD)
     progress(out_dir, rank, f"start {part} {arch}")
-    if part in ("fd", "leaves"):
+    if part in ("fd", "leaves", "whole"):
         pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
         pair = pairs[rank // 2]
-        report = finite_differences(rank, pair) if part == "fd" else leaf_grads(rank, pair, arch, out_dir)
+        if part == "whole":
+            report = whole_weights(rank, pair, arch, out_dir)
+        else:
+            report = finite_differences(rank, pair) if part == "fd" else leaf_grads(rank, pair, arch, out_dir)
     elif part == "steps":
         cases = [c + (shape,) for shape in ((1, 4), (2, 2)) for c in CASES]
         report = sharded_steps(rank, arch, out_dir, cases, lambda c: (Mesh(("data", "model"), c[4]), 4, False))
@@ -356,7 +462,7 @@ RESIDUE = 1e-6  # a leaf's max |g| below this share of the model's largest: roun
 # each part's time limit in seconds: at least 3x its time beside five other test workers (about 2x its
 # time alone on an 8-core host: fd 9.5 s, leaves 12-18 s, steps 43-58 s, act_moe 34 s, multipod 37 s,
 # hier 23 s)
-TIMEOUT = {"fd": 180, "leaves": 240, "steps": 600, "act_moe": 360, "multipod": 360, "hier": 300}
+TIMEOUT = {"fd": 180, "leaves": 240, "steps": 600, "act_moe": 360, "multipod": 360, "hier": 300, "whole": 360}
 
 
 def check_backward(report, kind):
