@@ -263,7 +263,9 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     0 alone holding the single process; rwkv6-1.6b and zamba2-1.2b at full
     width cut to 2 and 6 layers, RECURRENT_TP, one compressed marina:perm
     step with bf16 replicas each on (1, 4), W = 2, rank 0 alone holding the
-    single process) and, in the second group's processes after its act_spec
+    single process; and act_spec on the hierarchical mesh, HIER_ACT_FULL:
+    demo-100m at full width on (wk, data, model) = (1, 2, 2), W = 1, one
+    EF21-P step of 4 rows of 128 tokens, a row a rank) and, in the second group's processes after its act_spec
     cases, the moe family's smoke configs (MOE_TP: deepseek-v2 and llama4,
     3 steps, marina:perm with bf16 replicas and ef21p on (1, 4) and (2, 2)),
     the act_spec step with experts (ACT_MOE, deepseek-v2 on (2, 2)), the
@@ -274,12 +276,22 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     on (wk, data, model) = (2, 2, 2), W = 2, marina:perm with bf16
     replicas: every rank its two-level blocks, rotk_apply_rows at least once
     a leaf in each compressed round), then deepseek-v2's smoke config on
-    (1, 8) (WHOLE_TP8: its router and 4 experts whole, 3 steps); all within ``train/sharded_check``'s bounds of the single-process step (the
+    (1, 8) (WHOLE_TP8: its router and 4 experts whole, 3 steps), and
+    act_spec on (2, 2, 2) (HIER_ACT: gemma-2b and deepseek-v2, W = 2, 4 rows
+    a worker, one a rank, marina:perm with bf16 replicas, the two-level map
+    on every rank, deepseek's routes of one step held to the single
+    process's); all within ``train/sharded_check``'s bounds of the single-process step (the
     CPU tests' own; under tensor parallelism ACT_BOUNDS or 1.5x the single
-    process's own floor from the same run), rows at an offset or a rank's
+    process's own floor from the same run, and under act_spec on the
+    hierarchical mesh the step within GAP_BOUNDS of that floor, its own
+    arithmetic in one process), rows at an offset or a rank's
     blocks launching rotk_apply_rows in a compressed perm round (every
     tensor-parallel perm case has one), block_topk in every EF21-P case on
-    every rank, each case's peak memory a rank; only gloo's own refusal of
+    every rank, every EF21-P case's shift at rest its rank's slice (bytes
+    printed, equal to ``shard_len`` x the dtype's), each case's peak memory
+    a rank; each rank writes its case parts to ``rank<r>.progress`` and its
+    Python stacks to ``rank<r>.stacks`` every STACKS_EVERY s, printed for a
+    group past its deadline; only gloo's own refusal of
     the collectives on CUDA tensors, met by a probe before the steps, is
     logged in place of the run, and any other error in either group fails
     it; (w3) ``python -m repro_torch.launch.dryrun --arch gemma3-1b --shape
@@ -287,7 +299,9 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and runs:
     with ``--train-act-model-sharded``, ``--multi-pod`` and
     ``--hierarchical-workers 4``, on ``meta``: per_rank records with their
     collective bytes by kind and a collective term, the last two the CPU's
-    count exactly (MESH_COUNTS); and (u0)'s
+    count exactly (MESH_COUNTS); gemma3-1b's and deepseek-v2's with
+    ``--hierarchical-workers 4 --train-act-model-sharded`` (per_rank, not
+    tensor parallel, the CPU's count exactly: HIER_ACT_COUNTS); and (u0)'s
     train_4k records of deepseek-v2-236b, llama4-maverick-400b-a17b,
     rwkv6-1.6b and zamba2-1.2b: per_rank, tensor parallel, their counts the
     CPU's exactly (TRAIN_COUNTS).
@@ -2795,6 +2809,15 @@ MESH_COUNTS = {
     "wk4x4x16": {"flops": 94680406556672.0, "bytes": 5035227980514.0,
                  "coll": {"all-gather": 809480448.0, "reduce-scatter": 27137952.0, "all-reduce": 45752254296.0}},
 }
+# (w3): the CPU's count of rank 0 of the train_4k step under act_spec on the hierarchical mesh wk4x4x16 (`python
+# -m repro_torch.launch.dryrun --arch A --shape train_4k --hierarchical-workers 4 --train-act-model-sharded`):
+# per-device FLOPs, bytes and collective bytes by kind
+HIER_ACT_COUNTS = {
+    "gemma3-1b": {"flops": 32505923108864.0, "bytes": 1101899294690.0,
+                  "coll": {"all-gather": 2626912512.0, "reduce-scatter": 265818528.0, "all-reduce": 24.0}},
+    "deepseek-v2-236b": {"flops": 2.277874023268352e+16, "bytes": 282460238008606.0,
+                         "coll": {"all-gather": 631485491200.0, "reduce-scatter": 63899828480.0, "all-reduce": 24.0}},
+}
 # (w2): gloo ranks on the one card, in process groups of their own (run at once):
 # (group, cases (name, arch, downlink, replica dtype, B, S, attn_chunk, mesh, mode, steps, W)),
 # mode "data" (the workers over "data"), "act" (act_spec over "model") or "tp" (tensor
@@ -2837,6 +2860,15 @@ WHOLE_TP = (("marina:perm/bf16", "zamba2-1.2b@n17", "marina:perm", "bfloat16", 2
 WHOLE_TP8 = (("marina:perm/bf16", "deepseek-v2-236b", "marina:perm", "bfloat16", 2, 64, 32, (1, 8), "tp", 3, 2),)
 MULTIPOD = (("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32, (2, 1, 2), "pod", 3, 4),)
 HIER = (("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32, (2, 2, 2), "hier", 3, 2),)
+# act_spec on the hierarchical mesh (each worker's rows over "data" and "model", one row a rank, the replicas in
+# the rank's blocks, the weights gathered whole): the smoke gemma-2b and deepseek-v2 on (2, 2, 2), W = 2, in the 8
+# processes of the "hier" group (the perm downlink through the two-level block map; deepseek's routes held to
+# the single process's); demo-100m at full width on (1, 2, 2), W = 1, one EF21-P step, in the "data+tp" group
+HIER_ACT = (("marina:perm/bf16/act", "gemma-2b", "marina:perm", "bfloat16", 4, 64, 32, (2, 2, 2), "hier_act", 3, 2),
+            ("marina:perm/bf16/act", "deepseek-v2-236b", "marina:perm", "bfloat16", 4, 64, 32, (2, 2, 2), "hier_act",
+             3, 2))
+HIER_ACT_FULL = (("ef21p:128:1024", "demo-100m", "ef21p:128:1024", "float32", 4, 128, 128, (1, 2, 2), "hier_act",
+                  1, 1),)
 GLOO_RUNS = (
     ("data+tp", (("marina:perm/bf16", "demo-100m", "marina:perm", "bfloat16", TRAIN_B, TRAIN_S, 128, (4, 1), "data",
                   1, 4),)
@@ -2844,11 +2876,11 @@ GLOO_RUNS = (
      + (("marina:perm/bf16", "demo-100m", "marina:perm", "bfloat16", TP_B, TP_S, 128, (1, 4), "tp", 1, 2),
         ("marina:ind", "demo-100m", "marina:ind", "float32", TP_B, TP_S, 128, (2, 2), "tp", 1, 2),
         ("ef21p:128:1024", "gemma3-1b/2", "ef21p:128:1024", "float32", 1, 128, 128, (1, 4), "tp", 1, 2))
-     + RECURRENT_TP),
+     + RECURRENT_TP + HIER_ACT_FULL),
     ("act+moe", tuple(c + ((2, 2), "act", 3, 4) for c in (
         ("marina:perm/bf16", "gemma-2b", "marina:perm", "bfloat16", 2, 64, 32),) + GLOO_SMOKE) + MOE_TP
      + ACT_MOE + MULTIPOD + WHOLE_TP),
-    ("hier", HIER + WHOLE_TP8))
+    ("hier", HIER + HIER_ACT + WHOLE_TP8))
 
 
 # (w0): rotk_apply_rows' block map (the perm downlink on a rank's blocks under tensor
@@ -3129,7 +3161,11 @@ import torch.multiprocessing as mp
 
 WORLD = int(os.environ.get("GLOO_WORLD", "4"))
 # mesh axes by mode: "data", "act" and "tp" on ("data", "model"), "pod" the multi-pod mesh, "hier" the hierarchical
-AXES = {"pod": ("pod", "data", "model"), "hier": ("wk", "data", "model")}
+# mesh, "hier_act" it under act_spec (each worker's rows over "data" and "model", the replicas in the rank's blocks)
+AXES = {"pod": ("pod", "data", "model"), "hier": ("wk", "data", "model"), "hier_act": ("wk", "data", "model")}
+# a rank's Python stacks are written to rank<r>.stacks every STACKS_EVERY s: where a group that outlives its
+# deadline waits
+STACKS_EVERY = 120
 # gloo's own refusal of a device: ProcessGroupGloo's "unsupported device type",
 # or no gloo backend registered for cuda
 REFUSAL = re.compile(r"unsupported device type|No backend type associated with device type")
@@ -3176,6 +3212,39 @@ def progress(out_dir, rank, what):
         f.write(f"{time.time():.1f} {what}\\n")
 
 
+def watch_stacks(path):
+    # every STACKS_EVERY s, every thread's Python stack into path (the latest only), from a thread of its own that
+    # takes the GIL (faulthandler's timer dumps without it, and crashed a rank of a CPU rehearsal)
+    import threading, traceback
+
+    def loop():
+        while True:
+            time.sleep(STACKS_EVERY)
+            text = "".join(f"Thread {tid}:\\n" + "".join(traceback.format_stack(frame))
+                           for tid, frame in sys._current_frames().items())
+            with open(path, "w") as f:
+                f.write(f"{time.time():.1f}\\n{text}")
+
+    threading.Thread(target=loop, daemon=True).start()
+
+
+def warm_up(dev):
+    # one smoke-width init, forward and backward on the card: the kernels' first use in a process (~15-25 s of a
+    # group's first case on the card) while the group waits for its turn
+    sys.path.insert(0, os.environ["PORT_SRC"])
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import lm
+    from repro_torch.train import trainer
+
+    cfg = configs.get_smoke("gemma-2b")
+    row = lm.lm_init(cfg, device=dev, seed=0).flat.detach()
+    batch = {k: v[0] for k, v in SyntheticLMData(cfg, 1, 2, 64, device=str(dev)).batch(0).items()}
+    trainer.worker_value_and_grad(cfg, lm.lm_spec(cfg), dict(chunk=32, remat=True, window_override=None,
+                                                            remat_policy=None), row, batch)
+    torch.cuda.synchronize()
+
+
 def rank_main(rank, init, cases, out_dir):
     sys.path.insert(0, os.environ["PORT_SRC"])
     from repro_torch.launch.mesh import Mesh
@@ -3183,8 +3252,14 @@ def rank_main(rank, init, cases, out_dir):
     from repro_torch.train import TrainerConfig
     from repro_torch.train import sharded as SH, sharded_check as SC
 
+    watch_stacks(os.path.join(out_dir, f"rank{rank}.stacks"))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    go = os.environ.get("GLOO_GO")  # a group started early waits here, warmed up on the card, for its turn
+    if go:
+        warm_up(dev)
+    while go and not os.path.exists(go):
+        time.sleep(0.2)
     res = {"rank": rank}
     try:
         dist.init_process_group("gloo", init_method=init, rank=rank, world_size=WORLD,
@@ -3197,18 +3272,26 @@ def rank_main(rank, init, cases, out_dir):
                 cfg = config(arch)
                 torch.cuda.reset_peak_memory_stats()
                 layout, comm = SH.connect(Mesh(AXES.get(mode, ("data", "model")), tuple(shape)), W,
-                                          sum(P.leaf_sizes(lm.lm_spec(cfg))),
-                                          cfg=None if mode in ("data", "act") else cfg)
+                                          sum(P.leaf_sizes(lm.lm_spec(cfg))), cfg=cfg,
+                                          act=mode in ("act", "hier_act"))
+                progress(out_dir, rank, "connected")
                 tcfg = TrainerConfig(n_workers=W, attn_chunk=chunk, weight_dtype=getattr(torch, dtype),
-                                     act_spec=SH.ACT_SPEC if mode == "act" else None)
+                                     act_spec=SH.ACT_SPEC if mode in ("act", "hier_act") else None)
+                routes = None
+                if mode == "hier_act" and cfg.moe:  # the routes of one step's moe calls, against one process's
+                    progress(out_dir, rank, f"routes {name} {arch}")
+                    routes = SC.routes_case(cfg, layout, comm, W, rows, seq=seq, chunk=chunk, device=dev)
                 # a one-step case at gemma3-1b's width: rank 0 alone holds the single process's state (a
                 # state broadcast between steps through gloo costs more on the card than each rank's step)
                 r = SC.run_case(cfg, tcfg, spec, layout, comm, SH.Comm(), batch_rows=rows, seq=seq,
                                 device=dev, steps=steps, check_rank=0 if steps == 1 else None,
-                                draw_seed=ONE_STEP_DRAWS if steps == 1 else 11)
+                                draw_seed=ONE_STEP_DRAWS if steps == 1 else 11,
+                                progress=lambda what: progress(out_dir, rank, what))
                 SC.hold(name, r, SC.bounds(mode != "data"), W)
                 res["cases"][f"{name} {arch} {tuple(shape)}"] = dict(
                     r, d=layout.d, d_local=layout.d_local, d_rank=layout.d_rank, off=layout.off, mode=mode,
+                    shard_len=layout.shard_len, itemsize=torch.empty((), dtype=getattr(torch, dtype)).element_size(),
+                    row_block=layout.row_block, routes=routes,
                     leaves=len(layout.blocks or ()), blocks=layout.d_rank < layout.d,
                     two_level=sum(bool(b.inner) for b in layout.rank_blocks or ()),
                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -3231,20 +3314,25 @@ if __name__ == "__main__":
 """
 
 
-def gloo_card_start(groups, nice=0):
+def gloo_card_start(groups, nice=0, go=None):
     """(w2)'s process groups of GLOO_RUNS named in ``groups``, started, each
     at CPU priority ``nice``: {group: (its cases, its directory, its
-    process, its start on the wall clock and on the script's clock)}."""
+    process, its start on the wall clock and on the script's clock)}. With
+    ``go`` (a path), the ranks import, take the card and wait for that file
+    before they join their group."""
     import os
     import tempfile
 
     runs = {}
     # 8 processes share the card: the allocator's expandable segments keep each one's reserve near its use
     env = dict(os.environ, PORT_SRC=str(SRC), PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
-               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True", **({"GLOO_GO": go} if go else {}))
     for group, cases in GLOO_RUNS:
         if group not in groups:
             continue
+        keys = [f"{c[0]} {c[1]} {tuple(c[7])}" for c in cases]  # a case's results are filed under its key
+        if len(set(keys)) != len(keys):
+            fail(f"(w2) group {group}: two cases share a name, arch and mesh: {keys}")
         tmp = tempfile.mkdtemp(prefix="gloo_card_")
         script = os.path.join(tmp, "ranks.py")
         with open(script, "w") as f:
@@ -3270,6 +3358,16 @@ def _group_deadline(t_start: float) -> float:
     return min(t_start + 900, T_START + W2_DEADLINE)
 
 
+def _wait_group(proc, deadline) -> bool:
+    """Waits for a group's processes until ``deadline`` (the script's
+    clock); False where they still run then."""
+    try:
+        proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        return False
+    return True
+
+
 def gloo_card_wait(started):
     """Waits until the processes of :func:`gloo_card_start`'s groups end,
     each at most until its deadline (:func:`_group_deadline`;
@@ -3277,9 +3375,7 @@ def gloo_card_wait(started):
     seconds waited."""
     t0 = time.perf_counter()
     for *_, proc, _, t_start in started.values():
-        try:
-            proc.wait(timeout=max(1.0, _group_deadline(t_start) - time.perf_counter()))
-        except subprocess.TimeoutExpired:
+        if not _wait_group(proc, _group_deadline(t_start)):
             break
     return time.perf_counter() - t0
 
@@ -3311,10 +3407,8 @@ def gloo_card_phase(started, card):
     runs = {group: run[:3] for group, run in started.items()}
     late = []
     try:
-        for group, (_, tmp, proc) in runs.items():
-            try:
-                proc.wait(timeout=max(1.0, _group_deadline(started[group][4]) - time.perf_counter()))
-            except subprocess.TimeoutExpired:
+        for group, (_, _, proc) in runs.items():
+            if not _wait_group(proc, _group_deadline(started[group][4])):
                 late.append(group)
     finally:
         for *_, proc in runs.values():
@@ -3332,9 +3426,12 @@ def gloo_card_phase(started, card):
                 path = os.path.join(tmp, f"rank{r}.progress")
                 last = open(path).read().splitlines()[-2:] if os.path.exists(path) else ["no progress"]
                 where.append(f"group {group} rank {r}: {last}")
+                path = os.path.join(tmp, f"rank{r}.stacks")  # its last stacks: the call it waits in
+                if os.path.exists(path):
+                    where.append(f"group {group} rank {r}'s stacks at {open(path).read()[-2500:]}")
         fail(f"(w2) group(s) {late} still running at their deadline (900 s, at most {W2_DEADLINE} s of the "
              f"script; now {time.time():.1f}); the ranks' last case "
-             f"boundaries: {where}\n" + "\n".join(outs[g][1][-3000:] for g in late))
+             f"boundaries and stacks: {where}\n" + "\n".join(outs[g][1][-3000:] for g in late))
     problems, refusals, results = [], [], {}
     worlds = 0
     for group, (cases, tmp, proc) in runs.items():
@@ -3361,8 +3458,9 @@ def gloo_card_phase(started, card):
         if os.path.exists(path):
             wall = started[group][3]
             marks = [ln.split(" ", 1) for ln in open(path).read().splitlines()]
-            spans = [f"{what[len('start '):]} {float(marks[i + 1][0]) - float(at):.1f} s"
-                     for i, (at, what) in enumerate(marks[:-1]) if what.startswith("start ")]
+            ends = [(float(at), what) for at, what in marks if what.startswith("start ") or what == "done"]
+            spans = [f"{what[len('start '):]} {ends[i + 1][0] - at:.1f} s"
+                     for i, (at, what) in enumerate(ends[:-1]) if what.startswith("start ")]
             ended = max(os.path.getmtime(os.path.join(tmp, f"rank{r}.json"))
                         for r in range(math.prod(cases[0][7])))
             log(f"(w2) group {group}: started at {started[group][4] - T_START:.1f} s of the script, ended "
@@ -3388,40 +3486,63 @@ def gloo_card_phase(started, card):
                          f"rotk_apply_rows never launched in {c['compressed']} compressed rounds")
                 if c["blocks"] and spec == "marina:perm" and not c["compressed"]:
                     fail(f"(w2) {key} rank {r['rank']}: no compressed round, so the block map did not run")
-                if mode == "hier" and spec == "marina:perm" and not (
+                if mode in ("hier", "hier_act") and spec == "marina:perm" and not (
                         c["two_level"] and c["launches"].get("rotk_apply_rows", 0) >= c["compressed"] * c["leaves"]):
                     fail(f"(w2) {key} rank {r['rank']}: {c['two_level']} leaves with a two-level block, "
                          f"{c['launches'].get('rotk_apply_rows', 0)} rotk_apply_rows launches in {c['compressed']} "
                          f"compressed rounds of {c['leaves']} leaves")
                 if spec.startswith("ef21p") and c["launches"].get("block_topk", 0) <= 0:
                     fail(f"(w2) {key} rank {r['rank']}: block_topk never launched in its EF21-P steps")
+                if spec.startswith("ef21p") and c["shift_bytes"] != c["shard_len"] * c["itemsize"]:
+                    fail(f"(w2) {key} rank {r['rank']}: the shift at rest holds {c['shift_bytes']} bytes, not its "
+                         f"slice's {c['shard_len']} x {c['itemsize']}")
+                if mode == "hier_act" and c["row_block"] != r["rank"] % math.prod(shape[1:]):
+                    fail(f"(w2) {key} rank {r['rank']}: row block {c['row_block']}, not fsdp_index * M + model_index")
+            if mode == "hier_act" and arch.startswith(("deepseek", "llama4")):
+                routes = ranks[0]["cases"][key]["routes"]
+                if not (routes and routes["calls"] > 0 and routes["equal"]):
+                    fail(f"(w2) {key}: the moe calls' routes of the row blocks, put together, are not the single "
+                         f"process's: {routes}")
+                log(f"(w2) {key}: {routes['calls']} moe calls of one act_spec step, each row block's expert ids, kept "
+                    f"copies and capacity put together equal to the single process's ({routes['dropped']} of "
+                    f"{routes['copies']} routed copies dropped)")
             if ranks[0]["cases"][key]["blocks"] and spec == "marina:perm":
                 tp_launches[key] = [r["cases"][key]["launches"].get("rotk_apply_rows", 0) for r in ranks]
-            if mode == "tp" and spec.startswith("ef21p"):
+            if mode in ("tp", "hier_act") and spec.startswith("ef21p"):
                 tp_topk[key] = [r["cases"][key]["launches"].get("block_topk", 0) for r in ranks]
             worst = [max(r["cases"][key]["worst"][j] for r in ranks) for j in range(6)]
             c0 = ranks[0]["cases"][key]
             floor = ("; the single process's own floor " + ", ".join(
                 f"{k} {max(r['cases'][key]['floor'][j] for r in ranks):.3g}" for j, k in enumerate(WORST_KEYS))
                 if c0["floor"] is not None else "")
+            if c0["floor_gap"] is not None:  # act_spec on the hierarchical mesh: the step from its floor
+                floor += ("; the step from that floor (GAP_BOUNDS) " + ", ".join(
+                    f"{k} {max(r['cases'][key]['floor_gap'][j] for r in ranks):.3g}" for j, k in enumerate(WORST_KEYS)))
             bounds = "data-axis" if mode == "data" else "act_spec" if mode == "act" else "act_spec (or 1.5x the floor)"
+            shift = (f"; the shift at rest {c0['shift_bytes']:,} bytes a rank ({c0['shard_len']:,} values, the "
+                     f"prediction; whole {c0['d'] * c0['itemsize']:,})" if c0["shift_bytes"] is not None else "")
+            rows_at = (f"; a worker's {rows} rows over 'data' x 'model', row blocks by rank "
+                       f"{[r['cases'][key]['row_block'] for r in ranks]}" if mode == "hier_act" else "")
             log(f"(w2) {len(ranks)} gloo ranks on the one card, mesh {tuple(shape)} {mode}, {name} {arch} "
                 f"d={c0['d']:,} (d_local {c0['d_local']:,}, a replica row {c0['d_rank']:,}, "
                 f"{c0['two_level']} two-level leaves), W = {W}, {steps} step(s) of {rows} x {seq} a worker: within the "
                 f"{bounds} bounds of the single-process step: "
                 + ", ".join(f"{k} {v:.3g}" for k, v in zip(WORST_KEYS, worst)) + floor
-                + f"; {c0['compressed']} compressed round(s); bytes a rank a step {c0['moved']} = counted; "
+                + f"{shift}{rows_at}; {c0['compressed']} compressed round(s); bytes a rank a step {c0['moved']} = "
+                f"counted; "
                 f"launches by rank {[r['cases'][key]['launches'] for r in ranks]}; peak GiB a rank "
                 f"{[round(r['cases'][key]['peak_gib'], 2) for r in ranks]} ({card})")
     return None, time.perf_counter() - t0, tp_launches, tp_topk
 
 
 def sharded_dryrun_start():
-    """(w3)'s counts, started in a process of their own: ``python -m
+    """(w3)'s counts, started in two processes of their own: ``python -m
     repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k`` (the
     default record: tensor parallelism over "model"), then the same with
     ``--train-act-model-sharded``, ``--multi-pod`` and
-    ``--hierarchical-workers 4``, into SHARDED_DRYRUN_DIR."""
+    ``--hierarchical-workers 4``, and beside them, in the second process,
+    each of HIER_ACT_COUNTS' architectures with ``--hierarchical-workers 4
+    --train-act-model-sharded``, into SHARDED_DRYRUN_DIR."""
     import os
 
     if SHARDED_DRYRUN_DIR.exists():
@@ -3429,14 +3550,18 @@ def sharded_dryrun_start():
             f.unlink()
     SHARDED_DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
-    count = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", MEASURED_ARCH, "--shape", "train_4k",
-             "--out", str(SHARDED_DRYRUN_DIR)]
-    return spawn(["bash", "-c", 'set -e; "$@"; "$@" --train-act-model-sharded; "$@" --multi-pod; '
-                  '"$@" --hierarchical-workers 4', "counts"] + count, env=env,
-                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    count = [sys.executable, "-m", "repro_torch.launch.dryrun", "--shape", "train_4k", "--out",
+             str(SHARDED_DRYRUN_DIR), "--arch"]
+    act = "--hierarchical-workers 4 --train-act-model-sharded"
+    # two processes, so that the counts end before (w2)'s data+tp group
+    scripts = (f'set -e; "$@" {MEASURED_ARCH}; "$@" {MEASURED_ARCH} --train-act-model-sharded; '
+               f'"$@" {MEASURED_ARCH} --multi-pod; "$@" {MEASURED_ARCH} --hierarchical-workers 4',
+               "set -e; " + "; ".join(f'"$@" {arch} {act}' for arch in HIER_ACT_COUNTS))
+    return [spawn(["bash", "-c", script, "counts"] + count, env=env, stdout=subprocess.PIPE,
+                  stderr=subprocess.STDOUT, text=True) for script in scripts]
 
 
-def sharded_dryrun_phase(proc, card, u0_recs):
+def sharded_dryrun_phase(procs, card, u0_recs):
     """(w3): the counts started by :func:`sharded_dryrun_start`: valid
     per_rank records with a collective term, the default one tensor
     parallel, those of the multi-pod and hierarchical meshes equal to the
@@ -3447,12 +3572,14 @@ def sharded_dryrun_phase(proc, card, u0_recs):
     from repro_torch.launch import dryrun
 
     try:
-        outp = proc.communicate(timeout=600)[0]
+        outs = [proc.communicate(timeout=600)[0] for proc in procs]
     finally:
-        if proc.poll() is None:
-            kill_tree(proc)
-    if proc.returncode != 0:
-        fail(f"(w3) the train_4k dry-runs exited {proc.returncode}:\n{outp[-3000:]}")
+        for proc in procs:
+            if proc.poll() is None:
+                kill_tree(proc)
+    for proc, outp in zip(procs, outs):
+        if proc.returncode != 0:
+            fail(f"(w3) the train_4k dry-runs exited {proc.returncode}:\n{outp[-3000:]}")
     recs = {}
     for mesh, tag, what in (("16x16", "", "tensor parallelism over 'model' (the default)"),
                             ("16x16", "__act", "act_spec"),
@@ -3478,6 +3605,24 @@ def sharded_dryrun_phase(proc, card, u0_recs):
             f"(NVLink 450e9 B/s): {t['dominant']}; state bytes a device {rec['state_bytes_per_device']} "
             f"(H100 constants; no card used)")
         recs[mesh + (tag or "")] = rec
+    for arch, want in HIER_ACT_COUNTS.items():  # act_spec on the hierarchical mesh: one rank of it, per_rank
+        rec = json.loads((SHARDED_DRYRUN_DIR / f"{arch}__train_4k__wk4x4x16__act.json").read_text())
+        got = {"flops": rec["flops_per_device"], "bytes": rec["bytes_per_device"],
+               "coll": rec["collective_bytes_per_device"]}
+        t = rec["roofline"]
+        problems = dryrun.record_problems(rec)
+        if problems or rec["split"] != "per_rank" or rec["tensor_parallel"] or rec["act_spec"] != ["model", None, None]:
+            fail(f"(w3) {arch} train_4k on wk4x4x16 with act_spec: {problems}, split {rec['split']}, "
+                 f"tensor_parallel {rec['tensor_parallel']}, act_spec {rec['act_spec']}")
+        if got != want:
+            fail(f"(w3) {arch} train_4k on wk4x4x16 with act_spec: the card host's count {got} != the CPU's {want}")
+        log(f"(w3) {arch} train_4k on wk4x4x16 with act_spec (a worker's 64 rows over 'data' x 'model', one a "
+            f"rank), one rank counted on meta ({rec['t_count_s']} s): the CPU's count exactly: {got['flops']:.6e} "
+            f"FLOPs, {got['bytes']:.6e} bytes, collective {got['coll']}; compute {t['compute_s']:.5g} s, memory "
+            f"{t['memory_s']:.5g} s, collective {t['collective_s']:.5g} s: {t['dominant']}, bound "
+            f"{t['bound_s']:.6g} s; state bytes a device {rec['state_bytes_per_device']} (H100 constants; no card "
+            "used)")
+        recs[f"wk4x4x16__act/{arch}"] = rec
     for arch, want in TRAIN_COUNTS.items():
         rec = u0_recs[arch, "train_4k"]
         got = {"flops": rec["flops_per_device"], "bytes": rec["bytes_per_device"],
@@ -4830,6 +4975,9 @@ def main() -> int:
         if w_launches.get(kname, 0) <= 0:
             fail(f"(w1) the sharded train steps never launched {kname}")
     w1_s = time.perf_counter() - t_w0
+    # (w2)'s full-width group: imported and on the card while (x2) ends, its steps from (w) on (the go file)
+    w2_go = str(pathlib.Path(tempfile.mkdtemp(prefix="w2_go_")) / "go")
+    w2_late = gloo_card_start(("data+tp",), go=w2_go)
 
     serve_refusal, x2_s = gloo_serve_phase(x2, card)
     shutil.rmtree(moe_dir, ignore_errors=True)
@@ -4847,7 +4995,8 @@ def main() -> int:
     # (w0) the block map against its plain version, after (w1)'s counts were read: not the path's launches
     block_err, block_cases, block_ms, block_at = rotk_block_phase(np, torch, dev, timed, card)
     w3 = sharded_dryrun_start()  # on the host's cores beside (w2)
-    gloo_refusal, w2_s, tp_launches, tp_topk = gloo_card_phase({**w2_early, **gloo_card_start(("data+tp",))}, card)
+    open(w2_go, "w").close()
+    gloo_refusal, w2_s, tp_launches, tp_topk = gloo_card_phase({**w2_early, **w2_late}, card)
     sharded_dryrun_phase(w3, card, recs)
     log(f"(w) launches of the sharded steps: {w_launches}; (w1) {w1_s:.1f} s (beside (x2)), (w2) {w2_s:.1f} s"
         f"{' (gloo refused CUDA tensors)' if gloo_refusal else ''}; (w0), (w2) and (w3) took "

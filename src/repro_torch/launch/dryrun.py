@@ -24,10 +24,11 @@ evenly over the mesh's devices (``"split": "even"``, no collective term,
   tensor parallelism over "model" (the reference's ``worker`` layout), with
   ``--train-act-model-sharded`` under ``act_spec`` instead (the record
   ``<arch>__<shape>__<mesh>__act.json``, any family); on the multi-pod and
-  hierarchical meshes too (``--multi-pod``, ``--hierarchical-workers N``);
+  hierarchical meshes too (``--multi-pod``, ``--hierarchical-workers N``;
+  both with ``--train-act-model-sharded`` too);
   ``state_bytes_per_device`` puts the rank's flat state (its blocks, or
-  its whole rows, and its ZeRO-1 slices) beside the reference's per-leaf
-  specs.
+  its whole rows, its ZeRO-1 slices and EF21-P's shift's) beside the
+  reference's per-leaf specs, or says why those cannot lower.
 
 A per-rank record's collectives' result-shape bytes by kind
 (``collective_bytes_per_device``) give the roofline's third term. Its bytes
@@ -190,9 +191,14 @@ def run_one(arch: str, shape: str, *, multi_pod: bool = False, downlink: str = "
 
 def state_bytes_per_device(built) -> dict:
     """Per-device bytes of the counted rank's train state (``server``,
-    ``opt``, ``workers``) in the port's flat ZeRO-1 layout, beside the same
-    state under the reference's per-leaf specs (``sharding.param_specs``:
-    ``server`` for the master and the moments, ``worker`` for the replicas)."""
+    ``opt``, ``workers``) in the port's flat ZeRO-1 layout (EF21-P's shift
+    too: the rank's slice), beside the same state under the reference's
+    per-leaf specs (``sharding.param_specs``: ``server`` for the master and
+    the moments, ``worker`` for the replicas or EF21-P's shift). The
+    reference gives EF21-P's unstacked shift the ``worker`` spec, whose dim 0
+    goes on the worker axes as if it were the W axis: where those do not
+    divide a leaf's dim 0 (:func:`sharding.indivisible`) its program cannot
+    lower, so ``param_specs`` is None and ``param_specs_note`` says why."""
     state, specs = built.args[0], built.specs[0]
     mesh = built.meta["layout"].mesh
     tree = lm.lm_spec(built.meta["cfg"])
@@ -206,12 +212,22 @@ def state_bytes_per_device(built) -> dict:
     ref = spec_bytes(tree, specs["server"], 4)
     ref += sum(spec_bytes(tree, specs["opt"][k], 4) for k, v in state["opt"].items()
                if isinstance(v, torch.Tensor))
+    out = {"flat_zero1": argument_bytes([state[k] for k in ("server", "opt", "workers") if k in state])}
     if "workers" in state:
         w = state["workers"]
         wtree = map_tree(lambda leaf: stacked(leaf, built.meta["W"]), tree) if w.dim() == 2 else tree
+        bad = sh.indivisible(wtree, specs["workers"], mesh) if w.dim() == 1 else []
+        if bad:
+            path, shape, dim, axes, n = bad[0]
+            out["param_specs"] = None
+            out["param_specs_note"] = (
+                f"the reference's 'worker' spec of EF21-P's unstacked shift puts {len({b[0] for b in bad})} of "
+                f"{len(leaf_sizes(tree))} leaves on mesh axes that do not divide them (e.g. dim {dim} of "
+                f"{path} {shape} over {axes} = {n}): the reference's program cannot lower here")
+            return out
         ref += spec_bytes(wtree, specs["workers"], w.element_size())
-    flat = argument_bytes([state[k] for k in ("server", "opt", "workers") if k in state])
-    return {"flat_zero1": flat, "param_specs": ref}
+    out["param_specs"] = ref
+    return out
 
 
 def serve_state_bytes(built) -> dict:

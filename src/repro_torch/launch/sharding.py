@@ -243,10 +243,31 @@ def local_numel(shape, spec: Spec, mesh) -> int:
     (each dim cut into as many blocks as its axes have devices, rounded up)."""
     n = 1
     for i, size in enumerate(shape):
-        entry = spec[i] if i < len(spec) else None
-        axes = entry if isinstance(entry, tuple) else (entry,) if entry is not None else ()
-        n *= -(-size // _axes_size(mesh, axes))
+        n *= -(-size // _axes_size(mesh, _dim_axes(spec, i)))
     return n
+
+
+def _dim_axes(spec: Spec, i: int) -> tuple:
+    """The mesh axes ``spec`` puts dim ``i`` on (none past its end)."""
+    entry = spec[i] if i < len(spec) else None
+    return entry if isinstance(entry, tuple) else (entry,) if entry is not None else ()
+
+
+def indivisible(tree, spec_tree, mesh) -> list:
+    """(path, shape, dim, axes, devices) of every dim of ``tree``'s leaves
+    that its spec in ``spec_tree`` puts on mesh axes whose devices do not
+    divide it: a placement JAX refuses as an ``in_shardings`` (the reference's
+    ``param_specs`` checks divisibility for "model" and the FSDP axes, not
+    for the ``worker`` layout's dim 0)."""
+    from ..models import params as P
+    out = []
+    for (path, leaf), (_, spec) in zip(P.leaves_with_path(tree), spec_leaves(spec_tree)):
+        for i, size in enumerate(leaf.shape):
+            axes = _dim_axes(spec, i)
+            n = _axes_size(mesh, axes)
+            if size % n:
+                out.append((path_str(path), tuple(leaf.shape), i, axes, n))
+    return out
 
 
 def placements(spec: Spec, mesh) -> tuple:

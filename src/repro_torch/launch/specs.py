@@ -35,7 +35,9 @@ mesh is not ported the step is split evenly (:func:`train_refusal` names
 why). ``train_act_model_sharded=True`` (the
 reference's ``act_spec = P("model", None, None)`` where a worker's batch
 splits over "model") builds the ``act_spec`` step instead: whole replicas,
-each worker's rows split over "model"; where the reference would drop
+each worker's rows split over "model" (on the hierarchical mesh the
+replicas stay in the rank's blocks, gathered whole for the forward, and the
+rows split over "data" and "model"); where the reference would drop
 ``act_spec`` (the batch does not split over "model") it runs the tensor
 parallel program, the default build, so that request raises. Configs with
 experts route each row block at the worker's whole capacity
@@ -173,15 +175,17 @@ def build(arch_id: str, shape_id: str, mesh, *, downlink_spec: str = "marina:per
         meta = dict(cfg=cfg, W=W, bpw=bpw, split="even", **info)
         d = sum(leaf_sizes(lm.lm_spec(cfg)))
         if train_act_model_sharded:
-            if "wk" in mesh.axis_names:
-                raise ValueError("act_spec on the hierarchical mesh is not ported: its workers' rows split over "
-                                 "'data' there (the count without --train-act-model-sharded)")
             if bpw % mesh.shape["model"]:
                 raise ValueError(f"{bpw} rows a worker do not split over 'model' = {mesh.shape['model']}: "
                                  "the reference drops act_spec there and runs tensor parallelism over "
                                  "'model' (the count without --train-act-model-sharded)")
+            hier = "wk" in mesh.axis_names
+            if hier and bpw % (mesh.shape["data"] * mesh.shape["model"]):
+                raise ValueError(f"{bpw} rows a worker do not split over 'data' x 'model' = "
+                                 f"{mesh.shape['data']} x {mesh.shape['model']} (act_spec on the hierarchical "
+                                 "mesh cuts each worker's rows over both)")
             tcfg = dataclasses.replace(tcfg, act_spec=SH.ACT_SPEC)
-            layout = SH.make_layout(mesh, 0, W, d)
+            layout = SH.make_layout(mesh, 0, W, d, cfg, act=True)
         else:
             refusal = train_refusal(cfg, mesh)
             layout = None

@@ -15,11 +15,12 @@ over ``launch/specs.build``'s specs on a ("data", "model") mesh).
   ``tp`` serving layout's spec). The rank's "model-local" vector is its
   block of every leaf in ravel order, each block raveled (replicated leaves
   whole): ``d_local`` values. MARINA-P's replicas on a rank are [W/D,
-  d_local] of its data index's rows; EF21-P's shift stays whole [d] on
-  every rank (the forward reads its blocks). The master and the moments
-  are ZeRO-1 slices of the model-local vector over "data" (the reference's
+  d_local] of its data index's rows. The master and the moments are
+  ZeRO-1 slices of the model-local vector over "data" (the reference's
   ``server`` layout: "model" first, then the data axes), ``ceil(d_local /
-  D)`` values. The layers run with the rank's
+  D)`` values, and so is EF21-P's shift between steps (``shard_len``
+  values of the replicas' dtype; the step gathers it, the forward reads its
+  blocks). The layers run with the rank's
   :class:`~repro_torch.serve.sharded.ServeShard` under the ``tp`` layout
   (column-parallel products, row-parallel partials summed in fp32, the
   embedding's rows and the vocabulary split over "model", kv heads gathered
@@ -30,14 +31,16 @@ over ``launch/specs.build``'s specs on a ("data", "model") mesh).
   family the reference trains runs so: dense, vlm, audio, moe, ssm, hybrid.
 * Otherwise (data parallelism, and ``act_spec``): a rank holds its data
   index's rows of MARINA-P's replicas [W/D, d] whole (the M ranks of one
-  data index hold the same rows), or EF21-P's shift [d]. The flat server
-  state: D·M contiguous slices of the ravel order, padded with zeros to a
-  multiple of D·M; rank r holds slice r (ZeRO-1). The reference's
+  data index hold the same rows). The flat server state: D·M contiguous
+  slices of the ravel order, padded with zeros to a multiple of D·M; rank r
+  holds slice r (ZeRO-1), and slice r of EF21-P's shift. The reference's
   ``server`` layout shards each leaf over ("data", "model") where
   divisible; the optimizer is elementwise, so the two differ in residency
   only. With ``act_spec = Spec("model", None, None)`` each worker's B rows
   split over the M ranks of its data index: the reference's sharding
   constraint on the hidden states, which it sets only where B % M == 0.
+  The layout carries that choice (``Layout.act``, :func:`make_layout`'s
+  ``act``), and the step reads it there (:func:`check_mode`).
 
 One step on every rank, with the single-process step's arithmetic (the
 helpers of ``train/trainer.py`` that both steps call; this module adds the
@@ -64,10 +67,13 @@ collectives and the slicing):
    gathers its blocks over "model" too, into ravel order);
 6. the downlink on the rank's own rows (``MarinaPDownlink.round_rows``;
    under tensor parallelism on its blocks, perm through
-   ``rotk_apply_rows``' block map; EF21-P's block-TopK on the whole leaves
-   on every rank, since a TopK block of 1024 crosses a column block, as
-   ``core/distributed.py`` runs TopK) and one ``all-reduce`` of MARINA-P's
-   drift over the local rows (each coordinate of each row counted once).
+   ``rotk_apply_rows``' block map) and one ``all-reduce`` of MARINA-P's
+   drift over the local rows (each coordinate of each row counted once);
+   EF21-P's block-TopK on the whole leaves on every rank, since a TopK
+   block of 1024 crosses a column block, as ``core/distributed.py`` runs
+   TopK: its shift's slices were gathered before the forward (over the
+   slice axis, then under tensor parallelism over "model" into [d]), and
+   the rank keeps its slice of the new shift (bit copies).
 
 At one rank the step is ``make_train_step``'s bit for bit. The collectives
 go through a communicator (``launch/comm.py``): :class:`Comm` calls the
@@ -95,7 +101,19 @@ its leaf-by-leaf residency), scales its rows' gradient by 1/D (as
 ``act_spec`` does by 1/M; with experts, the capacity and copy order over
 "data"), and runs the perm downlink on its own block of each leaf through
 ``rotk_apply_rows``' two-level block map; the server's ZeRO-1 slices lie
-over the flattened ("wk", "data") group ("dp"), EF21-P's shift stays whole.
+over the flattened ("wk", "data") group ("dp"), as do EF21-P's shift's.
+With ``act_spec`` there (the reference's ``build`` sets it wherever a
+worker's rows split over "model": all ten train_4k configs on wk4x4x16)
+the state keeps this layout and each worker's B rows split over its D·M
+ranks, block ``fsdp_index * M + model_index`` (data major, as
+``train_batch_spec`` and then the activation constraint cut them): a rank
+gathers its replica row over "data" and then over "model" into [d], runs
+the whole weights on its rows (no tensor parallelism), and returns its
+fp32 gradient [d] to the model-local blocks by a reduce-scatter over
+"model" (every model index's blocks, in block order) before the one over
+"dp"; the scales are 1/(W·D·M). With experts each rank's rows route at the
+worker's capacity, the [E] counts all-gathered over the worker's D·M
+ranks (the communicator's "worker" group).
 
 A column- or row-parallel weight that "model" does not split (the
 reference's ``try_shard`` replicates it) is whole on every rank and counted
@@ -140,7 +158,10 @@ class Layout:
     ``data_size`` indices (pod major); rank r is at (r // M, r % M). On the
     hierarchical mesh ("wk", "data", "model") the workers lie on "wk" and
     each worker's replica and batch rows split over "data" too (``fsdp``:
-    the rank's "data" block of each leaf's model-local block)."""
+    the rank's "data" block of each leaf's model-local block). ``act``:
+    ``act_spec``, each worker's rows split over "model" too and the forward
+    on whole weights (:func:`make_layout`); the step's mode is read here
+    alone."""
 
     mesh: Mesh
     rank: int
@@ -149,6 +170,7 @@ class Layout:
     blocks: Optional[tuple] = None  # tensor parallelism: the rank's LeafBlock of every leaf
     fsdp: Optional[tuple] = None  # hierarchical: the rank's "data" block of each of its model-local blocks
     row_blocks: Optional[tuple] = None  # hierarchical: each leaf's block of a replica row, in the leaf
+    act: bool = False  # act_spec: each worker's rows split over "model" too, whole weights in the forward
 
     def __post_init__(self):
         if tuple(self.mesh.axis_names) not in MESHES:
@@ -162,6 +184,9 @@ class Layout:
         if self.hier and (self.blocks is None or self.fsdp is None or self.row_blocks is None):
             raise ValueError("a hierarchical layout holds the rank's blocks over 'model' and 'data' "
                              "(make_layout(..., cfg=cfg))")
+        if self.act and self.blocks is not None and not self.hier:
+            raise ValueError("act_spec on ('data', 'model') runs on whole replicas: a layout without the "
+                             "rank's blocks")
 
     @property
     def hier(self) -> bool:
@@ -216,10 +241,38 @@ class Layout:
         return self.coords[0] // self.fsdp_size * self.local
 
     @property
-    def tp(self) -> bool:
-        """The rank holds its blocks (tensor parallelism over "model", or the
-        hierarchical mesh's), and the server's slices lie over the data axes."""
+    def blocked(self) -> bool:
+        """The rank holds its blocks (tensor parallelism over "model", or any
+        layout of the hierarchical mesh), and the server's slices lie over
+        the data axes."""
         return self.blocks is not None
+
+    @property
+    def tp(self) -> bool:
+        """Tensor parallelism over "model": the forward runs on the rank's
+        blocks (``ServeShard`` where "model" > 1)."""
+        return self.blocked and not self.act
+
+    @property
+    def row_split(self) -> int:
+        """Blocks each worker's B rows split into, one a rank of its worker:
+        M under ``act_spec``, the "data" size D on the hierarchical mesh, D·M
+        with ``act_spec`` there, else 1."""
+        return self.fsdp_size * (self.model_size if self.act else 1)
+
+    @property
+    def row_axis(self) -> str:
+        """The communicator's group of a worker's :attr:`row_split` ranks:
+        "model" under ``act_spec``, "data" on the hierarchical mesh, "worker"
+        (its D·M ranks, data major) with ``act_spec`` there."""
+        return ("worker" if self.hier else "model") if self.act else "data"
+
+    @property
+    def row_block(self) -> int:
+        """This rank's block of a worker's rows: ``fsdp_index * M +
+        model_index`` under ``act_spec`` (data major, as ``train_batch_spec``
+        and then the activation constraint cut them), else ``fsdp_index``."""
+        return self.fsdp_index * self.model_size + self.coords[1] if self.act else self.fsdp_index
 
     @property
     def d_local(self) -> int:
@@ -242,11 +295,11 @@ class Layout:
     def slices(self) -> int:
         """Ranks the server's flat state is sliced over: the data axis under
         tensor parallelism, else every rank."""
-        return self.data_size if self.tp else self.world
+        return self.data_size if self.blocked else self.world
 
     @property
     def slice_index(self) -> int:
-        return self.coords[0] if self.tp else self.rank
+        return self.coords[0] if self.blocked else self.rank
 
     @property
     def shard_len(self) -> int:
@@ -307,24 +360,24 @@ class Layout:
                     w[b.lo:b.lo + b.size] = 0
         return w
 
-    def local_batch(self, batch: dict, split: int) -> dict:
+    def local_batch(self, batch: dict) -> dict:
         """This rank's rows of a global batch [W, B, ...]: its workers, and
-        under ``act_spec`` (``split`` = M) its model index's B/M rows of
-        each, on the hierarchical mesh (``split`` = its "data" size) its
-        data index's."""
-        m = self.fsdp_index if self.hier else self.coords[1]
+        of each its block :attr:`row_block` of B / :attr:`row_split` rows."""
+        n, m = self.row_split, self.row_block
+        over = {(True, True): f"'data' x 'model' = {self.fsdp_size} x {self.model_size}",
+                (True, False): f"'model' = {n}", (False, True): f"'data' = {n}"}.get((self.act, self.hier))
         out = {}
         for k, v in batch.items():
             if v.shape[0] != self.n_workers:
                 raise ValueError(f"batch[{k!r}] has {v.shape[0]} workers, the layout {self.n_workers}")
-            if v.shape[1] % split:
-                raise ValueError(f"{v.shape[1]} rows a worker do not split over 'model' = {split}: the "
-                                 "reference drops act_spec there (launch/specs.py) and runs tensor "
-                                 "parallelism over 'model' (a layout with the rank's blocks: connect(..., "
-                                 "cfg=cfg) and no act_spec)")
-            b = v.shape[1] // split
+            if v.shape[1] % n:
+                raise ValueError(f"{v.shape[1]} rows a worker do not split over {over}" + (
+                    "" if self.hier else ": the reference drops act_spec there (launch/specs.py) and runs "
+                    "tensor parallelism over 'model' (a layout with the rank's blocks: connect(..., cfg=cfg) "
+                    "and no act_spec)"))
+            b = v.shape[1] // n
             rows = v[self.off:self.off + self.local]
-            out[k] = rows if split == 1 else rows[:, m * b:(m + 1) * b]
+            out[k] = rows if n == 1 else rows[:, m * b:(m + 1) * b]
         return out
 
 
@@ -424,36 +477,43 @@ def fsdp_blocks(cfg: ModelConfig, mesh: Mesh, rank: int) -> tuple:
     return tuple(inner), tuple(rows)
 
 
-def make_layout(mesh: Mesh, rank: int, n_workers: int, d: int, cfg: Optional[ModelConfig] = None) -> Layout:
+def make_layout(mesh: Mesh, rank: int, n_workers: int, d: int, cfg: Optional[ModelConfig] = None,
+                act: bool = False) -> Layout:
     """Rank ``rank``'s :class:`Layout`: with ``cfg``, its blocks where
     "model" > 1 (tensor parallelism over "model") and on the hierarchical
     mesh (its blocks over "data" too, :func:`fsdp_blocks`); leave ``cfg``
-    out for ``act_spec`` or data parallelism."""
+    out for data parallelism. ``act``: the layout of the ``act_spec`` step
+    (the step refuses any other with ``act_spec``), whole replicas on
+    ("data", "model") and on the multi-pod mesh, the same blocks on the
+    hierarchical mesh."""
     hier = "wk" in mesh.axis_names
     if hier and cfg is None:
         raise ValueError("the hierarchical mesh's layout holds the rank's blocks: make_layout(..., cfg=cfg)")
-    tp = cfg is not None and (hier or mesh.shape["model"] > 1)
-    blocks = model_blocks(cfg, mesh, rank) if tp else None
+    blocked = cfg is not None and (hier or (mesh.shape["model"] > 1 and not act))
+    blocks = model_blocks(cfg, mesh, rank) if blocked else None
     fsdp, rows = fsdp_blocks(cfg, mesh, rank) if hier else (None, None)
-    return Layout(mesh, rank, n_workers, d, blocks, fsdp, rows)
+    return Layout(mesh, rank, n_workers, d, blocks, fsdp, rows, act)
 
 
-def connect(mesh: Mesh, n_workers: int, d: int, cfg: Optional[ModelConfig] = None) -> tuple:
+def connect(mesh: Mesh, n_workers: int, d: int, cfg: Optional[ModelConfig] = None, act: bool = False) -> tuple:
     """(this rank's :class:`Layout` (:func:`make_layout`), a :class:`Comm`
     over the default process group and the mesh's groups), which must have
     ``mesh.size`` ranks: the ``DeviceMesh`` of the flattened data axes and
     "model" is built to check it, and gives this rank's coordinates and the
     groups "data" (the flattened data axes; on the hierarchical mesh "dp",
-    and "wk" and "data" its own axes) and "model"."""
+    "wk" and "data" its own axes, and "worker" the D·M ranks of a worker)
+    and "model"."""
     rank = dist.get_rank()
-    layout = make_layout(mesh, rank, n_workers, d, cfg)
+    layout = make_layout(mesh, rank, n_workers, d, cfg, act)
     dm = Mesh(("data", "model"), (layout.data_size, layout.model_size)).device_mesh(device_type())
     if tuple(dm.get_coordinate()) != layout.coords:
         raise RuntimeError(f"rank {layout.rank}: DeviceMesh coordinate {dm.get_coordinate()} "
                            f"!= {layout.coords}")
     groups = mesh_groups(dm)
-    if layout.hier:
-        groups = dict(mesh_groups(mesh.device_mesh(device_type())), dp=groups["data"])
+    if layout.hier:  # and a worker's D·M ranks, data major (act_spec's row blocks)
+        worker = Mesh(("wk", "worker"), (layout.worker_size, layout.fsdp_size * layout.model_size))
+        groups = dict(mesh_groups(mesh.device_mesh(device_type())), dp=groups["data"],
+                      worker=mesh_groups(worker.device_mesh(device_type()))["worker"])
     return layout, Comm(groups)
 
 
@@ -466,9 +526,10 @@ def shard_state(full: dict, layout: Layout) -> dict:
     """This rank's share of a single-process train state (``trainer.init_state``'s,
     or the reference's through ``convert.train_state_from_numpy``): the
     server's and the optimizer's [d] vectors sliced (under tensor
-    parallelism their model-local vectors), MARINA-P's replicas [W, d] cut
-    to the rank's rows (and blocks), EF21-P's shift and the counters as
-    they are (copies: the rank's state shares no storage with ``full``)."""
+    parallelism their model-local vectors), and EF21-P's shift [d] as the
+    master (``shard_len`` values of its dtype), MARINA-P's replicas [W, d]
+    cut to the rank's rows (and blocks), the counters as they are (copies:
+    the rank's state shares no storage with ``full``)."""
     d = layout.d
 
     def flat(t):
@@ -479,8 +540,7 @@ def shard_state(full: dict, layout: Layout) -> dict:
     out["opt"] = {k: flat(v) for k, v in full["opt"].items()}
     if "workers" in full:
         w = full["workers"]
-        rows = w[layout.off:layout.off + layout.local] if w.dim() == 2 else None
-        out["workers"] = w.clone() if rows is None else layout.rank_local(rows).clone()
+        out["workers"] = flat(w) if w.dim() == 1 else layout.rank_local(w[layout.off:layout.off + layout.local]).clone()
     return out
 
 
@@ -500,7 +560,7 @@ def gather_state(state: dict, layout: Layout, comm: Comm) -> dict:
         if not (isinstance(t, torch.Tensor) and t.dim() == 1):
             return t
         g = gather(t)
-        if not layout.tp:
+        if not layout.blocked:
             return g.reshape(-1)[:d].clone()
         return layout.whole(g.movedim(1, 0).reshape(M, -1)[:, :layout.d_local])
 
@@ -509,12 +569,12 @@ def gather_state(state: dict, layout: Layout, comm: Comm) -> dict:
     out["opt"] = {k: flat(v) for k, v in state["opt"].items()}
     if "workers" in state:
         w = state["workers"]
-        if w.dim() == 1:
-            out["workers"] = w.clone()
+        if w.dim() == 1:  # EF21-P's shift: slices, as the master
+            out["workers"] = flat(w)
         elif layout.hier:  # [wk, data, M, local, d_rank]: each worker's data blocks, then its model blocks
             g = gather(w).reshape(layout.worker_size, layout.fsdp_size, M, *w.shape).movedim(1, 0)
             out["workers"] = layout.whole(join(g, layout.fsdp).movedim(1, 0)).reshape(layout.n_workers, d)
-        elif layout.tp:  # [D, M, local, d_local]: each data index's rows from its M blocks
+        elif layout.blocked:  # [D, M, local, d_local]: each data index's rows from its M blocks
             out["workers"] = layout.whole(gather(w).movedim(1, 0)).reshape(layout.n_workers, d)
         else:  # the model index 0 rank of each data index
             out["workers"] = gather(w)[:, 0].reshape(layout.n_workers, d).clone()
@@ -544,32 +604,25 @@ def check_tensor_parallel(cfg: ModelConfig, layout: Layout) -> None:
     SS.check_ported(cfg, "the train step's tensor parallelism over 'model' (the reference's worker layout)")
 
 
-def row_split(cfg: ModelConfig, tcfg, layout: Layout) -> int:
-    """How many row blocks each worker's batch splits into: M under
-    ``act_spec = Spec("model", None, None)``, the "data" size on the
-    hierarchical mesh, else 1. Raises where the port has no counterpart of
-    the reference's program."""
-    M = layout.model_size
-    if layout.hier:
-        if tcfg.act_spec is not None:
-            raise ValueError("act_spec on the hierarchical mesh is not ported: its workers' rows split over "
-                             "'data' there")
-        if M > 1:
-            check_tensor_parallel(cfg, layout)
-        return layout.fsdp_size
-    if tcfg.act_spec is None:
-        if M > 1 and not layout.tp:
-            raise ValueError(f"a mesh with 'model' = {M} and no act_spec is tensor parallelism over 'model' "
-                             "(the worker layout's inner dims): its layout holds the rank's blocks "
-                             "(connect(..., cfg=cfg), model_blocks)")
-        if layout.tp:
-            check_tensor_parallel(cfg, layout)
-        return 1
-    if layout.tp:
-        raise ValueError("act_spec runs on whole replicas: a layout without the rank's blocks")
-    if tuple(tcfg.act_spec) != tuple(ACT_SPEC):
+def check_mode(cfg: ModelConfig, tcfg, layout: Layout) -> None:
+    """Raise where the port has no counterpart of the reference's program,
+    or where ``tcfg.act_spec`` and the layout's mode (``Layout.act``)
+    disagree: ``act_spec = Spec("model", None, None)`` runs on a layout made
+    for it (:func:`make_layout`'s ``act``), and tensor parallelism over
+    "model" on one with the rank's blocks."""
+    M, act = layout.model_size, tcfg.act_spec is not None
+    if act and tuple(tcfg.act_spec) != tuple(ACT_SPEC):
         raise ValueError(f"act_spec {tcfg.act_spec}: the sharded step realizes {ACT_SPEC} only")
-    return M
+    if act != layout.act:
+        raise ValueError(f"act_spec {tcfg.act_spec} on a layout made with act={layout.act}: act_spec runs on "
+                         "the layout made for it (make_layout / connect(..., act=True): whole replicas on "
+                         "('data', 'model'), the rank's blocks on the hierarchical mesh)")
+    if M > 1 and not act and not layout.blocked:
+        raise ValueError(f"a mesh with 'model' = {M} and no act_spec is tensor parallelism over 'model' "
+                         "(the worker layout's inner dims): its layout holds the rank's blocks "
+                         "(connect(..., cfg=cfg), model_blocks)")
+    if layout.tp and (M > 1 or not layout.hier):
+        check_tensor_parallel(cfg, layout)
 
 
 def make_sharded_train_step(cfg: ModelConfig, tcfg, downlink, optimizer: Optimizer, lr_fn: Callable,
@@ -585,32 +638,43 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg, downlink, optimizer: Optimiz
     W = tcfg.n_workers
     if (layout.d, layout.n_workers) != (d, W):
         raise ValueError(f"layout of {layout.n_workers} workers x d={layout.d}, model {W} x d={d}")
-    split = row_split(cfg, tcfg, layout)
+    check_mode(cfg, tcfg, layout)
+    split = layout.row_split
     fwd_kw = dict(chunk=tcfg.attn_chunk, remat=tcfg.remat, window_override=tcfg.window_override,
                   remat_policy=tcfg.remat_policy)
-    tp = layout.tp
-    if tp and layout.model_size > 1:
+    M = layout.model_size
+    if layout.tp and M > 1:
         fwd_kw["tp"] = SS.ServeShard(cfg, SS.ServeLayout(layout.mesh, layout.rank, "tp"), comm)
+    # the state in the rank's blocks, the forward on whole weights (act_spec on the hierarchical mesh)
+    gathered = layout.blocked and not layout.tp
     plan = trainer.participation_plan(tcfg)
     lo, local, D, m = layout.off, layout.local, layout.data_size, layout.coords[1]
-    slice_axis = layout.slice_axis if tp else None  # the server's slices lie over it
-    # a worker's rows split over "model" (act_spec) or over "data" (the hierarchical mesh)
-    row_axis, row_index = ("data", layout.fsdp_index) if layout.hier else ("model", m)
+    slice_axis = layout.slice_axis if layout.blocked else None  # the server's slices lie over it
+    # every model index's blocks: the order of the gradient's reduce-scatter over "model"
+    blocks_of = [model_blocks(cfg, layout.mesh, j) for j in range(M)] if gathered and M > 1 else None
     once = {}  # (device, rows) -> the coordinates' weights (each counted once over the worker's ranks)
 
     def gather(shard):
         """The model-local vector (the whole [d] without blocks) from the slices."""
-        if tp and D == 1:
+        if layout.blocked and D == 1:
             return shard[:layout.d_local]
         full = shard.new_empty(layout.padded)
         comm.all_gather(full, shard, slice_axis)
         return full[:layout.d_local]
 
     def whole(x_local):
-        """[d] from the model index's model-local vectors (EF21-P)."""
-        parts = x_local.new_empty(layout.model_size * layout.d_local)
-        comm.all_gather(parts, x_local, "model")
-        return layout.whole(parts.reshape(layout.model_size, -1))
+        """[..., d] from the model indices' model-local vectors [..., d_local]
+        (one all-gather over "model", bit copies)."""
+        parts = x_local.new_empty(M * x_local.numel())
+        comm.all_gather(parts, x_local.reshape(-1), "model")
+        return layout.whole(parts.reshape(M, *x_local.shape))
+
+    def to_blocks(grads):
+        """The model-local sum over "model" [d_local] of the ranks' fp32
+        gradients [d]: every model index's blocks, in block order, one
+        reduce-scatter."""
+        parts = torch.cat([cut(grads, b) for b in blocks_of])
+        return comm.reduce_scatter(grads.new_empty(layout.d_local), parts, "model")
 
     def counted_once(device, rows=False):
         """[d_local] (a slice's coordinates), or with ``rows`` [d_rank] (a replica
@@ -636,8 +700,8 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg, downlink, optimizer: Optimiz
         a worker's rows split over (in order): one int32 all-gather of the
         [E] counts over it."""
         every = torch.empty(split, counts.shape[0], dtype=torch.int32, device=counts.device)
-        comm.all_gather(every, counts.to(torch.int32)[None].contiguous(), row_axis)
-        return every[:row_index].sum(0)
+        comm.all_gather(every, counts.to(torch.int32)[None].contiguous(), layout.row_axis)
+        return every[:layout.row_block].sum(0)
 
     # a worker's rows split: an moe call is one of its row blocks, at the worker's capacity and copy order
     routed = (lambda: moe.split_rows(split, copies_before)) if split > 1 and cfg.moe else contextlib.nullcontext
@@ -646,28 +710,38 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg, downlink, optimizer: Optimiz
         draws = draws if draws is not None else DownlinkDraws()
         shard = state["server"]
         # ---- workers: forward/backward on their own replica -------------------
-        if tp and isinstance(downlink, EF21PDownlink):
-            rows = [layout.model_local(state["workers"])] * local  # the shift's blocks
+        ef21p = isinstance(downlink, EF21PDownlink)
+        if ef21p:  # the shift's slices gathered: its model-local vector (for whole weights, [d])
+            shift = gather(state["workers"])
+            shift = whole(shift) if gathered else shift
+            rows = [shift] * local
         elif layout.hier and downlink is not None:
-            rows = list(replicas(state["workers"]))
+            rows = replicas(state["workers"])
+            rows = list(whole(rows) if gathered else rows)
         else:
-            rows = trainer.replica_rows(downlink, state, gather(shard) if downlink is None else None, local)
+            x = gather(shard) if downlink is None else None
+            rows = trainer.replica_rows(downlink, state, whole(x) if gathered and x is not None else x, local)
         participate, weights = trainer.participation_weights(plan, draws, W, state["step"], shard.device)
         with routed():
-            losses, grads = trainer.worker_grad_sum(cfg, spec, fwd_kw, rows, layout.local_batch(batch, split),
-                                                    lo, weights)
+            losses, grads = trainer.worker_grad_sum(cfg, spec, fwd_kw, rows, layout.local_batch(batch), lo,
+                                                    weights)
         # ---- uplink: this rank's slice of the aggregate ----------------------------
+        if blocks_of is not None:
+            grads = to_blocks(grads)
         if layout.padded > layout.d_local:
             grads = F.pad(grads, (0, layout.padded - layout.d_local))
-        g = grads if tp and D == 1 else comm.reduce_scatter(grads.new_empty(layout.shard_len), grads, slice_axis)
+        g = (grads if layout.blocked and D == 1
+             else comm.reduce_scatter(grads.new_empty(layout.shard_len), grads, slice_axis))
         if participate is None:
             g.mul_(1.0 / (W * split))  # jnp.mean: XLA multiplies by the reciprocal
         elif split > 1:
             g.mul_(1.0 / split)
         scalars = torch.zeros(W + 1, device=shard.device)
-        if not tp or m == 0:  # a worker's loss once: the M ranks of its data index hold the same
+        # a worker's loss once: under tensor parallelism the M ranks of its data index hold the same
+        if not layout.tp or m == 0:
             scalars[lo:lo + local] = losses if split == 1 else losses / split
-        scalars[W] = torch.sum(g * g) if not tp else torch.sum(g * g * layout.shard(counted_once(g.device)))
+        scalars[W] = (torch.sum(g * g * layout.shard(counted_once(g.device))) if layout.blocked
+                      else torch.sum(g * g))
         comm.all_reduce(scalars)
         losses, gnorm_sq = scalars[:W], scalars[W]
         loss = torch.mean(losses) if participate is None else torch.sum(weights * losses)
@@ -677,16 +751,18 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg, downlink, optimizer: Optimiz
         new_state, metrics = trainer.step_outputs(state, d, shard_new, opt_new, loss, gnorm_sq, lr,
                                                   participate)
         # ---- downlink: the rank's rows ------------------------------------------------
-        if isinstance(downlink, EF21PDownlink):
-            x_new = whole(gather(shard_new)) if tp else gather(shard_new)
-            workers_new, bits = downlink.round(draws, sizes, x_new, state["workers"], force_sync)
-            drift = downlink.worker_drift(x_new, workers_new)
+        if ef21p:  # on the whole leaves; the rank keeps its slice of the new shift
+            x_new = whole(gather(shard_new)) if layout.blocked else gather(shard_new)
+            shift = whole(shift) if layout.tp else shift
+            shift_new, bits = downlink.round(draws, sizes, x_new, shift, force_sync)
+            drift = downlink.worker_drift(x_new, shift_new)
+            workers_new = layout.shard(layout.model_local(shift_new))
         elif downlink is not None:
             x_new = layout.fsdp_local(gather(shard_new))
             delta = None if (draws.coin or force_sync) else layout.fsdp_local(gather(shard_new - shard))
             workers_new, bits = downlink.round_rows(draws, sizes, x_new, delta, state["workers"], lo,
                                                     force_sync, layout.rank_blocks)
-            if tp:  # every rank its blocks of its rows, a leaf it shares counted by one of its holders
+            if layout.blocked:  # every rank its blocks of its rows, a shared leaf counted by one of its holders
                 part = (((workers_new.float() - x_new.float()) ** 2) * counted_once(x_new.device, True)).sum()
             else:  # the M ranks of a data index hold the same rows: the first one counts them
                 part = downlink.drift_sum(x_new, workers_new)

@@ -31,7 +31,11 @@ blocks), and for the loss the larger of that and :func:`loss_floor` (the
 distance one rounding of the logits makes). Measured with the smoke gemma-2b on 4 CPU
 ranks at (1, 4) and (2, 2): loss 1.4e-5-4.3e-5 (floor 8.8e-5-1.9e-4), g
 6.5e-3, grad_norm 8.3e-4, the master 2.0 lr with 1.5e-3 past 0.1 lr.
-MARINA-P's replicas are held to W times the master's bound (a kept
+Under ``act_spec`` on the hierarchical mesh no tensor parallelism runs, and
+each worker's rows split into D·M blocks, one a rank: there the floor is the
+single process with each worker's rows in those blocks (:func:`row_blocks`),
+since one such split alone moves the smoke gemma-2b's g by 1.2e-2, past
+``ACT_BOUNDS``. MARINA-P's replicas are held to W times the master's bound (a kept
 coordinate adds W times the master's delta) plus one bf16 ulp of their
 largest value; EF21-P's shift bit for bit to the downlink of the ranks' own
 gathered x^{t+1} (TopK's near-ties follow its last bit); the counters
@@ -39,6 +43,7 @@ exactly.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -65,6 +70,12 @@ WORST_KEYS = ("loss", "g", "server_lr", "bulk", "rows_lr", "norms")
 
 
 FLOOR_FACTOR = 1.5  # tensor parallelism's bounds: at most this times the run's own floor
+# act_spec on the hierarchical mesh: the sharded step from its floor, the same arithmetic in one process (its
+# fp32 gradients summed in another order): loss, g, grad norm and bulk. Smoke gemma-2b and deepseek-v2 on the
+# CPU at (1, 2, 2) and (2, 1, 2): the port reads 4.8e-7, 6.8e-10, 1.3e-7 and 0; with the gradient's
+# reduce-scatter over "model" in bf16 (one more rounding) g reads 2.3e-3-3.4e-3, the grad norm 2.1e-4-6.6e-4
+# and bulk 4.5e-4-8.0e-4, while the bounds against the single process (ACT_BOUNDS or 1.5x the floor) hold it
+GAP_BOUNDS = (1e-5, 2**-12, 1e-5, 1e-4)
 
 # smoke configs with product weights that "model" = 4 does not split, whose tensor-parallel step reads them
 # whole (tests/test_torch_train_whole.py, chip_smoke.py (w2)), by "arch@variant" (:func:`variant`):
@@ -121,6 +132,32 @@ class OneRank(SS.ServeShard):
             part = SS._RowMm.apply(xi, wi) if torch.is_grad_enabled() else P.mm_f32(xi, wi)
             out = part if out is None else out + part
         return out.to(x.dtype)
+
+
+@contextlib.contextmanager
+def row_blocks(n: int):
+    """Inside, ``trainer.worker_value_and_grad`` runs a worker's batch as
+    ``n`` contiguous row blocks and returns the mean of their losses and of
+    their fp32 gradients: the arithmetic of a step whose ranks split each
+    worker's rows (``act_spec`` on the hierarchical mesh), in one process,
+    :func:`hold`'s floor there. Each block's bf16 weight gradient is its own
+    product, rounded once; the smoke gemma-2b's g moves 1.2e-2 between 4
+    rows at once and 2 or 4 blocks of them (CPU, one evaluation)."""
+    real = trainer.worker_value_and_grad
+
+    def split(cfg, spec, fwd_kw, row, shard):
+        b = next(iter(shard.values())).shape[0] // n
+        loss, grad = None, None
+        for j in range(n):
+            lj, gj = real(cfg, spec, fwd_kw, row, {k: v[j * b:(j + 1) * b] for k, v in shard.items()})
+            loss, grad = (lj, gj) if grad is None else (loss + lj, grad.add_(gj))
+        return loss / n, grad.mul_(1.0 / n)
+
+    trainer.worker_value_and_grad = split
+    try:
+        yield
+    finally:
+        trainer.worker_value_and_grad = real
 
 
 def bounds(split: bool) -> tuple:
@@ -195,7 +232,8 @@ def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Comm, *, batch_rows: int,
-             seq: int, device, steps: int = 3, forced: bool = False, check_rank=None, draw_seed: int = 11) -> dict:
+             seq: int, device, steps: int = 3, forced: bool = False, check_rank=None, draw_seed: int = 11,
+             progress=None) -> dict:
     """``steps`` teacher-forced steps of the sharded step under downlink
     ``spec`` (``tcfg`` as the sharded step takes it; the single-process step
     runs it without ``act_spec``) on a [W, batch_rows, seq] synthetic batch
@@ -207,29 +245,41 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
     forced sync, a compressed round). Returns {"worst": the largest distances
     (:data:`WORST_KEYS`), "moved": the last step's bytes by kind, "wmax":
     the replicas' largest |value|, "launches": the sharded steps' kernel
-    launches, "compressed": the steps that were no sync, "floor": under
-    tensor parallelism the single process's own floor, each distance's
+    launches, "compressed": the steps that were no sync, "floor": where the
+    rank holds its blocks the single process's own floor, each distance's
     largest over the steps (:data:`WORST_KEYS`; see :func:`hold`), else
-    None}. ``check_rank``: only that rank runs the single-process steps,
+    None, "floor_gap": under ``act_spec`` on the hierarchical mesh the
+    step's own distances from that floor (:data:`GAP_BOUNDS`), else None}.
+    ``check_rank``: only that rank runs the single-process steps,
     the floor and the comparisons (of the gathered state, which holds every
     rank's share), and the others report zeros; between steps it
     broadcasts the single-process state that teacher-forces the next one
     (:func:`share_state`). One step holds the whole state on that rank
     alone, for a model whose whole state a card holds once, not on every
-    rank."""
+    rank. "shift_bytes" in the result: EF21-P's shift at rest on the rank
+    (its ``shard_len`` slice), else None. ``progress(what)``, where given,
+    is called at each part of the setup and of each step (where a group
+    that waits, waits)."""
     if check_rank is not None and not 0 <= check_rank < layout.world:
         raise ValueError(f"check_rank {check_rank} outside a mesh of {layout.world} ranks")
     mine = check_rank is None or layout.rank == check_rank
+    mark = progress or (lambda what: None)
+    mark("setup: the steps")
     W = layout.n_workers
     sizes = P.leaf_sizes(lm.lm_spec(cfg))
     dl, opt = D.make_downlink(spec, W), make_optimizer("adamw", weight_decay=0.01)
     whole = dataclasses.replace(tcfg, act_spec=None)
     single = trainer.make_train_step(cfg, whole, dl, opt, constant_lr(LR))
-    if layout.tp:  # the single process with the tensor-parallel arithmetic at one rank: the floor
-        exact = trainer.make_train_step(cfg, whole, dl, opt, constant_lr(LR), tp=OneRank(cfg, layout.model_size))
+    # the floor, where the rank holds its blocks: the single process with the sharded step's arithmetic in
+    # one process, the tensor-parallel one at one rank, or (whole weights) each worker's rows in the ranks' blocks
+    floor_rows = layout.row_split if layout.blocked and not layout.tp else 1
+    if layout.blocked:
+        exact = trainer.make_train_step(cfg, whole, dl, opt, constant_lr(LR),
+                                        tp=OneRank(cfg, layout.model_size) if layout.tp else None)
     step = SH.make_sharded_train_step(cfg, tcfg, dl, opt, constant_lr(LR), layout, comm)
     counter = SH.CountingComm()
     metastep = SH.make_sharded_train_step(cfg, tcfg, dl, opt, constant_lr(LR), layout, counter)
+    mark("setup: the states")
     meta_state = SH.init_state(cfg, tcfg, dl, opt, layout, device="meta")
     plan = trainer.participation_plan(tcfg)
     state = trainer.init_state(cfg, tcfg, dl, opt, device=device, seed=1)
@@ -239,7 +289,9 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
     worst, moved, launches, compressed = [0.0] * len(WORST_KEYS), {}, {}, 0
     counts = {}  # (sync round, forced sync) -> the meta count's (bytes the counter tallied, collectives)
     floor = [0.0] * len(WORST_KEYS)
+    gap = [0.0] * len(WORST_KEYS) if floor_rows > 1 else None  # the sharded step from its floor (whole weights)
     for i in range(steps):
+        mark(f"step {i}: the state")
         if check_rank is not None and i:
             state = share_state(state if mine else None, check_rank)
         batch = data.batch(i)
@@ -251,6 +303,7 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
         sp = SH.shard_state(state, layout)
         if not mine:
             state = None
+        mark(f"step {i}: gather_state")
         back = SH.gather_state(sp, layout, aux)
         if mine:
             pairs = [(back["server"], state["server"]), (back["opt"]["m"], state["opt"]["m"]),
@@ -261,11 +314,13 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
                 raise AssertionError(f"{spec} step {i}: gather_state(shard_state(state)) != state")
         del back
         before, l0 = dict(comm.bytes), runtime.LAUNCHES.copy()
+        mark(f"step {i}: the sharded step")
         sp, m2 = step(sp, batch, draws, force)
         for k, v in runtime.LAUNCHES.items():  # the sharded step's own launches
             if v - l0.get(k, 0):
                 launches[k] = launches.get(k, 0) + v - l0.get(k, 0)
         moved = {k: v - before.get(k, 0) for k, v in comm.bytes.items()}
+        mark(f"step {i}: the count on meta")
         if (draws.coin, force) not in counts:  # the count on meta depends on the round's kind alone
             mdraws = D.DownlinkDraws(coin=True) if draws.coin else compressed_draws(dl, sizes)
             if not plan.is_full:
@@ -279,17 +334,18 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
         if not moved == counted == coll:
             raise AssertionError(f"{spec} step {i}: bytes handed to the group {moved} != counted {counted} "
                                  f"(op count {coll})")
+        mark(f"step {i}: the checks")
         if not mine:
             SH.gather_state(sp, layout, aux)  # the others' part of the check's gather
             continue
         new, m1 = single(state, batch, draws, force)
-        if layout.tp:
-            nf, mf = exact(state, batch, draws, force)
+        if layout.blocked:
+            with row_blocks(floor_rows) if floor_rows > 1 else contextlib.nullcontext():
+                nf, mf = exact(state, batch, draws, force)
             got_f = compare(nf, new, mf, m1, state, new.get("workers"))
             got_f[0] = max(got_f[0], loss_floor(cfg, trainer.replica_rows(dl, state, state["server"], W), batch,
                                                 chunk=tcfg.attn_chunk, window_override=tcfg.window_override))
             floor = [max(a, b) for a, b in zip(floor, got_f)]
-            del nf, mf
         full = SH.gather_state(sp, layout, aux)
         rows = new.get("workers")
         if isinstance(dl, D.EF21PDownlink):
@@ -298,16 +354,85 @@ def run_case(cfg, tcfg, spec: str, layout: SH.Layout, comm: SH.Comm, aux: SH.Com
                 raise AssertionError(f"{spec} step {i}: the shift != the downlink of the ranks' own x^(t+1)")
         got = compare(full, new, m2, m1, state, rows)
         worst = [max(a, b) for a, b in zip(worst, got)]
+        if gap is not None:  # the floor is this step's arithmetic in one process
+            gap = [max(a, b) for a, b in zip(gap, compare(full, nf, m2, mf, state, nf.get("workers")))]
         state = new
         del full, rows
+        if layout.blocked:
+            del nf, mf
     if sp["server"].shape != (layout.shard_len,):
         raise AssertionError(f"a rank's master slice {tuple(sp['server'].shape)}, not ({layout.shard_len},)")
     if "workers" in sp and sp["workers"].dim() == 2 and sp["workers"].shape != (layout.local, layout.d_rank):
         raise AssertionError(f"a rank's replicas {tuple(sp['workers'].shape)}, not ({layout.local}, "
                              f"{layout.d_rank})")
+    shift_bytes = None
+    if isinstance(dl, D.EF21PDownlink):  # the shift at rest: the rank's slice, as the master
+        if sp["workers"].shape != (layout.shard_len,):
+            raise AssertionError(f"a rank's EF21-P shift {tuple(sp['workers'].shape)}, not ({layout.shard_len},)")
+        shift_bytes = sp["workers"].numel() * sp["workers"].element_size()
     wmax = float(state["workers"].float().abs().max()) if mine and "workers" in state else 0.0
     return {"worst": worst, "moved": moved, "wmax": wmax, "launches": launches,
-            "floor": floor if layout.tp else None, "compressed": compressed}
+            "floor": floor if layout.blocked else None, "floor_gap": gap, "compressed": compressed,
+            "shift_bytes": shift_bytes}
+
+
+def routes_case(cfg, layout: SH.Layout, comm: SH.Comm, n_workers: int, rows: int = 2, *, device, seq: int = 64,
+                chunk: int = 32, check_rank: int = 0):
+    """The routes of every moe call of one ``act_spec`` step (marina:perm, a
+    sync round) from seed 1's state on a [W, ``rows``, ``seq``] synthetic
+    batch, every rank calling it: each rank's (expert ids, kept copies,
+    capacity) gathered to ``check_rank``, its row blocks' pieces put together
+    in block order (:attr:`~.sharded.Layout.row_block`: a worker's rows over
+    "model", on the hierarchical mesh over "data" and "model") and held
+    against the single process's step (a worker's calls in order: its
+    forward's, then remat's recomputation). Returns, on ``check_rank``,
+    {"calls", "equal", "dropped", "copies"} (the single process's calls,
+    whether every piece equals them, its dropped and routed copies); None
+    elsewhere."""
+    from ..models import moe as MOE
+
+    recs, real = [], MOE._group_by_expert
+
+    def recorded(expert_ids, num_experts, capacity, before=None):
+        slot, keep = real(expert_ids, num_experts, capacity, before)
+        recs.append((expert_ids.cpu().clone(), keep.cpu().clone(), capacity))
+        return slot, keep
+
+    W = n_workers
+    tcfg = trainer.TrainerConfig(n_workers=W, attn_chunk=chunk, act_spec=SH.ACT_SPEC)
+    dl, opt = D.make_downlink("marina:perm", W), make_optimizer("adamw")
+    state = trainer.init_state(cfg, tcfg, dl, opt, device=device, seed=1)
+    batch = SyntheticLMData(cfg, W, rows, seq, device=str(device)).batch(0)
+    split = layout.row_split
+    MOE._group_by_expert = recorded
+    try:
+        step = SH.make_sharded_train_step(cfg, tcfg, dl, opt, constant_lr(LR), layout, comm)
+        step(SH.shard_state(state, layout), batch, D.DownlinkDraws(coin=True))
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (layout.off, layout.row_block, list(recs)))
+        if layout.rank != check_rank:
+            return None
+        del recs[:]
+        single = trainer.make_train_step(cfg, dataclasses.replace(tcfg, act_spec=None), dl, opt, constant_lr(LR))
+        single(state, batch, D.DownlinkDraws(coin=True))
+    finally:
+        MOE._group_by_expert = real
+    per = len(recs) // W
+    pieces = {}
+    for off, block, mine in every:
+        for k, rec in enumerate(mine):
+            pieces.setdefault((off + k // per, k % per), {})[block] = rec
+    equal = len(pieces) == len(recs) > 0
+    for (w, c), by_block in pieces.items():
+        equal = equal and sorted(by_block) == list(range(split))
+        if not equal:
+            break
+        want = recs[w * per + c]
+        equal = (torch.equal(torch.cat([by_block[m][0] for m in range(split)]), want[0])
+                 and torch.equal(torch.cat([by_block[m][1] for m in range(split)]), want[1])
+                 and all(by_block[m][2] == want[2] for m in range(split)))
+    return {"calls": len(recs), "equal": equal, "dropped": sum(int((~k).sum()) for _, k, _ in recs),
+            "copies": sum(k.numel() for _, k, _ in recs)}
 
 
 def share_state(state, src: int):
@@ -344,7 +469,12 @@ def hold(name: str, res: dict, bnds: tuple, n_workers: int) -> None:
     master's bound plus one bf16 ulp of their largest value; under tensor
     parallelism (a ``floor`` in ``res``) each number within
     :data:`FLOOR_FACTOR` times the single process's own floor where that is
-    wider."""
+    wider; and a ``floor_gap`` within :data:`GAP_BOUNDS`."""
+    if res.get("floor_gap") is not None:
+        gap = dict(zip(WORST_KEYS, res["floor_gap"]))
+        if any(gap[k] > b for k, b in zip(("loss", "g", "norms", "bulk"), GAP_BOUNDS)):
+            raise AssertionError(f"{name}: the step from its floor {gap} outside {GAP_BOUNDS} (loss, g, norms, "
+                                 "bulk)")
     loss_b, g_b, gnorm_b, server_b, bulk_b = bnds
     if res.get("floor") is not None:
         f = dict(zip(WORST_KEYS, res["floor"]))

@@ -152,6 +152,53 @@ def test_state_bytes_of_both_layouts(smoke):
     assert sb["param_specs"] >= 3 * 4 * server
 
 
+def _ef21p_step_count(cfg, names, shape, act, spec="ef21p:16:64"):
+    """The collectives a CountingComm tallies in one compressed step of rank
+    0 on ``names`` / ``shape`` (W = 2, 4 rows of 64 a worker, bf16
+    replicas), and its layout."""
+    from repro_torch.data import batch_specs
+    from repro_torch.optim import constant_lr, make_optimizer
+    from repro_torch.train import TrainerConfig, make_downlink
+
+    d = sum(P.leaf_sizes(lm.lm_spec(cfg)))
+    mesh = Mesh(names, shape)
+    tcfg = TrainerConfig(n_workers=2, attn_chunk=32, weight_dtype=torch.bfloat16,
+                         act_spec=SH.ACT_SPEC if act else None)
+    lay = SH.make_layout(mesh, 0, 2, d, cfg, act=act)
+    dl, opt, comm = make_downlink(spec, 2), make_optimizer("adamw"), SH.CountingComm()
+    step = SH.make_sharded_train_step(cfg, tcfg, dl, opt, constant_lr(1e-3), lay, comm)
+    batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in batch_specs(cfg, 2, 4, 64).items()}
+    step(SH.init_state(cfg, tcfg, dl, opt, lay, device="meta"), batch,
+         specs.compressed_draws(dl, P.leaf_sizes(lm.lm_spec(cfg))))
+    return dict(comm.bytes), lay
+
+
+@pytest.mark.parametrize("names,shape,act", [(("data", "model"), (2, 2), True), (("data", "model"), (1, 4), False),
+                                             (("data", "model"), (2, 2), False),
+                                             (("wk", "data", "model"), (1, 2, 2), True)],
+                         ids=["2x2-act", "1x4-tp", "2x2-tp", "1x2x2-hier-act"])
+def test_ef21p_shift_gathers_are_counted(names, shape, act):
+    """EF21-P's step gathers its shift's slices (bf16, 2 bytes a value) over
+    the slice axis (none where one rank holds the whole model-local vector)
+    and, where the rank holds its blocks (tensor parallelism, or act_spec on
+    the hierarchical mesh), over "model" into [d], beside x^{t+1}'s (fp32):
+    counted by the communicator. Without tensor parallelism in the layers the step's
+    all-gathers are exactly those; with it, EF21-P's exceed the compressed
+    perm step's (x^{t+1} and the fp32 delta over the slice axis, the same
+    layers) by exactly the shift's and x^{t+1}'s gathers over "model" less
+    the delta's."""
+    cfg = configs.get_smoke("gemma-2b")
+    coll, lay = _ef21p_step_count(cfg, names, shape, act)
+    slices = lay.slices > 1  # a gather over the slice axis
+    whole = lay.model_size * lay.d_local if lay.blocked else 0  # a gather over "model" into [d]
+    if not lay.tp:
+        assert coll["all-gather"] == (4 + 2) * (lay.padded * slices + whole)
+    else:
+        perm, _ = _ef21p_step_count(cfg, names, shape, act, spec="marina:perm")
+        assert coll["all-gather"] - perm["all-gather"] == (2 - 4) * lay.padded * slices + (4 + 2) * whole
+    assert coll["all-reduce"] >= 4 * (2 + 1)  # the W losses and ||g||^2
+
+
 def test_local_numel():
     mesh = Mesh(("data", "model"), (4, 2))
     assert sharding.local_numel((8, 6), sharding.Spec("data", "model"), mesh) == 2 * 3
@@ -163,21 +210,32 @@ def test_local_numel():
 @pytest.mark.parametrize("arch,shape,match", [("deepseek-v2-236b", "train_4k", "hierarchical"),
                                               ("gemma-2b", "tp", "tensor parallelism")])
 def test_build_refuses_what_is_not_ported(smoke, monkeypatch, arch, shape, match):
-    """act_spec on the hierarchical mesh, with experts too (act_spec with
-    experts on ("data", "model") is ported: tests/test_torch_train_act_moe.py);
-    a batch that does not split over "model" (the reference drops act_spec
-    and runs tensor parallelism)."""
+    """A batch that does not split over "model" is refused (the reference
+    drops act_spec and runs tensor parallelism). act_spec on the
+    hierarchical mesh, with experts too, is ported
+    (tests/test_torch_train_hier_act.py): the build is one rank of it on
+    wk4x4x16 (64 rows a worker, one a rank), the state in the hierarchical
+    layout, and the count has every kind of collective."""
     if shape == "tp":
         monkeypatch.setitem(specs.SHAPES, "tp", dict(kind="train", seq=64, global_batch=6))
-    mesh = make_hierarchical_mesh(4) if match == "hierarchical" else MESH
-    with pytest.raises(ValueError, match=match):
-        specs.build(arch, shape, mesh, train_act_model_sharded=True)
+        with pytest.raises(ValueError, match=match):
+            specs.build(arch, shape, MESH, train_act_model_sharded=True)
+        return
+    built = specs.build(arch, shape, make_hierarchical_mesh(4), train_act_model_sharded=True)
+    lay = built.meta["layout"]
+    assert built.meta["split"] == "per_rank" and built.meta["act_spec"] == SH.ACT_SPEC
+    assert lay.hier and (lay.fsdp_size, lay.model_size, built.meta["bpw"]) == (4, 16, 64)
+    assert built.args[0]["workers"].shape == (lay.local, lay.d_rank)
+    c = dryrun.count("train", built.fn, *built.args)
+    assert set(c.coll) == {"all-gather", "reduce-scatter", "all-reduce"} and min(c.coll.values()) > 0
+    assert dict(c.coll) == dict(built.meta["comm"].bytes)
 
 
 def test_full_width_act_sharded_dry_run(tmp_path):
     """``python -m repro_torch.launch.dryrun --arch gemma3-1b --shape
     train_4k --train-act-model-sharded`` on the 16x16 mesh, counted on
-    meta: a per_rank record with a collective term."""
+    meta: a per_rank record with a collective term; and gemma-2b's on the
+    hierarchical wk4x4x16 (``--hierarchical-workers 4``): per_rank, valid."""
     dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--train-act-model-sharded",
                  "--out", str(tmp_path)])
     rec = json.loads((tmp_path / "gemma3-1b__train_4k__16x16__act.json").read_text())
@@ -188,6 +246,10 @@ def test_full_width_act_sharded_dry_run(tmp_path):
     c = -(-d // 256)
     assert rec["collective_bytes_per_device"] == {"all-gather": 2 * 4 * 256 * c, "reduce-scatter": 4 * c,
                                                   "all-reduce": 4 * 17 + 4}
+    dryrun.main(["--arch", "gemma-2b", "--shape", "train_4k", "--train-act-model-sharded",
+                 "--hierarchical-workers", "4", "--out", str(tmp_path)])
+    rec = json.loads((tmp_path / "gemma-2b__train_4k__wk4x4x16__act.json").read_text())
+    assert rec["split"] == "per_rank" and dryrun.record_problems(rec) == []
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +333,7 @@ def test_even_records_name_their_own_reason(smoke):
     on wk4x4x16 (in_proj (128, 552) whole over 'model' = 16) and
     deepseek-v2's on 16x16 (4 experts over 'model' = 16: the router and the
     experts whole, the routed part alike on every rank). act_spec on the
-    hierarchical mesh still raises rather than give an even record."""
+    hierarchical mesh counts per rank too."""
     meshes = (make_production_mesh(), make_production_mesh(multi_pod=True), make_hierarchical_mesh(4))
     for arch in configs.ALIASES:
         cfg = configs.get_smoke(arch)
@@ -290,8 +352,10 @@ def test_even_records_name_their_own_reason(smoke):
         assert dryrun.record_problems(rec) == [] and "even_note" not in specs.build(
             rec["arch"], rec["shape"], make_hierarchical_mesh(4) if rec is train else make_production_mesh()).meta
     assert hybrid["collective_bytes_per_device"]["all-gather"] > 0
-    with pytest.raises(ValueError, match="act_spec on the hierarchical mesh is not ported"):
-        dryrun.run_one("gemma-2b", "train_4k", hierarchical_workers=4, train_act_model_sharded=True, verbose=False)
+    act = dryrun.run_one("gemma-2b", "train_4k", hierarchical_workers=4, train_act_model_sharded=True,
+                         verbose=False)
+    assert act["split"] == "per_rank" and act["act_spec"] == ["model", None, None] and not act["tensor_parallel"]
+    assert dryrun.record_problems(act) == [] and act["roofline"]["collective_s"] > 0
 
 
 def test_full_width_serve_counts():

@@ -210,7 +210,7 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.train import sharded as SH
 dist.init_process_group("gloo", init_method="file://" + os.path.join(tempfile.mkdtemp(), "rdv"), rank=0,
                         world_size=1)
-layout, comm = SH.connect(Mesh(("data", "model"), (1, 1)), 2, sum(sizes))
+layout, comm = SH.connect(Mesh(("data", "model"), (1, 1)), 2, sum(sizes), act=True)
 tcfg = TrainerConfig(n_workers=2, attn_chunk=16, act_spec=SH.ACT_SPEC)
 opt = make_optimizer("adamw")
 step = SH.make_sharded_train_step(cfg, tcfg, dl, opt, constant_lr(1e-3), layout, comm)
@@ -219,6 +219,7 @@ sp, m = step(SH.init_state(cfg, tcfg, dl, opt, layout, device="cpu"),
 assert np.isfinite(float(m["loss"])) and set(comm.bytes) == {"reduce-scatter", "all-reduce", "all-gather"}
 # ... and held against the single-process step as the 4-rank checks hold it
 from repro_torch.train import sharded_check as SC
+layout = SH.make_layout(Mesh(("data", "model"), (1, 1)), 0, 2, sum(sizes))  # without act_spec
 res = SC.run_case(cfg, TrainerConfig(n_workers=2, attn_chunk=16), "marina:perm", layout, comm, SH.Comm(),
                   batch_rows=1, seq=16, device="cpu", steps=1)
 SC.hold("marina:perm", res, SC.bounds(False), 2)

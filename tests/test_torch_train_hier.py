@@ -178,7 +178,7 @@ def test_hierarchical_blocks_tile_each_leaf_once(arch, shape):
     lay = SH.make_layout(mesh, Dd * M * (Wk - 1), 2 * Wk, d, cfg)  # the last worker group's first rank
     assert (lay.local, lay.off) == (2, 2 * (Wk - 1))
     batch = {"tokens": torch.arange(2 * Wk * 4 * 3).reshape(2 * Wk, 4, 3)}
-    assert torch.equal(lay.local_batch(batch, Dd)["tokens"], batch["tokens"][lay.off:lay.off + 2, :4 // Dd])
+    assert torch.equal(lay.local_batch(batch)["tokens"], batch["tokens"][lay.off:lay.off + 2, :4 // Dd])
 
 
 def test_leaf_block_second_level_fields():

@@ -158,10 +158,12 @@ def test_layout_slices_and_refusals():
     assert torch.equal(torch.cat([SH.Layout(mesh, r, 4, 10).shard(flat) for r in range(4)])[:10], flat)
     assert torch.equal(lay.shard(flat), torch.tensor([9.0, 0.0, 0.0]))
     batch = {"tokens": torch.arange(4 * 4 * 3).reshape(4, 4, 3)}
-    assert torch.equal(lay.local_batch(batch, 2)["tokens"], batch["tokens"][2:4, 2:4])
-    assert torch.equal(lay.local_batch(batch, 1)["tokens"], batch["tokens"][2:4])
+    act = SH.Layout(mesh, 3, 4, 10, act=True)  # act_spec: each worker's rows over "model"
+    assert (act.row_split, act.row_block, act.row_axis, lay.row_split) == (2, 1, "model", 1)
+    assert torch.equal(act.local_batch(batch)["tokens"], batch["tokens"][2:4, 2:4])
+    assert torch.equal(lay.local_batch(batch)["tokens"], batch["tokens"][2:4])
     with pytest.raises(ValueError, match="do not split over 'model'"):
-        lay.local_batch({"tokens": torch.zeros(4, 3, 2)}, 2)
+        act.local_batch({"tokens": torch.zeros(4, 3, 2)})
     with pytest.raises(ValueError, match="workers do not split"):
         SH.Layout(mesh, 0, 3, 10)
     with pytest.raises(ValueError, match="holds the rank's blocks over 'model' and 'data'"):
@@ -229,7 +231,7 @@ _RANKS = textwrap.dedent(
         cases = pickle.load(open(cases_path, "rb"))
         cfg = configs.get_smoke(cases["arch"])
         d, W = sum(P.leaf_sizes(lm.lm_spec(cfg))), cases["W"]
-        layout, comm = SH.connect(Mesh(*shape), W, d, cfg=None if act else cfg)
+        layout, comm = SH.connect(Mesh(*shape), W, d, cfg=cfg, act=act)
         aux = SH.Comm()  # the checks' gathers, apart from the step's tally
         report = {}
         for name, spec, dtype, drop, forced in cases["cases"]:
@@ -345,7 +347,7 @@ _REFERENCE = textwrap.dedent(
     from repro.optim.schedules import constant_lr
     from repro.train import TrainerConfig, init_state, make_downlink, make_train_step
 
-    spec, act, out, arch, own, names, sizes, W = sys.argv[1:]
+    spec, act, out, arch, own, names, sizes, W, rows = sys.argv[1:]
     cfg = configs.get_smoke(arch)
     sizes = tuple(int(x) for x in sizes.split("x"))
     mesh = Mesh(np.array(jax.devices()).reshape(sizes), tuple(names.split(",")))
@@ -359,7 +361,7 @@ _REFERENCE = textwrap.dedent(
     if "workers" in state:  # MARINA-P's replicas: the worker layout; EF21-P's shift: the server's
         specs["workers"] = sh.param_specs(state["workers"], mesh,
                                           "worker" if spec.startswith("marina") else "server")
-    data = SyntheticLMData(cfg, W, 2, 64)
+    data = SyntheticLMData(cfg, W, int(rows), 64)
     ns = lambda t: jax.tree.map(lambda s: NamedSharding(mesh, s), t, is_leaf=lambda x: isinstance(x, P))
     shardings = (ns(specs), ns(sh.train_batch_spec(data.batch(0), mesh)), NamedSharding(mesh, P()))
     step = jax.jit(make_train_step(cfg, tcfg, dl, opt, constant_lr(2e-3)), in_shardings=shardings)
@@ -419,10 +421,10 @@ _DRAWS_OF = textwrap.dedent(
 
 
 def reference_case(tmp_path, spec: str, act: bool, arch: str = "gemma-2b", own: bool = False,
-                   mesh: str = "data,model:2x2", W: int = 4) -> None:
+                   mesh: str = "data,model:2x2", W: int = 4, rows: int = 2) -> None:
     """One step of the reference's sharded program on ``mesh`` (axis names
     and sizes, 4 devices; XLA on 4 CPU devices; ``act``: act_spec, else the
-    ``worker`` layout) with ``W`` workers from its state after one step,
+    ``worker`` layout) with ``W`` workers of ``rows`` rows from its state after one step,
     against the port's sharded step on 4 gloo ranks from the same state,
     batch and draws, the smoke ``arch``: the counters and lr exactly, the
     rest within REF_LOSS_ATOL, REF_GNORM_RTOL, REF_G_RTOL, PARAM_ATOL and
@@ -435,7 +437,7 @@ def reference_case(tmp_path, spec: str, act: bool, arch: str = "gemma-2b", own: 
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
     ref_path = tmp_path / "reference.pkl"
     res = subprocess.run([sys.executable, "-c", _REFERENCE, spec, "act" if act else "-", str(ref_path), arch,
-                          "own" if own else "-", *mesh.split(":"), str(W)], env=env, capture_output=True,
+                          "own" if own else "-", *mesh.split(":"), str(W), str(rows)], env=env, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-6000:]
     with open(ref_path, "rb") as f:
@@ -504,3 +506,95 @@ def _ref_distances(got, m, want, jm, old) -> dict:
         d = abs(m["drift"] - float(jm["drift"]))
         out["drift"] = 0.0 if d <= 1e-6 else d / abs(float(jm["drift"]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# EF21-P's shift at rest: the rank's slice, as the master
+# ---------------------------------------------------------------------------
+
+
+class _Gathered:
+    """``Comm.all_gather`` over every rank of a mesh, in this process: call i
+    fills its output with the ranks' i-th tensors (``parts[i]``), in rank
+    order."""
+
+    def __init__(self, parts):
+        self.parts = iter(parts)
+
+    def all_gather(self, out, t, axis=None):
+        out.copy_(torch.cat(next(self.parts)))
+        return out
+
+
+@pytest.mark.parametrize("names,shape,act", [(("data", "model"), (2, 2), True), (("data", "model"), (1, 4), False),
+                                             (("data", "model"), (2, 2), False),
+                                             (("wk", "data", "model"), (1, 2, 2), False)],
+                         ids=["2x2-data", "1x4-tp", "2x2-tp", "1x2x2-hier"])
+def test_the_shift_at_rest_is_the_ranks_slice(names, shape, act):
+    """EF21-P's shift on every rank of the mesh: the ``shard_len`` slice of
+    the rank's model-local vector (the master's layout: under data
+    parallelism and act_spec slice r of the flat [d]), of the replicas'
+    dtype, far below the whole [d]; ``gather_state`` of the ranks' slices
+    gives the single-process state back bit for bit."""
+    cfg = configs.get_smoke("gemma-2b")
+    tcfg = TrainerConfig(n_workers=2, attn_chunk=32, weight_dtype=torch.bfloat16)
+    dl, opt = make_downlink("ef21p:16:64", 2), make_optimizer("adamw")
+    full = init_state(cfg, tcfg, dl, opt, device="cpu", seed=1)
+    full["workers"] = (full["workers"].float() + 0.01 * torch.randn(full["workers"].shape,
+                                                                    generator=torch.Generator().manual_seed(2))
+                       ).to(torch.bfloat16)  # a shift apart from the master
+    d = full["server"].shape[0]
+    mesh = Mesh(names, shape)
+    lays = [SH.make_layout(mesh, r, 2, d, cfg, act=act) for r in range(mesh.size)]
+    parts = [SH.shard_state(full, lay) for lay in lays]
+    for lay, sp in zip(lays, parts):
+        assert sp["workers"].shape == (lay.shard_len,) and sp["workers"].dtype == torch.bfloat16
+        assert lay.shard_len * mesh.size <= 2 * d  # at most twice d over the mesh (the replicated leaves)
+        assert torch.equal(sp["workers"], lay.shard(lay.model_local(full["workers"])))
+    calls = [[p["server"] for p in parts]] + [[p["opt"][k] for p in parts] for k, v in full["opt"].items()
+                                              if isinstance(v, torch.Tensor) and v.dim() == 1]
+    calls.append([p["workers"] for p in parts])
+    back = SH.gather_state(parts[0], lays[0], _Gathered(calls))
+    assert _same(back, full)
+
+
+def test_reference_worker_spec_of_the_unstacked_shift_does_not_divide():
+    """The reference gives EF21-P's unstacked shift tree (its
+    ``state["workers"]``) the ``worker`` spec, whose dim 0 goes on the
+    worker axes as if it were the W axis: on a 16x16 stand-in mesh (no
+    devices) gemma3-1b's ``attn/wk`` (4, 1152, 256) gets P('data', None,
+    'model'), and 54 of its 74 leaves have a dim 0 that 16 does not divide,
+    so its program cannot lower there (JAX refuses such an in_sharding). The
+    port counts the same leaves (``sharding.indivisible``) and its dry-run
+    record says so instead of giving that layout's bytes."""
+    jax = pytest.importorskip("jax")
+    from repro import configs as ref_configs
+    from repro.launch import sharding as ref_sh
+    from repro.models import lm as ref_lm
+    from jax.sharding import PartitionSpec
+
+    from repro_torch.launch import dryrun, sharding as sh, specs
+    from repro_torch.launch.mesh import make_production_mesh
+
+    class StandIn:  # the mesh's names and sizes: all param_specs reads
+        axis_names = ("data", "model")
+        shape = {"data": 16, "model": 16}
+
+    shift = jax.eval_shape(lambda k: ref_lm.lm_init(ref_configs.get("gemma3-1b"), k), jax.random.PRNGKey(0))
+    spec_tree = ref_sh.param_specs(shift, StandIn(), "worker")
+    pairs = list(zip(jax.tree_util.tree_leaves_with_path(shift),
+                     jax.tree.leaves(spec_tree, is_leaf=lambda x: isinstance(x, PartitionSpec))))
+    named = {jax.tree_util.keystr(path): (leaf.shape, spec) for (path, leaf), spec in pairs}
+    wk = [v for k, v in named.items() if k.endswith("['attn']['wk']")]
+    assert wk and wk[0] == ((4, 1152, 256), PartitionSpec("data", None, "model"))
+    bad = [k for k, (leaf_shape, spec) in named.items() if spec and spec[0] == "data" and leaf_shape[0] % 16]
+    assert (len(bad), len(named)) == (54, 74)
+    cfg = configs.get("gemma3-1b")
+    tree = lm.lm_spec(cfg)
+    port = sh.indivisible(tree, sh.param_specs(tree, make_production_mesh(), "worker"), make_production_mesh())
+    assert len({p[0] for p in port}) == 54 and all(p[2] == 0 for p in port)
+    built = specs.build("gemma3-1b", "train_4k", make_production_mesh(), downlink_spec="ef21p:128:1024")
+    sb = dryrun.state_bytes_per_device(built)
+    lay = built.meta["layout"]
+    assert sb["param_specs"] is None and "54 of 74 leaves" in sb["param_specs_note"]
+    assert sb["flat_zero1"] == 3 * 4 * lay.shard_len + 2 * lay.shard_len  # fp32 x 3, the bf16 shift's slice

@@ -50,9 +50,11 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.data import batch_specs
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.launch.specs import compressed_draws
 from repro_torch.models import lm
 from repro_torch.models import params as P
 from repro_torch.optim import constant_lr, make_optimizer
@@ -209,11 +211,13 @@ def test_downlink_on_blocks_is_the_whole_downlinks_block(mode):
 def test_tensor_parallel_refusals(case):
     """What the train step's tensor parallelism still refuses, each with its
     message: a layout without the rank's blocks where "model" > 1, act_spec
-    on one with them, act_spec with experts on the hierarchical mesh (the
-    moe family's tensor parallelism is ported,
-    ``tests/test_torch_train_tp_families.py``, and its act_spec on ("data",
-    "model"), ``tests/test_torch_train_act_moe.py``); a product's weight
-    that "model" does not split is not refused: the smoke starcoder2's
+    on one with them on ("data", "model"). act_spec with experts on the
+    hierarchical mesh is not refused: the step is built on a CountingComm,
+    and one step on meta calls every kind of collective
+    (``tests/test_torch_train_hier_act.py``; the moe family's tensor
+    parallelism, ``tests/test_torch_train_tp_families.py``, and its act_spec
+    on ("data", "model"), ``tests/test_torch_train_act_moe.py``); nor is a
+    product's weight that "model" does not split: the smoke starcoder2's
     attention at M = 32 runs whole, alike on every rank
     (``tests/test_torch_train_whole.py``)."""
     mesh = Mesh(("data", "model"), (2, 2))
@@ -233,11 +237,20 @@ def test_tensor_parallel_refusals(case):
         assert tuple(attn["wk"].shape) == (144, 48) and tuple(attn["wo"].shape) == (144, 144)
         assert SS.ServeShard(odd, rank, SH.CountingComm()).core(attn, "wo").alike
         return
+    if case == "act_spec with experts":
+        lay = SH.make_layout(Mesh(("wk", "data", "model"), (1, 2, 2)), 0, 2, d, cfg, act=True)
+        comm = SH.CountingComm()
+        dl, opt = make_downlink("marina:perm", 2), make_optimizer("adamw")
+        step = SH.make_sharded_train_step(cfg, act, dl, opt, constant_lr(SC.LR), lay, comm)
+        state = SH.init_state(cfg, act, dl, opt, lay, device="meta")
+        batch = {k: torch.empty(s.shape, dtype=s.dtype, device="meta")
+                 for k, s in batch_specs(cfg, 2, 4, 64).items()}
+        step(state, batch, compressed_draws(dl, P.leaf_sizes(lm.lm_spec(cfg))))
+        assert set(comm.bytes) == {"all-gather", "reduce-scatter", "all-reduce"} and min(comm.bytes.values()) > 0
+        return
     lay, tc, what = {"no blocks": (SH.Layout(mesh, 0, 2, d), tcfg, "holds the rank's blocks"),
                      "act_spec on blocks": (SH.Layout(mesh, 0, 2, d, SH.model_blocks(cfg, mesh, 0)), act,
-                                            "whole replicas"),
-                     "act_spec with experts": (SH.make_layout(Mesh(("wk", "data", "model"), (1, 2, 2)), 0, 2, d, cfg),
-                                               act, "act_spec on the hierarchical mesh is not ported")}[case]
+                                            "whole replicas")}[case]
     with pytest.raises(ValueError, match=what):
         SH.make_sharded_train_step(cfg, tc, make_downlink("marina:perm", 2), make_optimizer("adamw"),
                                    constant_lr(SC.LR), lay, SH.CountingComm())

@@ -22,6 +22,10 @@ that run one part:
   2) and (2, 2, 1), W = 4;
 * ``hier``: each of ARCH's (comma-separated) steps on the hierarchical
   ("wk", "data", "model") meshes of :data:`HIER_CASES`;
+* ``hier_act``: each of ARCH's (comma-separated) steps under ``act_spec`` on
+  the hierarchical meshes of :data:`HIER_ACT_CASES` (each worker's rows
+  over "data" and "model"), and for a moe config first the routes of one
+  step on each of their meshes, as ``act_moe`` checks them;
 * ``whole``: the rules for a weight that "model" does not split
   (``serve/sharded.ServeShard``: entered where the rank reads its product
   in part, the alike view of a layer whose output product is whole) in
@@ -61,6 +65,12 @@ WHOLE_CASE = ("marina:perm/bf16", "marina:perm", "bfloat16", False, (1, 4))
 WHOLE_STEPS = ("deepseek-v2-236b@e3", "zamba2-1.2b@n17")
 HIER_CASES = [("marina:perm/bf16", "marina:perm", "bfloat16", False, (2, 2, 1), 2),
               ("ef21p/forced", "ef21p:16:64", "float32", True, (1, 2, 2), 1)]
+# act_spec on the hierarchical mesh, 4 rows a worker (one a rank on (1, 2, 2), its block fsdp_index * M +
+# model_index): at W = 1 every perm round is a sync, at W = 2 the perm rounds run the two-level block map
+HIER_ACT_CASES = [("marina:perm/bf16", "marina:perm", "bfloat16", False, (1, 2, 2), 1),
+                  ("marina:perm/bf16/W2", "marina:perm", "bfloat16", False, (1, 2, 2), 2),
+                  ("ef21p/forced", "ef21p:16:64", "float32", True, (2, 1, 2), 2)]
+HIER_ACT_ROWS = 4
 
 
 def progress(out_dir, rank, what):
@@ -285,57 +295,7 @@ def leaf_grads(rank, pair, arch, out_dir, shapes=((1, 2), (1, 4))):
     return out
 
 
-def act_routes(rank, cfg, layout, comm, W):
-    # every moe call of one act_spec step from seed 1's state: each rank's (expert ids, kept copies,
-    # capacity), gathered to rank 0 and its model indices' pieces put together, against the single
-    # process's step (the calls of a worker in order: its forward's, then remat's recomputation)
-    from repro_torch.data import SyntheticLMData
-    from repro_torch.models import moe as MOE
-    from repro_torch.optim import constant_lr, make_optimizer
-    from repro_torch.train import TrainerConfig, init_state, make_downlink, make_train_step
-    from repro_torch.train import downlink as D, sharded as SH
-
-    recs, real = [], MOE._group_by_expert
-
-    def recorded(expert_ids, num_experts, capacity, before=None):
-        slot, keep = real(expert_ids, num_experts, capacity, before)
-        recs.append((expert_ids.clone(), keep.clone(), capacity))
-        return slot, keep
-
-    MOE._group_by_expert = recorded
-    tcfg = TrainerConfig(n_workers=W, attn_chunk=32, act_spec=SH.ACT_SPEC)
-    dl, opt = make_downlink("marina:perm", W), make_optimizer("adamw")
-    state = init_state(cfg, tcfg, dl, opt, device="cpu", seed=1)
-    batch = SyntheticLMData(cfg, W, 2, 64, device="cpu").batch(0)
-    step = SH.make_sharded_train_step(cfg, tcfg, dl, opt, constant_lr(2e-3), layout, comm)
-    step(SH.shard_state(state, layout), batch, D.DownlinkDraws(coin=True))
-    every = [None] * dist.get_world_size()
-    dist.all_gather_object(every, list(recs))
-    out = None
-    if rank == 0:
-        del recs[:]
-        single = make_train_step(cfg, TrainerConfig(n_workers=W, attn_chunk=32), dl, opt, constant_lr(2e-3))
-        single(state, batch, D.DownlinkDraws(coin=True))
-        per, M = len(recs) // W, layout.model_size
-        pieces = {}
-        for r, mine in enumerate(every):
-            a, m = divmod(r, M)
-            for k, rec in enumerate(mine):
-                pieces.setdefault((a * layout.local + k // per, k % per), {})[m] = rec
-        equal = len(pieces) == len(recs) > 0
-        for (w, c), by_m in pieces.items():
-            ids = torch.cat([by_m[m][0] for m in range(M)])
-            keep = torch.cat([by_m[m][1] for m in range(M)])
-            want = recs[w * per + c]
-            equal = equal and torch.equal(ids, want[0]) and torch.equal(keep, want[1]) and all(
-                by_m[m][2] == want[2] for m in range(M))
-        out = {"calls": len(recs), "equal": equal, "dropped": sum(int((~k).sum()) for _, k, _ in recs),
-               "copies": sum(k.numel() for _, k, _ in recs)}
-    MOE._group_by_expert = real
-    return out
-
-
-def sharded_steps(rank, arch, out_dir, cases, mesh_of, cfg_of=None):
+def sharded_steps(rank, arch, out_dir, cases, mesh_of, cfg_of=None, rows=2):
     # each case's 3 teacher-forced steps on its mesh; rank 0 holds the single process
     from repro_torch import configs
     from repro_torch.kernels import ops
@@ -358,14 +318,14 @@ def sharded_steps(rank, arch, out_dir, cases, mesh_of, cfg_of=None):
         mesh, W, act = mesh_of(case)
         cfg = cfg_of(case) if cfg_of else SC.variant(arch)
         progress(out_dir, rank, f"start {name} {arch} {mesh.sizes}")
-        layout, comm = SH.connect(mesh, W, sum(P.leaf_sizes(lm.lm_spec(cfg))), cfg=None if act else cfg)
+        layout, comm = SH.connect(mesh, W, sum(P.leaf_sizes(lm.lm_spec(cfg))), cfg=cfg, act=act)
         del launches[:]
         tcfg = TrainerConfig(n_workers=W, attn_chunk=32, weight_dtype=getattr(torch, dtype),
                              act_spec=SH.ACT_SPEC if act else None)
-        res = SC.run_case(cfg, tcfg, spec, layout, comm, SH.Comm(), batch_rows=2, seq=64, device="cpu",
+        res = SC.run_case(cfg, tcfg, spec, layout, comm, SH.Comm(), batch_rows=rows, seq=64, device="cpu",
                           forced=forced, check_rank=0)
         res.update(block_launches=len(launches), two_level=sum(len(b) == 5 for b in launches),
-                   d_rank=layout.d_rank, d=layout.d)
+                   d_rank=layout.d_rank, d=layout.d, shard_len=layout.shard_len)
         report[(name, mesh.sizes)] = res
     ops.rotk_apply_rows = real
     return report
@@ -376,7 +336,7 @@ def act_moe(rank, arch, out_dir):
     from repro_torch import configs
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import lm, params as P
-    from repro_torch.train import sharded as SH
+    from repro_torch.train import sharded as SH, sharded_check as SC
 
     base = configs.get_smoke(arch)
 
@@ -384,13 +344,38 @@ def act_moe(rank, arch, out_dir):
         return base if cf is None else dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=cf))
 
     mesh, W = Mesh(("data", "model"), (2, 2)), 4
-    layout, comm = SH.connect(mesh, W, sum(P.leaf_sizes(lm.lm_spec(base))))
+    layout, comm = SH.connect(mesh, W, sum(P.leaf_sizes(lm.lm_spec(base))), act=True)
     report = {}
     for cf in (None, LOW_CF):
         progress(out_dir, rank, f"start routes {arch} cf {cf}")
-        report[("routes", cf)] = act_routes(rank, with_cf(cf), layout, comm, W)
+        report[("routes", cf)] = SC.routes_case(with_cf(cf), layout, comm, W, device="cpu")
     report.update(sharded_steps(rank, arch, out_dir, ACT_CASES, lambda c: (mesh, W, True),
                                 lambda c: with_cf(c[4])))
+    return report
+
+
+def hier_act(rank, arch, out_dir):
+    # act_spec on the hierarchical mesh: a moe config's routes of one step on each mesh at its own and at the
+    # low capacity factor, then the steps
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import lm, params as P
+    from repro_torch.train import sharded as SH, sharded_check as SC
+
+    cfg = configs.get_smoke(arch)
+    report = {}
+    if cfg.moe:
+        for case in HIER_ACT_CASES:
+            mesh, W = Mesh(("wk", "data", "model"), case[4]), case[5]
+            layout, comm = SH.connect(mesh, W, sum(P.leaf_sizes(lm.lm_spec(cfg))), cfg=cfg, act=True)
+            for cf in (None, LOW_CF):
+                progress(out_dir, rank, f"start routes {arch} {case[4]} cf {cf}")
+                low = cfg if cf is None else dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                                                              capacity_factor=cf))
+                report[("routes", case[4], cf)] = SC.routes_case(low, layout, comm, W, HIER_ACT_ROWS, device="cpu")
+    report.update(sharded_steps(rank, arch, out_dir, HIER_ACT_CASES,
+                                lambda c: (Mesh(("wk", "data", "model"), c[4]), c[5], True), rows=HIER_ACT_ROWS))
     return report
 
 
@@ -432,6 +417,8 @@ def worker(rank, part, arch, init, out_dir):
         report = sharded_steps(rank, arch, out_dir, cases, lambda c: (Mesh(("data", "model"), c[4]), 4, False))
     elif part == "act_moe":
         report = each_arch(act_moe, rank, arch, out_dir)
+    elif part == "hier_act":
+        report = each_arch(hier_act, rank, arch, out_dir)
     elif part == "multipod":
         cases = [c + (shape,) for shape in MULTIPOD_MESHES for c in CASES]
         report = sharded_steps(rank, arch, out_dir, cases,
@@ -461,8 +448,9 @@ MOE = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
 RESIDUE = 1e-6  # a leaf's max |g| below this share of the model's largest: rounding residue
 # each part's time limit in seconds: at least 3x its time beside five other test workers (about 2x its
 # time alone on an 8-core host: fd 9.5 s, leaves 12-18 s, steps 43-58 s, act_moe 34 s, multipod 37 s,
-# hier 23 s)
-TIMEOUT = {"fd": 180, "leaves": 240, "steps": 600, "act_moe": 360, "multipod": 360, "hier": 300, "whole": 360}
+# hier 23 s, hier_act 40 s)
+TIMEOUT = {"fd": 180, "leaves": 240, "steps": 600, "act_moe": 360, "multipod": 360, "hier": 300, "whole": 360,
+           "hier_act": 300}
 
 
 def check_backward(report, kind):
